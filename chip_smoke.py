@@ -8,8 +8,13 @@ printing one line of numbers; any failure exits non-zero with no result:
 
   1. device: torch / CUDA versions and the card's name and power limit;
   2. K1 (select_hosts) against its plain twin on the card, bit for bit, on
-     tie-dense rows plus all-false, one-feasible, NaN, B=1 and wrapping
-     rotation-counter cases; times at the main path's shape;
+     every shape, special row and rotation counter of
+     kubernetes_tpu_torch/kernels/k1_cases.py (B in 1, 7, 33, 2048; N from
+     1 to 70,000, unaligned widths and rows past the one-read limit
+     included); then its times at [2048, N] and [1, N] of the main path
+     and at [2048, 1024] (a warp a row), with L2 cold (a 256 MiB buffer
+     written between launches, outside the CUDA events) and warm, beside
+     an empty launch;
   3. the raw loop at full width (5,000 nodes, 10,000 pending pods, batch
      2,048, speculative engine) on the plain workload: once with the plain
      select, then through K1 with the launch counts reset just before and
@@ -19,9 +24,13 @@ printing one line of numbers; any failure exits non-zero with no result:
   5. the redo path: a 5,000-node fleet with 2 pod slots per node, where the
      hybrid check must send batches through the sequential engine;
   6. the phase-3 winners against tests/data/torch_port_golden_plain.npz,
-     the JAX speculative engine's winners for the same workload.
+     the JAX speculative engine's winners for the same workload;
+  7. torch.profiler over one warm speculative round of the plain cell and
+     the mean sequential step of the redo cell: the top device ops, K1's
+     share of the round, the kernel launches in one step.
 
-The last two lines are the kernels' JSON record and the device line.
+Then the card's name and power limit, the kernels' JSON record (K1's
+launches in each cell among its keys) and the device line.
 """
 
 from __future__ import annotations
@@ -37,7 +46,6 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_plain.npz")
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 NODES, PODS, BATCH = 5000, 10000, 2048
 
 
@@ -63,45 +71,17 @@ def phase_device() -> str:
     return smi
 
 
-def _k1_inputs(B: int, N: int, gen: torch.Generator, dev):
-    """Tie-dense scores (small integers) with random masks and the special
-    rows the reference semantics must survive."""
-    scores = torch.randint(0, 6, (B, N), generator=gen).to(torch.float32)
-    mask = torch.rand((B, N), generator=gen) < 0.7
-    if B >= 8:
-        mask[0] = False                                # all-false row
-        mask[1] = False
-        mask[1, N // 3] = True                         # one feasible node
-        scores[2, 7] = float("nan")                    # NaN, masked in
-        mask[2, 7] = True
-        scores[3, 9] = float("nan")                    # NaN, masked out
-        mask[3, 9] = False
-        scores[4] = 0.0                                # -0.0 == 0.0 ties
-        scores[4, ::2] = -0.0
-        scores[5] = float("-inf")                      # -inf everywhere
-        mask[6] = True                                 # all feasible
-    return scores.to(dev), mask.to(dev)
-
-
-def _median_ms(fn, reps: int = 50) -> float:
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
 def phase_k1(main_n: int) -> dict:
+    """K1 against its twin, bit for bit, on every shape, special row and
+    rotation counter of kernels/k1_cases.py; then its times with L2 cold
+    and warm at the main path's [2048, main_n], the sequential step's
+    [1, main_n] (beside an empty launch with K1's block shape) and at
+    [2048, 1024], where a warp takes each row."""
     from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k1_bench, k1_cases
     from kubernetes_tpu_torch.ops.select import select_hosts_batch_plain
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(20261017)
     t0 = time.monotonic()
     kernels.select_hosts(torch.zeros((1, 1), device=dev),
                          torch.ones((1, 1), dtype=torch.bool, device=dev), 0)
@@ -109,35 +89,51 @@ def phase_k1(main_n: int) -> dict:
     build_s = time.monotonic() - t0
     cases = 0
     max_err = 0.0
-    for B, N in ((2048, 5120), (2048, main_n), (1, 5120), (1, main_n),
-                 (7, 1), (33, 300)):
-        scores, mask = _k1_inputs(B, N, gen, dev)
-        for li0 in (0, 5, 123457, 2**31 - B, 2**31 - B // 2 - 1, 2**31 - 1,
-                    -3):
-            hk, fk = kernels.select_hosts(scores, mask, li0)
-            hp, fp = select_hosts_batch_plain(scores, mask, li0)
-            torch.cuda.synchronize()
-            max_err = max(max_err, float(
-                (hk.to(torch.float64) - hp.to(torch.float64)).abs().max()))
-            bad = torch.nonzero((hk != hp) | (fk != fp)).flatten()
-            if bad.numel():
-                r = int(bad[0])
-                fail(f"K1 differs from its twin at B={B} N={N} li0={li0} "
-                     f"row {r}: kernel ({int(hk[r])}, {bool(fk[r])}) twin "
-                     f"({int(hp[r])}, {bool(fp[r])})")
-            cases += 1
-    # time at the main path's shape
-    B, N = BATCH, main_n
-    scores, mask = _k1_inputs(B, N, gen, dev)
-    k_ms = _median_ms(lambda: kernels.select_hosts(scores, mask, 11))
-    p_ms = _median_ms(lambda: select_hosts_batch_plain(scores, mask, 11))
-    bytes_moved = B * N * 5 + B * 5          # read scores+mask, write hosts+feasible
-    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    print(f"[2 K1] build_s {build_s:.3f} bit-identical cases {cases} | "
-          f"[{B},{N}] kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-          f"bound_ms {bound_ms:.4f} (bytes {bytes_moved})", flush=True)
-    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-            "max_abs_err": max_err}
+    for B, N in k1_cases.shapes():
+        for shift in k1_cases.shifts(B):
+            scores, mask = (torch.from_numpy(a).to(dev)
+                            for a in k1_cases.rows(B, N, shift))
+            for li0 in k1_cases.last_indices(B):
+                hk, fk = kernels.select_hosts(scores, mask, li0)
+                hp, fp = select_hosts_batch_plain(scores, mask, li0)
+                torch.cuda.synchronize()
+                max_err = max(max_err, float(
+                    (hk.to(torch.float64) - hp.to(torch.float64)).abs().max()))
+                bad = torch.nonzero((hk != hp) | (fk != fp)).flatten()
+                if bad.numel():
+                    r = int(bad[0])
+                    fail(f"K1 differs from its twin at B={B} N={N} shift "
+                         f"{shift} li0={li0} row {r}: kernel ({int(hk[r])}, "
+                         f"{bool(fk[r])}) twin ({int(hp[r])}, {bool(fp[r])})")
+                cases += 1
+            del scores, mask
+    shapes = []
+    for B, N in ((BATCH, main_n), (1, main_n), (BATCH, 1024)):
+        scores, mask = (torch.from_numpy(a).to(dev)
+                        for a in k1_cases.rows(B, N))
+        k1 = lambda: kernels.select_hosts(scores, mask, 11)   # noqa: E731
+        row = {"shape": [B, N],
+               "ms": k1_bench.time_ms(k1, cold=True),
+               "ms_warm": k1_bench.time_ms(k1, cold=False),
+               "plain_ms": k1_bench.time_ms(
+                   lambda: select_hosts_batch_plain(scores, mask, 11)),
+               "bound_ms": k1_bench.bound_ms(B, N)}
+        if B == 1:
+            row["noop_ms"] = k1_bench.time_ms(kernels.noop_launch,
+                                              cold=False)
+        shapes.append(row)
+    print(f"[2 K1] build_s {build_s:.3f} bit-identical cases {cases} "
+          f"({len(k1_cases.shapes())} shapes) | "
+          + " | ".join(
+              f"[{r['shape'][0]},{r['shape'][1]}] cold_ms {r['ms']:.4f} "
+              f"warm_ms {r['ms_warm']:.4f} plain_cold_ms {r['plain_ms']:.4f} "
+              f"bound_ms {r['bound_ms']:.4f}"
+              + (f" empty_launch_ms {r['noop_ms']:.4f}" if "noop_ms" in r
+                 else "")
+              for r in shapes), flush=True)
+    return {"ms": shapes[0]["ms"], "plain_ms": shapes[0]["plain_ms"],
+            "bound_ms": shapes[0]["bound_ms"], "max_abs_err": max_err,
+            "shapes": shapes}
 
 
 def _recount(nodes, pods, res: dict, what: str) -> None:
@@ -253,6 +249,121 @@ def _explain_pod(nodes, pods, i: int, of_nodes, device="cuda") -> str:
     return f"round-1 two best (node, score) {best}, scores at {at}"
 
 
+def _profiled(fn):
+    """fn() under torch.profiler (CPU and CUDA activities): (the profile,
+    wall seconds, [(name, start us, device ms)] of every device activity,
+    in start order)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+    dev = [(e.name, e.time_range.start, e.time_range.elapsed_us() / 1e3)
+           for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return prof, wall, sorted(dev, key=lambda d: d[1])
+
+
+def _is_k1(name: str) -> bool:
+    return "select_hosts_kernel" in name
+
+
+def _split(dev):
+    """(kernel launches, copies and sets, device ms, K1 launches, K1 ms)."""
+    copies = [ms for n, _, ms in dev if n.startswith(("Memcpy", "Memset"))]
+    k1 = [ms for n, _, ms in dev if _is_k1(n)]
+    return (len(dev) - len(copies), len(copies), sum(ms for *_, ms in dev),
+            len(k1), sum(k1))
+
+
+def _top_ops(prof, dev, n=6) -> str:
+    """The device time by the op that launched it (K1 by its kernel)."""
+    from torch.autograd import DeviceType
+
+    ops = [(e.key, e.self_device_time_total / 1e3)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    ops.append(("K1 select_hosts", _split(dev)[4]))
+    ops.sort(key=lambda o: -o[1])
+    return ", ".join(f"{k} {ms:.4f}" for k, ms in ops[:n])
+
+
+def phase_profile(nodes, tight, pods, device="cuda") -> dict:
+    """Where K1 sits: one warm speculative call of the plain cell (its
+    batch takes one round), and the sequential steps of the redo cell: in
+    one profiled 96-pod batch, a step is what runs from one K1 launch to
+    the next (the median over the batch's steps); its wall time is the
+    96-pod batch's less a 32-pod batch's, over 64 steps, unprofiled."""
+    from kubernetes_tpu_torch.codec import transfer
+    from kubernetes_tpu_torch.loop import build_encoder
+    from kubernetes_tpu_torch.models.batched import (
+        encode_batch_ports,
+        make_sequential_scheduler,
+    )
+    from kubernetes_tpu_torch.models.speculative import (
+        make_speculative_scheduler,
+    )
+
+    def engine(make, fleet, B):
+        enc = build_encoder(fleet)
+        fn = make(unsched_taint_key=enc.interner.intern(
+            "node.kubernetes.io/unschedulable"),
+            zone_key_id=enc.getzone_key, device=device)
+        batch = list(pods[:B])
+        pb, ports = enc.encode_pods(batch), encode_batch_ports(enc, batch)
+        state = transfer.upload_cluster(enc.snapshot(), device)
+        run = lambda: fn(state, pb, ports, 0)   # noqa: E731
+        run()                                   # warm
+        return run, fn
+
+    run, fn = engine(make_speculative_scheduler, nodes, BATCH)
+    prof, wall, dev = _profiled(run)
+    check(fn.last_rounds == 1 and not fn.last_redo,
+          f"7 profile: the plain batch took {fn.last_rounds} rounds")
+    out = {}
+    if not dev:
+        line = "plain round: not measured (no CUDA activity in the profile)"
+    else:
+        kern, copies, dev_ms, k1_n, k1_ms = _split(dev)
+        out["round"] = {"wall_ms": wall * 1e3, "device_ms": dev_ms,
+                        "kernels": kern, "k1_ms": k1_ms}
+        line = (f"plain round (B={BATCH}, 1 round): wall_ms {wall * 1e3:.3f} "
+                f"device_ms {dev_ms:.3f} idle_share "
+                f"{1 - dev_ms / (wall * 1e3):.3f} kernels {kern} copies "
+                f"{copies} K1 launches {k1_n} K1_ms {k1_ms:.4f} K1_share "
+                f"{k1_ms / dev_ms:.4f} | top: {_top_ops(prof, dev)}")
+    walls = {}
+    for B in (32, 96):
+        run, _ = engine(make_sequential_scheduler, tight, B)
+        t = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        walls[B] = time.monotonic() - t
+    step_wall = (walls[96] - walls[32]) / 64 * 1e3
+    prof, _, dev = _profiled(run)
+    at = [i for i, d in enumerate(dev) if _is_k1(d[0])]
+    if len(at) < 3:
+        line += (f" || redo step: not measured ({len(at)} K1 launches in "
+                 f"the profile)")
+    else:
+        steps = [_split(dev[i:j]) for i, j in zip(at, at[1:])]
+        kern, copies, dev_ms, k1_n, k1_ms = (
+            float(np.median([s[c] for s in steps])) for c in range(5))
+        out["step"] = {"wall_ms": step_wall, "device_ms": dev_ms,
+                       "kernels": kern, "k1_launches": k1_n}
+        line += (f" || redo sequential step (median of {len(steps)}): "
+                 f"wall_ms {step_wall:.4f} device_ms {dev_ms:.4f} idle_share "
+                 f"{1 - dev_ms / step_wall:.3f} kernels {kern:.0f} copies "
+                 f"{copies:.0f} K1 launches {k1_n:.0f} K1_ms {k1_ms:.4f} | "
+                 f"top (96-pod batch): {_top_ops(prof, dev)}")
+    print(f"[7 profile] {line}", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -270,7 +381,7 @@ def main() -> None:
     res3, launches = _run_pair("3 plain", nodes, plain_pods, True)
 
     aff_pods = [pending_pod(i, "node-affinity") for i in range(PODS)]
-    res4, _ = _run_pair("4 node-affinity", nodes, aff_pods, True)
+    res4, launches4 = _run_pair("4 node-affinity", nodes, aff_pods, True)
     names = res4["node_names"]
     by_name = {n.name: n for n in nodes}
     check(all(by_name[names[int(r)]].labels.get("tier") == "a"
@@ -278,8 +389,12 @@ def main() -> None:
           "4 node-affinity: a pod landed off tier=a")
 
     tight = bench_nodes(NODES, pods_per_node=2)
-    res5, _ = _run_pair("5 redo", tight, plain_pods, False)
+    res5, launches5 = _run_pair("5 redo", tight, plain_pods, False)
     check(res5["redos"] > 0, "5 redo: the hybrid check never fired")
+    check(launches5["select_hosts"] - launches5["select_hosts_b1"]
+          == sum(res5["rounds"]),
+          f"5 redo: {launches5} K1 launches, not one a round at B={BATCH} "
+          f"({sum(res5['rounds'])} rounds) plus the B=1 steps")
 
     golden = np.load(GOLDEN)["hosts"]
     diff = np.nonzero(golden != res3["hosts"])[0]
@@ -293,7 +408,14 @@ def main() -> None:
     print(f"[6 golden] {golden.size} winners bit-identical to the JAX "
           f"speculative engine | total seconds "
           f"{time.monotonic() - t_start:.1f}", flush=True)
+    phase_profile(nodes, tight, plain_pods)
 
+    # K1 launches by cell: one a speculative round at B=2048, and in the
+    # redo cell one more a sequential step at B=1 (counted on their own)
+    by_cell = {"plain": launches["select_hosts"],
+               "node-affinity": launches4["select_hosts"],
+               "redo": launches5["select_hosts"],
+               "redo_b1": launches5["select_hosts_b1"]}
     record = {"kernels": [{
         "name": "select_hosts",
         "route": "cuda",
@@ -306,7 +428,10 @@ def main() -> None:
         "bound_ms": k1["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "launches_by_cell": by_cell,
+        "shapes": k1["shapes"],
     }]}
+    print(f"total seconds {time.monotonic() - t_start:.1f}", flush=True)
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -44,9 +44,12 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     lib.select_hosts_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     lib.select_hosts_launch.restype = ctypes.c_int
+    lib.select_hosts_noop_launch.argtypes = [ctypes.c_void_p]
+    lib.select_hosts_noop_launch.restype = ctypes.c_int
     lib.select_hosts_error_string.argtypes = [ctypes.c_int]
     lib.select_hosts_error_string.restype = ctypes.c_char_p
     return lib

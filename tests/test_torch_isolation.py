@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: no module of kubernetes_tpu_torch/, and not
-chip_smoke.py, imports jax or anything of the JAX package kubernetes_tpu;
-and the package imports on a CPU-only torch without nvcc, building nothing.
+"""The PyTorch port stands alone: no module of kubernetes_tpu_torch/ or
+tools/, and not chip_smoke.py, imports jax or anything of the JAX package
+kubernetes_tpu; and the package imports on a CPU-only torch without nvcc, building nothing.
 """
 
 from __future__ import annotations
@@ -16,11 +16,12 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "kubernetes_tpu_torch")
+TOOLS = os.path.join(ROOT, "tools")   # the port's measurement scripts
 
 
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
-    for dirpath, _, files in os.walk(PKG):
+    for dirpath, _, files in (*os.walk(PKG), *os.walk(TOOLS)):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
 

@@ -1,10 +1,11 @@
 """The PyTorch port's host selection against the JAX package's, on CPU.
 
 select_host, select_hosts_batch (K1's plain twin on CPU tensors) and
-limit_feasible must give identical results on tie-heavy, all-false and NaN
-rows and on rotation counters that wrap int32.  K1 itself runs only on the
-card: chip_smoke.py holds it against the twin there, and the `cuda`-marked
-test below does the same where a card is present.
+limit_feasible must give identical results on the rows and shapes of
+kernels/k1_cases.py (tie-heavy, all-false, NaN, boundary-straddling ties,
+rotation counters that wrap int32).  K1 itself runs only on the card:
+chip_smoke.py holds it against the twin there on the same cases, and the
+`cuda`-marked test below does the same where a card is present.
 """
 
 from __future__ import annotations
@@ -17,52 +18,55 @@ import torch
 
 from kubernetes_tpu.ops import select as jsel
 from kubernetes_tpu_torch import kernels
+from kubernetes_tpu_torch.kernels import k1_cases
 from kubernetes_tpu_torch.ops import select as tsel
 
-
-def _rows(rng, B, N):
-    scores = rng.integers(0, 4, (B, N)).astype(np.float32)
-    mask = rng.random((B, N)) < 0.6
-    mask[0] = False                       # all-false
-    mask[1] = False
-    mask[1, N // 2] = True                # one feasible node
-    scores[2, 3] = np.nan                 # NaN, masked in
-    mask[2, 3] = True
-    scores[3, 5] = np.nan                 # NaN, masked out
-    mask[3, 5] = False
-    scores[4] = 0.0
-    scores[4, ::2] = -0.0                 # -0.0 ties 0.0
-    scores[5] = -np.inf
-    scores[6] = -3.4e38                   # ties the masked-out filler
-    mask[7] = True                        # all feasible, all tied below
-    scores[7] = 1.0
-    return scores, mask
-
-
 LAST_INDEX = [0, 1, 37, 2**31 - 64, 2**31 - 1, -5]
+# The CPU cases leave out the shapes above this many cells: B=2048 with N of
+# 5,120 or more.  chip_smoke.py and the cuda test run those on the card.
+CPU_MAX_CELLS = 2_400_000
+_jax_batch = jax.jit(jsel.select_hosts_batch)
 
 
-@pytest.mark.parametrize("last_index0", LAST_INDEX)
-def test_select_hosts_batch_identical(last_index0):
-    rng = np.random.default_rng(abs(last_index0) % 1000)
-    B, N = 64, 96
-    scores, mask = _rows(rng, B, N)
-    li = jnp.int32(np.int32(np.int64(last_index0)))
-    jh, jf = jax.jit(jsel.select_hosts_batch)(scores, mask, li)
-    th, tf = tsel.select_hosts_batch(torch.from_numpy(scores),
-                                     torch.from_numpy(mask), last_index0)
-    assert th.dtype == torch.int32 and tf.dtype == torch.bool
-    np.testing.assert_array_equal(np.asarray(jh), th.numpy())
-    np.testing.assert_array_equal(np.asarray(jf), tf.numpy())
+def _i32(x):
+    return jnp.int32(np.int32(np.int64(kernels.wrap_i32(x))))
+
+
+def _batch_cases():
+    """(B, N, shifts, last indices) with an id: first the original 64 x 96
+    grid, one counter each, then every CPU-sized shape of k1_cases with all
+    its case shifts and counters."""
+    out = [pytest.param(64, 96, (0,), (li,), id=str(li)) for li in LAST_INDEX]
+    for B, N in k1_cases.shapes():
+        if B * N <= CPU_MAX_CELLS:
+            out.append(pytest.param(B, N, tuple(k1_cases.shifts(B)),
+                                    k1_cases.last_indices(B),
+                                    id=f"B{B}-N{N}"))
+    return out
+
+
+@pytest.mark.parametrize("B,N,shifts,last_indices", _batch_cases())
+def test_select_hosts_batch_identical(B, N, shifts, last_indices):
+    for shift in shifts:
+        scores, mask = k1_cases.rows(B, N, shift)
+        st, mt = torch.from_numpy(scores), torch.from_numpy(mask)
+        for li in last_indices:
+            jh, jf = _jax_batch(scores, mask, _i32(li))
+            th, tf = tsel.select_hosts_batch(st, mt, li)
+            assert th.dtype == torch.int32 and tf.dtype == torch.bool
+            np.testing.assert_array_equal(np.asarray(jh), th.numpy(),
+                                          err_msg=f"shift {shift} li {li}")
+            np.testing.assert_array_equal(np.asarray(jf), tf.numpy(),
+                                          err_msg=f"shift {shift} li {li}")
 
 
 @pytest.mark.parametrize("last_index", LAST_INDEX)
 def test_select_host_identical(last_index):
-    rng = np.random.default_rng(7)
-    scores, mask = _rows(rng, 16, 40)
-    li = jnp.int32(np.int32(np.int64(last_index)))
+    B = len(k1_cases.CASES)
+    scores, mask = k1_cases.rows(B, 40)
+    li = _i32(last_index)
     f = jax.jit(jsel.select_host)
-    for b in range(16):
+    for b in range(B):
         jh, jf = f(scores[b], mask[b], li)
         th, tf = tsel.select_host(torch.from_numpy(scores[b]),
                                   torch.from_numpy(mask[b]), last_index)
@@ -112,15 +116,56 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert kernels.wrap_i32(-1) == -1
 
 
+def test_k1_variant_choice():
+    """The wrapper's variant pick: float4 only for N % 4 == 0 with aligned
+    pointers, a warp per row only for batches of rows up to 1,024 nodes,
+    and rows read twice only past 8,192 nodes."""
+    v = kernels.K1_VARIANTS
+    assert v[kernels.k1_variant(2048, 6144, 256, 512)] == "block_vec4"
+    assert v[kernels.k1_variant(1, 6144, 256, 512)] == "block_vec4"
+    assert v[kernels.k1_variant(2048, 6147, 256, 512)] == "block_scalar"
+    assert v[kernels.k1_variant(2048, 6144, 260, 512)] == "block_scalar"
+    assert v[kernels.k1_variant(2048, 6144, 256, 514)] == "block_scalar"
+    assert v[kernels.k1_variant(33, 1024, 256, 512)] == "warp_vec4"
+    assert v[kernels.k1_variant(33, 1025, 256, 512)] == "block_scalar"
+    assert v[kernels.k1_variant(7, 300, 256, 512)] == "warp_vec4"
+    assert v[kernels.k1_variant(7, 3, 256, 512)] == "warp_scalar"
+    assert v[kernels.k1_variant(1, 3, 256, 512)] == "block_scalar"
+    assert v[kernels.k1_variant(1, 8192, 256, 512)] == "block_vec4"
+    assert v[kernels.k1_variant(2048, 8196, 256, 512)] == "long_vec4"
+    assert v[kernels.k1_variant(7, 20001, 256, 512)] == "long_scalar"
+    assert kernels.K1_ONE_READ_MAX_N == 8192
+
+
+def test_k1_cases_cover_every_case():
+    """Each batch size reaches every special row through its shifts, and
+    the rows are the same for the same arguments."""
+    for B in k1_cases.BATCHES:
+        seen = {(b + sh) % len(k1_cases.CASES)
+                for sh in k1_cases.shifts(B)
+                for b in range(min(B, len(k1_cases.CASES)))}
+        assert seen == set(range(len(k1_cases.CASES))), B
+    a = k1_cases.rows(7, 300, 7)
+    b = k1_cases.rows(7, 300, 7)
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    assert max(k1_cases.WIDTHS) > kernels.K1_ONE_READ_MAX_N
+    assert any(n % 4 for n in k1_cases.WIDTHS)
+
+
 @pytest.mark.cuda
 def test_k1_matches_plain_twin_on_card():
+    """K1 against its twin on every shape, case and counter of k1_cases
+    (the same list chip_smoke.py checks)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K1 has no CPU mode")
-    rng = np.random.default_rng(3)
-    scores, mask = _rows(rng, 2048, 6144)
-    s = torch.from_numpy(scores).cuda()
-    m = torch.from_numpy(mask).cuda()
-    for li in LAST_INDEX:
-        hk, fk = kernels.select_hosts(s, m, li)
-        hp, fp = tsel.select_hosts_batch_plain(s, m, li)
-        assert torch.equal(hk, hp) and torch.equal(fk, fp), li
+    for B, N in k1_cases.shapes():
+        for shift in k1_cases.shifts(B):
+            scores, mask = k1_cases.rows(B, N, shift)
+            s = torch.from_numpy(scores).cuda()
+            m = torch.from_numpy(mask).cuda()
+            for li in k1_cases.last_indices(B):
+                hk, fk = kernels.select_hosts(s, m, li)
+                hp, fp = tsel.select_hosts_batch_plain(s, m, li)
+                assert torch.equal(hk, hp) and torch.equal(fk, fp), \
+                    (B, N, shift, li)
