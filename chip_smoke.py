@@ -27,7 +27,21 @@ printing one line of numbers; any failure exits non-zero with no result:
      the JAX speculative engine's winners for the same workload;
   7. torch.profiler over one warm speculative round of the plain cell and
      the mean sequential step of the redo cell: the top device ops, K1's
-     share of the round, the kernel launches in one step.
+     share of the round, the kernel launches in one step; then one warm
+     round of the pod-anti-affinity cell (the share of the affinity
+     einsums and matmuls) and one sequential step with the affinity carry;
+  8. scheduler_perf's pod-anti-affinity workload at full width with 1,000
+     running pods: winners equal to
+     tests/data/torch_port_golden_pod_anti_affinity.npz, and a numpy
+     recount finds no two pods of one app on a node;
+  9. the pod-affinity workload: winners equal to
+     tests/data/torch_port_golden_pod_affinity.npz, the golden's rounds
+     (the group founders bootstrap in round 1 of the first batch), and
+     every pod's zone holds another pod of its app;
+ 10. the affinity redo: pod-anti-affinity on the 2-slot fleet, where the
+     hybrid check redoes batches through the sequential engine with the
+     affinity carry: K1 launched once a round at B=2,048 plus once a
+     sequential step at B=1, and the anti-affinity recount.
 
 Then the card's name and power limit, the kernels' JSON record (K1's
 launches in each cell among its keys) and the device line.
@@ -45,8 +59,16 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_plain.npz")
+
+
+def golden(workload: str) -> str:
+    return os.path.join(ROOT, "tests", "data", "torch_port_golden_"
+                        f"{workload.replace('-', '_')}.npz")
+
+
 NODES, PODS, BATCH = 5000, 10000, 2048
+EXISTING_ANTI = 1000   # running pods of the pod-anti-affinity cell
+REDO_AFF_PODS = 9800   # the affinity redo cell: the 2-slot fleet's free slots
 
 
 def fail(msg: str) -> None:
@@ -136,13 +158,23 @@ def phase_k1(main_n: int) -> dict:
             "shapes": shapes}
 
 
-def _recount(nodes, pods, res: dict, what: str) -> None:
-    """Numpy recount from the committed pods: no node over any allocatable
-    column or its pod cap, and no pod on a taint it does not tolerate."""
+def _placed(nodes, pods, res: dict, existing: int = 0):
+    """[(pod, node name)] of the existing pods and the placed pods."""
+    from kubernetes_tpu_torch.loop import existing_pod
+
+    names = res["node_names"]
+    running = [existing_pod(i, nodes) for i in range(existing)]
+    return ([(p, p.spec.node_name) for p in running]
+            + [(pods[i], names[int(r)])
+               for i, r in enumerate(res["hosts"]) if r >= 0])
+
+
+def _recount(nodes, pods, res: dict, what: str, existing: int = 0) -> None:
+    """Numpy recount from the committed pods, the `existing` running pods
+    included: no node over any allocatable column or its pod cap, and no
+    pod on a taint it does not tolerate."""
     from kubernetes_tpu_torch.api.types import RESOURCE_CPU
 
-    hosts = res["hosts"]
-    names = res["node_names"]
     by_name = {n.name: n for n in nodes}
     cols = sorted({k for n in nodes for k in n.status.allocatable})
     alloc = {n.name: np.array(
@@ -152,28 +184,53 @@ def _recount(nodes, pods, res: dict, what: str) -> None:
         for n in nodes}
     used = {n.name: np.zeros(len(cols)) for n in nodes}
     pod_col = cols.index("pods")
-    for i, r in enumerate(hosts):
-        if r < 0:
-            continue
-        name = names[int(r)]
+    for i, (pod, name) in enumerate(_placed(nodes, pods, res, existing)):
         node = by_name[name]
-        req = pods[i].resource_request()
+        req = pod.resource_request()
         for k, q in req.items():
             if k in cols:
                 used[name][cols.index(k)] += (q.milli if k == RESOURCE_CPU
                                               else float(q))
         used[name][pod_col] += 1
+        if i < existing:
+            continue
         for t in node.spec.taints:
             if t.effect in ("NoSchedule", "NoExecute"):
-                check(any(tol.tolerates(t) for tol in pods[i].spec.tolerations),
-                      f"{what}: pod {i} on {name} despite taint {t.key}")
+                check(any(tol.tolerates(t) for tol in pod.spec.tolerations),
+                      f"{what}: {pod.name} on {name} despite taint {t.key}")
     for name in used:
         over = used[name] > alloc[name]
         check(not over.any(), f"{what}: node {name} over allocatable in "
               f"{[c for c, o in zip(cols, over) if o]}")
 
 
-def _run_pair(label: str, nodes, pods, require_all: bool):
+def _anti_recount(nodes, pods, res: dict, what: str, existing: int = 0):
+    """Hostname anti-affinity per app: no two pods of one app on a node,
+    the existing pods counted."""
+    seen = set()
+    for pod, name in _placed(nodes, pods, res, existing):
+        key = (pod.labels["app"], name)
+        check(key not in seen, f"{what}: two pods of {key[0]} on {name}")
+        seen.add(key)
+
+
+def _aff_recount(nodes, pods, res: dict, what: str) -> None:
+    """Zone affinity to the pod's own app: every placed pod's zone holds
+    another pod of its app (its group's founder bootstrapped the zone)."""
+    from kubernetes_tpu_torch.loop import ZONE_KEY
+
+    zone = {n.name: n.labels[ZONE_KEY] for n in nodes}
+    count: dict = {}
+    placed = _placed(nodes, pods, res)
+    for pod, name in placed:
+        key = (pod.labels["app"], zone[name])
+        count[key] = count.get(key, 0) + 1
+    for pod, name in placed:
+        check(count[(pod.labels["app"], zone[name])] >= 2,
+              f"{what}: {pod.name} alone of its app in {zone[name]}")
+
+
+def _run_pair(label: str, nodes, pods, require_all: bool, existing=0):
     """run_raw through the plain select, then through K1 with the launch
     counts reset just before and read just after; the winners must agree.
     (The plain run goes first, so the reported K1 run starts warm.)
@@ -181,10 +238,12 @@ def _run_pair(label: str, nodes, pods, require_all: bool):
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.loop import run_raw
 
-    plain = run_raw(nodes, pods, BATCH, device="cuda", select_impl="plain")
+    plain = run_raw(nodes, pods, BATCH, device="cuda", select_impl="plain",
+                    existing=existing)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    res = run_raw(nodes, pods, BATCH, device="cuda", select_impl="kernel")
+    res = run_raw(nodes, pods, BATCH, device="cuda", select_impl="kernel",
+                  existing=existing)
     launches = dict(kernels.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     check(launches["select_hosts"] > 0,
@@ -195,7 +254,7 @@ def _run_pair(label: str, nodes, pods, require_all: bool):
     if require_all:
         check(res["scheduled"] == len(pods),
               f"{label}: {res['unschedulable']} pods unplaced")
-    _recount(nodes, pods, res, label)
+    _recount(nodes, pods, res, label, existing)
     ph = res["phases"]
     print(f"[{label}] pods_per_s {res['pods_per_s']:.1f} seconds "
           f"{res['seconds']:.3f} encode {ph['encode']:.3f} launch "
@@ -223,9 +282,9 @@ def _explain_pod(nodes, pods, i: int, of_nodes, device="cuda") -> str:
     def recording(**kw):
         fn = make(**kw)
 
-        def wrapped(state, pb, ports, last):
+        def wrapped(state, pb, ports, last, **extra):
             seen.append((state, pb, kw))
-            out = fn(state, pb, ports, last)
+            out = fn(state, pb, ports, last, **extra)
             wrapped.last_rounds, wrapped.last_redo = fn.last_rounds, fn.last_redo
             return out
         return wrapped
@@ -292,88 +351,153 @@ def _top_ops(prof, dev, n=6) -> str:
     return ", ".join(f"{k} {ms:.4f}" for k, ms in ops[:n])
 
 
-def phase_profile(nodes, tight, pods, device="cuda") -> dict:
-    """Where K1 sits: one warm speculative call of the plain cell (its
-    batch takes one round), and the sequential steps of the redo cell: in
-    one profiled 96-pod batch, a step is what runs from one K1 launch to
-    the next (the median over the batch's steps); its wall time is the
-    96-pod batch's less a 32-pod batch's, over 64 steps, unprofiled."""
+def _inclusive_ms(prof, name: str) -> float:
+    """Device ms of the kernels that ops called `name` launched, their
+    children's included."""
+    from torch.autograd import DeviceType
+
+    return sum(e.device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU and e.key == name)
+
+
+def _engine(make, fleet, pods, B, existing=0, device="cuda"):
+    """A warmed engine call over the first B pods on a fresh encoder of
+    `fleet` with `existing` running pods, the affinity state included
+    where the pods carry pod affinity: (run, fn)."""
     from kubernetes_tpu_torch.codec import transfer
     from kubernetes_tpu_torch.loop import build_encoder
     from kubernetes_tpu_torch.models.batched import (
+        batch_has_pod_affinity,
+        encode_batch_affinity,
         encode_batch_ports,
-        make_sequential_scheduler,
     )
+
+    enc = build_encoder(fleet, existing)
+    fn = make(unsched_taint_key=enc.interner.intern(
+        "node.kubernetes.io/unschedulable"),
+        zone_key_id=enc.getzone_key, device=device)
+    batch = list(pods[:B])
+    aff = (encode_batch_affinity(enc, batch)
+           if batch_has_pod_affinity(batch) else None)
+    pb, ports = enc.encode_pods(batch), encode_batch_ports(enc, batch)
+    state = transfer.upload_cluster(enc.snapshot(), device)
+    run = lambda: fn(state, pb, ports, 0, aff_state=aff)   # noqa: E731
+    run()                                                   # warm
+    return run, fn
+
+
+def _round_line(label, run, fn, out: dict) -> str:
+    """One profiled warm speculative call whose batch takes one round."""
+    prof, wall, dev = _profiled(run)
+    check(fn.last_rounds == 1 and not fn.last_redo,
+          f"7 profile: the {label} batch took {fn.last_rounds} rounds")
+    if not dev:
+        return f"{label} round: not measured (no CUDA activity in the profile)"
+    kern, copies, dev_ms, k1_n, k1_ms = _split(dev)
+    ein, mm = _inclusive_ms(prof, "aten::einsum"), _inclusive_ms(
+        prof, "aten::matmul")
+    out[label] = {"wall_ms": wall * 1e3, "device_ms": dev_ms,
+                  "kernels": kern, "k1_ms": k1_ms, "einsum_ms": ein,
+                  "matmul_ms": mm}
+    return (f"{label} round (B={BATCH}, 1 round): wall_ms {wall * 1e3:.3f} "
+            f"device_ms {dev_ms:.3f} idle_share "
+            f"{1 - dev_ms / (wall * 1e3):.3f} kernels {kern} copies "
+            f"{copies} K1 launches {k1_n} K1_ms {k1_ms:.4f} K1_share "
+            f"{k1_ms / dev_ms:.4f} einsum_ms {ein:.3f} einsum_share "
+            f"{ein / dev_ms:.4f} matmul_ms {mm:.3f} matmul_share "
+            f"{mm / dev_ms:.4f} | top: {_top_ops(prof, dev)}")
+
+
+def _step_line(label, run, step_wall_ms, B, out: dict) -> str:
+    """The sequential steps of one profiled call: a step is what runs from
+    one K1 launch to the next (the median over the batch's steps)."""
+    prof, _, dev = _profiled(run)
+    at = [i for i, d in enumerate(dev) if _is_k1(d[0])]
+    if len(at) < 3:
+        return (f"{label} step: not measured ({len(at)} K1 launches in the "
+                f"profile)")
+    steps = [_split(dev[i:j]) for i, j in zip(at, at[1:])]
+    kern, copies, dev_ms, k1_n, k1_ms = (
+        float(np.median([s[c] for s in steps])) for c in range(5))
+    out[label] = {"wall_ms": step_wall_ms, "device_ms": dev_ms,
+                  "kernels": kern, "k1_launches": k1_n}
+    return (f"{label} sequential step (median of {len(steps)}, B={B}): "
+            f"wall_ms {step_wall_ms:.4f} device_ms {dev_ms:.4f} idle_share "
+            f"{1 - dev_ms / step_wall_ms:.3f} kernels {kern:.0f} copies "
+            f"{copies:.0f} K1 launches {k1_n:.0f} K1_ms {k1_ms:.4f} | "
+            f"top ({B}-pod batch): {_top_ops(prof, dev)}")
+
+
+def _timed(run) -> float:
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    run()
+    torch.cuda.synchronize()
+    return time.monotonic() - t
+
+
+def phase_profile(nodes, tight, pods, anti_pods, device="cuda") -> dict:
+    """Where the device time goes: one warm speculative call of the plain
+    cell and of the pod-anti-affinity cell (each batch takes one round),
+    and the sequential steps of the redo cells.  A plain step's wall time
+    is a 96-pod batch's less a 32-pod batch's, over 64 steps; an affinity
+    step's is a 2,048-pod batch's over its steps (the carry's width is the
+    batch's), both unprofiled."""
+    from kubernetes_tpu_torch.models.batched import make_sequential_scheduler
     from kubernetes_tpu_torch.models.speculative import (
         make_speculative_scheduler,
     )
 
-    def engine(make, fleet, B):
-        enc = build_encoder(fleet)
-        fn = make(unsched_taint_key=enc.interner.intern(
-            "node.kubernetes.io/unschedulable"),
-            zone_key_id=enc.getzone_key, device=device)
-        batch = list(pods[:B])
-        pb, ports = enc.encode_pods(batch), encode_batch_ports(enc, batch)
-        state = transfer.upload_cluster(enc.snapshot(), device)
-        run = lambda: fn(state, pb, ports, 0)   # noqa: E731
-        run()                                   # warm
-        return run, fn
-
-    run, fn = engine(make_speculative_scheduler, nodes, BATCH)
-    prof, wall, dev = _profiled(run)
-    check(fn.last_rounds == 1 and not fn.last_redo,
-          f"7 profile: the plain batch took {fn.last_rounds} rounds")
-    out = {}
-    if not dev:
-        line = "plain round: not measured (no CUDA activity in the profile)"
-    else:
-        kern, copies, dev_ms, k1_n, k1_ms = _split(dev)
-        out["round"] = {"wall_ms": wall * 1e3, "device_ms": dev_ms,
-                        "kernels": kern, "k1_ms": k1_ms}
-        line = (f"plain round (B={BATCH}, 1 round): wall_ms {wall * 1e3:.3f} "
-                f"device_ms {dev_ms:.3f} idle_share "
-                f"{1 - dev_ms / (wall * 1e3):.3f} kernels {kern} copies "
-                f"{copies} K1 launches {k1_n} K1_ms {k1_ms:.4f} K1_share "
-                f"{k1_ms / dev_ms:.4f} | top: {_top_ops(prof, dev)}")
+    spec, seq = make_speculative_scheduler, make_sequential_scheduler
+    out: dict = {}
+    lines = [_round_line("plain", *_engine(spec, nodes, pods, BATCH,
+                                            device=device), out)]
+    lines.append(_round_line("pod-anti-affinity", *_engine(
+        spec, nodes, anti_pods, BATCH, EXISTING_ANTI, device), out))
     walls = {}
     for B in (32, 96):
-        run, _ = engine(make_sequential_scheduler, tight, B)
-        t = time.monotonic()
-        run()
-        torch.cuda.synchronize()
-        walls[B] = time.monotonic() - t
-    step_wall = (walls[96] - walls[32]) / 64 * 1e3
-    prof, _, dev = _profiled(run)
-    at = [i for i, d in enumerate(dev) if _is_k1(d[0])]
-    if len(at) < 3:
-        line += (f" || redo step: not measured ({len(at)} K1 launches in "
-                 f"the profile)")
-    else:
-        steps = [_split(dev[i:j]) for i, j in zip(at, at[1:])]
-        kern, copies, dev_ms, k1_n, k1_ms = (
-            float(np.median([s[c] for s in steps])) for c in range(5))
-        out["step"] = {"wall_ms": step_wall, "device_ms": dev_ms,
-                       "kernels": kern, "k1_launches": k1_n}
-        line += (f" || redo sequential step (median of {len(steps)}): "
-                 f"wall_ms {step_wall:.4f} device_ms {dev_ms:.4f} idle_share "
-                 f"{1 - dev_ms / step_wall:.3f} kernels {kern:.0f} copies "
-                 f"{copies:.0f} K1 launches {k1_n:.0f} K1_ms {k1_ms:.4f} | "
-                 f"top (96-pod batch): {_top_ops(prof, dev)}")
-    print(f"[7 profile] {line}", flush=True)
+        run, _ = _engine(seq, tight, pods, B, device=device)
+        walls[B] = _timed(run)
+    lines.append(_step_line("redo", run, (walls[96] - walls[32]) / 64 * 1e3,
+                            96, out))
+    run, _ = _engine(seq, tight, anti_pods, BATCH, device=device)
+    wall = _timed(run) / BATCH * 1e3
+    run, _ = _engine(seq, tight, anti_pods, 256, device=device)
+    lines.append(_step_line("affinity redo", run, wall, 256, out)
+                 + f" (wall_ms at B={BATCH})")
+    print("[7 profile] " + " || ".join(lines), flush=True)
     return out
+
+
+def _check_golden(label, workload, res, nodes=None, pods=None):
+    """The winners against the JAX speculative engine's golden file, and
+    its rounds per batch.  A plain-cell mismatch is explained from the
+    first round's scores."""
+    data = np.load(golden(workload))
+    want = data["hosts"]
+    diff = np.nonzero(want != res["hosts"])[0]
+    if diff.size:
+        i = int(diff[0])
+        why = ("; " + _explain_pod(nodes, pods, i,
+                                   (int(want[i]), int(res["hosts"][i])))
+               if workload == "plain" else "")
+        fail(f"{label} golden: {diff.size} pods differ from the JAX winners; "
+             f"first pod {i} (batch {i // BATCH}): JAX node {int(want[i])}, "
+             f"port node {int(res['hosts'][i])}{why}")
+    check(res["rounds"] == data["rounds"].tolist(),
+          f"{label} golden: rounds {res['rounds']}, JAX "
+          f"{data['rounds'].tolist()}")
+    return want.size
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    from kubernetes_tpu_torch.loop import bench_nodes, pending_pod
+    from kubernetes_tpu_torch.loop import bench_nodes, build_encoder, pending_pod
 
     t_start = time.monotonic()
     smi = phase_device()
     nodes = bench_nodes(NODES)
-    from kubernetes_tpu_torch.loop import build_encoder
-
     main_n = build_encoder(nodes).snapshot().n_nodes   # padded node width
     k1 = phase_k1(main_n)
 
@@ -396,26 +520,62 @@ def main() -> None:
           f"5 redo: {launches5} K1 launches, not one a round at B={BATCH} "
           f"({sum(res5['rounds'])} rounds) plus the B=1 steps")
 
-    golden = np.load(GOLDEN)["hosts"]
-    diff = np.nonzero(golden != res3["hosts"])[0]
-    if diff.size:
-        i = int(diff[0])
-        fail(f"6 golden: {diff.size} pods differ from the JAX winners; first "
-             f"pod {i} (batch {i // BATCH}): JAX node {int(golden[i])}, port "
-             f"node {int(res3['hosts'][i])}; "
-             + _explain_pod(nodes, plain_pods, i,
-                            (int(golden[i]), int(res3["hosts"][i]))))
-    print(f"[6 golden] {golden.size} winners bit-identical to the JAX "
-          f"speculative engine | total seconds "
+    n = _check_golden("6", "plain", res3, nodes, plain_pods)
+    print(f"[6 golden] {n} winners bit-identical to the JAX speculative "
+          f"engine | total seconds {time.monotonic() - t_start:.1f}",
+          flush=True)
+
+    anti_pods = [pending_pod(i, "pod-anti-affinity") for i in range(PODS)]
+    res8, launches8 = _run_pair("8 pod-anti-affinity", nodes, anti_pods,
+                                True, EXISTING_ANTI)
+    _anti_recount(nodes, anti_pods, res8, "8 pod-anti-affinity",
+                  EXISTING_ANTI)
+    check(launches8["select_hosts"] == sum(res8["rounds"]),
+          f"8 pod-anti-affinity: {launches8} K1 launches for "
+          f"{sum(res8['rounds'])} rounds")
+    n = _check_golden("8", "pod-anti-affinity", res8)
+    print(f"[8 golden] {n} winners bit-identical to the JAX speculative "
+          f"engine, no two pods of one app on a node", flush=True)
+
+    paff_pods = [pending_pod(i, "pod-affinity") for i in range(PODS)]
+    res9, launches9 = _run_pair("9 pod-affinity", nodes, paff_pods, True)
+    _aff_recount(nodes, paff_pods, res9, "9 pod-affinity")
+    check(launches9["select_hosts"] == sum(res9["rounds"]),
+          f"9 pod-affinity: {launches9} K1 launches for "
+          f"{sum(res9['rounds'])} rounds")
+    n = _check_golden("9", "pod-affinity", res9)
+    print(f"[9 golden] {n} winners bit-identical to the JAX speculative "
+          f"engine, rounds {res9['rounds']}, every pod's zone holds a pod "
+          f"of its app", flush=True)
+
+    redo_pods = anti_pods[:REDO_AFF_PODS]
+    res10, launches10 = _run_pair("10 affinity redo", tight, redo_pods,
+                                  False)
+    _anti_recount(tight, redo_pods, res10, "10 affinity redo")
+    check(res10["redos"] > 0, "10 affinity redo: the hybrid check never fired")
+    check(launches10["select_hosts"] - launches10["select_hosts_b1"]
+          == sum(res10["rounds"])
+          and launches10["select_hosts_b1"] == res10["redos"] * BATCH,
+          f"10 affinity redo: {launches10} K1 launches, not one a round at "
+          f"B={BATCH} ({sum(res10['rounds'])} rounds) plus one a step at "
+          f"B=1 ({res10['redos']} redone batches of {BATCH})")
+    print(f"[10 affinity redo] redos {res10['redos']}, K1 launches "
+          f"{launches10['select_hosts']} = {sum(res10['rounds'])} rounds + "
+          f"{launches10['select_hosts_b1']} sequential steps | total seconds "
           f"{time.monotonic() - t_start:.1f}", flush=True)
-    phase_profile(nodes, tight, plain_pods)
+
+    phase_profile(nodes, tight, plain_pods, anti_pods)
 
     # K1 launches by cell: one a speculative round at B=2048, and in the
-    # redo cell one more a sequential step at B=1 (counted on their own)
+    # redo cells one more a sequential step at B=1 (counted on their own)
     by_cell = {"plain": launches["select_hosts"],
                "node-affinity": launches4["select_hosts"],
                "redo": launches5["select_hosts"],
-               "redo_b1": launches5["select_hosts_b1"]}
+               "redo_b1": launches5["select_hosts_b1"],
+               "pod-anti-affinity": launches8["select_hosts"],
+               "pod-affinity": launches9["select_hosts"],
+               "affinity-redo": launches10["select_hosts"],
+               "affinity-redo_b1": launches10["select_hosts_b1"]}
     record = {"kernels": [{
         "name": "select_hosts",
         "route": "cuda",

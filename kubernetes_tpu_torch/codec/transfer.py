@@ -9,6 +9,9 @@ raw loop needs:
   * `upload_batch`: per batch, the PodBatch / port / extra tensors are
     copied from pinned host memory with non_blocking=True, so the copy
     overlaps whatever the host does next;
+  * `upload_affinity`: per batch, the in-batch affinity state's factors
+    (LeanBatchAffinity) are copied the same way and densified on the
+    device, once a batch;
   * `fetch_hosts`: the winners come back as numpy.
 
 Tensors already on the target device pass through untouched.
@@ -71,6 +74,28 @@ def upload_batch(pods, ports, device, extra_mask=None,
     escore = (None if extra_score is None
               else _h2d(extra_score, device).to(torch.float32))
     return pods_t, ports_t, emask, escore
+
+
+def upload_affinity(aff_state, device):
+    """The in-batch affinity state as a dense BatchAffinityState on
+    `device` (None passes through).  The factored form (a
+    LeanBatchAffinity, the port's or the JAX package's) crosses the link
+    from pinned memory without blocking and is densified on the device; a
+    dense state is copied field by field."""
+    from kubernetes_tpu_torch.models.batched import (
+        BatchAffinityState,
+        LeanBatchAffinity,
+        densify_batch_affinity,
+    )
+
+    if aff_state is None:
+        return None
+    device = torch.device(device)
+    if hasattr(aff_state, "aff_gm"):
+        return densify_batch_affinity(LeanBatchAffinity(
+            *(_h2d(getattr(aff_state, f), device)
+              for f in LeanBatchAffinity._fields)))
+    return _dc_to(aff_state, BatchAffinityState, device)
 
 
 def fetch_hosts(hosts: torch.Tensor) -> np.ndarray:

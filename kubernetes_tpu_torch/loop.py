@@ -1,17 +1,21 @@
 """The raw scheduling loop on the port: encode -> engine -> commit.
 
 The counterpart of bench.py run()'s timed section (bench.py:256-470) in the
-JAX package.  `run_raw` encodes each batch of pending pods, launches the
-engine on the device, and commits the winners back into the encoder with
-`add_pods`, in run()'s exact order: batch k+1 is encoded and launched
-before batch k is committed (overlap_commit), the tail batch is padded to
-the batch width with its padding marked valid=False, and the device
-cluster state is chained from batch to batch.
+JAX package.  `run_raw` adds `existing` running pods before the clock
+starts, then encodes each batch of pending pods, launches the engine on the
+device, and commits the winners back into the encoder with `add_pods`, in
+run()'s exact order: for the plain and node-affinity workloads batch k+1 is
+encoded and launched before batch k is committed (overlap_commit); the pod
+(anti-)affinity workloads commit batch k first, because the encoder's pair
+tensors must see it.  Batches whose pods carry pod affinity get the
+in-batch affinity state.  The tail batch is padded to the batch width with
+its padding marked valid=False, and the device cluster state is chained
+from batch to batch.
 
 `bench_nodes` and `pending_pod` are the port's copies of bench.py's
 `_bench_nodes` fleet (32 CPU, 256Gi, 110 pods per node, 8 zones, tier a/b,
-one tainted node in 50) and `_pending_pod` (the plain and node-affinity
-shapes of scheduler_bench_test.go).
+one tainted node in 50) and `_pending_pod` (the plain, node-affinity,
+pod-affinity and pod-anti-affinity shapes of scheduler_bench_test.go).
 """
 
 from __future__ import annotations
@@ -29,15 +33,18 @@ from kubernetes_tpu_torch.api.types import Node, Pod
 from kubernetes_tpu_torch.codec import transfer
 from kubernetes_tpu_torch.codec.encoder import SnapshotEncoder
 from kubernetes_tpu_torch.models.batched import (
+    batch_has_pod_affinity,
+    encode_batch_affinity,
     encode_batch_ports,
     make_sequential_scheduler,
 )
 from kubernetes_tpu_torch.models.speculative import make_speculative_scheduler
 
 ZONE_KEY = "failure-domain.beta.kubernetes.io/zone"
+HOSTNAME_KEY = "kubernetes.io/hostname"
 N_DEPLOY = 20
 NODE_PODS_CAP = 110
-WORKLOADS = ("plain", "node-affinity")
+WORKLOADS = ("plain", "node-affinity", "pod-affinity", "pod-anti-affinity")
 ENGINES = ("speculative", "sequential")
 
 
@@ -74,6 +81,32 @@ def pending_pod(i: int, workload: str = "plain") -> Pod:
                     ]}]}}},
             owner=("ReplicaSet", f"rs-{d}"),
         )
+    if workload == "pod-affinity":
+        # BenchmarkSchedulingPodAffinity: zone-level required affinity to
+        # the workload's own label (co-locate with mates)
+        return make_pod(
+            f"pod-{i}", cpu="100m", mem="256Mi",
+            labels={"app": f"dep-{d}"},
+            affinity={"podAffinity": {
+                "requiredDuringSchedulingIgnoredDuringExecution": [{
+                    "labelSelector": {"matchLabels": {"app": f"dep-{d}"}},
+                    "topologyKey": ZONE_KEY,
+                }]}},
+            owner=("ReplicaSet", f"rs-{d}"),
+        )
+    if workload == "pod-anti-affinity":
+        # BenchmarkSchedulingPodAntiAffinity: hostname-level required
+        # anti-affinity (one per node per group)
+        return make_pod(
+            f"pod-{i}", cpu="100m", mem="256Mi",
+            labels={"app": f"dep-{d}"},
+            affinity={"podAntiAffinity": {
+                "requiredDuringSchedulingIgnoredDuringExecution": [{
+                    "labelSelector": {"matchLabels": {"app": f"dep-{d}"}},
+                    "topologyKey": HOSTNAME_KEY,
+                }]}},
+            owner=("ReplicaSet", f"rs-{d}"),
+        )
     if workload != "plain":
         raise ValueError(f"workload {workload!r} not in {WORKLOADS}")
     return make_pod(
@@ -86,19 +119,40 @@ def pending_pod(i: int, workload: str = "plain") -> Pod:
     )
 
 
-def build_encoder(nodes: Sequence[Node]) -> SnapshotEncoder:
-    """Bulk node ingest plus the 20 spread selectors of the bench."""
+def existing_pod(i: int, nodes: Sequence[Node]) -> Pod:
+    """The i-th pod already running before the clock starts (bench.py:
+    280-289): one of the 20 deployments, on node i mod len(nodes)."""
+    return make_pod(
+        f"existing-{i}", cpu="100m", mem="256Mi",
+        labels={"app": f"dep-{i % N_DEPLOY}"},
+        node_name=nodes[i % len(nodes)].name,
+        owner=("ReplicaSet", f"rs-{i % N_DEPLOY}"),
+    )
+
+
+def build_encoder(nodes: Sequence[Node], existing: int = 0) -> SnapshotEncoder:
+    """Bulk node ingest plus the 20 spread selectors of the bench, then
+    `existing` running pods."""
     enc = SnapshotEncoder()
     enc.add_nodes(nodes)
     for d in range(N_DEPLOY):
         enc.add_spread_selector("default", {"app": f"dep-{d}"})
+    for i in range(existing):
+        enc.add_pod(existing_pod(i, nodes))
     return enc
 
 
 def run_raw(nodes: Sequence[Node], pods: Sequence[Pod], batch: int,
             device="cuda", engine: str = "speculative",
-            select_impl: str = "kernel") -> dict:
-    """Schedule `pods` onto `nodes` in batches of `batch`.
+            select_impl: str = "kernel", existing: int = 0) -> dict:
+    """Schedule `pods` onto `nodes` in batches of `batch`, after
+    `existing` running pods (existing_pod) were added outside the clock.
+
+    When any pod carries pod (anti-)affinity, batch k is committed before
+    batch k+1 is encoded (bench.py:416 keeps the overlap for the plain and
+    node-affinity workloads only, where just spread scores go one batch
+    stale), and batches whose pods carry it run with the in-batch affinity
+    state, built from the padded pod list before the batch is encoded.
 
     Returns {"hosts": i32[len(pods)] node row per pod (-1 unschedulable),
     "node_names": row -> node name, "pods_per_s", "seconds", "phases":
@@ -110,7 +164,7 @@ def run_raw(nodes: Sequence[Node], pods: Sequence[Pod], batch: int,
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r} not in {ENGINES}")
     device = torch.device(device)
-    enc = build_encoder(nodes)
+    enc = build_encoder(nodes, existing)
     make = (make_speculative_scheduler if engine == "speculative"
             else make_sequential_scheduler)
     fn = make(
@@ -145,6 +199,7 @@ def run_raw(nodes: Sequence[Node], pods: Sequence[Pod], batch: int,
         enc.add_pods(committed)
         phases["commit"] += time.monotonic() - tb
 
+    overlap_commit = not batch_has_pod_affinity(pods)
     state = transfer.upload_cluster(enc.snapshot(), device)
     last = 0
     in_flight = None
@@ -154,7 +209,13 @@ def run_raw(nodes: Sequence[Node], pods: Sequence[Pod], batch: int,
         batch_pods = list(pods[start:start + n])
         if n < batch:  # pad the tail batch to the batch width
             batch_pods += [pods[start]] * (batch - n)
+        if not overlap_commit and in_flight is not None:
+            commit(*in_flight)
+            in_flight = None
         t_formed = time.monotonic()
+        # before encode_pods: preferred terms register their topology keys
+        aff = (encode_batch_affinity(enc, batch_pods)
+               if batch_has_pod_affinity(batch_pods) else None)
         pb = enc.encode_pods(batch_pods)
         if n < batch:
             valid = np.array(pb.valid, bool)
@@ -163,7 +224,7 @@ def run_raw(nodes: Sequence[Node], pods: Sequence[Pod], batch: int,
         ports = encode_batch_ports(enc, batch_pods)
         phases["encode"] += time.monotonic() - t_formed
         tp = time.monotonic()
-        hosts, state = fn(state, pb, ports, last)
+        hosts, state = fn(state, pb, ports, last, aff_state=aff)
         phases["launch"] += time.monotonic() - tp
         if engine == "speculative":
             rounds.append(fn.last_rounds)

@@ -177,9 +177,8 @@ def test_later_slices_raise():
         pods = [make_pod("p", cpu="100m")]
         pb = enc.encode_pods(pods)
         ports = encode_batch_ports(enc, pods)
-        for extra in ({"aff_state": object()}, {"nominated": object()}):
-            with pytest.raises(NotImplementedError):
-                fn(enc.snapshot(), pb, ports, 0, **extra)
+        with pytest.raises(NotImplementedError):
+            fn(enc.snapshot(), pb, ports, 0, nominated=object())
     with pytest.raises(NotImplementedError):
         port_seq(device="cpu", attribution=True)
     with pytest.raises(NotImplementedError):
