@@ -41,7 +41,21 @@ printing one line of numbers; any failure exits non-zero with no result:
  10. the affinity redo: pod-anti-affinity on the 2-slot fleet, where the
      hybrid check redoes batches through the sequential engine with the
      affinity carry: K1 launched once a round at B=2,048 plus once a
-     sequential step at B=1, and the anti-affinity recount.
+     sequential step at B=1, and the anti-affinity recount;
+ 11. the live cycle: loop.run_live (the port of bench.py run_live) through
+     the port's Scheduler at full width, speculative engine, batched and
+     pipelined commit: its 12,048 bindings (warmup included) and their
+     order equal tests/data/torch_port_golden_live.npz, the JAX
+     Scheduler's; a numpy recount; pods/s, the phase split, overlap
+     efficiency, dirty rows scattered and bytes H2D per cycle against a
+     full snapshot upload, the dirty-row scatter's time, K1 launches and
+     peak GiB;
+ 12. the live cycle with 256 nominated preemptors (priority 1,000, each
+     claiming its node's CPU less 50m, a quarter with a hostname
+     anti-affinity term): bindings equal to
+     tests/data/torch_port_golden_live_nominated.npz, and a numpy recount
+     finds no pod on a node its nomination leaves too little CPU and no
+     anti-matched pod on a nominated node.
 
 Then the card's name and power limit, the kernels' JSON record (K1's
 launches in each cell among its keys) and the device line.
@@ -69,6 +83,7 @@ def golden(workload: str) -> str:
 NODES, PODS, BATCH = 5000, 10000, 2048
 EXISTING_ANTI = 1000   # running pods of the pod-anti-affinity cell
 REDO_AFF_PODS = 9800   # the affinity redo cell: the 2-slot fleet's free slots
+NOMINATED = 256        # preemptors of the live-with-nominations cell
 
 
 def fail(msg: str) -> None:
@@ -490,6 +505,116 @@ def _check_golden(label, workload, res, nodes=None, pods=None):
     return want.size
 
 
+def _scatter_ms(n_rows: int, rows: int, cols: int) -> dict:
+    """The dirty-row scatter (codec/transfer.py _scatter_rows, an
+    index_copy_ of `rows` f32 rows of `cols` columns into a resident
+    [n_rows, cols] tensor) timed with L2 cold, beside its bytes bound
+    (the rows read and written once, the int64 indices read once)."""
+    from kubernetes_tpu_torch.codec.transfer import _scatter_rows
+    from kubernetes_tpu_torch.kernels import k1_bench
+
+    dev = torch.device("cuda")
+    resident = torch.zeros((n_rows, cols), dtype=torch.float32, device=dev)
+    idx = torch.randperm(n_rows, device=dev)[:rows]
+    vals = torch.ones((rows, cols), dtype=torch.float32, device=dev)
+    ms = k1_bench.time_ms(lambda: _scatter_rows(resident, idx, vals))
+    nbytes = rows * cols * 4 * 2 + rows * 8
+    return {"rows": rows, "cols": cols, "ms": ms,
+            "bound_ms": nbytes / k1_bench.HBM_BYTES_PER_S * 1e3}
+
+
+def _live_recount(nodes, res, label, nominations=()):
+    """Numpy recount of a live run from its bindings: resources and taints
+    (the warmup pods included); with nominations, every nominated node's
+    claim plus the pods bound there after the nominations fit its CPU, and
+    no pod an anti term of a nominated preemptor matches sits on its
+    node."""
+    from kubernetes_tpu_torch.api.nodeaffinity import _term_matches_pod
+    from kubernetes_tpu_torch.api.types import RESOURCE_CPU
+    from kubernetes_tpu_torch.loop import pending_pod
+
+    pods = [pending_pod(i) for i in range(PODS + BATCH)]
+    _recount(nodes, pods, res, label)
+    names = res["node_names"]
+    alloc = {n.name: n.status.allocatable[RESOURCE_CPU].milli for n in nodes}
+    used = {}
+    for i in range(PODS, PODS + BATCH):      # the warmup, before the claims
+        name = names[int(res["hosts"][i])]
+        used[name] = used.get(name, 0) + 100
+    for pre, name in nominations:
+        cpu = pre.resource_request()[RESOURCE_CPU].milli
+        on = [i for i in range(PODS) if names.get(int(res["hosts"][i])) == name]
+        check(not on or used.get(name, 0) + cpu + 100 * len(on)
+              <= alloc[name],
+              f"{label}: {len(on)} pods on {name} past {pre.name}'s claim")
+        aff = pre.spec.affinity
+        for term in (aff.pod_anti_affinity.required if aff is not None
+                     and aff.pod_anti_affinity is not None else ()):
+            bad = [i for i in on if _term_matches_pod(term, pre, pods[i])]
+            check(not bad, f"{label}: pod {bad[:1]} on {name} against "
+                  f"{pre.name}'s anti-affinity")
+
+
+def phase_live(label: str, nodes, nominated: int = 0) -> dict:
+    """loop.run_live at full width on the card, K1 counts reset just before
+    and read just after; bindings and their order against the JAX
+    Scheduler's golden file; a recount; one line of numbers."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.loop import nominated_preemptors, run_live
+
+    noms = nominated_preemptors(NODES, nominated)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = run_live(nodes, PODS, BATCH, device="cuda", nominations=noms)
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(launches["select_hosts"] > 0,
+          f"{label}: the live cycle launched K1 no time")
+    data = np.load(golden("live_nominated" if nominated else "live"))
+    diff = np.nonzero(data["hosts"] != res["hosts"])[0]
+    check(diff.size == 0, f"{label}: {diff.size} pods bound apart from the "
+          f"JAX Scheduler; first pod index {diff[:1].tolist()}: JAX row "
+          f"{data['hosts'][diff[:1]].tolist()}, port row "
+          f"{res['hosts'][diff[:1]].tolist()}")
+    check(np.array_equal(data["bind_order"], res["bind_order"]),
+          f"{label}: the binder was called in another order than JAX's")
+    check(res["placed"] == PODS, f"{label}: {res['unschedulable']} unplaced")
+    _live_recount(nodes, res, label, noms)
+    sched = res["scheduler"]
+    sched.flush_pipeline()
+    cycles = max(res["cycles"], 1)
+    xf = res["transfers"]
+    h2d = sum(v["bytes"] for k, v in xf.items() if k.startswith("h2d/"))
+    snap_up = xf.get("h2d/snapshot_upload", {"bytes": 0})["bytes"]
+    scat = res["scatter_rows"]
+    ph = res["phases"]
+    out = {"pods_per_s": res["pods_per_s"], "seconds": res["seconds"],
+           "phases": ph, "tail_seconds": res["tail_seconds"],
+           "commit_state_seconds": res["commit_state_seconds"],
+           "overlap_efficiency": res["overlap_efficiency"],
+           "cycles": res["cycles"], "scatter_rows": scat,
+           "h2d_bytes_per_cycle": h2d / cycles,
+           "snapshot_upload_bytes_per_cycle": snap_up / cycles,
+           "snapshot_bytes": res["snapshot_bytes"], "launches": launches,
+           "peak_gb": peak_gb, "transfers": xf}
+    print(f"[{label}] pods_per_s {res['pods_per_s']:.1f} seconds "
+          f"{res['seconds']:.3f} placed {res['placed']} cycles "
+          f"{res['cycles']} | phases pop {ph['pop']:.4f} encode "
+          f"{ph['encode']:.4f} dispatch {ph['dispatch']:.4f} fetch "
+          f"{ph['fetch']:.4f} fetch_block {ph['fetch_block']:.4f} commit "
+          f"{ph['commit']:.4f} (state {res['commit_state_seconds']:.4f} "
+          f"tail {res['tail_seconds']:.4f}) enqueue {ph['enqueue']:.4f} | "
+          f"overlap_efficiency {res['overlap_efficiency']:.4f} | dirty rows "
+          f"scattered per update {scat} | H2D bytes per cycle "
+          f"{h2d / cycles:.0f} (whole-field uploads {snap_up / cycles:.0f}) "
+          f"against a full snapshot {res['snapshot_bytes']} | by seam "
+          f"{xf} | K1 launches {launches['select_hosts']} (B=1 "
+          f"{launches['select_hosts_b1']}) | peak_device_GiB {peak_gb:.2f} "
+          f"| bindings and order equal to the JAX Scheduler's "
+          f"({res['hosts'].size})", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -566,6 +691,26 @@ def main() -> None:
 
     phase_profile(nodes, tight, plain_pods, anti_pods)
 
+    live = phase_live("11 live", nodes)
+    live12 = phase_live("12 live nominated", nodes, NOMINATED)
+    # the scatter at the live cycle's shapes: the median dirty-row count of
+    # the two cells' scatters, else the N/4 cap (every cycle above it
+    # uploaded its row fields whole), into requested's [N, R] and
+    # nonzero_req's [N, 2]
+    enc = build_encoder(nodes)
+    scat_rows = live["scatter_rows"] + live12["scatter_rows"]
+    rows = (int(np.median(scat_rows)) if scat_rows else main_n // 4)
+    scatter = [_scatter_ms(main_n, rows, enc.snapshot().requested.shape[1]),
+               _scatter_ms(main_n, rows, 2)]
+    print("[11 scatter] " + " | ".join(
+        f"index_copy_ of {d['rows']} rows x {d['cols']} f32 into "
+        f"[{main_n}, {d['cols']}]: cold_ms {d['ms']:.4f} bound_ms "
+        f"{d['bound_ms']:.5f}" for d in scatter)
+        + (f" (the median scattered count)" if scat_rows else
+           f" (no update scattered: every cycle dirtied more than "
+           f"{main_n // 4} rows)")
+        + f" | total seconds {time.monotonic() - t_start:.1f}", flush=True)
+
     # K1 launches by cell: one a speculative round at B=2048, and in the
     # redo cells one more a sequential step at B=1 (counted on their own)
     by_cell = {"plain": launches["select_hosts"],
@@ -575,7 +720,11 @@ def main() -> None:
                "pod-anti-affinity": launches8["select_hosts"],
                "pod-affinity": launches9["select_hosts"],
                "affinity-redo": launches10["select_hosts"],
-               "affinity-redo_b1": launches10["select_hosts_b1"]}
+               "affinity-redo_b1": launches10["select_hosts_b1"],
+               "live": live["launches"]["select_hosts"],
+               "live_b1": live["launches"]["select_hosts_b1"],
+               "live-nominated": live12["launches"]["select_hosts"],
+               "live-nominated_b1": live12["launches"]["select_hosts_b1"]}
     record = {"kernels": [{
         "name": "select_hosts",
         "route": "cuda",

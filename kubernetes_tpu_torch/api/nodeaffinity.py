@@ -1,14 +1,16 @@
-"""NodeSelectorTerm matching against one node, on the host.
+"""Host-side matching helpers copied from the JAX package's cpuref.
 
-The port's own copy of the JAX package's cpuref helper of the same name
-(kubernetes_tpu/cpuref/reference.py), kept here so the encoder can evaluate
-PersistentVolume node affinity without importing the reference package.
+The port's own copies of two helpers of kubernetes_tpu/cpuref/reference.py,
+kept here so the port never imports the reference package:
+`match_node_selector_term` (the encoder evaluates PersistentVolume node
+affinity with it) and `_term_matches_pod` (models/batched.py
+encode_nominated_block evaluates nominated pods' anti-affinity with it).
 """
 
 from __future__ import annotations
 
 from kubernetes_tpu_torch.api import labels as klabels
-from kubernetes_tpu_torch.api.types import Node
+from kubernetes_tpu_torch.api.types import Node, Pod
 
 
 def match_node_selector_term(pod_term, node: Node) -> bool:
@@ -29,3 +31,18 @@ def match_node_selector_term(pod_term, node: Node) -> bool:
         if not req.matches(fields):
             return False
     return bool(pod_term.match_expressions or pod_term.match_fields)
+
+
+def _term_namespaces(term, pod: Pod):
+    return set(term.namespaces) if term.namespaces else {pod.namespace}
+
+
+def _term_matches_pod(term, src_pod: Pod, dst_pod: Pod) -> bool:
+    """Does `term` (belonging to src_pod) select dst_pod?
+    ref predicates.go podMatchesPodAffinityTerms."""
+    if dst_pod.namespace not in _term_namespaces(term, src_pod):
+        return False
+    sel = klabels.selector_from_label_selector(term.label_selector)
+    if sel is None:
+        return False
+    return sel.matches(dst_pod.labels)

@@ -1,38 +1,93 @@
-"""Host <-> device transfer for the raw scheduling loop (PyTorch port).
+"""Host <-> device transfer (PyTorch port).
 
-The counterpart of the parts of the JAX package's codec/transfer.py that the
-raw loop needs:
+The counterpart of the JAX package's codec/transfer.py:
 
-  * `upload_cluster`: the snapshot goes to resident device tensors once and
-    is then chained between batches (the engines return a new
-    ClusterTensors that shares every static leaf);
-  * `upload_batch`: per batch, the PodBatch / port / extra tensors are
-    copied from pinned host memory with non_blocking=True, so the copy
-    overlaps whatever the host does next;
-  * `upload_affinity`: per batch, the in-batch affinity state's factors
-    (LeanBatchAffinity) are copied the same way and densified on the
-    device, once a batch;
-  * `fetch_hosts`: the winners come back as numpy.
+  * `upload_cluster`: the snapshot as resident device tensors, once (the raw
+    loop chains the engines' returned ClusterTensors between batches);
+  * `DeviceSnapshotCache`: the live cycle's incremental snapshot upload.
+    Unchanged fields keep their resident tensors (identity skip, then a
+    memcmp fallback); a changed row-indexed field uploads only the
+    encoder's dirty rows and scatters them into the resident tensor in
+    place (`_scatter_rows`, an `index_copy_`);
+  * `upload_batch` / `upload_affinity` / `upload_nominated`: the per-batch
+    state (PodBatch, ports, extra mask/score, the in-batch affinity factors,
+    the nominated pods) copied from pinned host memory with
+    non_blocking=True, so the copy overlaps whatever the host does next;
+  * `AsyncFetch` / `host_fetch`: the winners come back to
+    numpy.  On CUDA, AsyncFetch copies on a side stream into a pinned host
+    buffer and a shared worker thread waits on its CUDA event, so the
+    scheduling thread only blocks at `result()`, the ready-fence;
+  * `transfer_totals` / `transfer_delta`: bytes and calls per direction and
+    seam, counted from host array sizes (never a device sync).
 
 Tensors already on the target device pass through untouched.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import fields
+from typing import Any, Callable, List, Tuple
+
 import numpy as np
 import torch
 
+from kubernetes_tpu_torch.codec import faults
 from kubernetes_tpu_torch.codec.schema import (
     ClusterTensors,
     PodBatch,
+    _pow2,
     cluster_to_torch,
 )
 
+# ------------------------------------------------------ transfer accounting
 
-def _h2d(a, device: torch.device) -> torch.Tensor:
+_XFER_LOCK = threading.Lock()
+# (direction, seam) -> [bytes, calls]; the fetch worker and the scheduling
+# thread both note here
+_XFER_TOTALS: "dict[Tuple[str, str], list]" = {}
+
+
+def note_transfer(direction: str, seam: str, nbytes: int) -> None:
+    """Account one transfer at a wire seam.  Zero-byte calls still count
+    a call."""
+    with _XFER_LOCK:
+        cell = _XFER_TOTALS.get((direction, seam))
+        if cell is None:
+            cell = _XFER_TOTALS[(direction, seam)] = [0, 0]
+        cell[0] += int(nbytes)
+        cell[1] += 1
+
+
+def transfer_totals() -> "dict[str, dict]":
+    """Snapshot of cumulative transfer accounting:
+    {"h2d/snapshot_upload": {"bytes": B, "calls": C}, ...}."""
+    with _XFER_LOCK:
+        return {
+            f"{d}/{s}": {"bytes": v[0], "calls": v[1]}
+            for (d, s), v in _XFER_TOTALS.items()
+        }
+
+
+def transfer_delta(prev: "dict[str, dict]") -> "dict[str, dict]":
+    """Non-zero per-seam deltas of transfer_totals() since `prev`."""
+    out: dict = {}
+    for key, cur in transfer_totals().items():
+        p = prev.get(key, {"bytes": 0, "calls": 0})
+        db, dc = cur["bytes"] - p["bytes"], cur["calls"] - p["calls"]
+        if db or dc:
+            out[key] = {"bytes": db, "calls": dc}
+    return out
+
+
+# ------------------------------------------------------------ host -> device
+
+
+def _h2d(a, device: torch.device, seam: "str | None" = None) -> torch.Tensor:
     """One host array (numpy, or a tensor anywhere) -> a tensor on device;
-    CUDA destinations go through pinned memory, asynchronously."""
+    CUDA destinations go through pinned memory, asynchronously.  A copy
+    from host memory is accounted under `seam` when one is given."""
     if isinstance(a, torch.Tensor):
         if a.device == device:
             return a
@@ -42,15 +97,17 @@ def _h2d(a, device: torch.device) -> torch.Tensor:
         if not a.flags.writeable or not a.flags.c_contiguous:
             a = np.array(a, copy=True, order="C")
         t = torch.from_numpy(a)
+    if seam is not None and t.device.type == "cpu":
+        note_transfer("h2d", seam, t.numel() * t.element_size())
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
 
 
-def _dc_to(obj, cls, device: torch.device):
+def _dc_to(obj, cls, device: torch.device, seam: "str | None" = None):
     """A dataclass of arrays (the port's or the JAX package's, read field
     by field) -> the port's `cls` of tensors on device."""
-    return cls(**{f.name: _h2d(getattr(obj, f.name), device)
+    return cls(**{f.name: _h2d(getattr(obj, f.name), device, seam)
                   for f in fields(cls)})
 
 
@@ -67,12 +124,12 @@ def upload_batch(pods, ports, device, extra_mask=None,
     from kubernetes_tpu_torch.models.batched import BatchPortState
 
     device = torch.device(device)
-    pods_t = _dc_to(pods, PodBatch, device)
-    ports_t = _dc_to(ports, BatchPortState, device)
+    pods_t = _dc_to(pods, PodBatch, device, "batch")
+    ports_t = _dc_to(ports, BatchPortState, device, "batch")
     emask = (None if extra_mask is None
-             else _h2d(extra_mask, device).to(torch.bool))
+             else _h2d(extra_mask, device, "batch").to(torch.bool))
     escore = (None if extra_score is None
-              else _h2d(extra_score, device).to(torch.float32))
+              else _h2d(extra_score, device, "batch").to(torch.float32))
     return pods_t, ports_t, emask, escore
 
 
@@ -93,11 +150,367 @@ def upload_affinity(aff_state, device):
     device = torch.device(device)
     if hasattr(aff_state, "aff_gm"):
         return densify_batch_affinity(LeanBatchAffinity(
-            *(_h2d(getattr(aff_state, f), device)
+            *(_h2d(getattr(aff_state, f), device, "affinity")
               for f in LeanBatchAffinity._fields)))
-    return _dc_to(aff_state, BatchAffinityState, device)
+    return _dc_to(aff_state, BatchAffinityState, device, "affinity")
 
 
-def fetch_hosts(hosts: torch.Tensor) -> np.ndarray:
-    """Winners back on the host (blocks until the device has produced them)."""
-    return hosts.detach().cpu().numpy()
+def upload_nominated(nominated, device):
+    """The nominated pods' state carried across cycles (a NominatedState,
+    the port's or the JAX package's, read field by field) as tensors on
+    `device`; None passes through."""
+    from kubernetes_tpu_torch.models.batched import NominatedState
+
+    if nominated is None:
+        return None
+    return _dc_to(nominated, NominatedState, torch.device(device),
+                  "nominated")
+
+
+# ----------------------------------------------- device-resident snapshot
+
+# fields whose leading axis is NOT the node-row axis, or which the encoder
+# recomputes wholesale so their diffs are NOT confined to dirty rows
+# (image_size rescales every row when the node count moves; group_counts
+# can shift many rows when a spread selector registers) — never scattered
+_NON_ROW_FIELDS = frozenset({"pair_topo_key", "image_size", "group_counts"})
+# scatter only pays while the dirty set stays a small fraction of N
+_SCATTER_MAX_FRAC = 4
+
+
+def _scatter_rows(dev: torch.Tensor, rows: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """Row scatter into a resident device tensor, in place (duplicate
+    indices carry identical values, so pad-by-repeat is safe).  rows:
+    int64 row indices on dev's device; vals: [len(rows), ...] rows."""
+    faults.check(faults.SITE_SCATTER)
+    return dev.index_copy_(0, rows, vals)
+
+
+def _upload_full(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A whole field as a resident tensor that shares no memory with the
+    host array: the dirty-row scatter writes into it in place, and the
+    encoder's snapshot arrays are immutable by its copy-on-write
+    contract."""
+    if device.type == "cuda":
+        return _h2d(host, device)
+    return torch.from_numpy(np.array(host, copy=True, order="C"))
+
+
+class DeviceSnapshotCache:
+    """Incremental cluster-snapshot upload (the host-side analog is the
+    generation-numbered incremental NodeInfo snapshot,
+    internal/cache/cache.go:210-222).
+
+    The scheduler takes a fresh host snapshot every cycle, but between
+    cycles most cluster tensor fields are byte-identical — label/taint/
+    topology tensors only move on node events, while requested/nonzero move
+    on every commit.  update() skips any field whose host array is the
+    SAME OBJECT as last time (the encoder's incremental snapshot reuses
+    unchanged leaves by identity); non-identical fields fall back to
+    content comparison before re-uploading.  When the caller passes
+    `dirty_rows` (the encoder's take_dirty_rows()), a changed row-indexed
+    field uploads only those rows (padded to a power-of-two bucket) and
+    scatters them into the resident tensor in place — the dirty set is
+    exactly the rows the incremental snapshot rewrote, so host arrays
+    cannot differ elsewhere.
+
+    Resident tensors are written in place by later updates: a caller must
+    never hand an engine's output cluster back here (the host commit is
+    the truth), and the engines never write their input tensors.
+
+    `scatter_rows` records the dirty-row count of every update that
+    scattered."""
+
+    def __init__(self, device="cuda") -> None:
+        self.device = torch.device(device)
+        self._host: dict = {}   # field -> last-uploaded host array
+        self._dev: dict = {}    # field -> resident device tensor
+        self.scatter_rows: List[int] = []
+
+    def resident(self, names: "tuple[str, ...]"):
+        """Resident tensors for the named snapshot fields, or None when any
+        is absent (before the first update(), or after invalidate())."""
+        out = []
+        for n in names:
+            dev = self._dev.get(n)
+            if dev is None:
+                return None
+            out.append(dev)
+        return tuple(out)
+
+    def invalidate(self) -> None:
+        """Drop every resident tensor: the next update() re-uploads the
+        whole snapshot.  Called after a device fault — an upload may have
+        half-landed and the encoder's dirty-row stream may have been
+        consumed by the failed cycle, so the incremental invariant
+        (_host == device contents) cannot be trusted until rebuilt."""
+        self._host.clear()
+        self._dev.clear()
+
+    def update(self, cluster, dirty_rows=None) -> ClusterTensors:
+        """Host ClusterTensors (numpy) -> the port's ClusterTensors of
+        resident tensors, uploading only changes.  dirty_rows: optional
+        i32[] of node rows touched since the previous update (None =
+        unknown, full content comparison).
+
+        Fault discipline: _host only records arrays whose copy was issued
+        without raising — a raising upload leaves the already-committed
+        fields coherent and the failed or remaining fields untouched, so a
+        retry after a transient fault re-uploads exactly what is missing.
+        The whole-tensor uploads therefore commit together at the end."""
+        faults.check(faults.SITE_SNAPSHOT_UPDATE)
+        device = self.device
+        staged: dict = {}
+        rows_arr = rows_dev = None
+        if dirty_rows is not None and len(dirty_rows) > 0:
+            rows_arr = np.asarray(dirty_rows, np.int32)
+        scattered = False
+        for f in fields(cluster):
+            host = np.asarray(getattr(cluster, f.name))
+            prev = self._host.get(f.name)
+            if prev is host:
+                continue  # identity: unchanged leaf reused by the encoder
+            if (
+                prev is not None
+                and rows_arr is not None
+                and f.name not in _NON_ROW_FIELDS
+                and f.name in self._dev
+                and prev.shape == host.shape
+                and prev.dtype == host.dtype
+                and host.ndim >= 1
+                and len(rows_arr) <= host.shape[0] // _SCATTER_MAX_FRAC
+            ):
+                sub = host[rows_arr]
+                if not np.array_equal(prev[rows_arr], sub):
+                    # pad rows to a pow2 bucket (repeat the first row), as
+                    # the reference does for its compiled scatter shapes
+                    k = _pow2(len(rows_arr))
+                    if k > len(rows_arr):
+                        pad = k - len(rows_arr)
+                        rows_p = np.concatenate(
+                            [rows_arr, np.repeat(rows_arr[:1], pad)])
+                        sub_p = np.concatenate(
+                            [sub, np.repeat(sub[:1], pad, axis=0)])
+                    else:
+                        rows_p, sub_p = rows_arr, sub
+                    # the delta that actually crosses the link: the padded
+                    # row-index vector + the padded row values
+                    note_transfer("h2d", "dirty_scatter",
+                                  rows_p.nbytes + sub_p.nbytes)
+                    if rows_dev is None:
+                        rows_dev = _h2d(rows_p, device).to(torch.int64)
+                    _scatter_rows(self._dev[f.name], rows_dev,
+                                  _h2d(np.ascontiguousarray(sub_p), device))
+                    scattered = True
+                self._host[f.name] = host
+                continue
+            if (
+                prev is None
+                or prev.shape != host.shape
+                or prev.dtype != host.dtype
+                or not np.array_equal(prev, host)
+            ):
+                staged[f.name] = host
+            else:
+                self._host[f.name] = host  # content-equal: no upload needed
+        if scattered:
+            self.scatter_rows.append(len(rows_arr))
+        if staged:
+            note_transfer("h2d", "snapshot_upload",
+                          sum(a.nbytes for a in staged.values()))
+            uploaded = {n: _upload_full(a, device) for n, a in staged.items()}
+            self._dev.update(uploaded)
+            self._host.update(staged)
+        return ClusterTensors(**self._dev)
+
+
+# ---------------------------------------------------------------- D2H fences
+#
+# Every device->host materialization the runtime performs goes through the
+# helpers below, which report each sync that actually BLOCKS the calling
+# thread to the registered listeners.
+
+_SYNC_LISTENERS: List[Callable[[str], None]] = []
+
+
+def on_blocking_sync(fn: Callable[[str], None]) -> Callable[[], None]:
+    """Register a listener called with a tag on every blocking device sync
+    performed through this module's fetch helpers.  Returns a remover."""
+    _SYNC_LISTENERS.append(fn)
+
+    def remove() -> None:
+        try:
+            _SYNC_LISTENERS.remove(fn)
+        except ValueError:
+            pass
+
+    return remove
+
+
+def _note_sync(tag: str) -> None:
+    for fn in _SYNC_LISTENERS:
+        fn(tag)
+
+
+def _to_host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def host_fetch(x, tag: str = "fetch") -> np.ndarray:
+    """The canonical BLOCKING device->host sync point, with the fence
+    listeners notified first."""
+    _note_sync(tag)
+    faults.check(faults.SITE_FETCH)
+    out = faults.corrupt(faults.SITE_FETCH, _to_host(x))
+    note_transfer("d2h", tag, out.nbytes)
+    return out
+
+
+class _FetchWorker:
+    """One persistent daemon thread draining AsyncFetch jobs: no per-cycle
+    thread create/teardown, and a daemon thread cannot let a hung fetch
+    block interpreter exit."""
+
+    def __init__(self) -> None:
+        import queue as _q
+
+        self._jobs: Any = _q.SimpleQueue()
+        self.thread = threading.Thread(
+            target=self._drain, daemon=True, name="ktpu-torch-async-fetch"
+        )
+        self.thread.start()
+
+    def submit(self, fn: Callable[[], None]) -> None:
+        self._jobs.put(fn)
+
+    def _drain(self) -> None:
+        while True:
+            job = self._jobs.get()
+            try:
+                job()
+            except BaseException:  # noqa: BLE001
+                # A raising job must never kill the shared worker: every
+                # fetch queued BEHIND it would hang forever at result().
+                # AsyncFetch._run routes its own errors into the owning
+                # handle; this guard covers foreign submit() callers.
+                import traceback
+
+                traceback.print_exc()
+
+
+_FETCH_WORKER: "_FetchWorker | None" = None
+_FETCH_WORKER_LOCK = threading.Lock()
+
+
+def _fetch_worker() -> _FetchWorker:
+    global _FETCH_WORKER
+    w = _FETCH_WORKER
+    if w is None or not w.thread.is_alive():  # first use, or post-fork
+        with _FETCH_WORKER_LOCK:
+            w = _FETCH_WORKER
+            if w is None or not w.thread.is_alive():
+                w = _FETCH_WORKER = _FetchWorker()
+    return w
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device: torch.device):
+    """The D2H side stream of a CUDA device (one per device, made once)."""
+    s = _SIDE_STREAMS.get(device.index)
+    if s is None:
+        s = _SIDE_STREAMS[device.index] = torch.cuda.Stream(device=device)
+    return s
+
+
+class AsyncFetch:
+    """Fetch-in-flight handle for a device result (the D2H half of the
+    double-buffered commit pipeline).
+
+    For a CUDA tensor the copy starts at once: a side stream waits for the
+    stream that produces the tensor, copies it into a pinned host buffer
+    (record_stream keeps the source alive for the side stream), and records
+    a CUDA event; the shared fetch worker waits on that event, so the
+    scheduling thread does not block while it dispatches the next batch or
+    runs the previous batch's tail.  A CPU tensor or an array-like is
+    materialized on the worker.
+
+    result() is the ready-fence: it returns the host array, blocking only
+    if the copy hasn't landed yet (and only that case is reported to the
+    sync listeners).  A device error — asynchronous and sticky on CUDA,
+    surfacing at the event wait — is caught on the worker and re-raised
+    HERE, so the caller's classified-retry wrapper owns the batch's
+    recovery.  `seconds` is the window from dispatch to copy-complete;
+    `execute_seconds` the wait until the producing work was done and
+    `materialize_seconds` the residual copy after it."""
+
+    def __init__(self, dev, tag: str = "fetch") -> None:
+        self._dev = dev
+        self._tag = tag
+        self._done = threading.Event()
+        self._out: Any = None
+        self._err: Any = None
+        self.seconds = 0.0
+        self.execute_seconds = 0.0
+        self.materialize_seconds = 0.0
+        self._t0 = time.monotonic()
+        self._ready_ev = self._copy_ev = self._pinned = None
+        if isinstance(dev, torch.Tensor) and dev.is_cuda:
+            cur = torch.cuda.current_stream(dev.device)
+            side = _side_stream(dev.device)
+            self._ready_ev = torch.cuda.Event()
+            self._ready_ev.record(cur)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self._pinned = torch.empty(dev.shape, dtype=dev.dtype,
+                                           pin_memory=True)
+                self._pinned.copy_(dev, non_blocking=True)
+                dev.record_stream(side)
+                self._copy_ev = torch.cuda.Event()
+                self._copy_ev.record(side)
+            self._dev = None  # the side stream holds it until the copy
+        _fetch_worker().submit(self._run)
+
+    def _run(self) -> None:
+        try:
+            faults.check(faults.SITE_FETCH)
+            t_wait0 = time.monotonic()
+            if self._copy_ev is not None:
+                self._ready_ev.synchronize()
+                self.execute_seconds = time.monotonic() - t_wait0
+                self._copy_ev.synchronize()
+                host = np.array(self._pinned.numpy())
+            else:
+                host = _to_host(self._dev)
+                self.execute_seconds = time.monotonic() - t_wait0
+            self._out = faults.corrupt(faults.SITE_FETCH, host)
+            self.materialize_seconds = (
+                time.monotonic() - t_wait0 - self.execute_seconds)
+            note_transfer("d2h", self._tag, self._out.nbytes)
+        except BaseException as e:  # noqa: BLE001 — re-raised in result()
+            self._err = e
+        finally:
+            self._pinned = self._dev = None
+            self.seconds = time.monotonic() - self._t0
+            self._done.set()
+
+    def ready(self) -> bool:
+        """Non-blocking fence probe: has the host copy landed?"""
+        return self._done.is_set()
+
+    def result(self) -> np.ndarray:
+        """The ready-fence: host array, blocking (and reporting a blocking
+        sync) only when the copy is still in flight.  Fence-site faults
+        inject HERE — synchronously on the calling thread, where the
+        scheduler's classified-retry wrapper owns recovery."""
+        faults.check(faults.SITE_FENCE)
+        if not self._done.is_set():
+            _note_sync(self._tag)
+            self._done.wait()
+        if self._err is not None:
+            raise self._err
+        return self._out

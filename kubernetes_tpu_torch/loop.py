@@ -1,4 +1,11 @@
-"""The raw scheduling loop on the port: encode -> engine -> commit.
+"""The scheduling loops on the port: the raw loop and the live cycle.
+
+`run_live` is the counterpart of bench.py run_live (bench.py:716-918): the
+pods go through the real Scheduler (runtime/scheduler.py): queue ->
+pop_batch -> encode under the cache lock -> dirty-row snapshot upload ->
+engine -> AsyncFetch -> batched state commit -> bind/event tail.
+
+`run_raw` is the raw loop: encode -> engine -> commit.
 
 The counterpart of bench.py run()'s timed section (bench.py:256-470) in the
 JAX package.  `run_raw` adds `existing` running pods before the clock
@@ -182,7 +189,7 @@ def run_raw(nodes: Sequence[Node], pods: Sequence[Pod], batch: int,
 
     def commit(start, batch_pods, hosts_dev):
         tf = time.monotonic()
-        hosts = transfer.fetch_hosts(hosts_dev)  # waits for the device
+        hosts = transfer.host_fetch(hosts_dev)  # waits for the device
         tb = time.monotonic()
         phases["fetch"] += tb - tf
         committed = []
@@ -249,4 +256,170 @@ def run_raw(nodes: Sequence[Node], pods: Sequence[Pod], batch: int,
         "redos": redos,
         "scheduled": scheduled,
         "unschedulable": n_pods - scheduled,
+    }
+
+
+PREEMPTOR_PRIORITY = 1000
+
+
+def nominated_preemptors(n_nodes: int, k: int, make_pod=make_pod,
+                         node_cpu_milli: int = 32000):
+    """[(preemptor pod, nominated node name)] for `k` preemptors waiting for
+    their victims' exit: priority 1,000, nominated to bench node 19*j mod
+    n_nodes (distinct while k <= n_nodes), each claiming that node's CPU
+    less 50m; every fourth carries a required hostname anti-affinity term
+    matching one deployment's pending pods.  make_pod: the object factory
+    (the JAX package's gives the same pods to its scheduler)."""
+    out = []
+    for j in range(k):
+        affinity = None
+        if j % 4 == 0:
+            affinity = {"podAntiAffinity": {
+                "requiredDuringSchedulingIgnoredDuringExecution": [{
+                    "labelSelector": {"matchLabels": {
+                        "app": f"dep-{j % N_DEPLOY}"}},
+                    "topologyKey": HOSTNAME_KEY,
+                }]}}
+        pod = make_pod(f"preemptor-{j}", cpu=f"{node_cpu_milli - 50}m",
+                       mem="1Gi", priority=PREEMPTOR_PRIORITY,
+                       affinity=affinity)
+        out.append((pod, f"node-{(19 * j) % n_nodes}"))
+    return out
+
+
+def live_config(batch: int, engine: str = "speculative",
+                batched: bool = True, pipeline: bool = True):
+    """bench.py run_live's SchedulerConfig with this slice's settings
+    given explicitly (preemption, the CPU degradation engine and the
+    observatories off)."""
+    from kubernetes_tpu_torch.runtime.scheduler import SchedulerConfig
+
+    return SchedulerConfig(
+        batch_size=batch, batch_window_s=0.0, engine=engine,
+        disable_preemption=True, batched_commit=batched,
+        pipeline_commit=pipeline, cpu_fallback=False, telemetry=False,
+        quality_top_k=0, timeline=False,
+    )
+
+
+def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
+             workload: str = "plain", device="cuda",
+             engine: str = "speculative", batched: bool = True,
+             pipeline: bool = True, existing: int = 0, nominations=None,
+             budget_s: float = 900.0) -> dict:
+    """bench.py run_live on the port: `n_pods` pending pods of `workload`
+    through the live Scheduler, after a warmup batch of `batch` pods
+    (pending_pod(n_pods + j)) drained outside the clock.  `existing`
+    running pods are added first; `nominations` [(pod, node name)] are
+    registered on the queue (queue.update_nominated_pod) after the warmup
+    and before the clock: preemptors that wait for their victims and are
+    not in the active queue.
+
+    Returns bench.py's keys (pods_per_s, seconds, placed, unschedulable,
+    commit_seconds, phases, phase_sum_seconds, overlap_efficiency,
+    setup_seconds; unrounded) and: "hosts" i32[n_pods + batch] bound node
+    row per pod index (-1 unbound), "bind_order" i32[] pod indices in
+    binder call order (warmup included), "node_names" row -> name,
+    "cycles" committed in the timed window, "commit_state_seconds" and
+    "tail_seconds" (the two halves of commit), "scatter_rows" dirty rows
+    scattered per update in the timed window, "transfers" the timed
+    window's bytes and calls per seam, "snapshot_bytes" one full snapshot
+    upload's bytes, "requested" the final requested columns,
+    "unschedulable_pods" the names of every unschedulable verdict, and
+    "scheduler" the Scheduler."""
+    from kubernetes_tpu_torch.codec.transfer import transfer_delta, transfer_totals
+    from kubernetes_tpu_torch.runtime.cache import SchedulerCache
+    from kubernetes_tpu_torch.runtime.queue import PriorityQueue
+    from kubernetes_tpu_torch.runtime.scheduler import Scheduler
+
+    t_setup = time.monotonic()
+    enc = build_encoder(nodes, existing)
+    cache = SchedulerCache(enc)
+    queue = PriorityQueue()
+    hosts = np.full(n_pods + batch, -1, np.int32)
+    order: List[int] = []
+
+    def binder(pod, node_name):
+        i = int(pod.name.rsplit("-", 1)[1])
+        hosts[i] = enc.node_rows[node_name]
+        order.append(i)
+        return True
+
+    sched = Scheduler(cache=cache, queue=queue, binder=binder,
+                      config=live_config(batch, engine, batched, pipeline),
+                      device=device)
+
+    def _drain(budget: float) -> int:
+        """run_once until nothing schedulable remains: active/backoff
+        work, an in-flight pipelined batch, or the budget.  Pods parked
+        unschedulable do not keep the loop alive."""
+        placed = 0
+        deadline = time.monotonic() + budget
+        while time.monotonic() < deadline:
+            got = sched.run_once(timeout=0.0)
+            placed += got
+            if got == 0 and not sched.pipeline_pending:
+                if not queue.has_schedulable():
+                    break
+                time.sleep(0.002)  # backoff expiries: don't hot-spin
+        return placed + sched.flush_pipeline()
+
+    for j in range(batch):
+        queue.add(pending_pod(n_pods + j, workload))
+    _drain(600)
+    for pod, node_name in nominations or ():
+        queue.update_nominated_pod(pod, node_name)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    setup_s = time.monotonic() - t_setup
+    for k in sched.phase_seconds:
+        sched.phase_seconds[k] = 0.0
+    sched.commit_state_seconds = 0.0
+    cycles0 = sched.cycles_total
+    scatter0 = len(sched._dev_snapshot.scatter_rows)
+    xfer0 = transfer_totals()
+    # pod objects are built outside the clock; the queue adds are inside
+    pending = [pending_pod(i, workload) for i in range(n_pods)]
+    t0 = time.monotonic()
+    for p in pending:
+        queue.add(p)
+    t_enqueue = time.monotonic() - t0
+    placed = _drain(budget_s)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.monotonic() - t0
+    ph = dict(sched.phase_seconds)
+    # "fetch" is the async D2H window measured on the fetch worker, so it
+    # overlaps the host phases; host_stall and fetch_block (aliases) are a
+    # SUBSET of it and are left out of the sum
+    phase_sum = (sum(ph.values()) - ph["fetch_block"] - ph["host_stall"]
+                 + t_enqueue)
+    snap = enc.snapshot()
+    return {
+        "pods_per_s": placed / dt if dt > 0 else 0.0,
+        "seconds": dt,
+        "placed": placed,
+        "unschedulable": n_pods - placed,
+        "batched_commit": batched,
+        "pipeline_commit": pipeline,
+        "commit_seconds": ph["commit"],
+        "phases": {"enqueue": t_enqueue, **ph},
+        "phase_sum_seconds": phase_sum,
+        "overlap_efficiency": phase_sum / dt if dt > 0 else 0.0,
+        "setup_seconds": setup_s,
+        "hosts": hosts,
+        "bind_order": np.asarray(order, np.int32),
+        "node_names": {row: name for name, row in enc.node_rows.items()},
+        "cycles": sched.cycles_total - cycles0,
+        "commit_state_seconds": sched.commit_state_seconds,
+        "tail_seconds": ph["commit"] - sched.commit_state_seconds,
+        "scatter_rows": sched._dev_snapshot.scatter_rows[scatter0:],
+        "transfers": transfer_delta(xfer0),
+        "snapshot_bytes": sum(
+            np.asarray(getattr(snap, f.name)).nbytes
+            for f in dataclasses.fields(snap)),
+        "requested": np.asarray(snap.requested),
+        "unschedulable_pods": sorted(
+            r.pod.name for r in sched.results if r.node is None),
+        "scheduler": sched,
     }

@@ -20,8 +20,12 @@ Dynamic state across steps (everything else is precomputed once per batch):
   extra_aff/anti/forb/pref        — in-batch inter-pod affinity pair state
                                     (predicateMetadata.AddPod analogue) when
                                     aff_state is given
-Nominated pods, attribution and quality top-k are later slices of the port:
-the entry point raises NotImplementedError for them.
+Nominated pods (preemptors awaiting their victims) join each step's
+resource fit on their nominated node (podFitsOnNode's pass one) when
+`nominated` is given; their port and anti-affinity claims arrive as the
+host mask of encode_nominated_block, folded into extra_mask by the caller.
+Attribution and quality top-k are later slices of the port: the entry point
+raises NotImplementedError for them.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.api import labels as klabels
+from kubernetes_tpu_torch.api.nodeaffinity import _term_matches_pod
 from kubernetes_tpu_torch.codec import transfer
 from kubernetes_tpu_torch.codec.schema import (
     ClusterTensors,
@@ -82,6 +87,23 @@ class BatchPortState:
     conflict: Any       # bool[PV, PV] do two batch ports conflict
 
 
+@dataclass
+class NominatedState:
+    """Nominated pods (preemptors awaiting their victims' graceful exit).
+
+    The two-pass fit evaluation (ref generic_scheduler.go:598-664
+    podFitsOnNode) adds nominated pods with priority >= the scheduled pod's
+    to their nominated node before filtering, so a preempted-for claim is
+    visible to later cycles; the pod must ALSO fit without them (pass two).
+    Resource claims live here (they interact with the engines' running
+    state); port claims and anti-affinity contributions are host-computed
+    per cycle into the extra_mask (encode_nominated_block)."""
+
+    node: Any   # i32[K] nominated node row (-1 = unused slot)
+    prio: Any   # i32[K]
+    req: Any    # f32[K, R]
+
+
 def encode_batch_ports(encoder, pods: Sequence) -> BatchPortState:
     """Host-side precompute of the batch port vocabulary (numpy).
 
@@ -107,6 +129,117 @@ def encode_batch_ports(encoder, pods: Sequence) -> BatchPortState:
     # NB: conflicts vs EXISTING node occupancy are the static
     # PodFitsHostPorts predicate's job; only in-batch claims live here
     return BatchPortState(pod_ports=pod_ports, conflict=conflict)
+
+
+def encode_nominated(encoder, nominated_pairs, k_min: int = 8):
+    """Host helper: (pod, node_name) pairs -> NominatedState (power-of-two
+    padded), or None when empty."""
+    pairs = [
+        (p, encoder.node_rows.get(n, -1)) for p, n in nominated_pairs
+    ]
+    pairs = [(p, r) for p, r in pairs if r >= 0]
+    if not pairs:
+        return None
+    K = _pow2(len(pairs), k_min)
+    node = np.full(K, -1, np.int32)
+    prio = np.zeros(K, np.int32)
+    req = np.zeros((K, encoder.dims.R), np.float32)
+    for i, (p, r) in enumerate(pairs):
+        node[i] = r
+        prio[i] = p.spec.priority
+        v = encoder._req_vector(p.resource_request())
+        req[i, : v.shape[0]] = v
+    return NominatedState(node=node, prio=prio, req=req)
+
+
+def encode_nominated_block(encoder, nominated_pairs, pods: Sequence,
+                           n_pods: int, n_nodes: int):
+    """Host precompute of the pass-one effects nominated pods have BEYOND
+    resources: host-port claims and required anti-affinity (both
+    directions).
+
+    Returns bool[n_pods, n_nodes] with True = infeasible in pass one, or
+    None when no nominated pod contributes.  Folded into the engines'
+    extra_mask, so both engines see it without new device plumbing.
+
+    Required AFFINITY that only a nominated pod satisfies needs no
+    tensor: podFitsOnNode's second pass (WITHOUT nominated pods,
+    generic_scheduler.go:598-664) must also succeed, so a nominated pod
+    can never flip an affinity-infeasible node feasible.  What CAN flip
+    feasible->infeasible — port conflicts and anti-affinity — is exactly
+    what this mask carries."""
+    pairs = [
+        (p, encoder.node_rows.get(n, -1)) for p, n in nominated_pairs
+    ]
+    pairs = [(p, r) for p, r in pairs if 0 <= r < n_nodes]
+    if not pairs:
+        return None
+
+    def anti_terms(pod):
+        aff = pod.spec.affinity
+        if aff is None or aff.pod_anti_affinity is None:
+            return ()
+        return aff.pod_anti_affinity.required
+
+    # rows sharing a topology (key, value) — the domain an anti term blocks
+    def rows_in_domain(key: str, value):
+        if value is None:
+            return []
+        return [
+            row for row, node in encoder._row_node.items()
+            if row < n_nodes and node.labels.get(key) == value
+        ]
+
+    block = np.zeros((n_pods, n_nodes), bool)
+    any_block = False
+    domain_cache: dict = {}
+
+    def domain_rows(key: str, value):
+        # hoisted per (key, value): the blocked rows depend only on the
+        # nominated pod's node + term key, not on the batch pod
+        if value is None:
+            return []
+        ck = (key, value)
+        if ck not in domain_cache:
+            domain_cache[ck] = rows_in_domain(key, value)
+        return domain_cache[ck]
+
+    for k_pod, r in pairs:
+        k_node = encoder._row_node.get(r)
+        if k_node is None:
+            continue
+        k_prio = k_pod.spec.priority
+        k_ports = list(encoder._pod_ports(k_pod))
+        k_anti = anti_terms(k_pod)
+        for b, pod in enumerate(pods):
+            if b >= n_pods:
+                break
+            if k_prio < pod.spec.priority:
+                continue  # only >=-priority nominated pods join pass one
+            # host-port claim on the nominated node (host_ports.go
+            # CheckConflict: same port and same-or-wildcard IP)
+            for pp1, ip1 in encoder._pod_ports(pod):
+                if any(pp1 == pp2 and (ip1 == ip2 or ip1 == 0 or ip2 == 0)
+                       for pp2, ip2 in k_ports):
+                    block[b, r] = True
+                    any_block = True
+                    break
+            # nominated pod's anti terms reject this pod across the domain
+            for t in k_anti:
+                if _term_matches_pod(t, k_pod, pod):
+                    for row in domain_rows(
+                            t.topology_key, k_node.labels.get(t.topology_key)):
+                        block[b, row] = True
+                        any_block = True
+            # this pod's anti terms reject nodes whose domain now holds
+            # a matching nominated pod
+            for t in anti_terms(pod):
+                if _term_matches_pod(t, pod, k_pod):
+                    for row in domain_rows(
+                            t.topology_key, k_node.labels.get(t.topology_key)):
+                        block[b, row] = True
+                        any_block = True
+    return block if any_block else None
 
 
 @dataclass
@@ -286,12 +419,9 @@ def check_exact_matmul(device) -> None:
             "exact f32 count products")
 
 
-def reject_later_slices(nominated=None, attribution=False,
-                        quality_topk=0) -> None:
+def reject_later_slices(attribution=False, quality_topk=0) -> None:
     """The engine features this slice of the port does not carry yet: raise
     instead of ignoring them."""
-    if nominated is not None:
-        raise NotImplementedError("nominated pods are not ported yet")
     if attribution:
         raise NotImplementedError("attribution is not ported yet")
     if quality_topk:
@@ -428,8 +558,9 @@ def make_sequential_scheduler(
     hard_w = float(cfg.hard_pod_affinity_weight)
     f32 = torch.float32
 
-    def schedule(cluster, pods, ports, last_index0: int, extra_mask=None,
-                 extra_score=None, aff: Optional[BatchAffinityState] = None):
+    def schedule(cluster, pods, ports, last_index0: int, nom=None,
+                 extra_mask=None, extra_score=None,
+                 aff: Optional[BatchAffinityState] = None):
         B, N = pods.n_pods, cluster.n_nodes
         dev = cluster.valid.device
         static_mask, static_score = static_pass(
@@ -456,6 +587,9 @@ def make_sequential_scheduler(
         port_used = torch.zeros((N, ports.pod_ports.shape[1]),
                                 dtype=torch.bool, device=dev)
         hosts = torch.full((B,), -1, dtype=torch.int64, device=dev)
+        if nom is not None:
+            onehot_nom = (nom.node[:, None] == node_ids[None, :]).to(f32)
+            nom_live = nom.node >= 0                                # [K]
         if aff is not None:
             topo_t = cluster.topo_pairs.to(f32).T                 # [TP, N]
             TP = topo_t.shape[0]
@@ -480,6 +614,23 @@ def make_sequential_scheduler(
                 & (requested + req[None, :] > cluster.allocatable),
                 dim=-1,
             )
+            if nom is not None:
+                # two-pass nominated evaluation (podFitsOnNode,
+                # generic_scheduler.go:598-664): pass one adds nominated
+                # pods with priority >= this pod's to their nominated node;
+                # the no-nominated pass is `fit` itself (resource fit is
+                # monotone, so pass one implies pass two here).  The claim
+                # sums whole request columns: exact in f32
+                w_nom = ((nom.prio >= pods.priority[b]) & nom_live).to(f32)
+                extra_nom = torch.einsum("k,kn,kr->nr", w_nom, onehot_nom,
+                                         nom.req)                   # [N, R]
+                fit_nom = ~torch.any(
+                    (req[None, :] > 0)
+                    & (requested + extra_nom + req[None, :]
+                       > cluster.allocatable),
+                    dim=-1,
+                )
+                fit = fit & fit_nom
             # in-batch port conflicts: used claims x conflict matrix
             claimed_conflict = (port_used.to(torch.float32) @ conflict_f) > 0
             port_bad = torch.any(pport[None, :] & claimed_conflict, dim=-1)
@@ -580,15 +731,16 @@ def make_sequential_scheduler(
     def schedule_entry(cluster, pods, ports, last_index0, nominated=None,
                        extra_mask=None, extra_score=None, aff_state=None):
         """Host entry: move the inputs to the device (a lean affinity state
-        is densified there), then run the steps."""
-        reject_later_slices(nominated=nominated)
+        is densified there), then run the steps.  nominated: a
+        NominatedState (the port's or the JAX package's) or None."""
         check_exact_matmul(device)
         cluster = transfer.upload_cluster(cluster, device)
         pods, ports, extra_mask, extra_score = transfer.upload_batch(
             pods, ports, device, extra_mask, extra_score)
+        nom = transfer.upload_nominated(nominated, device)
         aff = transfer.upload_affinity(aff_state, device)
-        return schedule(cluster, pods, ports, int(last_index0), extra_mask,
-                        extra_score, aff)
+        return schedule(cluster, pods, ports, int(last_index0), nom,
+                        extra_mask, extra_score, aff)
 
     schedule_entry.engine_kind = "sequential"
     return schedule_entry

@@ -37,8 +37,16 @@ placements.  Two orderings keep it faithful to the sequential semantics:
 Within a round, a pod is bounced when an earlier proposer shares a
 topology domain with it under either pod's anti-affinity terms.
 
-Nominated pods and quality top-k are later slices of the port: the entry
-point raises NotImplementedError for them.  Reference semantics:
+Nominated pods (`nominated`): at commit, the resource claims of nominated
+pods with priority >= the proposer's on its proposed node join the fit
+check (podFitsOnNode's pass one, one exact [B, K] @ [K, R] product a round);
+a proposer bounced by a claim is a real bounce, so the hybrid check redoes
+the batch through the sequential engine, which applies the claims in every
+step's fit.  Their port and anti-affinity claims come in through
+extra_mask (models/batched.py encode_nominated_block).
+
+Quality top-k is a later slice of the port: the entry point raises
+NotImplementedError for it.  Reference semantics:
 core/generic_scheduler.go Schedule (:184-254) / selectHost (:284-296).
 """
 
@@ -138,10 +146,11 @@ def make_speculative_scheduler(
         }
 
     def _round(cluster: ClusterTensors, pods: PodBatch, pod_ports, conflict,
-               escore, tril, aff, ax, c):
+               escore, nom, tril, aff, ax, c):
         """One propose-and-commit round; c is the carry dict (tensors plus
-        the host-side rotation counter "li"); aff the dense
-        BatchAffinityState or None, ax its _affinity_context."""
+        the host-side rotation counter "li"); nom the NominatedState on the
+        device or None; aff the dense BatchAffinityState or None, ax its
+        _affinity_context."""
         B = pods.valid.shape[0]
         N = cluster.allocatable.shape[0]
         dev = cluster.valid.device
@@ -234,7 +243,21 @@ def make_speculative_scheduler(
         cum_req = torch.matmul(prior, reqf)                  # [B, R]
         node_req = c["req"][hosts_l]                         # [B, R]
         alloc_h = cluster.allocatable[hosts_l]
-        over = (reqf > 0) & (node_req + cum_req + reqf > alloc_h)
+        if nom is not None:
+            # podFitsOnNode pass one: nominated pods with priority >= this
+            # pod's claim resources on their nominated node (resource fit
+            # is monotone, so pass one implies the no-nominated pass two)
+            nw = (
+                (nom.prio[None, :] >= pods.priority[:, None])
+                & (nom.node[None, :] >= 0)
+                & (nom.node[None, :] == hosts[:, None])
+            ).to(torch.float32)                              # [B, K]
+            nom_extra = torch.matmul(nw, nom.req)            # [B, R]
+            held = node_req + cum_req + nom_extra
+        else:
+            nom_extra = None
+            held = node_req + cum_req
+        over = (reqf > 0) & (held + reqf > alloc_h)
         fits = ~torch.any(over, dim=1)
         # ports: conflict with claims already on the node OR with an
         # earlier same-node proposer's wanted ports
@@ -281,7 +304,10 @@ def make_speculative_scheduler(
         # holds against the accepted-only prior state
         prior_acc = prior * accept[None, :].to(torch.float32)
         cum_acc = torch.matmul(prior_acc, reqf)
-        over_acc = (reqf > 0) & (node_req + cum_acc + reqf > alloc_h)
+        held_acc = node_req + cum_acc
+        if nom_extra is not None:
+            held_acc = held_acc + nom_extra
+        over_acc = (reqf > 0) & (held_acc + reqf > alloc_h)
         fits_acc = ~torch.any(over_acc, dim=1)
         prior_ports_acc = torch.matmul(prior_acc, pports_f) > 0
         blocked_acc = torch.matmul(
@@ -402,11 +428,11 @@ def make_speculative_scheduler(
 
     def schedule(cluster, pods, ports, last_index0, nominated=None,
                  extra_mask=None, extra_score=None, aff_state=None):
-        reject_later_slices(nominated=nominated)
         check_exact_matmul(device)
         cluster = transfer.upload_cluster(cluster, device)
         pods, ports, emask, escore = transfer.upload_batch(
             pods, ports, device, extra_mask, extra_score)
+        nom = transfer.upload_nominated(nominated, device)
         # densified on the device once a batch, not once a round
         aff = transfer.upload_affinity(aff_state, device)
         B, N = pods.n_pods, cluster.n_nodes
@@ -422,7 +448,7 @@ def make_speculative_scheduler(
         rounds = 0
         while bool(c["active"].any()):       # one host sync per round
             c = _round(cluster, pods, ports.pod_ports, ports.conflict,
-                       escore, tril, aff, ax, c)
+                       escore, nom, tril, aff, ax, c)
             rounds += 1
         schedule.last_rounds = rounds
         schedule.last_redo = False
@@ -435,8 +461,8 @@ def make_speculative_scheduler(
             # touched the caller's cluster)
             schedule.last_redo = True
             return exact_scan(cluster, pods, ports, last_index0,
-                              extra_mask=emask, extra_score=escore,
-                              aff_state=aff)
+                              nominated=nom, extra_mask=emask,
+                              extra_score=escore, aff_state=aff)
         new_cluster = dataclasses.replace(cluster, requested=c["req"],
                                           nonzero_req=c["nz"])
         return c["hosts"], new_cluster

@@ -1,0 +1,15 @@
+"""Host-side control loop: queue, cache, and the scheduling service (the
+port's counterpart of kubernetes_tpu/runtime).
+
+The control plane stays on the host (Python); the Filter/Score math runs on
+the device through models/.  queue.py, cache.py, events.py,
+flightrecorder.py, defaults.py, invariants.py and health.py's breaker are
+copies of the JAX package's modules with the imports rewritten;
+scheduler.py is the live cycle's port.
+"""
+
+from kubernetes_tpu_torch.runtime.queue import PriorityQueue, PodBackoff
+from kubernetes_tpu_torch.runtime.cache import SchedulerCache
+from kubernetes_tpu_torch.runtime.flightrecorder import RECORDER, FlightRecorder
+from kubernetes_tpu_torch.runtime.health import DeviceHealth
+from kubernetes_tpu_torch.runtime.scheduler import Scheduler, SchedulerConfig

@@ -1,0 +1,1183 @@
+"""The scheduling service: the scheduleOne loop, batched (PyTorch port).
+
+The port of the JAX package's runtime/scheduler.py live cycle, with the
+branches of later slices removed.  Mirrors Scheduler.Run / scheduleOne (ref
+pkg/scheduler/scheduler.go:250-593) with one structural change: each cycle
+drains a batch from the queue and places it with a device engine
+(models/speculative.py, or models/batched.py's sequential engine) —
+semantically the same as running scheduleOne B times against a
+continuously-updated cache.
+
+Per cycle:
+  1. queue.pop_batch                          (NextPod, scheduler.go:438-447)
+  2. encode the batch, its ports, in-batch affinity and the nominated pods
+     under the cache lock; cache.snapshot + the encoder's dirty rows
+  3. DeviceSnapshotCache.update scatters the dirty rows into the resident
+     device snapshot; the engine runs; AsyncFetch starts the winners' D2H
+  4. the fence (AsyncFetch.result), then the state commit: one batched
+     assume of every winner (cache + encoder delta)
+  5. the tail: per pod bind via the binder callback, requeue of losers,
+     events and metrics — under pipeline_commit it runs after the NEXT
+     batch's dispatch
+
+Device faults are classified (codec/faults.py): transient ones retry the
+same batch with backoff, a persistent one or a failure streak trips the
+breaker (runtime/health.py); when the device is given up on, the batch's
+popped pods are requeued and the error propagates.  This slice carries no
+CPU degradation engine and refuses every setting of a later slice
+(`refused_settings`): nothing degrades quietly.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from kubernetes_tpu_torch.api.types import Pod, PodDisruptionBudget
+from kubernetes_tpu_torch.codec import faults as device_faults
+from kubernetes_tpu_torch.codec.faults import (
+    FAULT_PERSISTENT,
+    CorruptedFetchError,
+    classify_device_error,
+)
+from kubernetes_tpu_torch.codec.schema import FilterConfig
+from kubernetes_tpu_torch.codec.transfer import (
+    AsyncFetch,
+    DeviceSnapshotCache,
+    transfer_delta,
+    transfer_totals,
+)
+from kubernetes_tpu_torch.models.batched import (
+    batch_has_pod_affinity,
+    encode_batch_affinity,
+    encode_batch_ports,
+    encode_nominated,
+    encode_nominated_block,
+    make_sequential_scheduler,
+)
+from kubernetes_tpu_torch.models.speculative import make_speculative_scheduler
+from kubernetes_tpu_torch.runtime.cache import SchedulerCache
+from kubernetes_tpu_torch.runtime.events import (
+    EVENT_TYPE_NORMAL,
+    EVENT_TYPE_WARNING,
+    EventRecorder,
+)
+from kubernetes_tpu_torch.runtime.flightrecorder import RECORDER, FlightRecorder
+from kubernetes_tpu_torch.runtime.health import DeviceHealth
+from kubernetes_tpu_torch.runtime.invariants import InvariantChecker
+from kubernetes_tpu_torch.runtime.queue import TIER_BULK, PriorityQueue
+from kubernetes_tpu_torch.utils import klog
+from kubernetes_tpu_torch.utils import metrics as m
+from kubernetes_tpu_torch.utils.trace import (
+    Span,
+    current_trace_id,
+    use_traceparent,
+)
+
+TAINT_NODE_UNSCHEDULABLE = "node.kubernetes.io/unschedulable"
+ENGINES = ("speculative", "sequential")
+
+
+@dataclass
+class SchedulerConfig:
+    """The JAX package's SchedulerConfig, field for field and with its
+    defaults, so both classes read the same.  The port's Scheduler refuses
+    every setting that belongs to a later slice (see refused_settings): in
+    particular the defaults of disable_preemption, cpu_fallback, telemetry,
+    quality_top_k and timeline are refused, so callers pass the slice's
+    settings explicitly."""
+
+    batch_size: int = 256
+    batch_window_s: float = 0.001
+    # "speculative" (default) = parallel placement + conflict repair with
+    # the hybrid exactness fallback into the sequential engine;
+    # "sequential" = always the exact one-pod-at-a-time engine
+    engine: str = "speculative"
+    percentage_of_nodes_to_score: int = 100
+    disable_preemption: bool = False
+    # batched commit: apply a cycle's winners as ONE cache/encoder delta
+    # under a single lock acquisition, with batched event/metric emission,
+    # instead of the per-pod assume->bind loop (state-equivalent)
+    batched_commit: bool = True
+    # pipelined commit: overlap batch k's host bind/event/requeue tail with
+    # batch k+1's device dispatch; the STATE half of the commit (assume +
+    # encoder delta) still lands before batch k+1 encodes
+    pipeline_commit: bool = False
+    # --- device-fault resilience (runtime/health.DeviceHealth) ---
+    device_retry_max: int = 2
+    device_backoff_base_s: float = 0.005
+    device_backoff_max_s: float = 0.05
+    device_backoff_jitter: float = 0.5
+    breaker_failure_threshold: int = 3
+    breaker_open_s: float = 0.05
+    cpu_fallback: bool = True
+    # --- overload protection & backpressure ---
+    queue_capacity: Optional[int] = None
+    adaptive_batch: bool = False
+    batch_size_min: int = 16
+    cycle_deadline_s: float = 0.0
+    # --- tracing (utils/trace.py spans + runtime/flightrecorder.py) ---
+    trace_threshold_s: float = 0.1
+    # --- latency tiers and raw-speed knobs ---
+    express_lane: bool = False
+    express_batch_size: int = 64
+    express_priority_threshold: Optional[int] = None
+    compile_cache_dir: Optional[str] = None
+    prewarm_widths: bool = False
+    # --- decision ledger + attribution ---
+    attribution: bool = False
+    decision_ledger: bool = False
+    ledger_dir: Optional[str] = None
+    ledger_max_cycles: int = 4096
+    # --- cluster + device telemetry ---
+    telemetry: bool = True
+    telemetry_interval_cycles: int = 1
+    slo_objectives: Optional[list] = None
+    heartbeat_s: float = 0.0
+    # --- multi-chip sharding and the elastic ladder ---
+    shard_devices: int = 0
+    mesh_shape: Optional[str] = None
+    mesh_shrink: bool = True
+    shard_breaker_failure_threshold: int = 2
+    # online invariant checker (runtime/invariants.py): conservation of
+    # popped pods, no double-bind, committed usage <= allocatable
+    invariant_checks: bool = True
+    # --- performance observatory ---
+    profile_dir: Optional[str] = None
+    # --- device-resident megacycle ---
+    megacycle_batches: int = 1
+    # --- placement-quality observatory ---
+    quality_top_k: int = 3
+    quality_interval_cycles: int = 32
+    quality_drift_threshold: float = 0.25
+    # --- capacity planner ---
+    capacity_planner: bool = False
+    capacity_interval_cycles: int = 256
+    node_shape_catalog: Optional[list] = None
+    # --- metrics timeline store ---
+    timeline: bool = True
+    timeline_interval_s: float = 1.0
+    timeline_retention: int = 512
+    timeline_rules: Optional[list] = None
+    # --- queue-sharded scheduler replicas ---
+    replicas: int = 1
+    namespace_quotas: Optional[dict] = None
+    # multi-scheduler: only pods whose spec.schedulerName names THIS
+    # scheduler enter its queue (eventhandlers.go responsibleForPod)
+    scheduler_name: str = "default-scheduler"
+    weights: Optional[Sequence[float]] = None
+    filter_config: FilterConfig = field(default_factory=FilterConfig)
+    profile: Optional[object] = None  # a SchedulingProfile; overrides
+    #                                   filter_config/weights when set
+
+
+def refused_settings(config: SchedulerConfig) -> List[Tuple[str, str]]:
+    """[(setting, ROADMAP item that lifts it)] for every setting of
+    `config` that belongs to a later slice of the port."""
+    c = config
+    checks = (
+        (not c.disable_preemption, "disable_preemption=False",
+         "A6 (preemption)"),
+        (c.cpu_fallback, "cpu_fallback=True",
+         "A5 (the CPU degradation engine)"),
+        (c.telemetry, "telemetry=True", "A9 (observatories and ledger)"),
+        (c.quality_top_k > 0, f"quality_top_k={c.quality_top_k}",
+         "A9 (observatories and ledger)"),
+        (c.timeline, "timeline=True", "A9 (observatories and ledger)"),
+        (c.heartbeat_s > 0, f"heartbeat_s={c.heartbeat_s}",
+         "A9 (observatories and ledger)"),
+        (c.profile_dir is not None, "profile_dir",
+         "A9 (observatories and ledger)"),
+        (c.attribution, "attribution=True", "A9 (observatories and ledger)"),
+        (c.decision_ledger, "decision_ledger=True",
+         "A9 (observatories and ledger)"),
+        (c.capacity_planner, "capacity_planner=True",
+         "A10 (capacity and replicas)"),
+        (c.megacycle_batches > 1, f"megacycle_batches={c.megacycle_batches}",
+         "A7 (megacycle)"),
+        (c.replicas > 1, f"replicas={c.replicas}",
+         "A10 (capacity and replicas)"),
+        (bool(c.shard_devices), f"shard_devices={c.shard_devices}",
+         "A11 (multi-device)"),
+        (c.mesh_shape is not None, "mesh_shape", "A11 (multi-device)"),
+        (c.express_lane, "express_lane=True",
+         "A12 (latency tiers and raw-speed knobs)"),
+        (c.adaptive_batch, "adaptive_batch=True",
+         "A12 (latency tiers and raw-speed knobs)"),
+        (c.prewarm_widths, "prewarm_widths=True",
+         "A12 (latency tiers and raw-speed knobs)"),
+        (c.compile_cache_dir is not None, "compile_cache_dir",
+         "A12 (latency tiers and raw-speed knobs)"),
+        (c.engine not in ENGINES, f"engine={c.engine!r}", "(no engine)"),
+        (c.profile is not None and bool(
+            getattr(c.profile, "extender_configs", None)),
+         "profile.extender_configs", "A8 (gang and extender)"),
+    )
+    return [(what, item) for cond, what, item in checks if cond]
+
+
+@dataclass
+class ScheduleResult:
+    pod: Pod
+    node: Optional[str]          # None = unschedulable
+    generation: int = 0
+
+
+@dataclass
+class _InFlight:
+    """One dispatched-but-unfetched cycle: the double-buffer slot of the
+    pipelined commit path.  `fetch` is the AsyncFetch whose D2H copy
+    started the moment the winners were dispatched."""
+
+    pods: List[Pod]
+    hosts_dev: object            # device i32[B] winners
+    fetch: object                # AsyncFetch
+    generation: int
+    cycle: int
+    t_cycle0: float
+    trace: Span                  # the cycle's ROOT span
+    # re-dispatch the SAME encoded batch (transient-retry path)
+    relaunch: Optional[Callable[[], Tuple[object, AsyncFetch]]] = None
+    last_index0: int = 0         # selectHost rotation base for this batch
+    tier: str = TIER_BULK
+    width: int = 0               # the encoded (padded) batch width
+    # scheduling-thread seconds from encode start to the dispatch returning
+    enqueue_s: float = 0.0
+    # transfer_totals() at encode time: the fence diffs against it
+    xfer0: Optional[dict] = None
+
+
+@dataclass
+class _Staged:
+    """A fetched cycle whose cache-STATE half (batched assume) has been
+    applied; the side-effect tail (binds/events/metrics) is still pending
+    and may overlap the next batch's device dispatch."""
+
+    inf: _InFlight
+    hosts: np.ndarray
+    algo_dt: float
+    batched: bool
+    t_state0: float = 0.0
+    state_seconds: float = 0.0
+    # (batch index, pod, assumed copy, node name) per device winner
+    winners: List[Tuple] = field(default_factory=list)
+    fit_idx: List[int] = field(default_factory=list)
+    # residual host wait at the ready fence
+    stall_s: float = 0.0
+    # THIS cycle's wire traffic, taken at the commit fence
+    xfer_delta: Optional[dict] = None
+
+
+class Scheduler:
+    """Binder: callable (pod, node_name) -> bool (the POST .../binding
+    analog, scheduler.go:411-435).  A False/raising binder triggers
+    ForgetPod + requeue.
+
+    device: where the engines run ("cuda" unless the caller passes "cpu");
+    a CUDA device on a machine without one raises."""
+
+    UNSCHED_REASON_ANNOTATION = "kubernetes-tpu.io/unschedulable-reason"
+    POD_GROUP_LABEL = "pod-group.scheduling.sigs.k8s.io/name"
+    _BIND_REJECT_MSG = "Binding rejected for %s/%s on %s"
+
+    def __init__(
+        self,
+        cache: Optional[SchedulerCache] = None,
+        queue: Optional[PriorityQueue] = None,
+        binder: Optional[Callable[[Pod, str], bool]] = None,
+        config: Optional[SchedulerConfig] = None,
+        victim_deleter: Optional[Callable[[Pod], None]] = None,
+        pdb_lister: Optional[Callable[[], List[PodDisruptionBudget]]] = None,
+        framework=None,
+        recorder: Optional[EventRecorder] = None,
+        extenders: Optional[Sequence] = None,
+        flight_recorder: Optional[FlightRecorder] = None,
+        ledger=None,
+        replica_id: int = 0,
+        replica_of: int = 1,
+        reconciler=None,
+        snapshot_hub=None,
+        share_engines_with=None,
+        device="cuda",
+    ):
+        self.config = config if config is not None else SchedulerConfig()
+        refused = refused_settings(self.config)
+        if framework is not None:
+            refused.append(("framework", "A8 (gang and extender)"))
+        if any(e.config.filter_verb or e.config.prioritize_verb
+               for e in (extenders or ())):
+            refused.append(("an extender with a filter or prioritize verb",
+                            "A8 (gang and extender)"))
+        if ledger is not None:
+            refused.append(("ledger", "A9 (observatories and ledger)"))
+        if (replica_of > 1 or reconciler is not None
+                or snapshot_hub is not None
+                or share_engines_with is not None):
+            refused.append(("scheduler replicas",
+                            "A10 (capacity and replicas)"))
+        if refused:
+            raise NotImplementedError(
+                "not ported yet: " + "; ".join(
+                    f"{what} (ROADMAP {item})" for what, item in refused))
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Scheduler(device='cuda') needs a CUDA device; pass "
+                "device='cpu' to run on the host")
+        # NB: PriorityQueue defines __len__, so `queue or PriorityQueue()`
+        # would silently replace an *empty* caller-owned queue
+        self.cache = cache if cache is not None else SchedulerCache()
+        self.queue = (
+            queue if queue is not None
+            else PriorityQueue(capacity=self.config.queue_capacity)
+        )
+        if getattr(self.queue, "on_shed", "n/a") is None:
+            self.queue.on_shed = self._on_shed
+        # online invariant checker: every requeue path funnels through the
+        # queue's on_requeue observer (a caller-owned observer is chained)
+        self.invariants = None
+        if self.config.invariant_checks:
+            if hasattr(self.queue, "on_requeue"):
+                self.invariants = InvariantChecker(
+                    on_violation=self._on_invariant_violation
+                )
+                prior = self.queue.on_requeue
+                if prior is None:
+                    self.queue.on_requeue = self.invariants.note_requeued
+                else:
+                    note = self.invariants.note_requeued
+
+                    def _chained_requeue(pod, _prior=prior, _note=note):
+                        _prior(pod)
+                        _note(pod)
+
+                    self.queue.on_requeue = _chained_requeue
+            else:
+                klog.infof(
+                    "invariant checker disabled: queue %s has no "
+                    "on_requeue seam to observe",
+                    type(self.queue).__name__,
+                )
+        self.binder = binder if binder is not None else (lambda pod, node: True)
+        enc = self.cache.encoder
+        prof = self.config.profile
+        if prof is not None:
+            self.config.filter_config = prof.filter_config
+            self.config.weights = prof.weights_array()
+        enc.hard_pod_affinity_weight = (
+            self.config.filter_config.hard_pod_affinity_weight)
+        self.config.filter_config = enc.adopt_filter_config(
+            self.config.filter_config
+        )
+        self._unsched_key = enc.interner.intern(TAINT_NODE_UNSCHEDULABLE)
+        engine_kw = dict(
+            cfg=self.config.filter_config,
+            weights=self.config.weights,
+            unsched_taint_key=self._unsched_key,
+            zone_key_id=enc.getzone_key,
+            score_cfg=prof.score_config if prof is not None else None,
+            percentage_of_nodes_to_score=(
+                self.config.percentage_of_nodes_to_score),
+            device=self.device,
+        )
+        self._schedule_fn = make_sequential_scheduler(**engine_kw)
+        self._speculative_fn = (
+            make_speculative_scheduler(**engine_kw)
+            if self.config.engine == "speculative" else None
+        )
+        self._engine_kind = (
+            "sequential" if self._speculative_fn is None else "speculative"
+        )
+        # incremental host->device snapshot upload: unchanged fields keep
+        # their resident tensors between cycles, dirty rows scatter in
+        self._dev_snapshot = DeviceSnapshotCache(self.device)
+        self.framework = None
+        self.extenders = list(extenders or [])
+        self._recorder_defaulted = recorder is None
+        self.recorder = recorder if recorder is not None else EventRecorder()
+        # kept for the JAX class's call contract; preemption (their only
+        # reader) is a later slice
+        self.victim_deleter = victim_deleter or (
+            lambda pod: self.cache.remove_pod(pod))
+        self.pdb_lister = pdb_lister or (lambda: [])
+        self._last_index = 0
+        self._stop = threading.Event()
+        # classified retry/backoff + circuit breaker (runtime/health.py)
+        self.device_health = DeviceHealth(
+            failure_threshold=self.config.breaker_failure_threshold,
+            open_duration_s=self.config.breaker_open_s,
+            backoff_base_s=self.config.device_backoff_base_s,
+            backoff_max_s=self.config.device_backoff_max_s,
+            backoff_jitter=self.config.device_backoff_jitter,
+            on_transition=self._on_breaker_transition,
+        )
+        # double-buffer slot for pipeline_commit
+        self._in_flight: Optional[_InFlight] = None
+        self._cur_span: Optional[Span] = None
+        # per-phase seconds, cumulative, with the JAX class's keys: pop,
+        # encode, dispatch (the engine launch: on the port it holds the
+        # device rounds, one host sync a round), fetch (dispatch ->
+        # copy-complete, measured on the fetch worker), host_stall and its
+        # alias fetch_block (the residual wait at the fence, a SUBSET of
+        # fetch), commit (assume + bind + events + requeues), preempt
+        self.phase_seconds: Dict[str, float] = {
+            "pop": 0.0, "encode": 0.0, "dispatch": 0.0, "fetch": 0.0,
+            "host_stall": 0.0, "fetch_block": 0.0, "commit": 0.0,
+            "preempt": 0.0,
+        }
+        # the state half of "commit" (the batched assume), so a reader can
+        # split it from the bind/event tail
+        self.commit_state_seconds = 0.0
+        self.cycles_total = 0
+        self.flight_recorder = (
+            flight_recorder if flight_recorder is not None else RECORDER
+        )
+        self._outcome_totals = {"placed": 0, "unschedulable": 0}
+        self.results: List[ScheduleResult] = []
+        for ns, q in (self.config.namespace_quotas or {}).items():
+            enc.set_namespace_quota(ns, q)
+
+    # ------------------------------------------------------------- one cycle
+
+    def schedule_cycle(self, pods: Sequence[Pod],
+                       tier: str = TIER_BULK) -> List[ScheduleResult]:
+        """Place a batch of pods against the current cache state; assume+bind
+        winners, requeue losers.  Returns per-pod results.  Strictly
+        synchronous: any in-flight pipelined batch is drained first."""
+        self.flush_pipeline()
+        try:
+            inf = self._encode_and_dispatch(pods, tier=tier)
+        except BaseException:
+            # popped pods must never be lost
+            self.queue.add_unschedulable_batch(
+                list(pods), self.queue.scheduling_cycle
+            )
+            raise
+        if inf is None:
+            return []
+        return self._commit_tail(self._commit_state_or_requeue(inf))
+
+    def _commit_state_or_requeue(self, inf: _InFlight) -> _Staged:
+        """The resilient fence with the batch-loss guard: if the classified
+        retry gives up (or the error is unclassified), the batch's popped
+        pods are requeued ALL before the error propagates."""
+        try:
+            return self._commit_state_resilient(inf)
+        except BaseException as e:
+            self.queue.add_unschedulable_batch(inf.pods, inf.cycle)
+            inf.trace.annotate(error=f"{type(e).__name__}: {e}")
+            inf.trace.finish()
+            self.flight_recorder.record(inf.trace)
+            if classify_device_error(e) is None:
+                self._postmortem(
+                    "unclassified_error", f"{type(e).__name__}: {e}"
+                )
+            raise
+
+    # -------------------------------------------------- tracing/postmortems
+
+    def _phase(self, name: str, dt: float, tier: str = TIER_BULK) -> None:
+        """One accumulation point for per-phase seconds: phase_seconds and
+        the /metrics counter family move together; "host_stall" also feeds
+        its alias "fetch_block"."""
+        self.phase_seconds[name] += dt
+        if name == "host_stall":
+            self.phase_seconds["fetch_block"] += dt
+        m.CYCLE_PHASE_SECONDS.inc(dt, phase=name, tier=tier)
+
+    def _postmortem(self, trigger: str, detail: str = "") -> None:
+        """Dump a flight-recorder postmortem for one anomaly trigger
+        (throttled per trigger inside the recorder)."""
+        self.flight_recorder.postmortem(
+            trigger, detail,
+            state=self._postmortem_state,
+            metrics_text=m.REGISTRY.expose,
+            in_flight=[self._cur_span] if self._cur_span is not None else None,
+        )
+
+    def _postmortem_state(self) -> dict:
+        q = self.queue
+        return {
+            "queue_depth": len(q),
+            "active_depth": (
+                q.active_depth() if hasattr(q, "active_depth") else None
+            ),
+            "queue_capacity": getattr(q, "capacity", None),
+            "shed_total": getattr(q, "shed_total", 0),
+            "breaker": self.device_health.state,
+            "consecutive_failures": self.device_health.consecutive_failures,
+            "fault_counts": dict(self.device_health.fault_counts),
+            "invariants": (
+                self.invariants.summary()
+                if self.invariants is not None else None
+            ),
+            "pipeline_pending": self.pipeline_pending,
+            "scheduling_cycle": self.queue.scheduling_cycle,
+        }
+
+    # ----------------------------------------------- device-fault handling
+
+    def _on_breaker_transition(self, frm: str, to: str) -> None:
+        """Breaker transitions are operator-visible: one Event each."""
+        reason = {
+            "open": "BreakerOpen",
+            "half_open": "BreakerHalfOpen",
+            "closed": "BreakerClosed",
+        }[to]
+        self.recorder.eventf(
+            "Scheduler", "", self.config.scheduler_name,
+            EVENT_TYPE_WARNING if to == "open" else EVENT_TYPE_NORMAL,
+            reason,
+            "device breaker %s -> %s (consecutive failures: %d)",
+            frm, to, self.device_health.consecutive_failures,
+        )
+        if to == "open":
+            self._postmortem("breaker_open", f"{frm} -> {to}")
+
+    def _on_invariant_violation(self, rule: str, detail: str) -> None:
+        self.recorder.eventf(
+            "Scheduler", "", self.config.scheduler_name,
+            EVENT_TYPE_WARNING, "InvariantViolation",
+            "%s: %s", rule, detail,
+        )
+        self._postmortem("invariant_violation", f"{rule}: {detail}")
+
+    def _on_shed(self, pod: Pod, reason: str) -> None:
+        """Bounded-queue shed audit: one Warning event per dropped pod."""
+        if self.invariants is not None:
+            self.invariants.note_shed(pod)
+        self.recorder.eventf(
+            "Pod", pod.namespace, pod.name,
+            EVENT_TYPE_WARNING, "SchedulingQueueFull",
+            "pod shed from the scheduling queue (%s, capacity %s)",
+            reason, self.queue.capacity,
+        )
+        self._postmortem("shed_burst", reason)
+
+    def _note_device_fault(self, fault_class: str, err: BaseException,
+                           phase: str) -> None:
+        klog.errorf(
+            "device fault (%s) at %s: %s", fault_class, phase, err
+        )
+        self.recorder.eventf(
+            "Scheduler", "", self.config.scheduler_name,
+            EVENT_TYPE_WARNING, "DeviceFault",
+            "%s device fault at %s: %s", fault_class, phase, err,
+        )
+
+    def _fault_retry_allowed(self, fc: str, attempt: int,
+                             can_relaunch: bool = True) -> bool:
+        """THE retry policy, shared by the dispatch and fence wrappers:
+        account the classified failure, and decide whether one more
+        same-batch attempt is allowed (sleeping the jittered backoff when
+        it is).  On False the device has been given up on FOR THIS BATCH —
+        the resident snapshot is invalidated (an upload may have
+        half-landed) and the caller raises."""
+        tripped = self.device_health.record_failure(fc)
+        if (
+            not tripped
+            and fc != FAULT_PERSISTENT
+            and can_relaunch
+            and attempt < self.config.device_retry_max
+        ):
+            m.FAULT_RETRIES.inc(**{"class": fc})
+            time.sleep(self.device_health.backoff_s(attempt))
+            return True
+        self._dev_snapshot.invalidate()
+        return False
+
+    def _commit_state_resilient(self, inf: _InFlight) -> _Staged:
+        """_commit_state wrapped in the classified retry/backoff/breaker
+        policy: transient faults re-dispatch the SAME batch up to
+        device_retry_max times with jittered backoff; a persistent fault
+        (or a failure streak reaching the breaker threshold) gives up on
+        the batch and raises (the caller requeues its pods)."""
+        attempt = 0
+        relaunch_pending = False
+        while True:
+            try:
+                if relaunch_pending:
+                    inf.hosts_dev, inf.fetch = inf.relaunch()
+                    relaunch_pending = False
+                staged = self._commit_state(inf)
+            except BaseException as e:
+                fc = classify_device_error(e)
+                if fc is None:
+                    raise
+                self._note_device_fault(
+                    fc, e, "dispatch" if relaunch_pending else "fence"
+                )
+                inf.trace.annotate(fault_class=fc, fault_attempts=attempt + 1)
+                if self._fault_retry_allowed(
+                    fc, attempt, can_relaunch=inf.relaunch is not None
+                ):
+                    attempt += 1
+                    relaunch_pending = True
+                    continue
+                raise
+            # an actual device round-trip succeeded: heal the streak (and
+            # close the breaker if this was the half-open canary)
+            self.device_health.record_success()
+            return staged
+
+    def _encode_and_dispatch(self, pods: Sequence[Pod],
+                             tier: str = TIER_BULK) -> Optional[_InFlight]:
+        """Encode the batch + snapshot under the cache lock and LAUNCH the
+        engine.  Returns once the engine was launched; the winners' D2H
+        copy is in flight."""
+        if not pods:
+            return None
+        t_cycle0 = time.monotonic()
+        xfer0 = transfer_totals()
+        enc = self.cache.encoder
+        cycle = self.queue.scheduling_cycle
+        trace = Span(
+            "schedule_cycle", start=t_cycle0, pods=len(pods), cycle=cycle,
+            tier=tier,
+        )
+        self._cur_span = trace
+        enc_span = trace.child("encode")
+        batch_keys = {(p.namespace, p.name) for p in pods}
+        with self.cache._lock, enc.batch_width(None):
+            # in-batch affinity state when pods carry ANY pod-affinity terms
+            # and can interact (B > 1); built BEFORE encode_pods so novel
+            # term topology keys register before any TP-wide tensor is cut
+            aff_state = (
+                encode_batch_affinity(enc, pods)
+                if len(pods) > 1 and batch_has_pod_affinity(pods)
+                else None
+            )
+            batch = enc.encode_pods(pods)
+            ports = encode_batch_ports(enc, pods)
+            # two-pass evaluation: nominated pods (other than those being
+            # scheduled now) are added to their nominated nodes in pass one
+            nominated_pairs = [
+                (p, n)
+                for p, n in self.queue.nominated_pods()
+                if (p.namespace, p.name) not in batch_keys
+            ]
+            nominated = encode_nominated(enc, nominated_pairs)
+            cluster, generation = self.cache.snapshot()
+            # the rows the incremental snapshot refreshed, taken under the
+            # lock so the row set corresponds exactly to THIS snapshot
+            dirty_rows = enc.take_dirty_rows()
+            # ports + anti-affinity contributions of nominated pods (the
+            # non-resource half of podFitsOnNode's pass one) as a host
+            # mask folded into extra_mask below
+            nom_block = encode_nominated_block(
+                enc, nominated_pairs, pods, batch.n_pods, cluster.n_nodes,
+            )
+        enc_span.finish()
+        extra_mask = None if nom_block is None else ~nom_block
+        t_disp = time.monotonic()
+        self._phase("encode", t_disp - t_cycle0, tier)
+        fn = self._schedule_fn
+        if self._speculative_fn is not None:
+            fn = self._speculative_fn
+        last_index0 = self._last_index
+
+        def launch():
+            """(Re-)dispatch THIS encoded batch.  Captured by
+            _InFlight.relaunch so the transient-retry path re-runs the same
+            computation with the same rotation base; dirty_rows are
+            re-passed safely — fields whose upload already landed
+            identity-skip, and after an invalidate() everything re-uploads
+            whole."""
+            device_faults.check(device_faults.SITE_DISPATCH)
+            dev_cluster = self._dev_snapshot.update(
+                cluster, dirty_rows=dirty_rows
+            )
+            hosts = fn(
+                dev_cluster, batch, ports, last_index0, nominated,
+                extra_mask, None, aff_state,
+            )[0]
+            # only the compact winners buffer (i32[B] node rows) crosses
+            # back; the copy starts now and lands on the fetch worker
+            return hosts, AsyncFetch(hosts)
+
+        disp_span = trace.child("dispatch")
+        hosts_dev, fetch = self._launch_resilient(launch)
+        self._last_index += len(pods)
+        disp_span.finish()
+        trace.annotate(
+            batch=len(pods),
+            dirty_rows=len(dirty_rows) if dirty_rows is not None else -1,
+            breaker=self.device_health.state,
+            engine=self._engine_kind,
+        )
+        t_disp_end = time.monotonic()
+        self._phase("dispatch", t_disp_end - t_disp, tier)
+        return _InFlight(
+            pods=list(pods), hosts_dev=hosts_dev, fetch=fetch,
+            generation=generation, cycle=cycle, t_cycle0=t_cycle0,
+            trace=trace, relaunch=launch, last_index0=last_index0,
+            tier=tier, width=batch.n_pods, enqueue_s=t_disp_end - t_cycle0,
+            xfer0=xfer0,
+        )
+
+    def _launch_resilient(self, launch):
+        """Run a device launch under the classified retry/backoff policy.
+        Returns (hosts_dev, fetch); unclassified errors, and classified
+        ones once the retries are spent, propagate (the schedule_cycle /
+        _run_pipelined guards requeue the batch)."""
+        attempt = 0
+        while True:
+            try:
+                return launch()
+            except BaseException as e:
+                fc = classify_device_error(e)
+                if fc is None:
+                    raise
+                self._note_device_fault(fc, e, "dispatch")
+                if self._fault_retry_allowed(fc, attempt):
+                    attempt += 1
+                    continue
+                raise
+
+    def _validate_hosts(self, hosts, n_pods: int) -> np.ndarray:
+        """Structural validation of a fetched winners buffer: a corrupted
+        D2H transfer surfaces as a CLASSIFIED fault (retried like a
+        transient error) instead of a KeyError deep in row_name or a
+        silently-wrong placement on a never-allocated row."""
+        hosts = np.asarray(hosts)
+        enc = self.cache.encoder
+        structural = (
+            hosts.ndim == 1
+            and hosts.shape[0] >= n_pods
+            and hosts.dtype.kind in ("i", "u")
+        )
+        if structural and n_pods:
+            head = hosts[:n_pods]
+            # winners live in [-1, next_row): -1 = unschedulable
+            structural = (
+                int(head.max(initial=-1)) < max(enc._next_row, 1)
+                and int(head.min(initial=0)) >= -1
+            )
+        if not structural:
+            raise CorruptedFetchError(
+                "fetched winners buffer failed validation: shape=%s "
+                "dtype=%s row_range=%s live_rows<%d"
+                % (
+                    hosts.shape, hosts.dtype,
+                    (int(hosts[:n_pods].min(initial=0)),
+                     int(hosts[:n_pods].max(initial=-1)))
+                    if hosts.ndim == 1 and hosts.shape[0] >= n_pods
+                    else "?",
+                    enc._next_row,
+                )
+            )
+        return hosts
+
+    def _commit_state(self, inf: _InFlight) -> _Staged:
+        """Fetch the placements and apply the cache-STATE half of the
+        commit.  In batched mode the whole batch of winners is assumed as
+        ONE encoder delta under a single lock acquisition; the side-effect
+        tail runs in _commit_tail.  In per-pod mode this only fetches."""
+        pods = inf.pods
+        t_fetch0 = time.monotonic()
+        hosts = inf.fetch.result()  # the ready-fence
+        hosts = self._validate_hosts(hosts, len(pods))
+        t_state0 = time.monotonic()
+        # "fetch" is the async window (dispatch -> copy-complete, measured
+        # on the fetch worker); "host_stall" the residual wait here
+        self._phase("fetch", inf.fetch.seconds, inf.tier)
+        self._phase("host_stall", t_state0 - t_fetch0, inf.tier)
+        inf.trace.add_child(
+            "fetch", t_state0 - inf.fetch.seconds, t_state0, overlapped=True,
+        )
+        inf.trace.add_child("fetch_block", t_fetch0, t_state0)
+        algo_dt = (time.monotonic() - inf.t_cycle0) / len(pods)
+        m.ALGO_LATENCY.observe_n(algo_dt, len(pods))
+        batched = self.config.batched_commit
+        staged = _Staged(
+            inf=inf, hosts=hosts, algo_dt=algo_dt, batched=batched,
+            t_state0=t_state0, stall_s=t_state0 - t_fetch0,
+        )
+        if inf.xfer0 is not None:
+            staged.xfer_delta = transfer_delta(inf.xfer0)
+        if not batched:
+            return staged
+        enc = self.cache.encoder
+        winners = staged.winners
+        for i, pod in enumerate(pods):
+            row = int(hosts[i])
+            if row < 0:
+                staged.fit_idx.append(i)
+                continue
+            node_name = enc.row_name(row)
+            spec = copy.copy(pod.spec)
+            spec.node_name = node_name
+            assumed = copy.copy(pod)
+            assumed.spec = spec
+            winners.append((i, pod, assumed, node_name))
+        # ONE lock acquisition + one encoder delta for the whole batch
+        self.cache.assume_pods([a for _, _, a, _ in winners])
+        if self.invariants is not None and winners:
+            rows = sorted({int(hosts[i]) for i, _, _, _ in winners})
+            with self.cache._lock:
+                self.invariants.check_capacity(
+                    rows, enc.a_requested, enc.a_allocatable,
+                    row_name=enc.row_name,
+                )
+        staged.state_seconds = time.monotonic() - t_state0
+        self.commit_state_seconds += staged.state_seconds
+        inf.trace.add_child(
+            "commit", t_state0, time.monotonic(), winners=len(winners),
+        )
+        return staged
+
+    def _commit_tail(self, staged: _Staged) -> List[ScheduleResult]:
+        """Side-effect tail of a cycle: binds, events, metrics, requeues.
+        Under pipeline_commit this overlaps the next batch's device
+        dispatch (the state half already ran, so the next snapshot is
+        exact)."""
+        inf = staged.inf
+        with use_traceparent(inf.trace):
+            tail_span = inf.trace.child("bind-tail")
+            if staged.batched:
+                results = self._tail_batched(staged)
+            else:
+                results = self._tail_perpod(staged)
+            tail_span.finish()
+        placed = sum(1 for r in results if r.node is not None)
+        inf.trace.annotate(placed=placed, unschedulable=len(results) - placed)
+        if staged.xfer_delta:
+            top = max(staged.xfer_delta.items(), key=lambda kv: kv[1]["bytes"])
+            inf.trace.annotate(
+                transfer_bytes=sum(
+                    v["bytes"] for v in staged.xfer_delta.values()),
+                transfer_top_seam=top[0],
+            )
+        inf.trace.finish()
+        self.flight_recorder.record(inf.trace)
+        self._outcome_totals["placed"] += placed
+        self._outcome_totals["unschedulable"] += len(results) - placed
+        self.cycles_total += 1
+        m.PENDING_PODS.set(float(len(self.queue)))
+        self.results.extend(results)
+        if self.config.trace_threshold_s > 0:
+            inf.trace.log_if_long(self.config.trace_threshold_s)
+        return results
+
+    def _tail_perpod(self, staged: _Staged) -> List[ScheduleResult]:
+        """The classic per-pod commit loop (batched_commit=False):
+        assume/bind one pod at a time, emitting events and metrics
+        inline."""
+        inf = staged.inf
+        pods, hosts = inf.pods, staged.hosts
+        generation, cycle = inf.generation, inf.cycle
+        t_commit0 = time.monotonic()
+        enc = self.cache.encoder
+        n_nodes = len(enc.node_rows)
+        results = []
+        for i, pod in enumerate(pods):
+            row = int(hosts[i])
+            if row < 0:
+                # FitError path: park in unschedulableQ with backoff
+                # (factory.go MakeDefaultErrorFunc)
+                self.queue.add_unschedulable(pod, cycle)
+                results.append(ScheduleResult(pod, None, generation))
+                m.SCHEDULE_ATTEMPTS.inc(result=m.UNSCHEDULABLE)
+                self.recorder.eventf(
+                    "Pod", pod.namespace, pod.name,
+                    EVENT_TYPE_WARNING, "FailedScheduling",
+                    "%s", "0/%d nodes are available" % n_nodes,
+                    trace_id=inf.trace.trace_id,
+                )
+                continue
+            node_name = enc.row_name(row)
+            assumed = dataclasses.replace(
+                pod, spec=dataclasses.replace(pod.spec, node_name=node_name)
+            )
+            t_pod = time.monotonic()
+            outcome = self._reserve_and_bind(pod, assumed, node_name, cycle)
+            if outcome == "failed":
+                results.append(ScheduleResult(pod, None, generation))
+                m.SCHEDULE_ATTEMPTS.inc(result=m.SCHEDULE_ERROR)
+            else:
+                self.queue.delete_nominated_pod_if_exists(pod)
+                results.append(ScheduleResult(pod, node_name, generation))
+                self._record_scheduled(
+                    pod, node_name,
+                    staged.algo_dt + (time.monotonic() - t_pod),
+                    tier=inf.tier,
+                )
+        self._phase("commit", time.monotonic() - t_commit0, inf.tier)
+        return results
+
+    def _tail_batched(self, staged: _Staged) -> List[ScheduleResult]:
+        """Batched side-effect tail: per-pod bind callbacks (the only
+        irreducibly per-pod step), then ONE batched emission each for
+        requeues, metrics and events, in batch-index order so the audit
+        trail matches the per-pod loop."""
+        inf = staged.inf
+        pods = inf.pods
+        generation, cycle = inf.generation, inf.cycle
+        t_tail0 = time.monotonic()
+        B = len(pods)
+        results: List[Optional[ScheduleResult]] = [None] * B
+        events: List[Optional[Tuple]] = [None] * B
+        n_nodes = len(self.cache.encoder.node_rows)
+        tid = inf.trace.trace_id
+        losers: List[Pod] = []
+        for i in staged.fit_idx:
+            pod = pods[i]
+            results[i] = ScheduleResult(pod, None, generation)
+            losers.append(pod)
+            events[i] = (
+                "Pod", pod.namespace, pod.name,
+                EVENT_TYPE_WARNING, "FailedScheduling",
+                "0/%d nodes are available" % n_nodes, tid,
+            )
+        # enqueue stamps BEFORE the bind fan-out; failed binds restore
+        # theirs so a requeued pod keeps its first-enqueue time
+        winner_qts = self.queue.take_enqueue_times(
+            [pod for _, pod, _, _ in staged.winners]
+        )
+        bind_dts: List[float] = []
+        bound: List[Tuple[int, Pod, str]] = []
+        bound_qts: List[Optional[float]] = []
+        bound_ts: List[float] = []
+        n_bind_failed = 0
+        for w, (i, pod, assumed, node_name) in enumerate(staged.winners):
+            t0b = time.monotonic()
+            ok = self._invoke_binder(pod, assumed, node_name)
+            tb = time.monotonic()
+            bind_dts.append(tb - t0b)
+            if ok:
+                bound.append((i, pod, node_name))
+                bound_qts.append(winner_qts[w])
+                bound_ts.append(tb)
+                if self.invariants is not None:
+                    self.invariants.note_bound(pod, node_name)
+                pod.metadata.annotations.pop(
+                    self.UNSCHED_REASON_ANNOTATION, None
+                )
+                results[i] = ScheduleResult(pod, node_name, generation)
+                events[i] = (
+                    "Pod", pod.namespace, pod.name,
+                    EVENT_TYPE_NORMAL, "Scheduled",
+                    "Successfully assigned %s/%s to %s"
+                    % (pod.namespace, pod.name, node_name), tid,
+                )
+            else:
+                # optimistic rollback: ForgetPod + requeue
+                self.cache.forget_pod(assumed)
+                self.queue.restore_enqueue_time(pod, winner_qts[w])
+                n_bind_failed += 1
+                losers.append(pod)
+                results[i] = ScheduleResult(pod, None, generation)
+                events[i] = (
+                    "Pod", pod.namespace, pod.name,
+                    EVENT_TYPE_WARNING, "FailedScheduling",
+                    self._BIND_REJECT_MSG
+                    % (pod.namespace, pod.name, node_name), tid,
+                )
+        self.queue.add_unschedulable_batch(losers, cycle)
+        if bound and self.queue.has_nominated():
+            self.queue.delete_nominated_batch([p for _, p, _ in bound])
+        m.BINDING_LATENCY.observe_batch(bind_dts)
+        if staged.fit_idx:
+            m.SCHEDULE_ATTEMPTS.inc(len(staged.fit_idx), result=m.UNSCHEDULABLE)
+        if n_bind_failed:
+            m.SCHEDULE_ATTEMPTS.inc(n_bind_failed, result=m.SCHEDULE_ERROR)
+        if bound:
+            m.SCHEDULE_ATTEMPTS.inc(len(bound), result=m.SCHEDULED)
+            e2es = [
+                tb - qt if qt is not None
+                else staged.algo_dt + (tb - staged.t_state0)
+                for qt, tb in zip(bound_qts, bound_ts)
+            ]
+            m.E2E_LATENCY.observe_batch(e2es, tier=inf.tier)
+            if klog.V(2).enabled:
+                for (_, pod, node_name), e2e in zip(bound, e2es):
+                    klog.V(2).infof(
+                        "scheduled %s/%s to %s (%.1fms e2e)",
+                        pod.namespace, pod.name, node_name, e2e * 1000,
+                    )
+        entries = [e for e in events if e is not None]
+        eventf_batch = getattr(self.recorder, "eventf_batch", None)
+        if eventf_batch is not None:
+            eventf_batch(entries)
+        else:  # duck-typed recorder without the batch entry point
+            for kind, ns, name, type_, reason, msg, _tid in entries:
+                self.recorder.eventf(kind, ns, name, type_, reason, "%s", msg)
+        self._phase(
+            "commit", staged.state_seconds + time.monotonic() - t_tail0,
+            inf.tier,
+        )
+        return list(results)
+
+    # ------------------------------------------------------- assume/bind
+
+    def _record_scheduled(self, pod: Pod, node_name: str, e2e: float,
+                          tier: str = TIER_BULK) -> None:
+        """Scheduled event + counters, once a bind actually succeeded
+        (scheduler.go:268 emits after bind, not at assume)."""
+        if self.invariants is not None:
+            self.invariants.note_bound(pod, node_name)
+        qt = self.queue.take_enqueue_time(pod)
+        if qt is not None:
+            e2e = time.monotonic() - qt
+        pod.metadata.annotations.pop(self.UNSCHED_REASON_ANNOTATION, None)
+        klog.V(2).infof(
+            "scheduled %s/%s to %s (%.1fms e2e)",
+            pod.namespace, pod.name, node_name, e2e * 1000,
+        )
+        m.SCHEDULE_ATTEMPTS.inc(result=m.SCHEDULED)
+        m.E2E_LATENCY.observe(e2e, tier=tier)
+        self.recorder.eventf(
+            "Pod", pod.namespace, pod.name,
+            EVENT_TYPE_NORMAL, "Scheduled",
+            "Successfully assigned %s/%s to %s",
+            pod.namespace, pod.name, node_name,
+            trace_id=current_trace_id(),
+        )
+
+    def _reserve_and_bind(self, pod: Pod, assumed: Pod, node_name: str,
+                          cycle: int) -> str:
+        """assume -> bind (scheduleOne, scheduler.go:507-580; the framework's
+        Reserve/Permit/Prebind points are a later slice).  Returns "bound"
+        or "failed"."""
+        self.cache.assume_pod(assumed)
+        ok = self._prebind_and_bind(pod, assumed, node_name, cycle)
+        return "bound" if ok else "failed"
+
+    def _prebind_and_bind(self, pod, assumed, node_name, cycle) -> bool:
+        """The bind call, with ForgetPod + requeue on a rejected bind."""
+        t0 = time.monotonic()
+        ok = self._invoke_binder(pod, assumed, node_name)
+        m.BINDING_LATENCY.observe(time.monotonic() - t0)
+        if not ok:
+            self._reject_assumed(
+                pod, assumed, node_name, cycle,
+                self._BIND_REJECT_MSG % (pod.namespace, pod.name, node_name),
+            )
+        return ok
+
+    def _invoke_binder(self, pod, assumed, node_name) -> bool:
+        """The actual bind call: a bind-verb extender binds pods it manages
+        in place of the default binder (extender.go:360-387); any exception
+        counts as a rejection."""
+        binder_ext = next(
+            (e for e in self.extenders
+             if e.is_binder and e.is_interested(pod)),
+            None,
+        )
+        try:
+            if binder_ext is not None:
+                binder_ext.bind(
+                    pod.namespace, pod.name, pod.metadata.uid, node_name
+                )
+                return True
+            return bool(self.binder(assumed, node_name))
+        except Exception:
+            return False
+
+    def _reject_assumed(self, pod, assumed, node_name, cycle,
+                        message: str = "") -> None:
+        """Rollback for a pod rejected after assume (scheduler.go:416-426
+        ForgetPod + requeue + FailedScheduling event)."""
+        self.cache.forget_pod(assumed)
+        self.queue.add_unschedulable(pod, cycle)
+        self.recorder.eventf(
+            "Pod", pod.namespace, pod.name,
+            EVENT_TYPE_WARNING, "FailedScheduling",
+            "%s", message or f"rejected after assume on {node_name}",
+            trace_id=current_trace_id(),
+        )
+
+    # ----------------------------------------------------------- run loop
+
+    @property
+    def pipeline_pending(self) -> bool:
+        """True while a dispatched batch awaits its commit tail."""
+        return self._in_flight is not None
+
+    def flush_pipeline(self) -> int:
+        """Drain the double-buffer slot: fetch + commit any in-flight
+        pipelined batch.  Returns the number of pods placed."""
+        inf, self._in_flight = self._in_flight, None
+        if inf is None:
+            return 0
+        results = self._commit_tail(self._commit_state_or_requeue(inf))
+        return sum(1 for r in results if r.node is not None)
+
+    def _run_pipelined(self, pods: Sequence[Pod]) -> int:
+        """Double-buffered cycle: apply the in-flight batch's STATE half
+        (fetch + batched assume — the part the next snapshot must see),
+        dispatch the new batch, then run the previous batch's side-effect
+        tail."""
+        prev, self._in_flight = self._in_flight, None
+        n = 0
+        staged = None
+        dispatched = False
+        try:
+            if prev is not None:
+                staged = self._commit_state_or_requeue(prev)
+            self._in_flight = self._encode_and_dispatch(pods)
+            dispatched = True
+        finally:
+            if not dispatched:
+                # batch k+1 was popped but never reached the device:
+                # requeue it — popped pods must never be lost
+                self.queue.add_unschedulable_batch(
+                    list(pods), self.queue.scheduling_cycle
+                )
+            # batch k's tail MUST run even if batch k+1's dispatch raises
+            if staged is not None:
+                results = self._commit_tail(staged)
+                n += sum(1 for r in results if r.node is not None)
+        return n
+
+    def run_once(self, timeout: float = 0.1) -> int:
+        """Pop one cycle's batch and schedule it; returns the number of
+        pods PLACED.  With config.pipeline_commit, batches double-buffer:
+        the call dispatches this batch and returns the PREVIOUS batch's
+        placements (flush_pipeline drains the last one)."""
+        t_pop = time.monotonic()
+        pods = self.queue.pop_batch(
+            self.config.batch_size,
+            # with a batch in flight, don't block in the pop
+            0.0 if self.pipeline_pending else timeout,
+            self.config.batch_window_s,
+        )
+        if self.invariants is not None:
+            self.invariants.note_popped(pods, self.queue.scheduling_cycle)
+        self._phase("pop", time.monotonic() - t_pop)
+        if not pods:
+            # idle poll: drain any in-flight batch so binds/events/requeues
+            # don't wait for the next arrival
+            return self.flush_pipeline()
+        if (
+            not self.extenders
+            and not self.queue.nominated_pods()
+            and any(self.POD_GROUP_LABEL in p.labels for p in pods)
+        ):
+            # the JAX class schedules these as gangs (all-or-nothing);
+            # placing them as plain pods would change the result
+            self.queue.add_unschedulable_batch(
+                list(pods), self.queue.scheduling_cycle
+            )
+            raise NotImplementedError(
+                "pod-group (gang) pods are not ported yet (ROADMAP A8)")
+        if self.config.pipeline_commit and self.config.batched_commit:
+            return self._run_pipelined(pods)
+        return sum(1 for r in self.schedule_cycle(pods) if r.node is not None)
+
+    def run(self) -> None:
+        """wait.Until(scheduleOne) analog (scheduler.go:250-256)."""
+        while not self._stop.is_set():
+            self.run_once(timeout=0.5)
+        self.flush_pipeline()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.queue.close()

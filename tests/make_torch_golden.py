@@ -20,6 +20,17 @@ encoded and launched before batch k is committed (overlap_commit), the pod
 (anti-)affinity workloads commit first and pass the in-batch affinity
 state; the tail batch is padded to the batch width with its padding marked
 valid=False, and the device state is chained between batches.
+
+With --live, the golden is the JAX Scheduler's live cycle instead
+(`jax_live`, the loop of bench.py run_live and of the port's
+loop.run_live): a warmup batch, then the pods through queue -> cycle ->
+commit with batched and pipelined commit; the file holds the node row bound
+to every pod (warmup included) and the binder's call order.
+--nominated K registers loop.nominated_preemptors(nodes, K) on the queue
+before the clock.
+
+    python tests/make_torch_golden.py --live               # ~40 s
+    python tests/make_torch_golden.py --live --nominated 256
 """
 
 from __future__ import annotations
@@ -44,30 +55,23 @@ def golden_path(workload: str) -> str:
                         f"{workload.replace('-', '_')}.npz")
 
 
+def live_golden_path(nominated: int = 0) -> str:
+    """tests/data/torch_port_golden_live[_nominated].npz"""
+    return golden_path("live_nominated" if nominated else "live")
+
+
 DEFAULT_OUT = golden_path("plain")
 # the full-width goldens: workload -> running pods added before the clock
 GOLDENS = {"plain": 0, "pod-anti-affinity": 1000, "pod-affinity": 0}
 
 
-def jax_chained_hosts(n_nodes: int, n_pods: int, batch: int,
-                      workload: str = "plain", node_pods: int = 110,
-                      existing: int = 0):
-    """hosts i32[n_pods] from the JAX speculative engine, chained over
-    batches exactly as bench.py run() does, plus per-batch (rounds, redo).
-
-    node_pods overrides the fleet's per-node pod cap (bench.py uses 110);
-    a small cap makes demand exceed the slots and fires the hybrid redo.
-    existing running pods are added first, as bench.py's --existing."""
-    import jax
-
+def _jax_fleet(n_nodes: int, workload: str, node_pods: int = 110,
+               existing: int = 0):
+    """(bench args, JAX SnapshotEncoder) of bench.py's fleet with
+    `node_pods` slots per node and `existing` running pods, the objects
+    the port's loop.build_encoder builds."""
     import bench
     from kubernetes_tpu.api.factory import make_node, make_pod
-    from kubernetes_tpu.models.batched import (
-        batch_has_pod_affinity,
-        encode_batch_affinity,
-        encode_batch_ports,
-    )
-    from kubernetes_tpu.models.speculative import make_speculative_scheduler
 
     args = SimpleNamespace(nodes=n_nodes, workload=workload)
     nodes = bench._bench_nodes(args)
@@ -86,6 +90,92 @@ def jax_chained_hosts(n_nodes: int, n_pods: int, batch: int,
             labels={"app": f"dep-{i % bench._N_DEPLOY}"},
             node_name=f"node-{i % n_nodes}",
             owner=("ReplicaSet", f"rs-{i % bench._N_DEPLOY}")))
+    return args, enc
+
+
+def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
+             engine: str = "speculative", batched: bool = True,
+             pipeline: bool = True, existing: int = 0, nominated: int = 0,
+             node_pods: int = 110, budget_s: float = 3600.0):
+    """The JAX Scheduler's live cycle under the loop of bench.py run_live
+    (and of the port's loop.run_live): a warmup batch of `batch` pods
+    (index n_pods + j) drained first, `nominated` preemptors
+    (loop.nominated_preemptors, built with the JAX factory) registered on
+    the queue, then the `n_pods` pods enqueued and drained.  Returns (hosts i32[n_pods + batch] bound
+    row per pod index, bind_order i32[] pod indices in binder call order,
+    unschedulable pod names, the final requested column matrix, the
+    scheduler)."""
+    import bench
+    from kubernetes_tpu.api.factory import make_pod
+    from kubernetes_tpu.runtime.cache import SchedulerCache
+    from kubernetes_tpu.runtime.queue import PriorityQueue
+    from kubernetes_tpu.runtime.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch.loop import nominated_preemptors
+
+    args, enc = _jax_fleet(n_nodes, workload, node_pods, existing)
+    cache = SchedulerCache(enc)
+    queue = PriorityQueue()
+    hosts = np.full(n_pods + batch, -1, np.int32)
+    order = []
+
+    def binder(pod, node_name):
+        i = int(pod.name.rsplit("-", 1)[1])
+        hosts[i] = enc.node_rows[node_name]
+        order.append(i)
+        return True
+
+    sched = Scheduler(cache=cache, queue=queue, binder=binder,
+                      config=SchedulerConfig(
+                          batch_size=batch, batch_window_s=0.0,
+                          engine=engine, disable_preemption=True,
+                          batched_commit=batched, pipeline_commit=pipeline,
+                          cpu_fallback=False, telemetry=False,
+                          quality_top_k=0, timeline=False))
+
+    def drain(budget):
+        deadline = time.monotonic() + budget
+        while time.monotonic() < deadline:
+            got = sched.run_once(timeout=0.0)
+            if got == 0 and not sched.pipeline_pending:
+                if not queue.has_schedulable():
+                    break
+                time.sleep(0.002)
+        sched.flush_pipeline()
+
+    for j in range(batch):
+        queue.add(bench._pending_pod(args, n_pods + j))
+    drain(budget_s)
+    for pod, node_name in nominated_preemptors(n_nodes, nominated,
+                                               make_pod=make_pod):
+        queue.update_nominated_pod(pod, node_name)
+    for i in range(n_pods):
+        queue.add(bench._pending_pod(args, i))
+    drain(budget_s)
+    unsched = sorted(r.pod.name for r in sched.results if r.node is None)
+    return (hosts, np.asarray(order, np.int32), unsched,
+            np.asarray(enc.snapshot(full=True).requested), sched)
+
+
+def jax_chained_hosts(n_nodes: int, n_pods: int, batch: int,
+                      workload: str = "plain", node_pods: int = 110,
+                      existing: int = 0):
+    """hosts i32[n_pods] from the JAX speculative engine, chained over
+    batches exactly as bench.py run() does, plus per-batch (rounds, redo).
+
+    node_pods overrides the fleet's per-node pod cap (bench.py uses 110);
+    a small cap makes demand exceed the slots and fires the hybrid redo.
+    existing running pods are added first, as bench.py's --existing."""
+    import jax
+
+    import bench
+    from kubernetes_tpu.models.batched import (
+        batch_has_pod_affinity,
+        encode_batch_affinity,
+        encode_batch_ports,
+    )
+    from kubernetes_tpu.models.speculative import make_speculative_scheduler
+
+    args, enc = _jax_fleet(n_nodes, workload, node_pods, existing)
     fn = make_speculative_scheduler(
         unsched_taint_key=enc.interner.intern(
             "node.kubernetes.io/unschedulable"),
@@ -155,13 +245,41 @@ def main():
                     help="pod slots per node")
     ap.add_argument("--out", default=None,
                     help="default: tests/data/torch_port_golden_<workload>"
-                         ".npz")
+                         ".npz, or _live[_nominated].npz with --live")
+    ap.add_argument("--live", action="store_true",
+                    help="the JAX Scheduler's live cycle (bench.py "
+                         "run_live's loop) instead of the raw loop")
+    ap.add_argument("--nominated", type=int, default=0,
+                    help="with --live: preemptors nominated before the "
+                         "clock (loop.nominated_preemptors)")
     args = ap.parse_args()
-    out = args.out or golden_path(args.workload)
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.live:
+        out = args.out or live_golden_path(args.nominated)
+        t0 = time.monotonic()
+        hosts, order, unsched, requested, _ = jax_live(
+            args.nodes, args.pods, args.batch, args.workload,
+            existing=args.existing, nominated=args.nominated,
+            node_pods=args.node_pods)
+        dt = time.monotonic() - t0
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(
+            out, hosts=hosts, bind_order=order,
+            unschedulable=np.asarray(unsched, dtype=str),
+            nodes=np.int32(args.nodes), pods=np.int32(args.pods),
+            batch=np.int32(args.batch), existing=np.int32(args.existing),
+            node_pods=np.int32(args.node_pods),
+            nominated=np.int32(args.nominated),
+            workload=np.asarray(args.workload),
+        )
+        print(f"wrote {out}: {int((hosts >= 0).sum())}/{len(hosts)} bound "
+              f"(warmup included), {len(unsched)} unschedulable verdicts, "
+              f"{dt:.1f} s on the CPU")
+        return
+    out = args.out or golden_path(args.workload)
     t0 = time.monotonic()
     hosts, stats = jax_chained_hosts(args.nodes, args.pods, args.batch,
                                      args.workload, args.node_pods,

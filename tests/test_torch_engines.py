@@ -170,6 +170,10 @@ def test_node_sampling_percentage(pct):
 
 
 def test_later_slices_raise():
+    """Attribution and quality top-k still raise; nominated pods are
+    ported (slice 4): an all-empty NominatedState places like none."""
+    from kubernetes_tpu_torch.models.batched import NominatedState
+
     enc = _tight_encoder()
     kw = engine_keys(enc)
     for make in (port_seq, port_spec):
@@ -177,8 +181,12 @@ def test_later_slices_raise():
         pods = [make_pod("p", cpu="100m")]
         pb = enc.encode_pods(pods)
         ports = encode_batch_ports(enc, pods)
-        with pytest.raises(NotImplementedError):
-            fn(enc.snapshot(), pb, ports, 0, nominated=object())
+        empty = NominatedState(node=np.full(8, -1, np.int32),
+                               prio=np.zeros(8, np.int32),
+                               req=np.ones((8, pb.req.shape[1]), np.float32))
+        h0, _ = fn(enc.snapshot(), pb, ports, 0)
+        h1, _ = fn(enc.snapshot(), pb, ports, 0, nominated=empty)
+        np.testing.assert_array_equal(h0.numpy(), h1.numpy())
     with pytest.raises(NotImplementedError):
         port_seq(device="cpu", attribution=True)
     with pytest.raises(NotImplementedError):

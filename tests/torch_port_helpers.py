@@ -3,6 +3,13 @@
 `twin_world` draws one randomized cluster with tests/fixtures.py twice from
 the same seed: once with the JAX package's object factory and once with the
 port's, so both encoders see objects built from identical arguments.
+
+Importing it caps torch's intra-op threads at TORCH_TEST_THREADS: the tests
+run under pytest-xdist with several workers, and torch's default (one
+thread per core in every worker) oversubscribes the cores and slows the
+wall-clock tests of the JAX package that share the machine.  A run of the
+whole suite imports every test module in every process (pytest-xdist's
+workers each collect them all), so the cap holds there in every worker.
 """
 
 from __future__ import annotations
@@ -11,6 +18,7 @@ from contextlib import contextmanager
 from unittest import mock
 
 import numpy as np
+import torch
 
 import fixtures
 from kubernetes_tpu.codec import SnapshotEncoder as JaxEncoder
@@ -18,6 +26,9 @@ from kubernetes_tpu_torch.api import factory as port_factory
 from kubernetes_tpu_torch.codec import SnapshotEncoder as PortEncoder
 
 UNSCHED_KEY = "node.kubernetes.io/unschedulable"
+TORCH_TEST_THREADS = 2
+
+torch.set_num_threads(min(TORCH_TEST_THREADS, torch.get_num_threads()))
 
 
 @contextmanager
