@@ -55,10 +55,33 @@ printing one line of numbers; any failure exits non-zero with no result:
      anti-affinity term): bindings equal to
      tests/data/torch_port_golden_live_nominated.npz, and a numpy recount
      finds no pod on a node its nomination leaves too little CPU and no
-     anti-matched pod on a nominated node.
+     anti-matched pod on a nominated node;
+ 2b. (run after phase 2) K2 (preempt_one) against its plain twin on the
+     card, all four outputs equal, on every case of
+     kubernetes_tpu_torch/kernels/k2_cases.py (small random arenas, PDB,
+     host-port and shared-volume columns, a node with over 32 victims, all
+     criteria tied, no candidate, nothing possible, an order-sensitive f32
+     sum, and the full shape: 6,144 rows, an arena of 32,768, 1,024 slots);
+     then its times there with L2 cold and warm, beside its plain twin's
+     and its bytes bound (its three kernels' times apart come from phase
+     13's profiled attempt);
+ 13. the live preemption cell: loop.run_preemption through the port's
+     Scheduler with preemption on, 5,000 nodes of 4 CPU / 32Gi, 20,500
+     running pods (19,500 production at priority 1,000, 1,000 batch at
+     priority 0 on every 20th node), 256 preemptors at priority 500 asking
+     for 1.5 CPU, with the launch counts reset just before and read just
+     after: K2 launched at least once an attempt; the preemptions
+     (preemptor, node, victims), the bindings and their order, the
+     unschedulable verdicts and the requested CPU per node equal
+     tests/data/torch_port_golden_live_preemption.npz, the JAX Scheduler's;
+     a numpy recount of CPU per node from the surviving objects; pods/s,
+     the phase split with preempt split into its steps, K1 and K2
+     launches, bytes per cycle and per attempt, the dirty rows each
+     snapshot update scattered, and one more attempt under torch.profiler
+     (device time, idle share, K2's kernels).
 
-Then the card's name and power limit, the kernels' JSON record (K1's
-launches in each cell among its keys) and the device line.
+Then the card's name and power limit, the kernels' JSON record (K1's and
+K2's launches in each cell among their keys) and the device line.
 """
 
 from __future__ import annotations
@@ -84,6 +107,7 @@ NODES, PODS, BATCH = 5000, 10000, 2048
 EXISTING_ANTI = 1000   # running pods of the pod-anti-affinity cell
 REDO_AFF_PODS = 9800   # the affinity redo cell: the 2-slot fleet's free slots
 NOMINATED = 256        # preemptors of the live-with-nominations cell
+PREEMPTORS = 256       # pending pods of the live preemption cell
 
 
 def fail(msg: str) -> None:
@@ -171,6 +195,76 @@ def phase_k1(main_n: int) -> dict:
     return {"ms": shapes[0]["ms"], "plain_ms": shapes[0]["plain_ms"],
             "bound_ms": shapes[0]["bound_ms"], "max_abs_err": max_err,
             "shapes": shapes}
+
+
+def _k2_bound_ms(a) -> float:
+    """K2's least time on the card: the bytes it must move over the memory
+    rate, counted from this call's data.  Read once: the candidate mask,
+    pod_req, the arena's node column (which candidate rows hold a pod), the
+    slot list, the volume tables, and for the candidate rows only their
+    [E] rows of the two node tables and their initial credit, and for the
+    listed pods on candidate rows their priority, request row, PDB flag,
+    start and volume ids; no other row changes the result.  Written once:
+    the M-byte mask and three int32 scalars."""
+    from kubernetes_tpu_torch.kernels import k1_bench
+
+    req, _, _, cand, node, _, _ = a[:7]
+    slots, slot_vids, vt, tot, lst, init = a[9:]
+    N, E = req.shape
+    n_cand = int(cand.sum())
+    m = slots[slots >= 0].long()
+    on = node[m].long()
+    on = on[(on >= 0) & (on < N)]
+    listed = int(cand[on].sum())
+    nbytes = (N + E * 4 + node.numel() * 4 + slots.numel() * 4
+              + (vt.numel() + tot.numel() + lst.numel()) * 4
+              + n_cand * (2 * E * 4 + init.shape[1] * 4)
+              + listed * (4 + E * 4 + 1 + 4 + slot_vids.shape[1] * 4)
+              + node.numel() + 3 * 4)
+    return nbytes / k1_bench.HBM_BYTES_PER_S * 1e3
+
+
+def phase_k2() -> dict:
+    """K2 against its twin on every case of kernels/k2_cases.py, all four
+    outputs equal; then its times at the full-width case (the live cell's
+    shape) with L2 cold and warm, its twin's, and its bytes bound."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k1_bench, k2_cases
+    from kubernetes_tpu_torch.models.preemption import preempt_one_plain
+
+    dev = torch.device("cuda")
+    max_err = 0.0
+    names = []
+    for name, c in k2_cases.cases():
+        a = [torch.from_numpy(np.ascontiguousarray(c[k])).to(dev)
+             for k in k2_cases.ARGS]
+        got = kernels.preempt_one(*a)
+        want = preempt_one_plain(*a[:10], tuple(a[10:]))
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("node", "victim_mask",
+                                          "n_victims", "n_pdb_violations")):
+            max_err = max(max_err, float(
+                (g.to(torch.float64) - w.to(torch.float64)).abs().max()))
+            if not torch.equal(g, w):
+                fail(f"2b K2: {what} differs from the twin on case {name}: "
+                     f"kernel {g.cpu().reshape(-1)[:8].tolist()} twin "
+                     f"{w.cpu().reshape(-1)[:8].tolist()}")
+        names.append(f"{name}:{int(got[0])}/{int(got[2])}")
+    check(name == "full-width", "2b K2: the last case is not the full shape")
+    k2 = lambda: kernels.preempt_one(*a)                    # noqa: E731
+    plain = lambda: preempt_one_plain(*a[:10], tuple(a[10:]))  # noqa: E731
+    out = {"ms": k1_bench.time_ms(k2, cold=True),
+           "ms_warm": k1_bench.time_ms(k2, cold=False),
+           "plain_ms": k1_bench.time_ms(plain),
+           "bound_ms": _k2_bound_ms(a), "max_abs_err": max_err,
+           "shape": {"N": int(a[0].shape[0]), "E": int(a[0].shape[1]),
+                     "M": int(a[4].shape[0]), "Kv": int(a[9].shape[0])}}
+    print(f"[2b K2] equal to the twin on {len(names)} cases "
+          f"(case:node/victims {' '.join(names)}) | at {out['shape']}: "
+          f"cold_ms {out['ms']:.4f} warm_ms {out['ms_warm']:.4f} "
+          f"plain_cold_ms {out['plain_ms']:.4f} bound_ms "
+          f"{out['bound_ms']:.5f}", flush=True)
+    return out
 
 
 def _placed(nodes, pods, res: dict, existing: int = 0):
@@ -584,7 +678,9 @@ def phase_live(label: str, nodes, nominated: int = 0) -> dict:
     sched.flush_pipeline()
     cycles = max(res["cycles"], 1)
     xf = res["transfers"]
-    h2d = sum(v["bytes"] for k, v in xf.items() if k.startswith("h2d/"))
+    # the cycles' own uploads; the attempts' are per_attempt
+    h2d = sum(v["bytes"] for k, v in xf.items()
+              if k.startswith("h2d/") and not k.endswith("/preempt"))
     snap_up = xf.get("h2d/snapshot_upload", {"bytes": 0})["bytes"]
     scat = res["scatter_rows"]
     ph = res["phases"]
@@ -615,6 +711,134 @@ def phase_live(label: str, nodes, nominated: int = 0) -> dict:
     return out
 
 
+def _preemption_recount(nodes, running, res: dict, label: str) -> None:
+    """Numpy recount of CPU per node from the objects: the running pods
+    that were not evicted plus the bound preemptors; every node at most its
+    4 CPU, every preemptor's node at exactly 4 CPU, and the recount equal
+    to the encoder's requested column and the golden's."""
+    from kubernetes_tpu_torch.api.types import RESOURCE_CPU
+
+    evicted = {v[1] for _, _, victims in res["preemptions"] for v in victims}
+    row = {n.name: i for i, n in enumerate(nodes)}
+    cpu = np.zeros(len(nodes))
+    for pod in running:
+        if pod.name not in evicted:
+            cpu[row[pod.spec.node_name]] += (
+                pod.resource_request()[RESOURCE_CPU].milli)
+    for _, node in res["bindings"]:
+        cpu[row[node]] += 1500
+    check((cpu <= 4000).all(), f"{label}: a node over its 4 CPU")
+    check(all(cpu[row[n]] == 4000 for _, n in res["bindings"]),
+          f"{label}: a preemptor's node not at exactly 4 CPU")
+    rows = {name: r for r, name in res["node_names"].items()}
+    enc_cpu = res["requested"][[rows[n.name] for n in nodes], 0]
+    check(np.array_equal(enc_cpu, cpu), f"{label}: the recount differs "
+          f"from the encoder's requested CPU")
+
+
+def phase_preemption(label: str) -> dict:
+    """loop.run_preemption at full width on the card, launch counts reset
+    just before and read just after; the preemptions, bindings, order,
+    verdicts and requested CPU against the JAX Scheduler's golden file; a
+    recount; one more attempt under torch.profiler; one line of
+    numbers."""
+    from torch.autograd import DeviceType
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.loop import (
+        preemption_fleet,
+        preemption_running_pods,
+        preemptors,
+        run_preemption,
+    )
+
+    nodes = preemption_fleet(NODES)
+    running = preemption_running_pods(nodes)
+    pending = preemptors(PREEMPTORS + 1)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = run_preemption(nodes, running, pending[:PREEMPTORS], BATCH,
+                         device="cuda")
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    attempts = res["attempts"]
+    check(attempts > 0 and launches["preempt_one"] >= attempts,
+          f"{label}: K2 launched {launches['preempt_one']} times for "
+          f"{attempts} preemption attempts")
+    check(launches["select_hosts"] > 0, f"{label}: K1 launched no time")
+    data = np.load(golden("live_preemption"))
+    pre = res["preemptions"]
+    got = {"preemptor": [p[0][1] for p in pre],
+           "preempt_node": [p[1] for p in pre],
+           "victim_count": [len(p[2]) for p in pre],
+           "victims": [v[1] for p in pre for v in p[2]],
+           "bound_pod": [b[0] for b in res["bindings"]],
+           "bound_node": [b[1] for b in res["bindings"]],
+           "unschedulable": res["unschedulable_pods"]}
+    for key, val in got.items():
+        want = data[key].tolist()
+        if want != val:
+            i = next((j for j, (x, y) in enumerate(zip(want, val))
+                      if x != y), min(len(want), len(val)))
+            fail(f"{label}: {key} differs from the JAX Scheduler's at "
+                 f"entry {i} of {len(want)} (port {len(val)}): JAX "
+                 f"{want[i:i + 3]}, port {val[i:i + 3]}")
+    check(np.array_equal(data["requested_cpu"], res["requested"][:, 0]),
+          f"{label}: requested CPU per node differs from the JAX "
+          f"Scheduler's")
+    _preemption_recount(nodes, running, res, label)
+    sched = res["scheduler"]
+    # one more attempt that finds no node (every usable batch node is
+    # taken): candidates, host arrays and K2, no state change
+    prof, wall, dev = _profiled(lambda: sched.preempt(pending[-1]))
+    k2_ms: dict = {}
+    for n, _, ms in dev:
+        if "k2_" in n:
+            short = n[n.index("k2_"):].split("(")[0]
+            k2_ms[short] = k2_ms.get(short, 0.0) + ms
+    dev_ms = sum(ms for *_, ms in dev)
+    xf = res["transfers"]
+    per_attempt = {k: v["bytes"] / attempts for k, v in xf.items()
+                   if k.endswith("/preempt")}
+    # the cycles' own uploads; the attempts' are per_attempt
+    h2d = sum(v["bytes"] for k, v in xf.items()
+              if k.startswith("h2d/") and not k.endswith("/preempt"))
+    cycles = max(res["cycles"], 1)
+    scat = {int(r): res["scatter_rows"].count(r)
+            for r in sorted(set(res["scatter_rows"]))}
+    ph, ps = res["phases"], res["preempt_seconds"]
+    out = {"pods_per_s": res["pods_per_s"], "seconds": res["seconds"],
+           "placed": res["placed"], "preemptions": len(pre),
+           "attempts": attempts, "phases": ph, "preempt_seconds": ps,
+           "cycles": res["cycles"], "launches": launches,
+           "bytes_per_attempt": per_attempt,
+           "h2d_bytes_per_cycle": h2d / cycles, "scatter_rows": scat,
+           "profiled_attempt": {"wall_ms": wall * 1e3, "device_ms": dev_ms,
+                                "kernels": len(dev), "k2_ms": k2_ms},
+           "peak_gb": peak_gb, "transfers": xf}
+    print(f"[{label}] pods_per_s {res['pods_per_s']:.1f} seconds "
+          f"{res['seconds']:.3f} placed {res['placed']} preemptions "
+          f"{len(pre)} (victims {sum(got['victim_count'])}) attempts "
+          f"{attempts} unschedulable verdicts {len(got['unschedulable'])} "
+          f"cycles {res['cycles']} | phases pop {ph['pop']:.4f} encode "
+          f"{ph['encode']:.4f} dispatch {ph['dispatch']:.4f} commit "
+          f"{ph['commit']:.4f} preempt {ph['preempt']:.4f} | preempt "
+          f"split candidates {ps['candidates']:.4f} arrays "
+          f"{ps['arrays']:.4f} pick(K2) {ps['pick']:.4f} verify "
+          f"{ps['verify']:.4f} evict {ps['evict']:.4f} | K1 launches "
+          f"{launches['select_hosts']} (B=1 {launches['select_hosts_b1']}) "
+          f"K2 launches {launches['preempt_one']} | bytes per attempt "
+          f"{per_attempt} H2D bytes per cycle (the attempts' left out) "
+          f"{h2d / cycles:.0f} | dirty "
+          f"rows scattered per update (rows: updates) {scat} | one "
+          f"attempt profiled: wall_ms {wall * 1e3:.3f} device_ms "
+          f"{dev_ms:.3f} idle_share {1 - dev_ms / (wall * 1e3):.3f} "
+          f"kernels {len(dev)} K2 device ms {k2_ms} | peak_device_GiB "
+          f"{peak_gb:.2f} | preemptions, bindings and order equal to the "
+          f"JAX Scheduler's", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -625,6 +849,7 @@ def main() -> None:
     nodes = bench_nodes(NODES)
     main_n = build_encoder(nodes).snapshot().n_nodes   # padded node width
     k1 = phase_k1(main_n)
+    k2 = phase_k2()
 
     plain_pods = [pending_pod(i, "plain") for i in range(PODS)]
     res3, launches = _run_pair("3 plain", nodes, plain_pods, True)
@@ -711,6 +936,10 @@ def main() -> None:
            f"{main_n // 4} rows)")
         + f" | total seconds {time.monotonic() - t_start:.1f}", flush=True)
 
+    live13 = phase_preemption("13 live preemption")
+    print(f"[13 done] total seconds {time.monotonic() - t_start:.1f}",
+          flush=True)
+
     # K1 launches by cell: one a speculative round at B=2048, and in the
     # redo cells one more a sequential step at B=1 (counted on their own)
     by_cell = {"plain": launches["select_hosts"],
@@ -724,7 +953,9 @@ def main() -> None:
                "live": live["launches"]["select_hosts"],
                "live_b1": live["launches"]["select_hosts_b1"],
                "live-nominated": live12["launches"]["select_hosts"],
-               "live-nominated_b1": live12["launches"]["select_hosts_b1"]}
+               "live-nominated_b1": live12["launches"]["select_hosts_b1"],
+               "live-preemption": live13["launches"]["select_hosts"],
+               "live-preemption_b1": live13["launches"]["select_hosts_b1"]}
     record = {"kernels": [{
         "name": "select_hosts",
         "route": "cuda",
@@ -739,6 +970,22 @@ def main() -> None:
         "library_ms": None,
         "launches_by_cell": by_cell,
         "shapes": k1["shapes"],
+    }, {
+        "name": "preempt_one",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/kernels/preempt_one.cu",
+        "replaces": "kubernetes_tpu/models/preemption.py:308",
+        "launches": live13["launches"]["preempt_one"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ms_warm": k2["ms_warm"],
+        "shape": k2["shape"],
+        "kernel_ms_in_an_attempt": live13["profiled_attempt"]["k2_ms"],
+        "attempts": live13["attempts"],
     }]}
     print(f"total seconds {time.monotonic() - t_start:.1f}", flush=True)
     print(smi)

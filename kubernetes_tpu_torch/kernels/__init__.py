@@ -5,9 +5,14 @@ ops/select.py select_host / select_hosts_batch.  Its plain PyTorch twin is
 ops/select.py `select_hosts_batch_plain`; ops/select.py dispatches to the
 kernel for CUDA tensors.
 
-Each wrapper counts its launches in `LAUNCHES` (one per kernel launch,
-nowhere else), so a run can show that its main path went through the
-kernels; `select_hosts_b1` also counts K1's one-row launches (the
+K2 `preempt_one` (preempt_one.cu) replaces the JAX package's
+models/preemption.py preempt_one and _exact_prio_sum.  Its plain twin is
+models/preemption.py `preempt_one_plain`; models/preemption.py
+`preempt_one` dispatches to the kernel for CUDA tensors.
+
+Each wrapper counts its launches in `LAUNCHES` (one each time it launches
+its kernels, nowhere else), so a run can show that its main path went
+through the kernels; `select_hosts_b1` also counts K1's one-row launches (the
 sequential engine's steps) on their own.  The kernels are built from source at the first launch
 (kernels/_build.py); importing this module needs neither nvcc nor a card.
 """
@@ -16,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"select_hosts": 0, "select_hosts_b1": 0}
+LAUNCHES = {"select_hosts": 0, "select_hosts_b1": 0, "preempt_one": 0}
 
 # K1's variants, by the code select_hosts_launch takes: a block of 8 warps
 # to a row, one warp to a row (8 rows to a block), or a block to a row that
@@ -28,6 +33,8 @@ K1_VARIANTS = ("block_vec4", "block_scalar", "warp_vec4", "warp_scalar",
 # block a row at B = 2048 (PERF.md, tools/k1_compare.py)
 K1_WARP_MAX_N = 1024
 K1_ONE_READ_MAX_N = 8192  # rows up to this width are read once
+K2_MAX_SLOTS = 1024       # victim slots (sorted_victim_slots' cap)
+K2_MAX_COLS = 64          # extended resource columns
 
 
 def reset_launch_counts() -> None:
@@ -108,3 +115,91 @@ def noop_launch() -> None:
     if err != 0:
         raise RuntimeError("noop launch failed: "
                            + lib.select_hosts_error_string(err).decode())
+
+
+_K2_ARGS = (
+    # name, dtype, dims (None: any length, named: must agree)
+    ("requested", torch.float32, ("N", "E")),
+    ("allocatable", torch.float32, ("N", "E")),
+    ("pod_req", torch.float32, ("E",)),
+    ("candidates", torch.bool, ("N",)),
+    ("pods_node", torch.int32, ("M",)),
+    ("pods_priority", torch.int32, ("M",)),
+    ("pods_req", torch.float32, ("M", "E")),
+    ("pods_violating", torch.bool, ("M",)),
+    ("pods_start", torch.float32, ("M",)),
+    ("victim_slots", torch.int32, ("K",)),
+    ("slot_vids", torch.int32, ("K", "VM")),
+    ("vid_type", torch.int32, ("V",)),
+    ("vid_total", torch.int32, ("V",)),
+    ("vid_listed", torch.int32, ("V",)),
+    ("freed_vol_init", torch.float32, ("N", "VT")),
+)
+
+
+def preempt_one(*tensors):
+    """K2: the preemption pick for one preemptor, on the tensors' CUDA
+    device.  Arguments in order (see models/preemption.py
+    preempt_one_plain for their meaning): requested, allocatable f32[N, E],
+    pod_req f32[E], candidates bool[N], pods_node, pods_priority i32[M],
+    pods_req f32[M, E], pods_violating bool[M], pods_start f32[M],
+    victim_slots i32[K] (distinct arena indices in [0, M), -1 pads),
+    slot_vids i32[K, VM], vid_type, vid_total, vid_listed i32[V] (volume
+    identities node-local, as encoder.victim_volume_tables makes them),
+    freed_vol_init f32[N, VT].  Returns (node i32[], victim_mask bool[M],
+    n_victims i32[], n_pdb_violations i32[]).  Raises on anything the kernel
+    does not take and on a refused launch."""
+    if len(tensors) != len(_K2_ARGS):
+        raise TypeError(f"preempt_one takes {len(_K2_ARGS)} tensors, got "
+                        f"{len(tensors)}")
+    dims: dict = {}
+    device = tensors[0].device
+    for t, (name, dtype, shape) in zip(tensors, _K2_ARGS):
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"preempt_one launches on CUDA tensors only "
+                             f"({name})")
+        if t.device != device:
+            raise ValueError(f"preempt_one: {name} lies on {t.device}, "
+                             f"requested on {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"preempt_one wants {name} as {dtype}, got "
+                            f"{t.dtype}")
+        if t.dim() != len(shape):
+            raise ValueError(f"preempt_one wants {name} of {len(shape)} "
+                             f"dims, got {tuple(t.shape)}")
+        for d, size in zip(shape, t.shape):
+            if dims.setdefault(d, size) != size:
+                raise ValueError(f"preempt_one: {name} has {d}={size}, "
+                                 f"other inputs {dims[d]}")
+    N, E, M, K = dims["N"], dims["E"], dims["M"], dims["K"]
+    VM, V, VT = dims["VM"], dims["V"], dims["VT"]
+    if not (0 < N < (1 << 27) and 0 < M < (1 << 31) - 1 and 0 < VM
+            and 0 < V):
+        raise ValueError(f"preempt_one: sizes N={N} M={M} VM={VM} V={V} "
+                         f"out of range")
+    if not 0 < K <= K2_MAX_SLOTS:
+        raise ValueError(f"preempt_one takes 1 to {K2_MAX_SLOTS} victim "
+                         f"slots, got {K}")
+    if not (0 < E <= K2_MAX_COLS and VT <= E):
+        raise ValueError(f"preempt_one takes 1 to {K2_MAX_COLS} columns "
+                         f"with VT <= E, got E={E} VT={VT}")
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    ts = [t.contiguous() for t in tensors]
+    workspace = torch.empty(8 * N + K + V, dtype=torch.int32, device=device)
+    node = torch.empty((), dtype=torch.int32, device=device)
+    victim_mask = torch.empty(M, dtype=torch.bool, device=device)
+    n_victims = torch.empty((), dtype=torch.int32, device=device)
+    n_viol = torch.empty((), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.preempt_one_launch(
+            *(t.data_ptr() for t in ts), N, E, M, K, VM, V, VT,
+            workspace.data_ptr(), node.data_ptr(), victim_mask.data_ptr(),
+            n_victims.data_ptr(), n_viol.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("preempt_one launch failed: "
+                           + lib.select_hosts_error_string(err).decode())
+    LAUNCHES["preempt_one"] += 1
+    return node, victim_mask, n_victims, n_viol

@@ -50,6 +50,9 @@ def library() -> ctypes.CDLL:
     lib.select_hosts_launch.restype = ctypes.c_int
     lib.select_hosts_noop_launch.argtypes = [ctypes.c_void_p]
     lib.select_hosts_noop_launch.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.preempt_one_launch.argtypes = [p] * 15 + [i] * 7 + [p] * 6
+    lib.preempt_one_launch.restype = ctypes.c_int
     lib.select_hosts_error_string.argtypes = [ctypes.c_int]
     lib.select_hosts_error_string.restype = ctypes.c_char_p
     return lib

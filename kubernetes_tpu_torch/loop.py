@@ -7,6 +7,12 @@ engine -> AsyncFetch -> batched state commit -> bind/event tail.
 
 `run_raw` is the raw loop: encode -> engine -> commit.
 
+`run_preemption` drives the live Scheduler with preemption on: a full
+cluster of running pods at two priorities (`preemption_fleet`,
+`preemption_running_pods`) and a batch of higher-priority pods that fit
+nowhere (`preemptors`), through FitError -> candidates -> kernel K2 ->
+victims deleted -> nomination -> the next cycle's placement.
+
 The counterpart of bench.py run()'s timed section (bench.py:256-470) in the
 JAX package.  `run_raw` adds `existing` running pods before the clock
 starts, then encodes each batch of pending pods, launches the engine on the
@@ -55,14 +61,18 @@ WORKLOADS = ("plain", "node-affinity", "pod-affinity", "pod-anti-affinity")
 ENGINES = ("speculative", "sequential")
 
 
-def bench_nodes(n_nodes: int, pods_per_node: int = NODE_PODS_CAP) -> List[Node]:
+def bench_nodes(n_nodes: int, pods_per_node: int = NODE_PODS_CAP,
+                cpu: str = "32", mem: str = "256Gi",
+                make_node=make_node) -> List[Node]:
     """The bench fleet: zone i%8, tier b on every third node, a NoSchedule
-    taint on one node in 50."""
+    taint on one node in 50; `cpu` and `mem` per node.  make_node: the
+    object factory (the JAX package's gives the same nodes to its
+    scheduler)."""
     return [
         make_node(
             f"node-{i}",
-            cpu="32",
-            mem="256Gi",
+            cpu=cpu,
+            mem=mem,
             pods=pods_per_node,
             labels={ZONE_KEY: f"zone-{i % 8}", "tier": "a" if i % 3 else "b"},
             taints=[{"key": "dedicated", "value": "x", "effect": "NoSchedule"}]
@@ -288,15 +298,16 @@ def nominated_preemptors(n_nodes: int, k: int, make_pod=make_pod,
 
 
 def live_config(batch: int, engine: str = "speculative",
-                batched: bool = True, pipeline: bool = True):
-    """bench.py run_live's SchedulerConfig with this slice's settings
-    given explicitly (preemption, the CPU degradation engine and the
-    observatories off)."""
+                batched: bool = True, pipeline: bool = True,
+                preemption: bool = False):
+    """bench.py run_live's SchedulerConfig with the port's settings given
+    explicitly: preemption off unless asked for, the CPU degradation
+    engine and the observatories off."""
     from kubernetes_tpu_torch.runtime.scheduler import SchedulerConfig
 
     return SchedulerConfig(
         batch_size=batch, batch_window_s=0.0, engine=engine,
-        disable_preemption=True, batched_commit=batched,
+        disable_preemption=not preemption, batched_commit=batched,
         pipeline_commit=pipeline, cpu_fallback=False, telemetry=False,
         quality_top_k=0, timeline=False,
     )
@@ -421,5 +432,131 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
         "requested": np.asarray(snap.requested),
         "unschedulable_pods": sorted(
             r.pod.name for r in sched.results if r.node is None),
+        "scheduler": sched,
+    }
+
+
+# the preemption cell: scheduler_perf's node template (4 CPU, 32Gi, 110
+# pods) on the bench fleet; every node full of running pods, one in
+# BATCH_NODE_EVERY holding low-priority batch pods beside production pods
+PREEMPT_NODE_CPU, PREEMPT_NODE_MEM = "4", "32Gi"
+BATCH_NODE_EVERY = 20
+PRODUCTION_PRIORITY, BATCH_PRIORITY, PREEMPTING_PRIORITY = 1000, 0, 500
+
+
+def preemption_fleet(n_nodes: int, make_node=make_node) -> List[Node]:
+    """The bench fleet at scheduler_perf's node size (4 CPU, 32Gi)."""
+    return bench_nodes(n_nodes, cpu=PREEMPT_NODE_CPU, mem=PREEMPT_NODE_MEM,
+                       make_node=make_node)
+
+
+def preemption_running_pods(nodes: Sequence[Node], seed: int = 0,
+                            make_pod=make_pod) -> List[Pod]:
+    """The running pods that fill every node to its 4 CPU: 4 production
+    pods (priority 1,000, 1 CPU / 1Gi) on each node, except every
+    BATCH_NODE_EVERY-th, which holds 2 production pods and 4 batch pods
+    (priority 0, 500m / 512Mi) with distinct start times from `seed`."""
+    batch_rows = range(0, len(nodes), BATCH_NODE_EVERY)
+    starts = 1.6e9 + np.random.default_rng(seed).permutation(
+        4 * len(batch_rows)) * 7.0
+    pods: List[Pod] = []
+    k = b = 0
+    for i, node in enumerate(nodes):
+        batch_node = i % BATCH_NODE_EVERY == 0
+        for _ in range(2 if batch_node else 4):
+            pod = make_pod(f"prod-{k}", cpu="1", mem="1Gi",
+                           priority=PRODUCTION_PRIORITY, node_name=node.name)
+            pod.status.start_time = 1.5e9 + k
+            pods.append(pod)
+            k += 1
+        if batch_node:
+            for _ in range(4):
+                pod = make_pod(f"batch-{b}", cpu="500m", mem="512Mi",
+                               priority=BATCH_PRIORITY, node_name=node.name)
+                pod.status.start_time = float(starts[b])
+                pods.append(pod)
+                b += 1
+    return pods
+
+
+def preemptors(k: int, make_pod=make_pod) -> List[Pod]:
+    """`k` pending pods at priority 500 asking for 1.5 CPU / 1Gi, with no
+    toleration: they fit on no full node and preempt batch pods."""
+    return [make_pod(f"preemptor-{j}", cpu="1500m", mem="1Gi",
+                     priority=PREEMPTING_PRIORITY) for j in range(k)]
+
+
+def run_preemption(nodes: Sequence[Node], running: Sequence[Pod],
+                   pending: Sequence[Pod], batch: int, device="cuda",
+                   budget_s: float = 900.0) -> dict:
+    """The live Scheduler with preemption on (live_config(batch,
+    preemption=True)): the `running` pods are added to the cache, the
+    `pending` pods enqueued, and the queue drained until nothing
+    schedulable remains.
+
+    Returns "preemptions" (the Scheduler's list: (preemptor key, node
+    name, victim keys) in order), "bindings" [(pod name, node name)] in
+    binder call order, "unschedulable_pods" the names of every
+    unschedulable verdict, "requested" the final requested columns,
+    "node_names" row -> name, "attempts" preemption attempts, "placed",
+    "seconds", "pods_per_s" (pending pods bound a second), "phases" and
+    "preempt_seconds" (the Scheduler's), "cycles", "scatter_rows" dirty
+    rows scattered per snapshot update, "transfers" bytes and calls per
+    seam, and "scheduler"."""
+    from kubernetes_tpu_torch.codec.transfer import (
+        transfer_delta,
+        transfer_totals,
+    )
+    from kubernetes_tpu_torch.runtime.cache import SchedulerCache
+    from kubernetes_tpu_torch.runtime.queue import PriorityQueue
+    from kubernetes_tpu_torch.runtime.scheduler import Scheduler
+    from kubernetes_tpu_torch.utils import metrics
+
+    enc = build_encoder(nodes)
+    enc.add_pods(list(running))
+    cache = SchedulerCache(enc)
+    queue = PriorityQueue()
+    bindings: List[tuple] = []
+
+    def binder(pod, node_name):
+        bindings.append((pod.name, node_name))
+        return True
+
+    sched = Scheduler(cache=cache, queue=queue, binder=binder,
+                      config=live_config(batch, preemption=True),
+                      device=device)
+    attempts0 = metrics.PREEMPTION_ATTEMPTS.value
+    xfer0 = transfer_totals()
+    t0 = time.monotonic()
+    for p in pending:
+        queue.add(p)
+    deadline = t0 + budget_s
+    while time.monotonic() < deadline:
+        got = sched.run_once(timeout=0.0)
+        if got == 0 and not sched.pipeline_pending:
+            if not queue.has_schedulable():
+                break
+            time.sleep(0.002)  # backoff expiries: don't hot-spin
+    sched.flush_pipeline()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.monotonic() - t0
+    placed = len(bindings)
+    return {
+        "preemptions": list(sched.preemptions),
+        "bindings": bindings,
+        "unschedulable_pods": sorted(
+            r.pod.name for r in sched.results if r.node is None),
+        "requested": np.asarray(enc.snapshot().requested),
+        "node_names": {row: name for name, row in enc.node_rows.items()},
+        "attempts": int(metrics.PREEMPTION_ATTEMPTS.value - attempts0),
+        "placed": placed,
+        "seconds": dt,
+        "pods_per_s": placed / dt if dt > 0 else 0.0,
+        "phases": dict(sched.phase_seconds),
+        "preempt_seconds": dict(sched.preempt_seconds),
+        "cycles": sched.cycles_total,
+        "scatter_rows": list(sched._dev_snapshot.scatter_rows),
+        "transfers": transfer_delta(xfer0),
         "scheduler": sched,
     }

@@ -19,13 +19,18 @@ Per cycle:
   5. the tail: per pod bind via the binder callback, requeue of losers,
      events and metrics — under pipeline_commit it runs after the NEXT
      batch's dispatch
+  6. preemption for every pod that failed to fit (scheduler.go:463-475):
+     candidate nodes on the device, node and victims from kernel K2
+     (models/preemption.py), the victims deleted and the preemptor
+     nominated and requeued
 
 Device faults are classified (codec/faults.py): transient ones retry the
 same batch with backoff, a persistent one or a failure streak trips the
 breaker (runtime/health.py); when the device is given up on, the batch's
-popped pods are requeued and the error propagates.  This slice carries no
-CPU degradation engine and refuses every setting of a later slice
-(`refused_settings`): nothing degrades quietly.
+popped pods are requeued and the error propagates.  A fault in the
+preemption's candidate evaluation feeds the breaker and propagates too.
+The port carries no CPU degradation engine and refuses every setting of a
+later slice (`refused_settings`): nothing degrades quietly.
 """
 
 from __future__ import annotations
@@ -47,10 +52,12 @@ from kubernetes_tpu_torch.codec.faults import (
     CorruptedFetchError,
     classify_device_error,
 )
-from kubernetes_tpu_torch.codec.schema import FilterConfig
+from kubernetes_tpu_torch.codec.schema import FilterConfig, PodBatch
 from kubernetes_tpu_torch.codec.transfer import (
     AsyncFetch,
     DeviceSnapshotCache,
+    _dc_to,
+    host_fetch,
     transfer_delta,
     transfer_totals,
 )
@@ -61,6 +68,11 @@ from kubernetes_tpu_torch.models.batched import (
     encode_nominated,
     encode_nominated_block,
     make_sequential_scheduler,
+)
+from kubernetes_tpu_torch.models.preemption import (
+    make_preempt_eval,
+    pick_preemption_node,
+    sorted_victim_slots,
 )
 from kubernetes_tpu_torch.models.speculative import make_speculative_scheduler
 from kubernetes_tpu_torch.runtime.cache import SchedulerCache
@@ -90,9 +102,9 @@ class SchedulerConfig:
     """The JAX package's SchedulerConfig, field for field and with its
     defaults, so both classes read the same.  The port's Scheduler refuses
     every setting that belongs to a later slice (see refused_settings): in
-    particular the defaults of disable_preemption, cpu_fallback, telemetry,
-    quality_top_k and timeline are refused, so callers pass the slice's
-    settings explicitly."""
+    particular the defaults of cpu_fallback, telemetry, quality_top_k and
+    timeline are refused, so callers pass the slice's settings
+    explicitly."""
 
     batch_size: int = 256
     batch_window_s: float = 0.001
@@ -183,8 +195,6 @@ def refused_settings(config: SchedulerConfig) -> List[Tuple[str, str]]:
     `config` that belongs to a later slice of the port."""
     c = config
     checks = (
-        (not c.disable_preemption, "disable_preemption=False",
-         "A6 (preemption)"),
         (c.cpu_fallback, "cpu_fallback=True",
          "A5 (the CPU degradation engine)"),
         (c.telemetry, "telemetry=True", "A9 (observatories and ledger)"),
@@ -315,6 +325,10 @@ class Scheduler:
                for e in (extenders or ())):
             refused.append(("an extender with a filter or prioritize verb",
                             "A8 (gang and extender)"))
+        if any(getattr(e, "supports_preemption", False)
+               for e in (extenders or ())):
+            refused.append(("an extender with a preempt verb",
+                            "A8 (gang and extender)"))
         if ledger is not None:
             refused.append(("ledger", "A9 (observatories and ledger)"))
         if (replica_of > 1 or reconciler is not None
@@ -392,6 +406,9 @@ class Scheduler:
             make_speculative_scheduler(**engine_kw)
             if self.config.engine == "speculative" else None
         )
+        self._preempt_eval = make_preempt_eval(
+            self.config.filter_config, self._unsched_key
+        )
         self._engine_kind = (
             "sequential" if self._speculative_fn is None else "speculative"
         )
@@ -402,11 +419,21 @@ class Scheduler:
         self.extenders = list(extenders or [])
         self._recorder_defaulted = recorder is None
         self.recorder = recorder if recorder is not None else EventRecorder()
-        # kept for the JAX class's call contract; preemption (their only
-        # reader) is a later slice
         self.victim_deleter = victim_deleter or (
             lambda pod: self.cache.remove_pod(pod))
         self.pdb_lister = pdb_lister or (lambda: [])
+        # (preemptor key, node name, victim keys) of every nomination
+        self.preemptions: List[Tuple] = []
+        # seconds inside preempt(), by step: "candidates" (snapshot
+        # update, eval and fetch of the candidate mask), "arrays" (the
+        # arena, PDB flags and victim slots, the what-if's host arrays and
+        # their upload), "pick" (kernel K2 and the fetch of its result),
+        # "verify" (verify_nomination) and "evict" (victim deletions,
+        # events and the nomination)
+        self.preempt_seconds: Dict[str, float] = {
+            "candidates": 0.0, "arrays": 0.0, "pick": 0.0, "verify": 0.0,
+            "evict": 0.0,
+        }
         self._last_index = 0
         self._stop = threading.Event()
         # classified retry/backoff + circuit breaker (runtime/health.py)
@@ -834,18 +861,26 @@ class Scheduler:
         return staged
 
     def _commit_tail(self, staged: _Staged) -> List[ScheduleResult]:
-        """Side-effect tail of a cycle: binds, events, metrics, requeues.
-        Under pipeline_commit this overlaps the next batch's device
+        """Side-effect tail of a cycle: binds, events, metrics, requeues,
+        and preemption for the pods that failed to fit.  Under
+        pipeline_commit this overlaps the next batch's device
         dispatch (the state half already ran, so the next snapshot is
         exact)."""
         inf = staged.inf
         with use_traceparent(inf.trace):
             tail_span = inf.trace.child("bind-tail")
             if staged.batched:
-                results = self._tail_batched(staged)
+                results, fit_errors = self._tail_batched(staged)
             else:
-                results = self._tail_perpod(staged)
+                results, fit_errors = self._tail_perpod(staged)
             tail_span.finish()
+            if not self.config.disable_preemption:
+                t_p = time.monotonic()
+                p_span = inf.trace.child("preempt", failed=len(fit_errors))
+                for pod in fit_errors:
+                    self.preempt(pod)
+                p_span.finish()
+                self._phase("preempt", time.monotonic() - t_p, inf.tier)
         placed = sum(1 for r in results if r.node is not None)
         inf.trace.annotate(placed=placed, unschedulable=len(results) - placed)
         if staged.xfer_delta:
@@ -866,10 +901,10 @@ class Scheduler:
             inf.trace.log_if_long(self.config.trace_threshold_s)
         return results
 
-    def _tail_perpod(self, staged: _Staged) -> List[ScheduleResult]:
+    def _tail_perpod(self, staged: _Staged):
         """The classic per-pod commit loop (batched_commit=False):
-        assume/bind one pod at a time, emitting events and metrics
-        inline."""
+        assume/bind one pod at a time, emitting events and metrics inline.
+        Returns (results, the pods that failed to fit)."""
         inf = staged.inf
         pods, hosts = inf.pods, staged.hosts
         generation, cycle = inf.generation, inf.cycle
@@ -877,13 +912,16 @@ class Scheduler:
         enc = self.cache.encoder
         n_nodes = len(enc.node_rows)
         results = []
+        fit_errors: List[Pod] = []
         for i, pod in enumerate(pods):
             row = int(hosts[i])
             if row < 0:
                 # FitError path: park in unschedulableQ with backoff
-                # (factory.go MakeDefaultErrorFunc)
+                # (factory.go MakeDefaultErrorFunc), then try preemption
+                # (scheduler.go:463-475)
                 self.queue.add_unschedulable(pod, cycle)
                 results.append(ScheduleResult(pod, None, generation))
+                fit_errors.append(pod)
                 m.SCHEDULE_ATTEMPTS.inc(result=m.UNSCHEDULABLE)
                 self.recorder.eventf(
                     "Pod", pod.namespace, pod.name,
@@ -910,13 +948,14 @@ class Scheduler:
                     tier=inf.tier,
                 )
         self._phase("commit", time.monotonic() - t_commit0, inf.tier)
-        return results
+        return results, fit_errors
 
-    def _tail_batched(self, staged: _Staged) -> List[ScheduleResult]:
+    def _tail_batched(self, staged: _Staged):
         """Batched side-effect tail: per-pod bind callbacks (the only
         irreducibly per-pod step), then ONE batched emission each for
         requeues, metrics and events, in batch-index order so the audit
-        trail matches the per-pod loop."""
+        trail matches the per-pod loop.  Returns (results, the pods that
+        failed to fit)."""
         inf = staged.inf
         pods = inf.pods
         generation, cycle = inf.generation, inf.cycle
@@ -1013,7 +1052,7 @@ class Scheduler:
             "commit", staged.state_seconds + time.monotonic() - t_tail0,
             inf.tier,
         )
-        return list(results)
+        return list(results), [pods[i] for i in staged.fit_idx]
 
     # ------------------------------------------------------- assume/bind
 
@@ -1093,6 +1132,162 @@ class Scheduler:
             "%s", message or f"rejected after assume on {node_name}",
             trace_id=current_trace_id(),
         )
+
+    # ---------------------------------------------------------- preemption
+
+    def preempt(self, pod: Pod) -> Optional[str]:
+        """Try to make room for a pod that failed to fit: candidate nodes
+        on the device, a node and a minimal victim set from kernel K2, the
+        host verify where the what-if cannot see the failure, then the
+        victims deleted and the nominated node recorded so the two-pass
+        evaluation protects the claim.  Mirrors Scheduler.preempt
+        (scheduler.go:292-342) and genericScheduler.Preempt
+        (generic_scheduler.go:310-369).  Returns the nominated node name,
+        or None if preemption does not help."""
+        if self.config.disable_preemption:
+            return None
+        m.PREEMPTION_ATTEMPTS.inc()
+        t0 = time.monotonic()
+        try:
+            return self._preempt_inner(pod)
+        finally:
+            m.PREEMPTION_LATENCY.observe(time.monotonic() - t0)
+
+    def _preempt_inner(self, pod: Pod) -> Optional[str]:
+        enc = self.cache.encoder
+        ps = self.preempt_seconds
+        t = time.monotonic()
+        with self.cache._lock:
+            if not self._eligible_to_preempt(pod):
+                return None
+            # the preemptor alone, one row: the JAX class pads it to the
+            # sticky batch width (one compiled shape for its jit cache);
+            # eager torch needs no such shape, and the row is the same
+            with enc.batch_width(1):
+                batch = enc.encode_pods([pod])
+            cluster, _ = self.cache.snapshot()
+            dirty_rows = enc.take_dirty_rows()
+        # device work outside the cache lock.  The snapshot is a
+        # point-in-time copy; the candidates may be one event stale against
+        # the state re-read below, as in the reference (the pick's
+        # verify/veto and the next cycle resolve races).  The resident
+        # snapshot and the encoder's dirty-row stream are the scheduling
+        # cycle's own: preempt runs only on the scheduling thread's commit
+        # tail, interleaved with the cycles, never concurrent.
+        try:
+            dev_cluster = self._dev_snapshot.update(
+                cluster, dirty_rows=dirty_rows)
+            dev_batch = _dc_to(batch, PodBatch, self.device, "preempt")
+            cands = host_fetch(
+                self._preempt_eval(dev_cluster, dev_batch), tag="preempt"
+            )[0].copy()
+        except BaseException as e:
+            fc = classify_device_error(e)
+            if fc is None:
+                raise
+            # a device fault feeds the breaker like a cycle's, and with no
+            # CPU degradation engine in the port it propagates
+            self._note_device_fault(fc, e, "preempt")
+            self.device_health.record_failure(fc)
+            self._dev_snapshot.invalidate()
+            raise
+        finally:
+            t = self._tick_preempt("candidates", t)
+        if not cands.any():
+            # nodesWherePreemptionMightHelp came back empty: clear any
+            # previous nomination (generic_scheduler.go:328-333)
+            self._clear_nomination(pod)
+            return None
+        with self.cache._lock:
+            if not self._eligible_to_preempt(pod):
+                return None
+            arena = enc.pods_snapshot()
+            violating = self._pdb_violating_flags(enc, len(arena.node))
+            slots = sorted_victim_slots(
+                arena.priority, arena.valid, arena.node, pod.spec.priority,
+                violating, arena.start,
+            )
+            ps["arrays"] += time.monotonic() - t
+            row, _, victims, _ = pick_preemption_node(
+                enc, pod, cands, arena, slots, violating,
+                self.config.filter_config.max_vols, device=self.device,
+                timing=ps,
+            )
+            t = time.monotonic()
+            if row < 0:
+                self._clear_nomination(pod)
+                return None
+            node_name = enc.row_name(row)
+        for v in victims:
+            self.victim_deleter(v)
+            if self.invariants is not None:
+                # the victim left the cluster: a same-name successor must
+                # not read as a double-bind
+                self.invariants.note_removed(v)
+            self.recorder.eventf(
+                "Pod", v.namespace, v.name,
+                EVENT_TYPE_NORMAL, "Preempted",
+                "by %s/%s on node %s", pod.namespace, pod.name, node_name,
+            )
+        m.PREEMPTION_VICTIMS.set(float(len(victims)))
+        pod.status.nominated_node_name = node_name
+        self.queue.update_nominated_pod(pod, node_name)
+        self.preemptions.append((
+            (pod.namespace, pod.name),
+            node_name,
+            [(v.namespace, v.name) for v in victims],
+        ))
+        # victim deletions are cluster events (eventhandlers.go ->
+        # MoveAllToActiveQueue); in standalone mode emulate the move so the
+        # preemptor retries promptly
+        self.queue.move_all_to_active()
+        self._tick_preempt("evict", t)
+        return node_name
+
+    def _tick_preempt(self, step: str, t0: float) -> float:
+        now = time.monotonic()
+        self.preempt_seconds[step] += now - t0
+        return now
+
+    def _eligible_to_preempt(self, pod: Pod) -> bool:
+        """podEligibleToPreemptOthers (generic_scheduler.go:1159-1180): if the
+        pod already nominated a node and a lower-priority pod there is still
+        terminating, wait instead of preempting more."""
+        nom = pod.status.nominated_node_name
+        if not nom:
+            return True
+        enc = self.cache.encoder
+        row = enc.node_rows.get(nom, -1)
+        if row < 0:
+            return True
+        for key in enc._row_pods.get(row, ()):
+            rec = enc.pods.get(key)
+            if (
+                rec is not None
+                and rec.pod is not None
+                and rec.pod.metadata.deletion_timestamp is not None
+                and rec.priority < pod.spec.priority
+            ):
+                return False
+        return True
+
+    def _clear_nomination(self, pod: Pod) -> None:
+        pod.status.nominated_node_name = ""
+        self.queue.delete_nominated_pod_if_exists(pod)
+
+    def _pdb_violating_flags(self, enc, m_cap: int) -> np.ndarray:
+        """bool[M]: evicting arena pod m would violate a PodDisruptionBudget
+        (filterPodsWithPDBViolation, generic_scheduler.go:990-1035)."""
+        flags = np.zeros(m_cap, bool)
+        pdbs = [p for p in self.pdb_lister() if p.disruptions_allowed <= 0]
+        if not pdbs:
+            return flags
+        for rec in enc.pods.values():
+            if rec.pod is None or rec.node_row < 0:
+                continue
+            if any(pdb.matches(rec.pod) for pdb in pdbs):
+                flags[rec.m] = True
+        return flags
 
     # ----------------------------------------------------------- run loop
 

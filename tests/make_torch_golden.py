@@ -31,6 +31,16 @@ before the clock.
 
     python tests/make_torch_golden.py --live               # ~40 s
     python tests/make_torch_golden.py --live --nominated 256
+
+With --live --preemption K, the golden is the JAX Scheduler with
+preemption on (`jax_preemption`, the loop of the port's
+loop.run_preemption): the fleet at scheduler_perf's node size with every
+node full of running pods (loop.preemption_running_pods), then K pending
+preemptors (loop.preemptors) drained.  The file holds the preemptions in
+order (preemptor, node, victims), the bindings in binder call order and
+the final requested CPU per node row.
+
+    python tests/make_torch_golden.py --live --preemption 256   # ~2-4 min
 """
 
 from __future__ import annotations
@@ -55,8 +65,10 @@ def golden_path(workload: str) -> str:
                         f"{workload.replace('-', '_')}.npz")
 
 
-def live_golden_path(nominated: int = 0) -> str:
-    """tests/data/torch_port_golden_live[_nominated].npz"""
+def live_golden_path(nominated: int = 0, preemption: int = 0) -> str:
+    """tests/data/torch_port_golden_live[_nominated|_preemption].npz"""
+    if preemption:
+        return golden_path("live_preemption")
     return golden_path("live_nominated" if nominated else "live")
 
 
@@ -156,6 +168,73 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
             np.asarray(enc.snapshot(full=True).requested), sched)
 
 
+def jax_preemption(n_nodes: int, n_preemptors: int, batch: int,
+                   budget_s: float = 3600.0):
+    """The JAX Scheduler with preemption on, under the loop of the port's
+    loop.run_preemption: the same fleet, running pods and preemptors (built
+    with the JAX factory), drained until nothing schedulable remains.
+    Returns (preemptions [(preemptor key, node name, victim keys)],
+    bindings [(pod name, node name)] in call order, unschedulable pod
+    names, the final requested column matrix, the scheduler)."""
+    import bench
+    from kubernetes_tpu.api.factory import make_node, make_pod
+    from kubernetes_tpu.codec import SnapshotEncoder
+    from kubernetes_tpu.runtime.cache import SchedulerCache
+    from kubernetes_tpu.runtime.queue import PriorityQueue
+    from kubernetes_tpu.runtime.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch import loop
+
+    nodes = loop.preemption_fleet(n_nodes, make_node=make_node)
+    enc = SnapshotEncoder()
+    enc.add_nodes(nodes)
+    for d in range(bench._N_DEPLOY):
+        enc.add_spread_selector("default", {"app": f"dep-{d}"})
+    enc.add_pods(loop.preemption_running_pods(nodes, make_pod=make_pod))
+    cache = SchedulerCache(enc)
+    queue = PriorityQueue()
+    bindings = []
+
+    def binder(pod, node_name):
+        bindings.append((pod.name, node_name))
+        return True
+
+    sched = Scheduler(cache=cache, queue=queue, binder=binder,
+                      config=SchedulerConfig(
+                          batch_size=batch, batch_window_s=0.0,
+                          engine="speculative", disable_preemption=False,
+                          batched_commit=True, pipeline_commit=True,
+                          cpu_fallback=False, telemetry=False,
+                          quality_top_k=0, timeline=False))
+    for p in loop.preemptors(n_preemptors, make_pod=make_pod):
+        queue.add(p)
+    deadline = time.monotonic() + budget_s
+    while time.monotonic() < deadline:
+        got = sched.run_once(timeout=0.0)
+        if got == 0 and not sched.pipeline_pending:
+            if not queue.has_schedulable():
+                break
+            time.sleep(0.002)
+    sched.flush_pipeline()
+    unsched = sorted(r.pod.name for r in sched.results if r.node is None)
+    return (list(sched.preemptions), bindings, unsched,
+            np.asarray(enc.snapshot(full=True).requested), sched)
+
+
+def preemption_arrays(preemptions, bindings):
+    """The golden file's flat arrays of a preemption run: preemptor names,
+    node names, victims per preemption (counts and the flat names), bound
+    pod names and node names in call order."""
+    return dict(
+        preemptor=np.asarray([p[0][1] for p in preemptions], dtype=str),
+        preempt_node=np.asarray([p[1] for p in preemptions], dtype=str),
+        victim_count=np.asarray([len(p[2]) for p in preemptions], np.int32),
+        victims=np.asarray([v[1] for p in preemptions for v in p[2]],
+                           dtype=str),
+        bound_pod=np.asarray([b[0] for b in bindings], dtype=str),
+        bound_node=np.asarray([b[1] for b in bindings], dtype=str),
+    )
+
+
 def jax_chained_hosts(n_nodes: int, n_pods: int, batch: int,
                       workload: str = "plain", node_pods: int = 110,
                       existing: int = 0):
@@ -252,11 +331,32 @@ def main():
     ap.add_argument("--nominated", type=int, default=0,
                     help="with --live: preemptors nominated before the "
                          "clock (loop.nominated_preemptors)")
+    ap.add_argument("--preemption", type=int, default=0,
+                    help="with --live: the preemption cell with this many "
+                         "preemptors (loop.run_preemption's loop)")
     args = ap.parse_args()
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.live and args.preemption:
+        out = args.out or live_golden_path(preemption=args.preemption)
+        t0 = time.monotonic()
+        preemptions, bindings, unsched, requested, sched = jax_preemption(
+            args.nodes, args.preemption, args.batch)
+        dt = time.monotonic() - t0
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(
+            out, **preemption_arrays(preemptions, bindings),
+            unschedulable=np.asarray(unsched, dtype=str),
+            requested_cpu=requested[:, 0].astype(np.float32),
+            nodes=np.int32(args.nodes), batch=np.int32(args.batch),
+            preemptors=np.int32(args.preemption),
+        )
+        print(f"wrote {out}: {len(preemptions)} preemptions, "
+              f"{len(bindings)} bindings, {len(unsched)} unschedulable "
+              f"verdicts, {dt:.1f} s on the CPU")
+        return
     if args.live:
         out = args.out or live_golden_path(args.nominated)
         t0 = time.monotonic()

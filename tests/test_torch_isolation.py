@@ -55,6 +55,21 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+def test_walk_covers_the_preemption_slice():
+    """The import walk reaches the modules the preemption slice added: the
+    cpuref copy, models/preemption.py and K2's case list."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("kubernetes_tpu_torch/cpuref/__init__.py",
+                "kubernetes_tpu_torch/cpuref/reference.py",
+                "kubernetes_tpu_torch/models/preemption.py",
+                "kubernetes_tpu_torch/kernels/k2_cases.py"):
+        assert mod in rel, mod
+    names = {m.name for m in pkgutil.walk_packages(
+        [PKG], "kubernetes_tpu_torch.")}
+    assert {"kubernetes_tpu_torch.cpuref.reference",
+            "kubernetes_tpu_torch.models.preemption"} <= names
+
+
 def test_forbidden_name_rule():
     assert _forbidden("kubernetes_tpu.codec")
     assert _forbidden("jax.numpy")
@@ -91,6 +106,8 @@ def test_kernel_sources_and_build_settings():
     srcs = _build.sources()
     assert srcs and all(os.path.dirname(s) == os.path.join(PKG, "kernels")
                         for s in srcs)
+    assert {os.path.basename(s) for s in srcs} >= {"select_hosts.cu",
+                                                   "preempt_one.cu"}
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.CUDA_FLAGS
     assert "--use_fast_math" not in _build.CUDA_FLAGS
     assert os.path.basename(_build.BUILD_DIR) == ".torch_ext_build"

@@ -12,7 +12,8 @@ workloads, a 2-slot fleet with unschedulable pods, both engines, pipelined
 and not, per-pod commit, nominations registered on the queue, and injected
 transient faults at dispatch and at the fence.  The port's refusals of
 later slices' settings, its fault path with no CPU fallback, and the
-full-width golden files are checked too.
+full-width golden files are checked too (preemption itself:
+tests/test_torch_preempt_live.py).
 """
 
 from __future__ import annotations
@@ -196,7 +197,6 @@ def test_pipelined_fence_fault_requeues_both_batches():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("disable_preemption", False, "A6"),
     ("cpu_fallback", True, "A5"),
     ("telemetry", True, "A9"),
     ("quality_top_k", 3, "A9"),
@@ -228,8 +228,8 @@ def test_refuses_framework_extenders_and_default_config():
         Scheduler(config=loop.live_config(8), extenders=[ext], device="cpu")
     # the JAX class's defaults belong to later slices
     assert {w for w, _ in refused_settings(SchedulerConfig())} == {
-        "disable_preemption=False", "cpu_fallback=True", "telemetry=True",
-        "quality_top_k=3", "timeline=True"}
+        "cpu_fallback=True", "telemetry=True", "quality_top_k=3",
+        "timeline=True"}
     assert refused_settings(loop.live_config(8)) == []
 
 
