@@ -46,7 +46,8 @@ printing one line of numbers; any failure exits non-zero with no result:
      the port's Scheduler at full width, speculative engine, batched and
      pipelined commit: its 12,048 bindings (warmup included) and their
      order equal tests/data/torch_port_golden_live.npz, the JAX
-     Scheduler's; a numpy recount; pods/s, the phase split, overlap
+     Scheduler's; a numpy recount; pods/s, the phase split, the full
+     collections of Python's cyclic collector inside the clock, overlap
      efficiency, dirty rows scattered and bytes H2D per cycle against a
      full snapshot upload, the dirty-row scatter's time, K1 launches and
      peak GiB;
@@ -56,15 +57,6 @@ printing one line of numbers; any failure exits non-zero with no result:
      tests/data/torch_port_golden_live_nominated.npz, and a numpy recount
      finds no pod on a node its nomination leaves too little CPU and no
      anti-matched pod on a nominated node;
- 2b. (run after phase 2) K2 (preempt_one) against its plain twin on the
-     card, all four outputs equal, on every case of
-     kubernetes_tpu_torch/kernels/k2_cases.py (small random arenas, PDB,
-     host-port and shared-volume columns, a node with over 32 victims, all
-     criteria tied, no candidate, nothing possible, an order-sensitive f32
-     sum, and the full shape: 6,144 rows, an arena of 32,768, 1,024 slots);
-     then its times there with L2 cold and warm, beside its plain twin's
-     and its bytes bound (its three kernels' times apart come from phase
-     13's profiled attempt);
  13. the live preemption cell: loop.run_preemption through the port's
      Scheduler with preemption on, 5,000 nodes of 4 CPU / 32Gi, 20,500
      running pods (19,500 production at priority 1,000, 1,000 batch at
@@ -75,10 +67,26 @@ printing one line of numbers; any failure exits non-zero with no result:
      unschedulable verdicts and the requested CPU per node equal
      tests/data/torch_port_golden_live_preemption.npz, the JAX Scheduler's;
      a numpy recount of CPU per node from the surviving objects; pods/s,
-     the phase split with preempt split into its steps, K1 and K2
-     launches, bytes per cycle and per attempt, the dirty rows each
+     the phase split with preempt split into its steps, the full
+     collections inside the clock, K1 and K2 launches, bytes per cycle
+     and per attempt, the dirty rows each
      snapshot update scattered, and one more attempt under torch.profiler
-     (device time, idle share, K2's kernels).
+     (device time, idle share, K2's kernel launches and their time);
+ 2b. (run last, so that nothing it does can change the cells' numbers)
+     K2 (preempt_one) against its plain twin on the card, all four
+     outputs equal, on every case of
+     kubernetes_tpu_torch/kernels/k2_cases.py (small random arenas, PDB,
+     host-port and shared-volume columns, a node with over 32 victims, all
+     criteria tied, no candidate, nothing possible, an order-sensitive f32
+     sum, 110 victims on a node, victims on the edges of row ranges and
+     slots outside the segments, an identity's evicted count crossing its
+     total, 1,024 slots on 1,024 rows, rows needing no victim with and
+     without a pod, and the full shape: 6,144 rows, an arena of 32,768,
+     1,024 slots); then its times there with L2 cold and warm, beside its
+     plain twin's, its bytes bound, its stream operations in one call
+     (kernel launches, memsets and copies, counted by torch.profiler in a
+     child process: one k2_ kernel and nothing else, or the phase fails),
+     an empty launch's time and the launch floor (the two multiplied).
 
 Then the card's name and power limit, the kernels' JSON record (K1's and
 K2's launches in each cell among their keys) and the device line.
@@ -197,37 +205,39 @@ def phase_k1(main_n: int) -> dict:
             "shapes": shapes}
 
 
-def _k2_bound_ms(a) -> float:
-    """K2's least time on the card: the bytes it must move over the memory
-    rate, counted from this call's data.  Read once: the candidate mask,
-    pod_req, the arena's node column (which candidate rows hold a pod), the
-    slot list, the volume tables, and for the candidate rows only their
-    [E] rows of the two node tables and their initial credit, and for the
-    listed pods on candidate rows their priority, request row, PDB flag,
-    start and volume ids; no other row changes the result.  Written once:
-    the M-byte mask and three int32 scalars."""
-    from kubernetes_tpu_torch.kernels import k1_bench
+# one warm K2 call at the full-width case under torch.profiler, in a
+# process of its own; prints {device activity name: count}
+_K2_OPS_CHILD = """
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from kubernetes_tpu_torch import kernels
+from kubernetes_tpu_torch.kernels import k1_bench, k2_cases
+c = k2_cases.full_width_case()
+a = [torch.from_numpy(np.ascontiguousarray(c[k])).to(sys.argv[2])
+     for k in k2_cases.ARGS]
+print(json.dumps(k1_bench.stream_ops(lambda: kernels.preempt_one(*a))))
+"""
 
-    req, _, _, cand, node, _, _ = a[:7]
-    slots, slot_vids, vt, tot, lst, init = a[9:]
-    N, E = req.shape
-    n_cand = int(cand.sum())
-    m = slots[slots >= 0].long()
-    on = node[m].long()
-    on = on[(on >= 0) & (on < N)]
-    listed = int(cand[on].sum())
-    nbytes = (N + E * 4 + node.numel() * 4 + slots.numel() * 4
-              + (vt.numel() + tot.numel() + lst.numel()) * 4
-              + n_cand * (2 * E * 4 + init.shape[1] * 4)
-              + listed * (4 + E * 4 + 1 + 4 + slot_vids.shape[1] * 4)
-              + node.numel() + 3 * 4)
-    return nbytes / k1_bench.HBM_BYTES_PER_S * 1e3
+
+def k2_stream_ops(device: str = "cuda") -> dict:
+    """Every launch, memset and copy that one warm full-width K2 call puts
+    on the stream, counted by torch.profiler in a child process: a
+    profiler session slows the host's launches for the rest of its
+    process, and one run after phase 13 recorded no device activity."""
+    res = subprocess.run([sys.executable, "-c", _K2_OPS_CHILD, ROOT, device],
+                         capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"2b K2: the stream-operation count failed: "
+          f"{res.stderr.strip()[-800:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def phase_k2() -> dict:
     """K2 against its twin on every case of kernels/k2_cases.py, all four
     outputs equal; then its times at the full-width case (the live cell's
-    shape) with L2 cold and warm, its twin's, and its bytes bound."""
+    shape) with L2 cold and warm, its twin's, its bytes bound, and its
+    launch floor: an empty launch's time times K2's stream operations in
+    one call (k2_stream_ops), both measured here."""
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.kernels import k1_bench, k2_cases
     from kubernetes_tpu_torch.models.preemption import preempt_one_plain
@@ -256,14 +266,25 @@ def phase_k2() -> dict:
     out = {"ms": k1_bench.time_ms(k2, cold=True),
            "ms_warm": k1_bench.time_ms(k2, cold=False),
            "plain_ms": k1_bench.time_ms(plain),
-           "bound_ms": _k2_bound_ms(a), "max_abs_err": max_err,
+           "bound_ms": k1_bench.k2_bound_ms(a), "max_abs_err": max_err,
+           "empty_launch_ms": k1_bench.time_ms(kernels.noop_launch,
+                                               cold=False),
            "shape": {"N": int(a[0].shape[0]), "E": int(a[0].shape[1]),
                      "M": int(a[4].shape[0]), "Kv": int(a[9].shape[0])}}
+    ops = k2_stream_ops()
+    out["stream_ops"] = sum(ops.values())
+    check(out["stream_ops"] == 1 and all("k2_" in n for n in ops),
+          f"2b K2: one call put {ops} on the stream, not one k2_ kernel")
+    out["launch_floor_ms"] = out["empty_launch_ms"] * out["stream_ops"]
+    out["over_floor"] = out["ms"] / out["launch_floor_ms"]
     print(f"[2b K2] equal to the twin on {len(names)} cases "
           f"(case:node/victims {' '.join(names)}) | at {out['shape']}: "
           f"cold_ms {out['ms']:.4f} warm_ms {out['ms_warm']:.4f} "
           f"plain_cold_ms {out['plain_ms']:.4f} bound_ms "
-          f"{out['bound_ms']:.5f}", flush=True)
+          f"{out['bound_ms']:.5f} | stream_ops {out['stream_ops']} "
+          f"empty_launch_ms {out['empty_launch_ms']:.4f} launch_floor_ms "
+          f"{out['launch_floor_ms']:.4f} cold_over_floor "
+          f"{out['over_floor']:.2f}", flush=True)
     return out
 
 
@@ -692,7 +713,7 @@ def phase_live(label: str, nodes, nominated: int = 0) -> dict:
            "h2d_bytes_per_cycle": h2d / cycles,
            "snapshot_upload_bytes_per_cycle": snap_up / cycles,
            "snapshot_bytes": res["snapshot_bytes"], "launches": launches,
-           "peak_gb": peak_gb, "transfers": xf}
+           "gc_full": res["gc_full"], "peak_gb": peak_gb, "transfers": xf}
     print(f"[{label}] pods_per_s {res['pods_per_s']:.1f} seconds "
           f"{res['seconds']:.3f} placed {res['placed']} cycles "
           f"{res['cycles']} | phases pop {ph['pop']:.4f} encode "
@@ -700,7 +721,8 @@ def phase_live(label: str, nodes, nominated: int = 0) -> dict:
           f"{ph['fetch']:.4f} fetch_block {ph['fetch_block']:.4f} commit "
           f"{ph['commit']:.4f} (state {res['commit_state_seconds']:.4f} "
           f"tail {res['tail_seconds']:.4f}) enqueue {ph['enqueue']:.4f} | "
-          f"overlap_efficiency {res['overlap_efficiency']:.4f} | dirty rows "
+          f"full collections in the window {res['gc_full']['collections']} "
+          f"({res['gc_full']['seconds']:.4f} s) | overlap_efficiency {res['overlap_efficiency']:.4f} | dirty rows "
           f"scattered per update {scat} | H2D bytes per cycle "
           f"{h2d / cycles:.0f} (whole-field uploads {snap_up / cycles:.0f}) "
           f"against a full snapshot {res['snapshot_bytes']} | by seam "
@@ -792,10 +814,12 @@ def phase_preemption(label: str) -> dict:
     # taken): candidates, host arrays and K2, no state change
     prof, wall, dev = _profiled(lambda: sched.preempt(pending[-1]))
     k2_ms: dict = {}
+    k2_ops = 0
     for n, _, ms in dev:
         if "k2_" in n:
             short = n[n.index("k2_"):].split("(")[0]
             k2_ms[short] = k2_ms.get(short, 0.0) + ms
+            k2_ops += 1
     dev_ms = sum(ms for *_, ms in dev)
     xf = res["transfers"]
     per_attempt = {k: v["bytes"] / attempts for k, v in xf.items()
@@ -814,8 +838,9 @@ def phase_preemption(label: str) -> dict:
            "bytes_per_attempt": per_attempt,
            "h2d_bytes_per_cycle": h2d / cycles, "scatter_rows": scat,
            "profiled_attempt": {"wall_ms": wall * 1e3, "device_ms": dev_ms,
-                                "kernels": len(dev), "k2_ms": k2_ms},
-           "peak_gb": peak_gb, "transfers": xf}
+                                "kernels": len(dev), "k2_ms": k2_ms,
+                                "k2_launches": k2_ops},
+           "gc_full": res["gc_full"], "peak_gb": peak_gb, "transfers": xf}
     print(f"[{label}] pods_per_s {res['pods_per_s']:.1f} seconds "
           f"{res['seconds']:.3f} placed {res['placed']} preemptions "
           f"{len(pre)} (victims {sum(got['victim_count'])}) attempts "
@@ -825,7 +850,9 @@ def phase_preemption(label: str) -> dict:
           f"{ph['commit']:.4f} preempt {ph['preempt']:.4f} | preempt "
           f"split candidates {ps['candidates']:.4f} arrays "
           f"{ps['arrays']:.4f} pick(K2) {ps['pick']:.4f} verify "
-          f"{ps['verify']:.4f} evict {ps['evict']:.4f} | K1 launches "
+          f"{ps['verify']:.4f} evict {ps['evict']:.4f} | full collections "
+          f"in the window {res['gc_full']['collections']} "
+          f"({res['gc_full']['seconds']:.4f} s) | K1 launches "
           f"{launches['select_hosts']} (B=1 {launches['select_hosts_b1']}) "
           f"K2 launches {launches['preempt_one']} | bytes per attempt "
           f"{per_attempt} H2D bytes per cycle (the attempts' left out) "
@@ -833,7 +860,8 @@ def phase_preemption(label: str) -> dict:
           f"rows scattered per update (rows: updates) {scat} | one "
           f"attempt profiled: wall_ms {wall * 1e3:.3f} device_ms "
           f"{dev_ms:.3f} idle_share {1 - dev_ms / (wall * 1e3):.3f} "
-          f"kernels {len(dev)} K2 device ms {k2_ms} | peak_device_GiB "
+          f"kernels {len(dev)} K2 launches {k2_ops} K2 device ms {k2_ms} "
+          f"| peak_device_GiB "
           f"{peak_gb:.2f} | preemptions, bindings and order equal to the "
           f"JAX Scheduler's", flush=True)
     return out
@@ -849,7 +877,6 @@ def main() -> None:
     nodes = bench_nodes(NODES)
     main_n = build_encoder(nodes).snapshot().n_nodes   # padded node width
     k1 = phase_k1(main_n)
-    k2 = phase_k2()
 
     plain_pods = [pending_pod(i, "plain") for i in range(PODS)]
     res3, launches = _run_pair("3 plain", nodes, plain_pods, True)
@@ -939,6 +966,8 @@ def main() -> None:
     live13 = phase_preemption("13 live preemption")
     print(f"[13 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
+    # last, so that nothing of it can change the cells' numbers above
+    k2 = phase_k2()
 
     # K1 launches by cell: one a speculative round at B=2048, and in the
     # redo cells one more a sequential step at B=1 (counted on their own)
@@ -983,6 +1012,10 @@ def main() -> None:
         "bound_by": "bytes",
         "library_ms": None,
         "ms_warm": k2["ms_warm"],
+        "stream_ops": k2["stream_ops"],
+        "empty_launch_ms": k2["empty_launch_ms"],
+        "launch_floor_ms": k2["launch_floor_ms"],
+        "over_floor": k2["over_floor"],
         "shape": k2["shape"],
         "kernel_ms_in_an_attempt": live13["profiled_attempt"]["k2_ms"],
         "attempts": live13["attempts"],

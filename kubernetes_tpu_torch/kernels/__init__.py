@@ -13,7 +13,10 @@ models/preemption.py `preempt_one_plain`; models/preemption.py
 Each wrapper counts its launches in `LAUNCHES` (one each time it launches
 its kernels, nowhere else), so a run can show that its main path went
 through the kernels; `select_hosts_b1` also counts K1's one-row launches (the
-sequential engine's steps) on their own.  The kernels are built from source at the first launch
+sequential engine's steps) on their own.  A preempt_one call puts one
+kernel launch on the stream, no memset and no copy (chip_smoke.py counts
+them under torch.profiler); the first call on a stream also zeroes that
+stream's ticket.  The kernels are built from source at the first launch
 (kernels/_build.py); importing this module needs neither nvcc nor a card.
 """
 
@@ -35,6 +38,9 @@ K1_WARP_MAX_N = 1024
 K1_ONE_READ_MAX_N = 8192  # rows up to this width are read once
 K2_MAX_SLOTS = 1024       # victim slots (sorted_victim_slots' cap)
 K2_MAX_COLS = 64          # extended resource columns
+# K2's ticket: one uint32 a (device, stream), zero between launches (each
+# launch's last block sets it back)
+_K2_TICKETS: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -187,17 +193,23 @@ def preempt_one(*tensors):
 
     lib = library()
     ts = [t.contiguous() for t in tensors]
-    workspace = torch.empty(8 * N + K + V, dtype=torch.int32, device=device)
+    workspace = torch.empty(lib.preempt_one_workspace_ints(N, K, V),
+                            dtype=torch.int32, device=device)
     node = torch.empty((), dtype=torch.int32, device=device)
     victim_mask = torch.empty(M, dtype=torch.bool, device=device)
     n_victims = torch.empty((), dtype=torch.int32, device=device)
     n_viol = torch.empty((), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
+        ticket = _K2_TICKETS.get((device, stream))
+        if ticket is None:
+            ticket = _K2_TICKETS[(device, stream)] = torch.zeros(
+                1, dtype=torch.int32, device=device)
         err = lib.preempt_one_launch(
             *(t.data_ptr() for t in ts), N, E, M, K, VM, V, VT,
-            workspace.data_ptr(), node.data_ptr(), victim_mask.data_ptr(),
-            n_victims.data_ptr(), n_viol.data_ptr(), stream)
+            workspace.data_ptr(), ticket.data_ptr(), node.data_ptr(),
+            victim_mask.data_ptr(), n_victims.data_ptr(), n_viol.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError("preempt_one launch failed: "
                            + lib.select_hosts_error_string(err).decode())

@@ -24,6 +24,18 @@ volume rows), so a jitted reference compiles once for all of them:
   order-f32     three victims whose f32 request sum depends on the order of
                 addition; the node fits with the reference's order
                 (ascending arena index) and not with slot order
+  heavy-node    110 victims on one row (the kubelet's pod cap)
+  shared-vols   one volume identity held by three victims on a row, whose
+                evicted count falls below its total partway through the
+                reprieve
+  empty-row     rows that need no victim, with and without a pod on them
+                (criterion 5's F32_MAX and +inf)
+and cases of their own shapes:
+  block-edge    N = 300, victims on the first and last rows of 16-, 32- and
+                64-row ranges, two listed pods outside [0, N)
+  spread-1024   the 1,024-slot cap over 1,024 distinct rows of 1,100
+  wide-31       random-0 with E = 31 and random-2 with E = 60 (copies of
+  wide-60       the CPU column): the kernel's warp-a-row layouts
 and one case at the live cell's full shape (N=6,144 rows of which 5,000
 nodes, M=32,768, 20,500 running pods with 2,000 potential victims, so the
 1,024-slot cap binds).
@@ -43,7 +55,8 @@ SMALL = dict(kv=256, vm=4, nv=256)
 PREEMPTOR_PRIORITY = 100
 NAMES = ("random-0", "random-1", "random-2", "random-3", "pdb-ports",
          "pdb-all", "crowded", "all-tie", "no-candidate", "impossible",
-         "order-f32", "full-width")
+         "order-f32", "heavy-node", "block-edge", "shared-vols",
+         "spread-1024", "empty-row", "wide-31", "wide-60", "full-width")
 
 
 def _pad_to(a: np.ndarray, n: int, fill, axis: int = 0) -> np.ndarray:
@@ -341,6 +354,183 @@ def full_width_case(seed: int = 5) -> dict:
     return _finish(arrs, {}, [0], n_rows, {})
 
 
+def _arena(n_rows: int, M: int, pods, slack, cand_rows, need_cpu: float,
+           holds=None, vid_types=(0,), vol_limit=None, need_vols: float = 0.0,
+           shape: dict = SMALL) -> dict:
+    """A case from a list of pods (row, priority, cpu milli, start): pod i
+    at arena index i, requesting its CPU, 256Mi and one pod slot.  A row's
+    allocatable CPU is its requested CPU plus slack[row] (a dict, default
+    0), its pod cap 110; volume columns are the row's attached identities
+    plus vol_limit[row] (default 16).  The preemptor asks for need_cpu, 128Mi,
+    one pod slot and need_vols attachments of type 0; cand_rows are the
+    candidates."""
+    node = np.full(M, -1, np.int32)
+    prio = np.zeros(M, np.int32)
+    req = np.zeros((M, E), np.float32)
+    start = np.zeros(M, np.float64)
+    for i, (row, p, cpu, s) in enumerate(pods):
+        node[i], prio[i] = row, p
+        req[i, 0], req[i, 1], req[i, 3] = cpu, 2.0 ** 28, 1.0
+        start[i] = 1.6e9 + s
+    holds = holds or {}
+    on = (node >= 0) & (node < n_rows)
+    requested = np.zeros((n_rows, E), np.float32)
+    np.add.at(requested, node[on], req[on])
+    attached = np.zeros((n_rows, VT), np.float32)
+    for row, v in {(int(node[m]), v) for m, vids in holds.items()
+                   for v in vids if 0 <= node[m] < n_rows}:
+        attached[row, vid_types[v]] += 1.0
+    requested[:, R + 2:] = attached
+    alloc = np.zeros((n_rows, E), np.float32)
+    alloc[:, 0] = requested[:, 0]
+    for row, s in slack.items():
+        alloc[row, 0] += s
+    alloc[:, 1] = requested[:, 1] + 2.0 ** 30
+    alloc[:, 3] = 110.0
+    alloc[:, R] = alloc[:, R + 1] = 0.5
+    alloc[:, R + 2:] = attached + 16.0
+    for row, lim in (vol_limit or {}).items():
+        alloc[row, R + 2:] = attached[row] + lim
+    pod_req = np.zeros(E, np.float32)
+    pod_req[0], pod_req[1], pod_req[3] = need_cpu, 2.0 ** 27, 1.0
+    pod_req[R + 2] = need_vols
+    cand = np.zeros(n_rows, bool)
+    cand[list(cand_rows)] = True
+    arrs = dict(requested=requested, allocatable=alloc, pod_req=pod_req,
+                candidates=cand, pods_node=node, pods_priority=prio,
+                pods_req=req, pods_violating=np.zeros(M, bool), start=start,
+                start_f64=start)
+    return _finish(arrs, holds, list(vid_types), n_rows, shape)
+
+
+def heavy_node_case(seed: int = 31) -> dict:
+    """Row 40 holds 110 potential victims (the kubelet's pod cap, more than
+    a warp has lanes), of priority 0-50, mixed CPU and shared node-local
+    volumes; it is full on CPU and has room for one more attachment, and
+    the preemptor needs 1.5 CPU and one attachment, so the reprieve walks
+    all 110 and keeps most.  Rows 3 and 50 hold a few victims of priority
+    60-70 each and are candidates too: row 40 wins."""
+    rng = np.random.default_rng(seed)
+    pods = [(40, int(rng.choice([0, 3, 7, 50])),
+             float(rng.integers(1, 4) * 100), float(rng.integers(0, 30)))
+            for _ in range(110)]
+    pods += [(int(r), int(rng.choice([60, 70])), 400.0, float(i))
+             for i, r in enumerate([3, 3, 3, 50, 50, 50, 50])]
+    pods += [(int(r), 1000, 500.0, 0.0) for r in rng.integers(0, 64, 40)]
+    holds = {}
+    for m in range(110):
+        k = int(rng.integers(0, 3))
+        if k:
+            holds[m] = sorted(rng.choice(3, k, replace=False).tolist())
+    return _arena(64, 256, pods, {40: 0.0, 3: 300.0, 50: 100.0},
+                  (3, 40, 50), 1500.0, holds, (0, 1, 2),
+                  vol_limit={40: 1.0, 3: 1.0, 50: 1.0}, need_vols=1.0)
+
+
+def block_edge_case() -> dict:
+    """N = 300 rows, victims only on rows at the edges of 16-, 32- and
+    64-row ranges and on the last row: 0, 15, 16, 31, 32, 63, 64, 95, 96,
+    127, 128, 255, 256, 299.  Each such row holds a production pod and two
+    victims and has room for one victim back.  Rows 31 and 32 tie on every
+    criterion and beat the others on the highest victim priority, so row 31
+    wins across the 31 | 32 boundary.  Two listed pods lie outside [0, N):
+    one unassigned (node -1, reprieved on row 0) and one on node N
+    (reprieved on row N-1); both come first in slot order and are not in
+    any node's segment.  On row 299 the second one is re-admitted and
+    takes the room one of the row's own victims would have had, so row
+    299 ends with two victims; counted by segment alone it would keep one
+    victim with the latest start and win."""
+    rows = (0, 15, 16, 31, 32, 63, 64, 95, 96, 127, 128, 255, 256, 299)
+    pods = []
+    for r in rows:
+        p = 3 if r in (31, 32, 299) else (5 if r < 31 else 4)
+        s = 50.0 if r == 299 else 10.0
+        pods += [(r, 1000, 1000.0, 0.0), (r, p, 500.0, s), (r, p, 500.0, s)]
+    pods += [(int(r), 1000, 1000.0, 0.0) for r in range(1, 299, 7)]
+    out = len(pods)
+    pods += [(-1, 60, 500.0, 1.0), (300, 60, 500.0, 1.0)]
+    case = _arena(300, 512, pods, {r: 500.0 for r in rows}, rows, 1000.0,
+                  shape={})
+    slots = case["victim_slots"]
+    listed = np.concatenate([[out, out + 1],
+                             slots[(slots >= 0) & (slots < out)]])
+    k = len(slots)
+    while k < len(listed):
+        k *= 2
+    case["victim_slots"] = _pad_to(listed.astype(np.int32), k, -1)
+    case["slot_vids"] = np.full((k, case["slot_vids"].shape[1]), -1,
+                                np.int32)
+    return case
+
+
+def shared_vols_case() -> dict:
+    """Row 33 holds five victims A-E (priority 9 down to 5, 300m each)
+    beside production pods, and must free 300m and one type-0 attachment.
+    A, B and C hold one volume identity X, D alone holds Y, E holds Z with
+    a production pod (so Z is never freed).  X and Y are fully listed: the
+    initial credit is two attachments.  Reprieving A re-attaches X (its
+    evicted count 3 is at its total), after which the count is 2, below
+    the total, and B and C come back with no volume delta; D re-attaches Y
+    and no longer fits; E comes back.  Row 34, the other candidate, cannot
+    free enough CPU."""
+    pods = [(33, p, 300.0, 0.0) for p in (9, 8, 7, 6, 5)]
+    pods += [(33, 1000, 1000.0, 0.0), (34, 4, 300.0, 0.0),
+             (34, 1000, 1000.0, 0.0)]
+    pods += [(r, 1000, 500.0, 0.0) for r in range(0, 64, 3)]
+    holds = {0: [0], 1: [0], 2: [0], 3: [1], 4: [2], 5: [2], 6: [1]}
+    return _arena(64, 256, pods, {33: 700.0, 34: 0.0}, (33, 34), 1000.0,
+                  holds, (0, 0, 0), vol_limit={33: 0.0, 34: 0.0},
+                  need_vols=1.0)
+
+
+def empty_row_case() -> dict:
+    """Candidate rows the preemptor fits on with no victim: row 5 holds
+    only production pods (none listed), row 7 holds two victims that are
+    both re-admitted, rows 40 and 60 hold no pod at all.  Row 3 needs one
+    victim.  With no victim the earliest-start key is F32_MAX on a row that
+    holds a pod and +inf on a row that holds none (the reference's empty
+    segment), so row 40 wins over the lower rows 5 and 7."""
+    pods = [(5, 1000, 1000.0, 0.0), (5, 1000, 1000.0, 3.0),
+            (7, 20, 300.0, 1.0), (7, 30, 300.0, 2.0), (7, 1000, 500.0, 0.0),
+            (3, 10, 800.0, 4.0), (3, 1000, 1000.0, 0.0)]
+    pods += [(r, 1000, 500.0, 0.0) for r in range(8, 32, 2)]
+    return _arena(64, 256, pods, {5: 1000.0, 7: 2000.0, 40: 4000.0,
+                                  60: 4000.0, 3: 200.0},
+                  (3, 5, 7, 40, 60), 1000.0)
+
+
+def spread_case(seed: int = 41) -> dict:
+    """The 1,024-slot cap over 1,024 distinct rows of 1,100, one victim
+    each (priority 0-9, distinct starts) beside a production pod, every
+    row full: each of them is possible with its one victim, and the pick
+    is the latest-started of the priority-0 victims, found across every
+    block's range."""
+    rng = np.random.default_rng(seed)
+    rows = rng.permutation(1100)[:1024]
+    prio = rng.integers(0, 10, 1024)
+    starts = rng.permutation(1024).astype(np.float64)
+    pods = [(int(r), int(p), 500.0, float(s))
+            for r, p, s in zip(rows, prio, starts)]
+    pods += [(int(r), 1000, 1000.0, 0.0) for r in range(1100)]
+    return _arena(1100, 4096, pods, {}, rows.tolist(), 500.0, shape={})
+
+
+def wide_case(base: dict, e: int) -> dict:
+    """A case with e columns: base's with e - E copies of its CPU column put
+    before the volume columns (so the fit test and freed see them as
+    resources, and the answer is base's)."""
+    extra = e - E
+
+    def widen(a):
+        dup = np.repeat(a[..., :1], extra, axis=-1)
+        return np.concatenate([a[..., :R + 2], dup, a[..., R + 2:]], -1)
+
+    case = dict(base)
+    for k in ("requested", "allocatable", "pod_req", "pods_req"):
+        case[k] = np.ascontiguousarray(widen(base[k]))
+    return case
+
+
 def no_candidate_case() -> dict:
     case = random_case(3)
     case["candidates"] = np.zeros_like(case["candidates"])
@@ -366,5 +556,12 @@ def cases() -> list:
             ("no-candidate", no_candidate_case()),
             ("impossible", impossible_case()),
             ("order-f32", order_f32_case()),
+            ("heavy-node", heavy_node_case()),
+            ("block-edge", block_edge_case()),
+            ("shared-vols", shared_vols_case()),
+            ("spread-1024", spread_case()),
+            ("empty-row", empty_row_case()),
+            ("wide-31", wide_case(random_case(0, need_cpu=600.0), 31)),
+            ("wide-60", wide_case(random_case(2, need_cpu=1600.0), 60)),
             ("full-width", full_width_case())]
     return out

@@ -33,8 +33,10 @@ pod-affinity and pod-anti-affinity shapes of scheduler_bench_test.go).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import gc
 import time
 from typing import List, Sequence
 
@@ -313,6 +315,28 @@ def live_config(batch: int, engine: str = "speculative",
     )
 
 
+@contextlib.contextmanager
+def full_collections():
+    """Counts the full (generation-2) collections of Python's cyclic
+    collector inside, and their seconds: {"collections", "seconds"}."""
+    out = {"collections": 0, "seconds": 0.0}
+    start: List[float] = []
+
+    def clock(phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                start.append(time.perf_counter())
+            elif start:
+                out["collections"] += 1
+                out["seconds"] += time.perf_counter() - start.pop()
+
+    gc.callbacks.append(clock)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(clock)
+
+
 def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
              workload: str = "plain", device="cuda",
              engine: str = "speculative", batched: bool = True,
@@ -336,8 +360,10 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     scattered per update in the timed window, "transfers" the timed
     window's bytes and calls per seam, "snapshot_bytes" one full snapshot
     upload's bytes, "requested" the final requested columns,
-    "unschedulable_pods" the names of every unschedulable verdict, and
-    "scheduler" the Scheduler."""
+    "unschedulable_pods" the names of every unschedulable verdict,
+    "gc_full" the full collections of Python's cyclic collector in the
+    timed window and their seconds (one full collection runs just before
+    it), and "scheduler" the Scheduler."""
     from kubernetes_tpu_torch.codec.transfer import transfer_delta, transfer_totals
     from kubernetes_tpu_torch.runtime.cache import SchedulerCache
     from kubernetes_tpu_torch.runtime.queue import PriorityQueue
@@ -391,14 +417,19 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     xfer0 = transfer_totals()
     # pod objects are built outside the clock; the queue adds are inside
     pending = [pending_pod(i, workload) for i in range(n_pods)]
-    t0 = time.monotonic()
-    for p in pending:
-        queue.add(p)
-    t_enqueue = time.monotonic() - t0
-    placed = _drain(budget_s)
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.monotonic() - t0
+    # and so is the cyclic collector's work on everything built before the
+    # clock: else whether a full collection falls inside it depends on all
+    # the process did before
+    gc.collect()
+    with full_collections() as gc_full:
+        t0 = time.monotonic()
+        for p in pending:
+            queue.add(p)
+        t_enqueue = time.monotonic() - t0
+        placed = _drain(budget_s)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.monotonic() - t0
     ph = dict(sched.phase_seconds)
     # "fetch" is the async D2H window measured on the fetch worker, so it
     # overlaps the host phases; host_stall and fetch_block (aliases) are a
@@ -432,6 +463,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
         "requested": np.asarray(snap.requested),
         "unschedulable_pods": sorted(
             r.pod.name for r in sched.results if r.node is None),
+        "gc_full": gc_full,
         "scheduler": sched,
     }
 
@@ -502,7 +534,7 @@ def run_preemption(nodes: Sequence[Node], running: Sequence[Pod],
     "seconds", "pods_per_s" (pending pods bound a second), "phases" and
     "preempt_seconds" (the Scheduler's), "cycles", "scatter_rows" dirty
     rows scattered per snapshot update, "transfers" bytes and calls per
-    seam, and "scheduler"."""
+    seam, "gc_full" as in run_live, and "scheduler"."""
     from kubernetes_tpu_torch.codec.transfer import (
         transfer_delta,
         transfer_totals,
@@ -527,20 +559,22 @@ def run_preemption(nodes: Sequence[Node], running: Sequence[Pod],
                       device=device)
     attempts0 = metrics.PREEMPTION_ATTEMPTS.value
     xfer0 = transfer_totals()
-    t0 = time.monotonic()
-    for p in pending:
-        queue.add(p)
-    deadline = t0 + budget_s
-    while time.monotonic() < deadline:
-        got = sched.run_once(timeout=0.0)
-        if got == 0 and not sched.pipeline_pending:
-            if not queue.has_schedulable():
-                break
-            time.sleep(0.002)  # backoff expiries: don't hot-spin
-    sched.flush_pipeline()
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.monotonic() - t0
+    gc.collect()  # as in run_live: the collector's debts before the clock
+    with full_collections() as gc_full:
+        t0 = time.monotonic()
+        for p in pending:
+            queue.add(p)
+        deadline = t0 + budget_s
+        while time.monotonic() < deadline:
+            got = sched.run_once(timeout=0.0)
+            if got == 0 and not sched.pipeline_pending:
+                if not queue.has_schedulable():
+                    break
+                time.sleep(0.002)  # backoff expiries: don't hot-spin
+        sched.flush_pipeline()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.monotonic() - t0
     placed = len(bindings)
     return {
         "preemptions": list(sched.preemptions),
@@ -558,5 +592,6 @@ def run_preemption(nodes: Sequence[Node], running: Sequence[Pod],
         "cycles": sched.cycles_total,
         "scatter_rows": list(sched._dev_snapshot.scatter_rows),
         "transfers": transfer_delta(xfer0),
+        "gc_full": gc_full,
         "scheduler": sched,
     }

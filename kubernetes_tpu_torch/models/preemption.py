@@ -24,7 +24,7 @@ loop (:1054-1128) -> pickOneNodeForPreemption's six criteria (:837-962).
 The JAX version's reprieve is one lax.scan over the victim slots.  Steps on
 different nodes are independent (the volume tables key every identity by
 its node), so the port walks each node's own slots in slot order, all nodes
-at once: a thread a node in K2, a vector step a slot rank in the twin.
+at once: a node row's lanes in K2, a vector step a slot rank in the twin.
 """
 
 from __future__ import annotations

@@ -104,6 +104,63 @@ def test_cases_cover_the_kernel_hazards():
     assert ports["pod_req"][k2_cases.R] > 0
 
 
+def test_redesign_cases_hold_their_edges():
+    """The cases of K2's bucketed design: a 110-victim row, victims on the
+    edges of row ranges with two listed pods outside [0, N) that change
+    the answer, an identity whose evicted count falls below its total
+    partway through, 1,024 slots on 1,024 rows, rows that need no victim
+    with and without a pod on them, and two wider column sets that give
+    their base cases' answers."""
+    cs = _cases()
+
+    def listed_rows(c):
+        s = c["victim_slots"]
+        return c["pods_node"][s[s >= 0]]
+
+    heavy = cs["heavy-node"]
+    assert (listed_rows(heavy) == 40).sum() == 110
+    assert int(_port_pick(heavy)[0]) == 40
+
+    edge = cs["block-edge"]
+    n = edge["requested"].shape[0]
+    rows = listed_rows(edge)
+    assert n == 300 and {-1, n} <= set(rows.tolist())
+    assert {0, 31, 32, 63, 64, 127, 128, n - 1} <= set(rows.tolist())
+    got = _port_pick(edge)
+    assert int(got[0]) == 31 and int(got[2]) == 1
+    # without the two pods outside the segments, row N-1 keeps one victim
+    # and wins: the reprieve row and the segment row must stay apart
+    cut = dict(edge)
+    slots = edge["victim_slots"].copy()
+    out = (slots >= 0) & ((edge["pods_node"][np.maximum(slots, 0)] < 0)
+                          | (edge["pods_node"][np.maximum(slots, 0)] >= n))
+    assert out.sum() == 2
+    slots[out] = -1
+    cut["victim_slots"] = slots
+    assert int(_port_pick(cut)[0]) == n - 1 == int(_jax_pick(cut)[0])
+
+    vols = cs["shared-vols"]
+    x = int(vols["slot_vids"][0, 0])
+    assert vols["vid_listed"][x] == vols["vid_total"][x] == 3
+    got = _port_pick(vols)
+    assert int(got[0]) == 33 and np.nonzero(got[1])[0].tolist() == [3]
+
+    spread = cs["spread-1024"]
+    rows = listed_rows(spread)
+    assert rows.size == 1024 == np.unique(rows).size
+    assert int(_port_pick(spread)[2]) == 1
+
+    empty = cs["empty-row"]
+    got = _port_pick(empty)
+    assert int(got[0]) == 40 and int(got[2]) == 0
+    assert not (empty["pods_node"] == 40).any()
+
+    for name, base in (("wide-31", "random-0"), ("wide-60", "random-2")):
+        assert cs[name]["requested"].shape[1] == int(name[5:])
+        for w, b in zip(_port_pick(cs[name]), _port_pick(cs[base])):
+            np.testing.assert_array_equal(w, b)
+
+
 def test_order_f32_case_depends_on_the_order_of_addition():
     """freed must add a node's victims in ascending arena index: summed in
     slot order, the node would not fit and the answer would be -1."""
