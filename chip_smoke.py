@@ -72,6 +72,26 @@ printing one line of numbers; any failure exits non-zero with no result:
      and per attempt, the dirty rows each
      snapshot update scattered, and one more attempt under torch.profiler
      (device time, idle share, K2's kernel launches and their time);
+ 14. the placement-quality observatory (quality_top_k=3, the reference's
+     default): K3 (select_topk) against its plain twin on the card, bit
+     for bit, on every shape, case, rotation counter and K of
+     kubernetes_tpu_torch/kernels/k3_cases.py (winners from K1 on the same
+     rows; B in 1, 7, 33, 2048; N from 1 to 70,000; K in 1, 2, 3, 8 and
+     K > N), then its times at [2048, N] and [1, N] with K=3, L2 cold and
+     warm, beside its bytes bound, its twin and torch.topk; K4
+     (binpack_ffd) against its twin on every case of
+     kubernetes_tpu_torch/kernels/k4_cases.py (full bins, zero rows,
+     overflow, duplicates, a workspace past shared memory, the regret's
+     full width N 6,144 x P 2,048), then its times there beside its bound
+     and its step floor (P empty block reductions and barriers); then the
+     live cell through the port's Scheduler with the observatory on and a
+     regret sample every cycle, launch counts reset just before and read
+     just after: bindings and order equal to
+     tests/data/torch_port_golden_live.npz, every cycle's top-k leaves and
+     every regret sample equal to
+     tests/data/torch_port_golden_live_quality.npz, no regret sample
+     dropped; and once more at the default interval (32): pods/s and the
+     quality hook's share of the window beside phase 11's quality-off run;
  2b. (run last, so that nothing it does can change the cells' numbers)
      K2 (preempt_one) against its plain twin on the card, all four
      outputs equal, on every case of
@@ -88,8 +108,8 @@ printing one line of numbers; any failure exits non-zero with no result:
      child process: one k2_ kernel and nothing else, or the phase fails),
      an empty launch's time and the launch floor (the two multiplied).
 
-Then the card's name and power limit, the kernels' JSON record (K1's and
-K2's launches in each cell among their keys) and the device line.
+Then the card's name and power limit, the kernels' JSON record (K1-K4;
+K1's launches in each cell among its keys) and the device line.
 """
 
 from __future__ import annotations
@@ -116,6 +136,7 @@ EXISTING_ANTI = 1000   # running pods of the pod-anti-affinity cell
 REDO_AFF_PODS = 9800   # the affinity redo cell: the 2-slot fleet's free slots
 NOMINATED = 256        # preemptors of the live-with-nominations cell
 PREEMPTORS = 256       # pending pods of the live preemption cell
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
 
 
 def fail(msg: str) -> None:
@@ -733,6 +754,256 @@ def phase_live(label: str, nodes, nominated: int = 0) -> dict:
     return out
 
 
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (f32 compared as int32: NaN and -0.0 count)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    d = (a.to(torch.float64) - b.to(torch.float64)).abs()
+    d = torch.where(torch.isnan(d), torch.zeros_like(d), d)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _k3_bound_ms(B: int, N: int, K: int) -> float:
+    """K3's least time: scores and mask read once, hosts and feasible
+    read once, the [B, K] nodes and scores and the B counts written once,
+    over the memory rate."""
+    from kubernetes_tpu_torch.kernels import k1_bench
+
+    return (B * N * 5 + B * 5 + B * (8 * K + 4)) / k1_bench.HBM_BYTES_PER_S * 1e3
+
+
+def phase_k3(main_n: int) -> dict:
+    """K3 (select_topk) against its plain twin on the card, bit for bit,
+    on every shape, case, rotation counter and K of kernels/k3_cases.py,
+    with the winners from K1 on the same rows; then its times at the main
+    path's [2048, main_n] and the sequential step's [1, main_n] with K=3,
+    L2 cold and warm, beside its bytes bound, the twin and torch.topk."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k1_bench, k3_cases
+    from kubernetes_tpu_torch.ops.select import select_topk_batch_plain
+
+    dev = torch.device("cuda")
+    cases = 0
+    max_err = 0.0
+    for B, N in k3_cases.shapes():
+        for shift in k3_cases.shifts(B):
+            s, m = (torch.from_numpy(a).to(dev)
+                    for a in k3_cases.rows(B, N, shift))
+            for li in k3_cases.LAST_INDICES:
+                h, f = kernels.select_hosts(s, m, li)
+                for k in k3_cases.KS:
+                    got = kernels.select_topk(s, m, h, f, k)
+                    want = select_topk_batch_plain(s, m, h, f, k)
+                    torch.cuda.synchronize()
+                    for g, w, what in zip(got, want, ("top_nodes",
+                                                      "top_scores",
+                                                      "feasible")):
+                        max_err = max(max_err, _abs_err(g, w))
+                        if not _bits_equal(g, w):
+                            bad = torch.nonzero(
+                                (g != w).reshape(B, -1).any(dim=1)).flatten()
+                            r = int(bad[0]) if bad.numel() else 0
+                            fail(f"14 K3: {what} differs from the twin at "
+                                 f"B={B} N={N} shift {shift} li {li} k {k} "
+                                 f"row {r}: kernel {g[r].tolist()} twin "
+                                 f"{w[r].tolist()}")
+                    cases += 1
+            del s, m
+    shapes = []
+    for B in (BATCH, 1):
+        s, m = (torch.from_numpy(a).to(dev)
+                for a in k3_cases.rows(B, main_n))
+        h, f = kernels.select_hosts(s, m, 11)
+        k3 = lambda: kernels.select_topk(s, m, h, f, 3)       # noqa: E731
+        shapes.append({
+            "shape": [B, main_n], "k": 3,
+            "ms": k1_bench.time_ms(k3, cold=True),
+            "ms_warm": k1_bench.time_ms(k3, cold=False),
+            "plain_ms": k1_bench.time_ms(
+                lambda: select_topk_batch_plain(s, m, h, f, 3)),
+            "library_ms": k1_bench.time_ms(
+                lambda: torch.topk(torch.where(m, s, -3.4e38), 3)),
+            "bound_ms": _k3_bound_ms(B, main_n, 3)})
+    print(f"[14 K3] bit-identical to the twin on {cases} cases "
+          f"({len(k3_cases.shapes())} shapes, K in {k3_cases.KS}) | "
+          + " | ".join(
+              f"[{r['shape'][0]},{r['shape'][1]}] K=3 cold_ms {r['ms']:.4f} "
+              f"warm_ms {r['ms_warm']:.4f} plain_cold_ms "
+              f"{r['plain_ms']:.4f} torch_topk_cold_ms {r['library_ms']:.4f} "
+              f"bound_ms {r['bound_ms']:.4f}" for r in shapes), flush=True)
+    return {**shapes[0], "max_abs_err": max_err, "cases": cases,
+            "shapes": shapes}
+
+
+def _k4_ops(reqs: np.ndarray, cap: np.ndarray, order: np.ndarray) -> int:
+    """The operations first-fit needs on this data: for each pod with a
+    positive request, an add and a compare a column for every bin up to
+    and including its first fit (every bin when none fits), and an add a
+    column where it lands (numpy replay of the scan)."""
+    loads = np.zeros_like(cap)
+    R = reqs.shape[1]
+    ops = 0
+    for oi in order:
+        req = reqs[oi]
+        if not (req > 0).any():
+            continue
+        fits = np.all(loads + req[None, :] <= cap, axis=-1)
+        hit = np.flatnonzero(fits)
+        ops += 2 * R * ((int(hit[0]) + 1) if hit.size else cap.shape[0])
+        if hit.size:
+            loads[hit[0]] += req
+            ops += R
+    return ops
+
+
+def phase_k4() -> dict:
+    """K4 (binpack_ffd) against its plain twin on the card, bit for bit,
+    on every case of kernels/k4_cases.py; then its times at the regret's
+    full width (N 6,144, P 2,048, R 8) with L2 cold and warm, beside its
+    bound (the larger of its bytes and the operations this data needs over
+    the card's rates), its step floor (an empty chain of P block
+    reductions and barriers in K4's block, timed here) and the twin's."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k1_bench, k4_cases
+    from kubernetes_tpu_torch.models.binpack import (
+        binpack_ffd,
+        binpack_ffd_plain,
+    )
+
+    dev = torch.device("cuda")
+    max_err = 0.0
+    names = []
+    for name, c in k4_cases.cases():
+        reqs, cap = (torch.from_numpy(c[k]).to(dev) for k in ("reqs", "cap"))
+        order = (None if c["order"] is None
+                 else torch.from_numpy(c["order"]).to(dev))
+        got = binpack_ffd(reqs, cap, c["max_bins"], order)
+        want = binpack_ffd_plain(reqs, cap, c["max_bins"], order)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("used", "loads", "placed")):
+            max_err = max(max_err, _abs_err(g, w))
+            if not _bits_equal(g, w):
+                fail(f"14 K4: {what} differs from the twin on case {name}: "
+                     f"kernel {g.cpu().reshape(-1)[:8].tolist()} twin "
+                     f"{w.cpu().reshape(-1)[:8].tolist()}")
+        names.append(f"{name}:{int(got[0])}")
+    check(name == "full-width", "14 K4: the last case is not the full width")
+    P, R = reqs.shape
+    N = cap.shape[0]
+    k4 = lambda: binpack_ffd(reqs, cap, None, order)        # noqa: E731
+    nbytes = (P * R * 4 + N * R * 4 + P * 4) + (N * R * 4 + P + 4)
+    ops = _k4_ops(c["reqs"], c["cap"], c["order"])
+    out = {"ms": k1_bench.time_ms(k4, cold=True),
+           "ms_warm": k1_bench.time_ms(k4, cold=False),
+           "plain_ms": k1_bench.time_ms(
+               lambda: binpack_ffd_plain(reqs, cap, None, order), reps=3),
+           "bytes_ms": nbytes / k1_bench.HBM_BYTES_PER_S * 1e3,
+           "ops": ops, "ops_ms": ops / F32_OPS_PER_S * 1e3,
+           "step_floor_ms": k1_bench.time_ms(
+               lambda: kernels.barrier_floor_launch(P), cold=False),
+           "max_abs_err": max_err, "shape": {"N": N, "P": P, "R": R}}
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    out["bound_by"] = ("bytes" if out["bytes_ms"] >= out["ops_ms"]
+                       else "operations")
+    out["over_step_floor"] = out["ms"] / out["step_floor_ms"]
+    print(f"[14 K4] equal to the twin on {len(names)} cases (case:bins "
+          f"{' '.join(names)}) | at {out['shape']}: cold_ms {out['ms']:.4f} "
+          f"warm_ms {out['ms_warm']:.4f} plain_cold_ms {out['plain_ms']:.2f} "
+          f"bound_ms {out['bound_ms']:.5f} ({out['bound_by']}: bytes "
+          f"{out['bytes_ms']:.5f}, {ops} operations {out['ops_ms']:.5f}) | "
+          f"step_floor_ms {out['step_floor_ms']:.4f} cold_over_floor "
+          f"{out['over_step_floor']:.2f}", flush=True)
+    return out
+
+
+def phase_quality(nodes, live: dict) -> dict:
+    """The live cell through the port's Scheduler with the placement-
+    quality observatory on (quality_top_k=3): with a regret sample every
+    cycle, launch counts reset just before and read just after, its
+    bindings and order equal to tests/data/torch_port_golden_live.npz and
+    its top-k leaves and regret samples to
+    tests/data/torch_port_golden_live_quality.npz, no sample dropped; then
+    at the default interval (32), its pods/s and the quality hook's share
+    of the window beside phase 11's quality-off run."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.loop import REGRET_KEYS, quality_arrays, run_live
+
+    kernels.reset_launch_counts()
+    res = run_live(nodes, PODS, BATCH, device="cuda", quality_top_k=3,
+                   quality_interval_cycles=1)
+    launches = dict(kernels.LAUNCHES)
+    label = "14 live quality"
+    q = res["quality"]
+    check(launches["select_topk"] > 0, f"{label}: K3 launched no time")
+    check(launches["binpack_ffd"] > 0, f"{label}: K4 launched no time")
+    check(q["regret_dropped"] == 0,
+          f"{label}: {q['regret_dropped']} regret samples dropped")
+    ref = np.load(golden("live"))
+    diff = np.nonzero(ref["hosts"] != res["hosts"])[0]
+    check(diff.size == 0, f"{label}: {diff.size} pods bound apart from "
+          f"the JAX Scheduler; first pod index {diff[:1].tolist()}")
+    check(np.array_equal(ref["bind_order"], res["bind_order"]),
+          f"{label}: the binder was called in another order than JAX's")
+    data = np.load(golden("live_quality"))
+    got = quality_arrays(res["quality_record"])
+    for key, val in got.items():
+        want = data[key]
+        same = (want.dtype == val.dtype and want.shape == val.shape
+                and np.array_equal(want.view(np.int32)
+                                   if want.dtype == np.float32 else want,
+                                   val.view(np.int32)
+                                   if val.dtype == np.float32 else val))
+        check(same, f"{label}: {key} differs from the JAX Scheduler's: "
+              f"JAX {want.reshape(-1)[:6].tolist()} port "
+              f"{val.reshape(-1)[:6].tolist()}")
+    check(launches["binpack_ffd"] == len(got["regret_cycle"]),
+          f"{label}: {launches['binpack_ffd']} K4 launches for "
+          f"{len(got['regret_cycle'])} regret samples")
+    kernels.reset_launch_counts()
+    res32 = run_live(nodes, PODS, BATCH, device="cuda", quality_top_k=3)
+    launches32 = dict(kernels.LAUNCHES)
+    q32 = res32["quality"]
+    check(q32["regret_dropped"] == 0,
+          f"14 live quality/32: {q32['regret_dropped']} regret samples "
+          f"dropped")
+    check(np.array_equal(ref["hosts"], res32["hosts"]),
+          "14 live quality/32: bindings differ from the JAX Scheduler's")
+    out = {"launches": launches, "launches_interval32": launches32,
+           "pods_per_s": res["pods_per_s"],
+           "quality_seconds": res["quality_seconds"],
+           "seconds": res["seconds"],
+           "pods_per_s_interval32": res32["pods_per_s"],
+           "seconds_interval32": res32["seconds"],
+           "quality_seconds_interval32": res32["quality_seconds"],
+           "quality_share_interval32":
+               res32["quality_seconds"] / res32["seconds"],
+           "regret": q["regret"], "regret_samples": q["regret_samples"],
+           "margin": q["margin"], "feasible": q["feasible"],
+           "gc_full": res["gc_full"], "gc_full_interval32": res32["gc_full"]}
+    print(f"[{label}] interval 1: pods_per_s {res['pods_per_s']:.1f} "
+          f"seconds {res['seconds']:.3f} quality_seconds "
+          f"{res['quality_seconds']:.4f} | bindings, order, {len(got['top_nodes'])} "
+          f"pods' top-3 leaves over {len(got['cycle_pods'])} cycles and "
+          f"{len(got['regret_cycle'])} regret samples "
+          f"({', '.join(REGRET_KEYS)}) equal to the JAX Scheduler's | last "
+          f"regret {q['regret']} | margin {q['margin']} feasible "
+          f"{q['feasible']} | K3 launches {launches['select_topk']} (B=1 "
+          f"{launches['select_topk_b1']}) K4 {launches['binpack_ffd']} K1 "
+          f"{launches['select_hosts']} | interval 32: pods_per_s "
+          f"{res32['pods_per_s']:.1f} seconds {res32['seconds']:.3f} "
+          f"quality_seconds {res32['quality_seconds']:.4f} share "
+          f"{out['quality_share_interval32']:.4f} regret samples "
+          f"{q32['regret_samples']} | phase 11 (quality off) pods_per_s "
+          f"{live['pods_per_s']:.1f} seconds {live['seconds']:.3f} | full "
+          f"collections in the windows {res['gc_full']['collections']}, "
+          f"{res32['gc_full']['collections']}", flush=True)
+    return out
+
+
 def _preemption_recount(nodes, running, res: dict, label: str) -> None:
     """Numpy recount of CPU per node from the objects: the running pods
     that were not evicted plus the bound preemptors; every node at most its
@@ -966,6 +1237,11 @@ def main() -> None:
     live13 = phase_preemption("13 live preemption")
     print(f"[13 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
+    k3 = phase_k3(main_n)
+    k4 = phase_k4()
+    live14 = phase_quality(nodes, live)
+    print(f"[14 done] total seconds {time.monotonic() - t_start:.1f}",
+          flush=True)
     # last, so that nothing of it can change the cells' numbers above
     k2 = phase_k2()
 
@@ -1019,6 +1295,41 @@ def main() -> None:
         "shape": k2["shape"],
         "kernel_ms_in_an_attempt": live13["profiled_attempt"]["k2_ms"],
         "attempts": live13["attempts"],
+    }, {
+        "name": "select_topk",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/kernels/select_topk.cu",
+        "replaces": "kubernetes_tpu/ops/select.py:152",
+        "launches": live14["launches"]["select_topk"],
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k3["library_ms"],
+        "ms_warm": k3["ms_warm"],
+        "launches_b1": live14["launches"]["select_topk_b1"],
+        "launches_interval32": live14["launches_interval32"]["select_topk"],
+        "cases": k3["cases"],
+        "shapes": k3["shapes"],
+    }, {
+        "name": "binpack_ffd",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/kernels/binpack_ffd.cu",
+        "replaces": "kubernetes_tpu/models/binpack.py:59",
+        "launches": live14["launches"]["binpack_ffd"],
+        "max_abs_err": k4["max_abs_err"],
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": None,
+        "ms_warm": k4["ms_warm"],
+        "step_floor_ms": k4["step_floor_ms"],
+        "over_step_floor": k4["over_step_floor"],
+        "ops": k4["ops"],
+        "shape": k4["shape"],
+        "launches_interval32": live14["launches_interval32"]["binpack_ffd"],
     }]}
     print(f"total seconds {time.monotonic() - t_start:.1f}", flush=True)
     print(smi)

@@ -446,11 +446,19 @@ class AsyncFetch:
     HERE, so the caller's classified-retry wrapper owns the batch's
     recovery.  `seconds` is the window from dispatch to copy-complete;
     `execute_seconds` the wait until the producing work was done and
-    `materialize_seconds` the residual copy after it."""
+    `materialize_seconds` the residual copy after it.
 
-    def __init__(self, dev, tag: str = "fetch") -> None:
+    `extras` are more tensors of the same launch (the quality top-k
+    leaves) that ride the same copy: queued on the side stream before the
+    copy event, so the fence waits on one copy for all of them and never
+    on a compute sync; `extras_result()` returns them as host arrays after
+    result()."""
+
+    def __init__(self, dev, tag: str = "fetch", extras=()) -> None:
         self._dev = dev
         self._tag = tag
+        self._extras = tuple(extras)
+        self._extras_out: tuple = ()
         self._done = threading.Event()
         self._out: Any = None
         self._err: Any = None
@@ -470,6 +478,13 @@ class AsyncFetch:
                                            pin_memory=True)
                 self._pinned.copy_(dev, non_blocking=True)
                 dev.record_stream(side)
+                pinned = []
+                for x in self._extras:
+                    p = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                    p.copy_(x, non_blocking=True)
+                    x.record_stream(side)
+                    pinned.append(p)
+                self._extras = tuple(pinned)
                 self._copy_ev = torch.cuda.Event()
                 self._copy_ev.record(side)
             self._dev = None  # the side stream holds it until the copy
@@ -484,17 +499,22 @@ class AsyncFetch:
                 self.execute_seconds = time.monotonic() - t_wait0
                 self._copy_ev.synchronize()
                 host = np.array(self._pinned.numpy())
+                extras = tuple(np.array(p.numpy()) for p in self._extras)
             else:
                 host = _to_host(self._dev)
+                extras = tuple(_to_host(x) for x in self._extras)
                 self.execute_seconds = time.monotonic() - t_wait0
             self._out = faults.corrupt(faults.SITE_FETCH, host)
+            self._extras_out = extras
             self.materialize_seconds = (
                 time.monotonic() - t_wait0 - self.execute_seconds)
-            note_transfer("d2h", self._tag, self._out.nbytes)
+            note_transfer("d2h", self._tag, self._out.nbytes
+                          + sum(x.nbytes for x in extras))
         except BaseException as e:  # noqa: BLE001 — re-raised in result()
             self._err = e
         finally:
             self._pinned = self._dev = None
+            self._extras = ()
             self.seconds = time.monotonic() - self._t0
             self._done.set()
 
@@ -514,3 +534,11 @@ class AsyncFetch:
         if self._err is not None:
             raise self._err
         return self._out
+
+    def extras_result(self) -> tuple:
+        """The extras as host arrays, in the order given.  Call it after
+        result(), which owns the fence, its fault sites and its errors."""
+        if not self._done.is_set() or self._err is not None:
+            raise RuntimeError("extras_result() before a successful "
+                               "result()")
+        return self._extras_out

@@ -10,13 +10,24 @@ models/preemption.py preempt_one and _exact_prio_sum.  Its plain twin is
 models/preemption.py `preempt_one_plain`; models/preemption.py
 `preempt_one` dispatches to the kernel for CUDA tensors.
 
+K3 `select_topk` (select_topk.cu) replaces the JAX package's ops/select.py
+select_topk / select_topk_batch: the quality observatory's winner-pinned
+top-k beside K1's winners.  Its plain twin is ops/select.py
+`select_topk_batch_plain`; ops/select.py `select_topk_batch` dispatches.
+
+K4 `binpack_ffd` (binpack_ffd.cu) replaces the scan of the JAX package's
+models/binpack.py binpack_ffd: the first-fit packing of the quality
+observatory's regret counterfactual.  Its plain twin is models/binpack.py
+`binpack_ffd_plain`; models/binpack.py `binpack_ffd` dispatches.
+
 Each wrapper counts its launches in `LAUNCHES` (one each time it launches
 its kernels, nowhere else), so a run can show that its main path went
 through the kernels; `select_hosts_b1` also counts K1's one-row launches (the
 sequential engine's steps) on their own.  A preempt_one call puts one
 kernel launch on the stream, no memset and no copy (chip_smoke.py counts
 them under torch.profiler); the first call on a stream also zeroes that
-stream's ticket.  The kernels are built from source at the first launch
+stream's ticket.  K3 and K4 put one kernel launch each on the stream.
+The kernels are built from source at the first launch
 (kernels/_build.py); importing this module needs neither nvcc nor a card.
 """
 
@@ -24,7 +35,8 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"select_hosts": 0, "select_hosts_b1": 0, "preempt_one": 0}
+LAUNCHES = {"select_hosts": 0, "select_hosts_b1": 0, "preempt_one": 0,
+            "select_topk": 0, "select_topk_b1": 0, "binpack_ffd": 0}
 
 # K1's variants, by the code select_hosts_launch takes: a block of 8 warps
 # to a row, one warp to a row (8 rows to a block), or a block to a row that
@@ -38,6 +50,8 @@ K1_WARP_MAX_N = 1024
 K1_ONE_READ_MAX_N = 8192  # rows up to this width are read once
 K2_MAX_SLOTS = 1024       # victim slots (sorted_victim_slots' cap)
 K2_MAX_COLS = 64          # extended resource columns
+K4_MAX_COLS = 16          # resource columns binpack_ffd takes
+K4_THREADS = 1024         # K4's one block
 # K2's ticket: one uint32 a (device, stream), zero between launches (each
 # launch's last block sets it back)
 _K2_TICKETS: dict = {}
@@ -67,6 +81,19 @@ def k1_variant(B: int, N: int, scores_ptr: int, mask_ptr: int) -> int:
     return route + int(not vec4)
 
 
+def _check_rows(name: str, scores: torch.Tensor, mask: torch.Tensor) -> None:
+    if not (scores.is_cuda and mask.is_cuda):
+        raise ValueError(f"{name} launches on CUDA tensors only")
+    if scores.dtype != torch.float32 or mask.dtype != torch.bool:
+        raise TypeError(f"{name} wants f32 scores and a bool mask, got "
+                        f"{scores.dtype} and {mask.dtype}")
+    if scores.dim() != 2 or mask.shape != scores.shape:
+        raise ValueError(f"{name} wants matching [B, N] scores and mask, "
+                         f"got {tuple(scores.shape)} and {tuple(mask.shape)}")
+    if scores.device != mask.device:
+        raise ValueError("scores and mask lie on different devices")
+
+
 def select_hosts(scores: torch.Tensor, mask: torch.Tensor,
                  last_index0: int):
     """K1: (scores f32[B, N], mask bool[B, N], last_index0 int) ->
@@ -74,17 +101,7 @@ def select_hosts(scores: torch.Tensor, mask: torch.Tensor,
     rotates its tie-break by last_index0 + b.  The variant follows from
     (B, N, alignment), see k1_variant.  Raises on anything the kernel does
     not take and on a refused launch."""
-    if not (scores.is_cuda and mask.is_cuda):
-        raise ValueError("select_hosts launches on CUDA tensors only")
-    if scores.dtype != torch.float32 or mask.dtype != torch.bool:
-        raise TypeError(f"select_hosts wants f32 scores and a bool mask, "
-                        f"got {scores.dtype} and {mask.dtype}")
-    if scores.dim() != 2 or mask.shape != scores.shape:
-        raise ValueError(f"select_hosts wants matching [B, N] scores and "
-                         f"mask, got {tuple(scores.shape)} and "
-                         f"{tuple(mask.shape)}")
-    if scores.device != mask.device:
-        raise ValueError("scores and mask lie on different devices")
+    _check_rows("select_hosts", scores, mask)
     B, N = scores.shape
     if N == 0 or N >= (1 << 31):
         raise ValueError(f"select_hosts wants 0 < N < 2^31, got {N}")
@@ -215,3 +232,139 @@ def preempt_one(*tensors):
                            + lib.select_hosts_error_string(err).decode())
     LAUNCHES["preempt_one"] += 1
     return node, victim_mask, n_victims, n_viol
+
+
+def select_topk(scores: torch.Tensor, mask: torch.Tensor,
+                hosts: torch.Tensor, feasible: torch.Tensor, k: int):
+    """K3: (scores f32[B, N], mask bool[B, N], hosts i32[B], feasible
+    bool[B], k) -> (top_nodes i32[B, K], top_scores f32[B, K],
+    feasible_count i32[B]) with K = min(k, N), on the tensors' CUDA
+    device; hosts and feasible are the selector's verdict on the same
+    rows (see ops/select.py select_topk_batch_plain).  Raises on anything
+    the kernel does not take and on a refused launch."""
+    _check_rows("select_topk", scores, mask)
+    B, N = scores.shape
+    if hosts.shape != (B,) or feasible.shape != (B,):
+        raise ValueError(f"select_topk wants hosts and feasible of shape "
+                         f"({B},), got {tuple(hosts.shape)} and "
+                         f"{tuple(feasible.shape)}")
+    if hosts.dtype != torch.int32 or feasible.dtype != torch.bool:
+        raise TypeError(f"select_topk wants i32 hosts and bool feasible, "
+                        f"got {hosts.dtype} and {feasible.dtype}")
+    if hosts.device != scores.device or feasible.device != scores.device:
+        raise ValueError("select_topk: hosts or feasible lie on another "
+                         "device than the scores")
+    if N == 0 or N >= (1 << 31) - 1:
+        raise ValueError(f"select_topk wants 0 < N < 2^31 - 1, got {N}")
+    if k < 1:
+        raise ValueError(f"select_topk wants k >= 1, got {k}")
+    K = min(int(k), N)
+    dev = scores.device
+    top_nodes = torch.empty((B, K), dtype=torch.int32, device=dev)
+    top_scores = torch.empty((B, K), dtype=torch.float32, device=dev)
+    count = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return top_nodes, top_scores, count
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    ts = [t.contiguous() for t in (scores, mask, hosts, feasible)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.select_topk_launch(
+            *(t.data_ptr() for t in ts), B, N, K, top_nodes.data_ptr(),
+            top_scores.data_ptr(), count.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("select_topk launch failed: "
+                           + lib.select_hosts_error_string(err).decode())
+    LAUNCHES["select_topk"] += 1
+    if B == 1:
+        LAUNCHES["select_topk_b1"] += 1
+    return top_nodes, top_scores, count
+
+
+def binpack_ffd(pod_reqs: torch.Tensor, capacity: torch.Tensor,
+                order: torch.Tensor, max_bins=None):
+    """K4: first-fit of the pods pod_reqs f32[P, R], taken in `order`
+    i32[P], into bins of capacity f32[N, R] (one row a bin; max_bins, if
+    given, must be N) or f32[R] (max_bins bins of that capacity).  Returns
+    (used i32[], loads f32[N, R], placed bool[P]) on the tensors' CUDA
+    device, see models/binpack.py binpack_ffd_plain.  Raises on anything
+    the kernel does not take and on a refused launch."""
+    for name, t in (("pod_reqs", pod_reqs), ("capacity", capacity),
+                    ("order", order)):
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"binpack_ffd launches on CUDA tensors only "
+                             f"({name})")
+        if t.device != pod_reqs.device:
+            raise ValueError(f"binpack_ffd: {name} lies on {t.device}, "
+                             f"pod_reqs on {pod_reqs.device}")
+    if pod_reqs.dtype != torch.float32 or capacity.dtype != torch.float32:
+        raise TypeError(f"binpack_ffd wants f32 requests and capacity, got "
+                        f"{pod_reqs.dtype} and {capacity.dtype}")
+    if order.dtype != torch.int32:
+        raise TypeError(f"binpack_ffd wants an i32 order, got {order.dtype}")
+    if pod_reqs.dim() != 2:
+        raise ValueError(f"binpack_ffd wants pod_reqs [P, R], got "
+                         f"{tuple(pod_reqs.shape)}")
+    P, R = pod_reqs.shape
+    if capacity.dim() == 2:
+        N = capacity.shape[0]
+        if capacity.shape[1] != R or (max_bins is not None
+                                      and max_bins != N):
+            raise ValueError(f"binpack_ffd wants capacity [max_bins, {R}], "
+                             f"got {tuple(capacity.shape)} with max_bins "
+                             f"{max_bins}")
+        cap_stride = R
+    elif capacity.dim() == 1 and capacity.shape[0] == R and max_bins:
+        N = int(max_bins)
+        cap_stride = 0
+    else:
+        raise ValueError(f"binpack_ffd wants capacity [N, {R}], or [{R}] "
+                         f"with max_bins, got {tuple(capacity.shape)}")
+    if order.shape != (P,):
+        raise ValueError(f"binpack_ffd wants order of shape ({P},), got "
+                         f"{tuple(order.shape)}")
+    if not (0 < R <= K4_MAX_COLS):
+        raise ValueError(f"binpack_ffd takes 1 to {K4_MAX_COLS} resource "
+                         f"columns, got {R}")
+    if not (0 < N and N * R < (1 << 31) and P < (1 << 31)):
+        raise ValueError(f"binpack_ffd: sizes N={N} R={R} P={P} out of "
+                         f"range")
+    dev = pod_reqs.device
+    loads = torch.empty((N, R), dtype=torch.float32, device=dev)
+    placed = torch.empty(P, dtype=torch.bool, device=dev)
+    used = torch.empty((), dtype=torch.int32, device=dev)
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    smem = lib.binpack_ffd_smem_bytes(N, R)
+    # loads live in shared memory when they fit, else in this workspace
+    work = torch.empty(0 if smem else N * R, dtype=torch.float32,
+                       device=dev)
+    ts = [t.contiguous() for t in (pod_reqs, capacity, order)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.binpack_ffd_launch(
+            ts[0].data_ptr(), P, R, ts[1].data_ptr(), cap_stride,
+            ts[2].data_ptr(), N, work.data_ptr(), loads.data_ptr(),
+            placed.data_ptr(), used.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("binpack_ffd launch failed: "
+                           + lib.select_hosts_error_string(err).decode())
+    LAUNCHES["binpack_ffd"] += 1
+    return used, loads, placed
+
+
+def barrier_floor_launch(steps: int) -> None:
+    """Launch K4's block shape running `steps` steps of nothing but its
+    per-step reduction and barrier: the floor under a K4 launch of that
+    many pods, for timing.  Not counted."""
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    err = lib.binpack_ffd_floor_launch(
+        int(steps), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("floor launch failed: "
+                           + lib.select_hosts_error_string(err).decode())

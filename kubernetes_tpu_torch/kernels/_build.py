@@ -55,6 +55,16 @@ def library() -> ctypes.CDLL:
     lib.preempt_one_launch.restype = ctypes.c_int
     lib.preempt_one_workspace_ints.argtypes = [i] * 3
     lib.preempt_one_workspace_ints.restype = ctypes.c_int
+    lib.select_topk_launch.argtypes = [p] * 4 + [i] * 3 + [p] * 4
+    lib.select_topk_launch.restype = ctypes.c_int
+    lib.select_topk_smem_max_n.argtypes = []
+    lib.select_topk_smem_max_n.restype = ctypes.c_int
+    lib.binpack_ffd_launch.argtypes = [p, i, i, p, i, p, i] + [p] * 5
+    lib.binpack_ffd_launch.restype = ctypes.c_int
+    lib.binpack_ffd_smem_bytes.argtypes = [i, i]
+    lib.binpack_ffd_smem_bytes.restype = ctypes.c_int
+    lib.binpack_ffd_floor_launch.argtypes = [i, p]
+    lib.binpack_ffd_floor_launch.restype = ctypes.c_int
     lib.select_hosts_error_string.argtypes = [ctypes.c_int]
     lib.select_hosts_error_string.restype = ctypes.c_char_p
     return lib

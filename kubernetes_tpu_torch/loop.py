@@ -301,18 +301,74 @@ def nominated_preemptors(n_nodes: int, k: int, make_pod=make_pod,
 
 def live_config(batch: int, engine: str = "speculative",
                 batched: bool = True, pipeline: bool = True,
-                preemption: bool = False):
+                preemption: bool = False, quality_top_k: int = 0,
+                quality_interval_cycles: int = 32):
     """bench.py run_live's SchedulerConfig with the port's settings given
-    explicitly: preemption off unless asked for, the CPU degradation
-    engine and the observatories off."""
+    explicitly: preemption off unless asked for, the placement-quality
+    observatory at the given top-k width (0: off; the reference's default
+    is 3) and interval, the CPU degradation engine, telemetry and the
+    timeline off."""
     from kubernetes_tpu_torch.runtime.scheduler import SchedulerConfig
 
     return SchedulerConfig(
         batch_size=batch, batch_window_s=0.0, engine=engine,
         disable_preemption=not preemption, batched_commit=batched,
         pipeline_commit=pipeline, cpu_fallback=False, telemetry=False,
-        quality_top_k=0, timeline=False,
+        quality_top_k=quality_top_k,
+        quality_interval_cycles=quality_interval_cycles, timeline=False,
     )
+
+
+def record_quality(obs) -> dict:
+    """Wrap a QualityObservatory's on_cycle (the port's or the JAX
+    package's: the same interface) to keep what each committed cycle
+    gave it: {"topk": [(top_nodes, top_scores, feasible) of the cycle's
+    pods], "regret": [each materialized regret sample]}.  Call
+    finish_quality once the scheduler is drained."""
+    rec: dict = {"topk": [], "regret": []}
+    inner = obs.on_cycle
+
+    def on_cycle(**kw):
+        q, n = kw.get("quality"), kw["n_pods"]
+        if q is not None:
+            rec["topk"].append(tuple(np.array(np.asarray(x)[:n])
+                                     for x in q))
+        before = obs.regret_samples
+        inner(**kw)
+        if obs.regret_samples > before:
+            rec["regret"].append(dict(obs.regret))
+
+    obs.on_cycle = on_cycle
+    return rec
+
+
+REGRET_KEYS = ("cycle", "actual_nodes", "actual_placed", "ffd_nodes",
+               "ffd_placed", "pods")
+
+
+def quality_arrays(rec) -> dict:
+    """The golden file's flat arrays of a record_quality record: the
+    top-k leaves of every cycle concatenated, each cycle's pod count, and
+    one i32 array a regret sample key."""
+    topk = rec["topk"]
+    out = dict(
+        cycle_pods=np.asarray([len(t[2]) for t in topk], np.int32),
+        top_nodes=np.concatenate([t[0] for t in topk]).astype(np.int32),
+        top_scores=np.concatenate([t[1] for t in topk]).astype(np.float32),
+        feasible=np.concatenate([t[2] for t in topk]).astype(np.int32),
+    )
+    for k in REGRET_KEYS:
+        out["regret_" + k] = np.asarray([r[k] for r in rec["regret"]],
+                                        np.int32)
+    return out
+
+
+def finish_quality(obs, rec: dict) -> None:
+    """Materialize the regret launch still in flight into `rec`."""
+    before = obs.regret_samples
+    obs.finalize()
+    if obs.regret_samples > before:
+        rec["regret"].append(dict(obs.regret))
 
 
 @contextlib.contextmanager
@@ -341,7 +397,8 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
              workload: str = "plain", device="cuda",
              engine: str = "speculative", batched: bool = True,
              pipeline: bool = True, existing: int = 0, nominations=None,
-             budget_s: float = 900.0) -> dict:
+             budget_s: float = 900.0, quality_top_k: int = 0,
+             quality_interval_cycles: int = 32) -> dict:
     """bench.py run_live on the port: `n_pods` pending pods of `workload`
     through the live Scheduler, after a warmup batch of `batch` pods
     (pending_pod(n_pods + j)) drained outside the clock.  `existing`
@@ -363,7 +420,13 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     "unschedulable_pods" the names of every unschedulable verdict,
     "gc_full" the full collections of Python's cyclic collector in the
     timed window and their seconds (one full collection runs just before
-    it), and "scheduler" the Scheduler."""
+    it), and "scheduler" the Scheduler.  With quality_top_k > 0 (the
+    placement-quality observatory on, every quality_interval_cycles cycles
+    a regret sample) also "quality" (the observatory's summary after the
+    last regret sample landed), "quality_record" (record_quality's, warmup
+    included) and "quality_seconds" (scheduler_quality_seconds_total in
+    the timed window)."""
+    from kubernetes_tpu_torch.utils import metrics as m
     from kubernetes_tpu_torch.codec.transfer import transfer_delta, transfer_totals
     from kubernetes_tpu_torch.runtime.cache import SchedulerCache
     from kubernetes_tpu_torch.runtime.queue import PriorityQueue
@@ -383,8 +446,13 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
         return True
 
     sched = Scheduler(cache=cache, queue=queue, binder=binder,
-                      config=live_config(batch, engine, batched, pipeline),
+                      config=live_config(
+                          batch, engine, batched, pipeline,
+                          quality_top_k=quality_top_k,
+                          quality_interval_cycles=quality_interval_cycles),
                       device=device)
+    qrec = (record_quality(sched.quality) if sched.quality is not None
+            else None)
 
     def _drain(budget: float) -> int:
         """run_once until nothing schedulable remains: active/backoff
@@ -421,6 +489,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     # clock: else whether a full collection falls inside it depends on all
     # the process did before
     gc.collect()
+    q_s0 = m.QUALITY_SECONDS.value
     with full_collections() as gc_full:
         t0 = time.monotonic()
         for p in pending:
@@ -430,6 +499,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.monotonic() - t0
+    q_s = m.QUALITY_SECONDS.value - q_s0
     ph = dict(sched.phase_seconds)
     # "fetch" is the async D2H window measured on the fetch worker, so it
     # overlaps the host phases; host_stall and fetch_block (aliases) are a
@@ -437,7 +507,13 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     phase_sum = (sum(ph.values()) - ph["fetch_block"] - ph["host_stall"]
                  + t_enqueue)
     snap = enc.snapshot()
+    extra = {}
+    if qrec is not None:
+        finish_quality(sched.quality, qrec)
+        extra = {"quality": sched.quality.summary(),
+                 "quality_record": qrec, "quality_seconds": q_s}
     return {
+        **extra,
         "pods_per_s": placed / dt if dt > 0 else 0.0,
         "seconds": dt,
         "placed": placed,

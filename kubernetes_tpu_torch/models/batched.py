@@ -73,9 +73,11 @@ from kubernetes_tpu_torch.ops.priorities import (
 )
 from kubernetes_tpu_torch.ops.select import (
     SELECT_IMPLS,
+    TopKQuality,
     limit_feasible,
     num_feasible_nodes_device,
     select_host,
+    select_topk,
 )
 
 
@@ -419,13 +421,11 @@ def check_exact_matmul(device) -> None:
             "exact f32 count products")
 
 
-def reject_later_slices(attribution=False, quality_topk=0) -> None:
+def reject_later_slices(attribution=False) -> None:
     """The engine features this slice of the port does not carry yet: raise
     instead of ignoring them."""
     if attribution:
         raise NotImplementedError("attribution is not ported yet")
-    if quality_topk:
-        raise NotImplementedError("quality_topk is not ported yet")
 
 
 def _dynamic_scores(cluster, req_cpu_mem, requested2, zone_key_id, counts,
@@ -539,8 +539,14 @@ def make_sequential_scheduler(
     BatchAffinityState) moves MatchInterPodAffinity and the IPA score into
     the steps, against the pre-batch pair tensors plus the pairs of the
     pods committed so far.  select_impl="plain" selects with K1's plain
-    twin on the card (comparisons only)."""
-    reject_later_slices(attribution=attribution, quality_topk=quality_topk)
+    twin on the card (comparisons only).
+
+    With quality_topk=K > 0 (output-only: the winners are the same) the
+    call also returns an ops/select.TopKQuality as its last output: per
+    pod, the winner-pinned top min(K, N) node rows, their scores and the
+    feasible count, off each step's exact (total, mask, host, feasible)
+    (kernel K3 at B=1 on the card)."""
+    reject_later_slices(attribution=attribution)
     if select_impl not in SELECT_IMPLS:
         raise ValueError(f"select_impl {select_impl!r} not in {SELECT_IMPLS}")
     if score_cfg is None:
@@ -563,6 +569,14 @@ def make_sequential_scheduler(
                  aff: Optional[BatchAffinityState] = None):
         B, N = pods.n_pods, cluster.n_nodes
         dev = cluster.valid.device
+        # quality top-k width, clamped to the arena (a 2-node cluster
+        # cannot rank 3 rows)
+        tkq = min(quality_topk, N) if quality_topk else 0
+        if tkq:
+            top_nodes = torch.full((B, tkq), -1, dtype=torch.int32,
+                                   device=dev)
+            top_scores = torch.zeros((B, tkq), dtype=f32, device=dev)
+            top_feas = torch.zeros(B, dtype=torch.int32, device=dev)
         static_mask, static_score = static_pass(
             cluster, pods, cfg, unsched_taint_key, w, score_cfg,
             extra_mask, extra_score, in_batch_affinity=aff is not None)
@@ -690,6 +704,14 @@ def make_sequential_scheduler(
                 # adaptive node sampling with the rotating start offset
                 mask = limit_feasible(mask, feas_limit, last_idx)
             host, feasible = select_host(total, mask, last_idx, select_impl)
+            if tkq:
+                # the winner-pinned ranking and feasible count off the
+                # exact (mask, total, host) the selection used, the
+                # sampling cut included
+                q = select_topk(total, mask, host, feasible, tkq)
+                top_nodes[b] = q.top_nodes
+                top_scores[b] = q.top_scores
+                top_feas[b] = q.feasible
             # commit
             onehot = (node_ids == host) & feasible                # [N]
             requested = requested + onehot[:, None] * req[None, :]
@@ -726,6 +748,9 @@ def make_sequential_scheduler(
                     aff.pref_weight[b], keyed_pref)
         new_cluster = dataclasses.replace(
             cluster, requested=requested, nonzero_req=nonzero2)
+        if tkq:
+            return (hosts.to(torch.int32), new_cluster,
+                    TopKQuality(top_nodes, top_scores, top_feas))
         return hosts.to(torch.int32), new_cluster
 
     def schedule_entry(cluster, pods, ports, last_index0, nominated=None,
@@ -743,4 +768,6 @@ def make_sequential_scheduler(
                         extra_mask, extra_score, aff)
 
     schedule_entry.engine_kind = "sequential"
+    # quality variants append a TopKQuality as the LAST output; 0 = off
+    schedule_entry.quality_topk = quality_topk
     return schedule_entry

@@ -45,8 +45,10 @@ the batch through the sequential engine, which applies the claims in every
 step's fit.  Their port and anti-affinity claims come in through
 extra_mask (models/batched.py encode_nominated_block).
 
-Quality top-k is a later slice of the port: the entry point raises
-NotImplementedError for it.  Reference semantics:
+Quality top-k (quality_topk=K > 0, output-only): each pod's winner-pinned
+top-k rows, scores and feasible count are taken at the round that accepts
+it (kernel K3 beside K1 each round on the card); a hybrid redo returns the
+sequential engine's instead.  Reference semantics:
 core/generic_scheduler.go Schedule (:184-254) / selectHost (:284-296).
 """
 
@@ -69,7 +71,6 @@ from kubernetes_tpu_torch.models.batched import (
     check_exact_matmul,
     ipa_normalize,
     make_sequential_scheduler,
-    reject_later_slices,
     topology_key_pairs,
 )
 from kubernetes_tpu_torch.ops.predicates import filter_batch
@@ -83,10 +84,12 @@ from kubernetes_tpu_torch.ops.priorities import (
 )
 from kubernetes_tpu_torch.ops.select import (
     SELECT_IMPLS,
+    TopKQuality,
     limit_feasible,
     num_feasible_nodes_device,
     rotation_counters,
     select_hosts_batch,
+    select_topk_batch,
 )
 
 
@@ -108,8 +111,13 @@ def make_speculative_scheduler(
     the device so the caller can overlap its fetch with the next batch.
 
     After each call, fn.last_rounds holds the rounds used and fn.last_redo
-    whether the batch was redone through the sequential engine."""
-    reject_later_slices(quality_topk=quality_topk)
+    whether the batch was redone through the sequential engine.
+
+    quality_topk=K > 0 (output-only): the call returns (hosts, new_cluster,
+    ops/select.TopKQuality).  Each pod's top-k is captured at the round
+    that accepts it, off that round's (mask, total, hosts); bounced pods
+    keep -1 until their round, pods retired as infeasible keep -1 for
+    good; a hybrid redo returns the sequential engine's TopKQuality."""
     if select_impl not in SELECT_IMPLS:
         raise ValueError(f"select_impl {select_impl!r} not in {SELECT_IMPLS}")
     device = torch.device(device)
@@ -127,7 +135,7 @@ def make_speculative_scheduler(
         cfg=cfg, weights=weights, unsched_taint_key=unsched_taint_key,
         zone_key_id=zone_key_id, score_cfg=score_cfg,
         percentage_of_nodes_to_score=percentage_of_nodes_to_score,
-        device=device, select_impl=select_impl,
+        quality_topk=quality_topk, device=device, select_impl=select_impl,
     )
 
     def _affinity_context(cluster, pods, aff, tril):
@@ -230,6 +238,11 @@ def make_speculative_scheduler(
             total = total + escore
         hosts, feasible = select_hosts_batch(total, mask, c["li"],
                                              select_impl)
+        if quality_topk:
+            # every row's winner-pinned ranking off the exact (mask, total,
+            # hosts) the acceptance below uses; only accepted rows keep it
+            qb = select_topk_batch(total, mask, hosts, feasible,
+                                   c["topn"].shape[1])
         hosts_l = hosts.to(torch.int64)
         prop = c["active"] & feasible            # proposers this round
         # earlier same-node proposers (batch order = commit order)
@@ -352,6 +365,11 @@ def make_speculative_scheduler(
             # with interference, and any REAL capacity/port bounce
             "inv": c["inv"] | inv_new | torch.any(real_bounce),
         }
+        if quality_topk:
+            upd = accept[:, None]
+            out["topn"] = torch.where(upd, qb.top_nodes, c["topn"])
+            out["tops"] = torch.where(upd, qb.top_scores, c["tops"])
+            out["feas"] = torch.where(accept, qb.feasible, c["feas"])
         if aff is None:
             # retired: accepted, or nothing feasible this round
             out["active"] = c["active"] & feasible & ~accept
@@ -424,6 +442,12 @@ def make_speculative_scheduler(
                                      device=dev)
             c["xforb"] = torch.zeros((B, TP), dtype=torch.bool, device=dev)
             c["xpref"] = torch.zeros((B, TP), dtype=f32, device=dev)
+        if quality_topk:
+            tkq = min(quality_topk, N)
+            c["topn"] = torch.full((B, tkq), -1, dtype=torch.int32,
+                                   device=dev)
+            c["tops"] = torch.zeros((B, tkq), dtype=f32, device=dev)
+            c["feas"] = torch.zeros(B, dtype=torch.int32, device=dev)
         return c
 
     def schedule(cluster, pods, ports, last_index0, nominated=None,
@@ -465,9 +489,14 @@ def make_speculative_scheduler(
                               extra_score=escore, aff_state=aff)
         new_cluster = dataclasses.replace(cluster, requested=c["req"],
                                           nonzero_req=c["nz"])
+        if quality_topk:
+            return (c["hosts"], new_cluster,
+                    TopKQuality(c["topn"], c["tops"], c["feas"]))
         return c["hosts"], new_cluster
 
     schedule.engine_kind = "speculative"
+    # quality variants return (hosts, new_cluster, TopKQuality); 0 = off
+    schedule.quality_topk = quality_topk
     schedule.last_rounds = 0
     schedule.last_redo = False
     return schedule

@@ -5,7 +5,8 @@ The control plane stays on the host (Python); the Filter/Score math runs on
 the device through models/.  queue.py, cache.py, events.py,
 flightrecorder.py, defaults.py, invariants.py and health.py's breaker are
 copies of the JAX package's modules with the imports rewritten;
-scheduler.py is the live cycle's port.
+scheduler.py is the live cycle's port; quality.py the placement-quality
+observatory's, with its regret counterfactual in torch around kernel K4.
 """
 
 from kubernetes_tpu_torch.runtime.queue import PriorityQueue, PodBackoff

@@ -31,6 +31,13 @@ popped pods are requeued and the error propagates.  A fault in the
 preemption's candidate evaluation feeds the breaker and propagates too.
 The port carries no CPU degradation engine and refuses every setting of a
 later slice (`refused_settings`): nothing degrades quietly.
+
+With quality_top_k > 0 (the JAX class's default, 3) both engines also
+return each pod's winner-pinned top-k (kernel K3 on the card); the three
+leaves ride the winners' D2H copy, and after each committed cycle the
+placement-quality observatory (runtime/quality.py) folds them into margins
+and feasible counts and, every quality_interval_cycles cycles, launches the
+FFD regret counterfactual (kernel K4) without waiting on it.
 """
 
 from __future__ import annotations
@@ -81,6 +88,8 @@ from kubernetes_tpu_torch.runtime.events import (
     EVENT_TYPE_WARNING,
     EventRecorder,
 )
+from kubernetes_tpu_torch.ops.select import TopKQuality
+from kubernetes_tpu_torch.runtime import quality as quality_mod
 from kubernetes_tpu_torch.runtime.flightrecorder import RECORDER, FlightRecorder
 from kubernetes_tpu_torch.runtime.health import DeviceHealth
 from kubernetes_tpu_torch.runtime.invariants import InvariantChecker
@@ -102,9 +111,8 @@ class SchedulerConfig:
     """The JAX package's SchedulerConfig, field for field and with its
     defaults, so both classes read the same.  The port's Scheduler refuses
     every setting that belongs to a later slice (see refused_settings): in
-    particular the defaults of cpu_fallback, telemetry, quality_top_k and
-    timeline are refused, so callers pass the slice's settings
-    explicitly."""
+    particular the defaults of cpu_fallback, telemetry and timeline are
+    refused, so callers pass the slice's settings explicitly."""
 
     batch_size: int = 256
     batch_window_s: float = 0.001
@@ -198,8 +206,6 @@ def refused_settings(config: SchedulerConfig) -> List[Tuple[str, str]]:
         (c.cpu_fallback, "cpu_fallback=True",
          "A5 (the CPU degradation engine)"),
         (c.telemetry, "telemetry=True", "A9 (observatories and ledger)"),
-        (c.quality_top_k > 0, f"quality_top_k={c.quality_top_k}",
-         "A9 (observatories and ledger)"),
         (c.timeline, "timeline=True", "A9 (observatories and ledger)"),
         (c.heartbeat_s > 0, f"heartbeat_s={c.heartbeat_s}",
          "A9 (observatories and ledger)"),
@@ -262,6 +268,16 @@ class _InFlight:
     enqueue_s: float = 0.0
     # transfer_totals() at encode time: the fence diffs against it
     xfer0: Optional[dict] = None
+    # --- placement-quality observatory (quality_top_k > 0) ---
+    # the host TopKQuality, set at the fence from the leaves that rode the
+    # winners' copy
+    quality: Optional[TopKQuality] = None
+    # the encoded batch's request matrix (host ref): the regret
+    # counterfactual's pod side
+    quality_reqs: object = None
+    # THIS cycle's pre-dispatch host snapshot refs (allocatable,
+    # requested, valid; immutable under the encoder's copy-on-write)
+    quality_snapshot: Optional[tuple] = None
 
 
 @dataclass
@@ -391,6 +407,15 @@ class Scheduler:
             self.config.filter_config
         )
         self._unsched_key = enc.interner.intern(TAINT_NODE_UNSCHEDULABLE)
+        # placement-quality top-k width: an output-only engine setting
+        # (the winners are the same with it on and off)
+        self._quality_k = max(0, int(self.config.quality_top_k))
+        if self._quality_k and self.device.type == "cuda":
+            # K3 and K4 are built now, so a build error raises here and
+            # not inside a cycle
+            from kubernetes_tpu_torch.kernels._build import library
+
+            library()
         engine_kw = dict(
             cfg=self.config.filter_config,
             weights=self.config.weights,
@@ -399,6 +424,7 @@ class Scheduler:
             score_cfg=prof.score_config if prof is not None else None,
             percentage_of_nodes_to_score=(
                 self.config.percentage_of_nodes_to_score),
+            quality_topk=self._quality_k,
             device=self.device,
         )
         self._schedule_fn = make_sequential_scheduler(**engine_kw)
@@ -470,6 +496,20 @@ class Scheduler:
         self.results: List[ScheduleResult] = []
         for ns, q in (self.config.namespace_quotas or {}).items():
             enc.set_namespace_quota(ns, q)
+        # placement-quality observatory: margins and feasible counts off
+        # the engines' top-k, the amortized regret counterfactual, drift
+        # alerts through the postmortem seam; installed as the process
+        # default
+        self.quality = None
+        if self._quality_k > 0:
+            self.quality = quality_mod.QualityObservatory(
+                top_k=self._quality_k,
+                interval_cycles=self.config.quality_interval_cycles,
+                postmortem=self._postmortem,
+                drift_threshold=self.config.quality_drift_threshold,
+                device=self.device,
+            )
+            quality_mod.set_default(self.quality)
 
     # ------------------------------------------------------------- one cycle
 
@@ -632,6 +672,7 @@ class Scheduler:
             try:
                 if relaunch_pending:
                     inf.hosts_dev, inf.fetch = inf.relaunch()
+                    inf.quality = None
                     relaunch_pending = False
                 staged = self._commit_state(inf)
             except BaseException as e:
@@ -721,13 +762,16 @@ class Scheduler:
             dev_cluster = self._dev_snapshot.update(
                 cluster, dirty_rows=dirty_rows
             )
-            hosts = fn(
+            out = fn(
                 dev_cluster, batch, ports, last_index0, nominated,
                 extra_mask, None, aff_state,
-            )[0]
+            )
+            hosts = out[0]
             # only the compact winners buffer (i32[B] node rows) crosses
-            # back; the copy starts now and lands on the fetch worker
-            return hosts, AsyncFetch(hosts)
+            # back, with the quality top-k's three leaves on the same
+            # copy; the copy starts now and lands on the fetch worker
+            extras = out[2] if self._quality_k else ()
+            return hosts, AsyncFetch(hosts, extras=extras)
 
         disp_span = trace.child("dispatch")
         hosts_dev, fetch = self._launch_resilient(launch)
@@ -747,6 +791,11 @@ class Scheduler:
             trace=trace, relaunch=launch, last_index0=last_index0,
             tier=tier, width=batch.n_pods, enqueue_s=t_disp_end - t_cycle0,
             xfer0=xfer0,
+            quality_reqs=batch.req if self.quality is not None else None,
+            quality_snapshot=(
+                (cluster.allocatable, cluster.requested, cluster.valid)
+                if self.quality is not None else None
+            ),
         )
 
     def _launch_resilient(self, launch):
@@ -811,6 +860,9 @@ class Scheduler:
         t_fetch0 = time.monotonic()
         hosts = inf.fetch.result()  # the ready-fence
         hosts = self._validate_hosts(hosts, len(pods))
+        if self._quality_k:
+            # the top-k rode the winners' copy: landed with them
+            inf.quality = TopKQuality(*inf.fetch.extras_result())
         t_state0 = time.monotonic()
         # "fetch" is the async window (dispatch -> copy-complete, measured
         # on the fetch worker); "host_stall" the residual wait here
@@ -895,6 +947,24 @@ class Scheduler:
         self._outcome_totals["placed"] += placed
         self._outcome_totals["unschedulable"] += len(results) - placed
         self.cycles_total += 1
+        if self.quality is not None:
+            # margins off the top-k, feasible counts, drift detectors and
+            # the amortized regret counterfactual: never fails a committed
+            # cycle, its cost stamped into its own counter
+            t_q = time.perf_counter()
+            try:
+                self.quality.on_cycle(
+                    cycle=inf.cycle, tier=inf.tier, degraded=False,
+                    hosts=staged.hosts, n_pods=len(inf.pods),
+                    quality=inf.quality, reqs=inf.quality_reqs,
+                    snapshot=inf.quality_snapshot,
+                )
+            except Exception as e:  # noqa: BLE001
+                klog.errorf(
+                    "quality hook failed (cycle %d): %s", inf.cycle, e
+                )
+            finally:
+                m.QUALITY_SECONDS.inc(time.perf_counter() - t_q)
         m.PENDING_PODS.set(float(len(self.queue)))
         self.results.extend(results)
         if self.config.trace_threshold_s > 0:

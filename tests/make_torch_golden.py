@@ -41,6 +41,16 @@ order (preemptor, node, victims), the bindings in binder call order and
 the final requested CPU per node row.
 
     python tests/make_torch_golden.py --live --preemption 256   # ~2-4 min
+
+With --live --quality K, the JAX Scheduler runs the live cell with the
+placement-quality observatory on (quality_top_k=K, a regret sample every
+--quality-interval cycles, default 1); loop.record_quality wraps its
+on_cycle to catch every cycle's top-k leaves and every regret sample.  The
+file, tests/data/torch_port_golden_live_quality.npz, holds the bindings
+and their order, the leaves of every cycle (concatenated, with the
+cycles' pod counts) and the regret samples' integers.
+
+    python tests/make_torch_golden.py --live --quality 3   # ~1 min
 """
 
 from __future__ import annotations
@@ -59,16 +69,22 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if _ROOT not in sys.path:
     sys.path.insert(0, _ROOT)
 
+from kubernetes_tpu_torch.loop import quality_arrays  # noqa: E402
+
 def golden_path(workload: str) -> str:
     """tests/data/torch_port_golden_<workload, dashes as underscores>.npz"""
     return os.path.join(_ROOT, "tests", "data", "torch_port_golden_"
                         f"{workload.replace('-', '_')}.npz")
 
 
-def live_golden_path(nominated: int = 0, preemption: int = 0) -> str:
-    """tests/data/torch_port_golden_live[_nominated|_preemption].npz"""
+def live_golden_path(nominated: int = 0, preemption: int = 0,
+                     quality: int = 0) -> str:
+    """tests/data/torch_port_golden_live[_nominated|_preemption|_quality]
+    .npz"""
     if preemption:
         return golden_path("live_preemption")
+    if quality:
+        return golden_path("live_quality")
     return golden_path("live_nominated" if nominated else "live")
 
 
@@ -108,21 +124,28 @@ def _jax_fleet(n_nodes: int, workload: str, node_pods: int = 110,
 def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
              engine: str = "speculative", batched: bool = True,
              pipeline: bool = True, existing: int = 0, nominated: int = 0,
-             node_pods: int = 110, budget_s: float = 3600.0):
+             node_pods: int = 110, budget_s: float = 3600.0,
+             quality_top_k: int = 0, quality_interval_cycles: int = 32):
     """The JAX Scheduler's live cycle under the loop of bench.py run_live
     (and of the port's loop.run_live): a warmup batch of `batch` pods
     (index n_pods + j) drained first, `nominated` preemptors
     (loop.nominated_preemptors, built with the JAX factory) registered on
-    the queue, then the `n_pods` pods enqueued and drained.  Returns (hosts i32[n_pods + batch] bound
-    row per pod index, bind_order i32[] pod indices in binder call order,
-    unschedulable pod names, the final requested column matrix, the
-    scheduler)."""
+    the queue, then the `n_pods` pods enqueued and drained.  Returns (hosts
+    i32[n_pods + batch] bound row per pod index, bind_order i32[] pod
+    indices in binder call order, unschedulable pod names, the final
+    requested column matrix, the scheduler).  With quality_top_k > 0 the
+    observatory is on and the scheduler carries `quality_record`
+    (loop.record_quality's, warmup included)."""
     import bench
     from kubernetes_tpu.api.factory import make_pod
     from kubernetes_tpu.runtime.cache import SchedulerCache
     from kubernetes_tpu.runtime.queue import PriorityQueue
     from kubernetes_tpu.runtime.scheduler import Scheduler, SchedulerConfig
-    from kubernetes_tpu_torch.loop import nominated_preemptors
+    from kubernetes_tpu_torch.loop import (
+        finish_quality,
+        nominated_preemptors,
+        record_quality,
+    )
 
     args, enc = _jax_fleet(n_nodes, workload, node_pods, existing)
     cache = SchedulerCache(enc)
@@ -142,7 +165,11 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
                           engine=engine, disable_preemption=True,
                           batched_commit=batched, pipeline_commit=pipeline,
                           cpu_fallback=False, telemetry=False,
-                          quality_top_k=0, timeline=False))
+                          quality_top_k=quality_top_k,
+                          quality_interval_cycles=quality_interval_cycles,
+                          timeline=False))
+    if quality_top_k:
+        sched.quality_record = record_quality(sched.quality)
 
     def drain(budget):
         deadline = time.monotonic() + budget
@@ -163,6 +190,8 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
     for i in range(n_pods):
         queue.add(bench._pending_pod(args, i))
     drain(budget_s)
+    if quality_top_k:
+        finish_quality(sched.quality, sched.quality_record)
     unsched = sorted(r.pod.name for r in sched.results if r.node is None)
     return (hosts, np.asarray(order, np.int32), unsched,
             np.asarray(enc.snapshot(full=True).requested), sched)
@@ -331,6 +360,11 @@ def main():
     ap.add_argument("--nominated", type=int, default=0,
                     help="with --live: preemptors nominated before the "
                          "clock (loop.nominated_preemptors)")
+    ap.add_argument("--quality", type=int, default=0,
+                    help="with --live: quality_top_k (the observatory on; "
+                         "writes the _live_quality golden)")
+    ap.add_argument("--quality-interval", type=int, default=1,
+                    help="with --live --quality: quality_interval_cycles")
     ap.add_argument("--preemption", type=int, default=0,
                     help="with --live: the preemption cell with this many "
                          "preemptors (loop.run_preemption's loop)")
@@ -356,6 +390,28 @@ def main():
         print(f"wrote {out}: {len(preemptions)} preemptions, "
               f"{len(bindings)} bindings, {len(unsched)} unschedulable "
               f"verdicts, {dt:.1f} s on the CPU")
+        return
+    if args.live and args.quality:
+        out = args.out or live_golden_path(quality=args.quality)
+        t0 = time.monotonic()
+        hosts, order, unsched, _, sched = jax_live(
+            args.nodes, args.pods, args.batch, args.workload,
+            quality_top_k=args.quality,
+            quality_interval_cycles=args.quality_interval)
+        dt = time.monotonic() - t0
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(
+            out, hosts=hosts, bind_order=order,
+            unschedulable=np.asarray(unsched, dtype=str),
+            nodes=np.int32(args.nodes), pods=np.int32(args.pods),
+            batch=np.int32(args.batch), top_k=np.int32(args.quality),
+            interval=np.int32(args.quality_interval),
+            **quality_arrays(sched.quality_record),
+        )
+        print(f"wrote {out}: {int((hosts >= 0).sum())}/{len(hosts)} bound, "
+              f"{len(sched.quality_record['topk'])} cycles of top-k, "
+              f"{len(sched.quality_record['regret'])} regret samples, "
+              f"{dt:.1f} s on the CPU")
         return
     if args.live:
         out = args.out or live_golden_path(args.nominated)

@@ -170,8 +170,9 @@ def test_node_sampling_percentage(pct):
 
 
 def test_later_slices_raise():
-    """Attribution and quality top-k still raise; nominated pods are
-    ported (slice 4): an all-empty NominatedState places like none."""
+    """Attribution still raises; quality top-k is ported and adds one
+    output; nominated pods are ported (slice 4): an all-empty
+    NominatedState places like none."""
     from kubernetes_tpu_torch.models.batched import NominatedState
 
     enc = _tight_encoder()
@@ -190,7 +191,11 @@ def test_later_slices_raise():
     with pytest.raises(NotImplementedError):
         port_seq(device="cpu", attribution=True)
     with pytest.raises(NotImplementedError):
-        port_spec(device="cpu", quality_topk=3)
+        port_seq(device="cpu", attribution=True, quality_topk=3)
+    for make in (port_seq, port_spec):
+        fn = make(device="cpu", quality_topk=3, **kw)
+        out = fn(enc.snapshot(), pb, ports, 0)
+        assert len(out) == 3 and fn.quality_topk == 3
     with pytest.raises(ValueError):
         port_spec(device="cpu", select_impl="fast")
 

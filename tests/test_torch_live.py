@@ -199,7 +199,7 @@ def test_pipelined_fence_fault_requeues_both_batches():
 @pytest.mark.parametrize("field,value,item", [
     ("cpu_fallback", True, "A5"),
     ("telemetry", True, "A9"),
-    ("quality_top_k", 3, "A9"),
+    ("heartbeat_s", 1.0, "A9"),
     ("timeline", True, "A9"),
     ("attribution", True, "A9"),
     ("decision_ledger", True, "A9"),
@@ -226,10 +226,10 @@ def test_refuses_framework_extenders_and_default_config():
         "filter_verb": "filter", "prioritize_verb": ""})()})()
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         Scheduler(config=loop.live_config(8), extenders=[ext], device="cpu")
-    # the JAX class's defaults belong to later slices
+    # the JAX class's defaults that belong to later slices (quality_top_k=3
+    # is ported: tests/test_torch_quality.py)
     assert {w for w, _ in refused_settings(SchedulerConfig())} == {
-        "cpu_fallback=True", "telemetry=True", "quality_top_k=3",
-        "timeline=True"}
+        "cpu_fallback=True", "telemetry=True", "timeline=True"}
     assert refused_settings(loop.live_config(8)) == []
 
 
