@@ -92,6 +92,30 @@ printing one line of numbers; any failure exits non-zero with no result:
      tests/data/torch_port_golden_live_quality.npz, no regret sample
      dropped; and once more at the default interval (32): pods/s and the
      quality hook's share of the window beside phase 11's quality-off run;
+ K5. the cluster analytics kernel (cluster_analytics.cu) against its plain
+     twin (computed on the CPU from the same inputs), bit for bit, on every
+     case of kubernetes_tpu_torch/kernels/k5_cases.py (no rows, one row,
+     rows not a power of two, every row invalid, a column with no
+     capacity, over-committed nodes, recycled rows, -0.0 beside 0.0,
+     quantile ties, decile edges, twelve decades of magnitude, R 4 and 5,
+     the live cell's 6,144 rows and K5's widest 16,384); then its times
+     at the live cell's shape with L2 cold and warm, beside its bytes
+     bound, its twin's time on the card, an empty launch and its launch
+     floor (the empty launch times K5's stream operations in one call,
+     counted by torch.profiler in a child process: one kernel, or the
+     phase fails);
+ 15. the live default: the live cell through the port's Scheduler at the
+     reference's default SchedulerConfig with only cpu_fallback turned
+     off (telemetry at interval 1, the timeline, quality_top_k=3 at
+     interval 32; run_live's batch, window, commit and preemption
+     settings), launch counts reset just before and read just after:
+     bindings and order, every telemetry sample's cycle and analytics,
+     the drift detectors' state after every cycle, every cycle's top-k
+     leaves and every regret sample equal to
+     tests/data/torch_port_golden_live_default.npz, the JAX Scheduler's;
+     every sample from the device, none dropped, K5 launched once per
+     committed cycle; pods/s beside phase 11's, and the shares of the
+     window taken by the telemetry and the timeline hooks;
  2b. (run last, so that nothing it does can change the cells' numbers)
      K2 (preempt_one) against its plain twin on the card, all four
      outputs equal, on every case of
@@ -108,7 +132,7 @@ printing one line of numbers; any failure exits non-zero with no result:
      child process: one k2_ kernel and nothing else, or the phase fails),
      an empty launch's time and the launch floor (the two multiplied).
 
-Then the card's name and power limit, the kernels' JSON record (K1-K4;
+Then the card's name and power limit, the kernels' JSON record (K1-K5;
 K1's launches in each cell among its keys) and the device line.
 """
 
@@ -241,16 +265,34 @@ print(json.dumps(k1_bench.stream_ops(lambda: kernels.preempt_one(*a))))
 """
 
 
-def k2_stream_ops(device: str = "cuda") -> dict:
-    """Every launch, memset and copy that one warm full-width K2 call puts
-    on the stream, counted by torch.profiler in a child process: a
-    profiler session slows the host's launches for the rest of its
-    process, and one run after phase 13 recorded no device activity."""
-    res = subprocess.run([sys.executable, "-c", _K2_OPS_CHILD, ROOT, device],
+_K5_OPS_CHILD = """
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from kubernetes_tpu_torch import kernels
+from kubernetes_tpu_torch.kernels import k1_bench, k5_cases
+a = [torch.from_numpy(np.ascontiguousarray(x)).to(sys.argv[2])
+     for x in k5_cases.full_width_case()]
+print(json.dumps(k1_bench.stream_ops(lambda: kernels.cluster_analytics(*a))))
+"""
+
+
+def _child_stream_ops(child: str, label: str, device: str) -> dict:
+    """Every launch, memset and copy that one warm full-width call of a
+    kernel puts on the stream, counted by torch.profiler in a child
+    process: a profiler session slows the host's launches for the rest of
+    its process, and one run after phase 13 recorded no device
+    activity."""
+    res = subprocess.run([sys.executable, "-c", child, ROOT, device],
                          capture_output=True, text=True, timeout=300)
-    check(res.returncode == 0, f"2b K2: the stream-operation count failed: "
-          f"{res.stderr.strip()[-800:]}")
+    check(res.returncode == 0, f"{label}: the stream-operation count "
+          f"failed: {res.stderr.strip()[-800:]}")
     return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def k2_stream_ops(device: str = "cuda") -> dict:
+    """K2's stream operations in one warm full-width call."""
+    return _child_stream_ops(_K2_OPS_CHILD, "2b K2", device)
 
 
 def phase_k2() -> dict:
@@ -920,6 +962,17 @@ def phase_k4() -> dict:
     return out
 
 
+def _same(a: np.ndarray, b: np.ndarray) -> bool:
+    """Equal arrays, floats bit for bit (NaN and -0.0 count)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == np.float32:
+        return np.array_equal(a.view(np.int32), b.view(np.int32))
+    if a.dtype == np.float64:
+        return np.array_equal(a.view(np.int64), b.view(np.int64))
+    return np.array_equal(a, b)
+
+
 def phase_quality(nodes, live: dict) -> dict:
     """The live cell through the port's Scheduler with the placement-
     quality observatory on (quality_top_k=3): with a regret sample every
@@ -952,12 +1005,8 @@ def phase_quality(nodes, live: dict) -> dict:
     got = quality_arrays(res["quality_record"])
     for key, val in got.items():
         want = data[key]
-        same = (want.dtype == val.dtype and want.shape == val.shape
-                and np.array_equal(want.view(np.int32)
-                                   if want.dtype == np.float32 else want,
-                                   val.view(np.int32)
-                                   if val.dtype == np.float32 else val))
-        check(same, f"{label}: {key} differs from the JAX Scheduler's: "
+        check(_same(want, val), f"{label}: {key} differs from the JAX "
+              f"Scheduler's: "
               f"JAX {want.reshape(-1)[:6].tolist()} port "
               f"{val.reshape(-1)[:6].tolist()}")
     check(launches["binpack_ffd"] == len(got["regret_cycle"]),
@@ -1001,6 +1050,190 @@ def phase_quality(nodes, live: dict) -> dict:
           f"{live['pods_per_s']:.1f} seconds {live['seconds']:.3f} | full "
           f"collections in the windows {res['gc_full']['collections']}, "
           f"{res32['gc_full']['collections']}", flush=True)
+    return out
+
+
+# f32 operations K5's function needs a row: 4 divides, 4 subtracts, 8
+# compares of the free and dominant-share maxima, 4 for the decile, 24
+# fold adds, a subtract and a square for the imbalance, 8 compares of the
+# masked maxima, and 3 compares a quantile for a linear-time selection
+K5_OPS_PER_ROW = 4 + 4 + 8 + 4 + 24 + 2 + 8 + 3 * 3 * 4
+
+
+def _k5_bound(n: int) -> dict:
+    """K5's least time at n rows: the bytes (the four columns of the two
+    tables and the mask read once, the 40-word sample written once) over
+    the memory rate, or its operations over the f32 rate, the larger."""
+    from kubernetes_tpu_torch.kernels import k1_bench
+
+    bytes_ms = (n * (2 * 4 * 4 + 1) + 40 * 4) / k1_bench.HBM_BYTES_PER_S * 1e3
+    ops_ms = n * K5_OPS_PER_ROW / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _k5_fields(buf: torch.Tensor) -> dict:
+    from kubernetes_tpu_torch.ops.analytics import PACKED_LAYOUT
+
+    return {name: buf[off:off + (int(np.prod(shape)) if shape else 1)]
+            for name, off, shape, _ in PACKED_LAYOUT}
+
+
+def phase_k5() -> dict:
+    """K5 (cluster_analytics) against its plain twin, computed on the CPU
+    from the same inputs, bit for bit, on every case of
+    kernels/k5_cases.py; then its times at the live cell's shape (N 6,144,
+    R 8) with L2 cold and warm, beside its bound, its twin's time on the
+    card, an empty launch and its launch floor (the empty launch times
+    K5's stream operations in one call, counted in a child process)."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k1_bench, k5_cases
+    from kubernetes_tpu_torch.ops.analytics import (
+        PACKED_LAYOUT,
+        cluster_analytics_plain,
+        pack,
+    )
+
+    dev = torch.device("cuda")
+    max_err = 0.0
+    names = []
+    for name, c in k5_cases.cases():
+        host = [torch.from_numpy(np.ascontiguousarray(x)) for x in c]
+        got = kernels.cluster_analytics(*(t.to(dev) for t in host)).cpu()
+        want = pack(cluster_analytics_plain(*host))
+        g, w = _k5_fields(got), _k5_fields(want)
+        for fname, _, _, dtype in PACKED_LAYOUT:
+            if dtype == torch.float32:
+                max_err = max(max_err, _abs_err(
+                    g[fname].view(torch.float32),
+                    w[fname].view(torch.float32)))
+        if not torch.equal(got, want):
+            bad = [f for f in g if not torch.equal(g[f], w[f])]
+            f = bad[0]
+            dt = dict((n, d) for n, _, _, d in PACKED_LAYOUT)[f]
+            view = (lambda x: x.view(torch.float32)) if dt == torch.float32 \
+                else (lambda x: x)
+            fail(f"K5: {bad} differ from the twin on case {name} "
+                 f"(N {c[0].shape[0]}): {f} kernel {view(g[f]).tolist()} "
+                 f"twin {view(w[f]).tolist()}")
+        names.append(name)
+    check(names[-1] == "widest", "K5: the last case is not the widest")
+    full = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in k5_cases.full_width_case()]
+    N = int(full[0].shape[0])
+    k5 = lambda: kernels.cluster_analytics(*full)          # noqa: E731
+    out = {"ms": k1_bench.time_ms(k5, cold=True),
+           "ms_warm": k1_bench.time_ms(k5, cold=False),
+           "plain_ms": k1_bench.time_ms(
+               lambda: cluster_analytics_plain(*full), reps=20),
+           "empty_launch_ms": k1_bench.time_ms(kernels.noop_launch,
+                                               cold=False),
+           "max_abs_err": max_err, "cases": len(names),
+           "shape": {"N": N, "R": int(full[0].shape[1]),
+                     "valid": int(full[2].sum())},
+           **_k5_bound(N)}
+    ops = _child_stream_ops(_K5_OPS_CHILD, "K5", "cuda")
+    out["stream_ops"] = sum(ops.values())
+    check(out["stream_ops"] == 1 and all("k5_" in n for n in ops),
+          f"K5: one call put {ops} on the stream, not one k5_ kernel")
+    out["launch_floor_ms"] = out["empty_launch_ms"] * out["stream_ops"]
+    out["over_floor"] = out["ms"] / out["launch_floor_ms"]
+    print(f"[K5] bit-identical to the twin on {len(names)} cases "
+          f"({' '.join(names)}) | at {out['shape']}: cold_ms "
+          f"{out['ms']:.4f} warm_ms {out['ms_warm']:.4f} plain_ms (twin on "
+          f"the card) {out['plain_ms']:.4f} bound_ms {out['bound_ms']:.6f} "
+          f"({out['bound_by']}: bytes {out['bytes_ms']:.6f}, operations "
+          f"{out['ops_ms']:.6f}) | stream_ops {out['stream_ops']} "
+          f"empty_launch_ms {out['empty_launch_ms']:.4f} launch_floor_ms "
+          f"{out['launch_floor_ms']:.4f} cold_over_floor "
+          f"{out['over_floor']:.2f}", flush=True)
+    return out
+
+
+def phase_live_default(nodes, live: dict) -> dict:
+    """The live cell through the port's Scheduler at the reference's
+    default SchedulerConfig with only cpu_fallback turned off (telemetry
+    at interval 1, the timeline, quality_top_k=3 at interval 32), launch
+    counts reset just before and read just after: bindings, telemetry
+    samples, drift state and quality record equal to
+    tests/data/torch_port_golden_live_default.npz; every sample from the
+    device, none dropped, K5 once per committed cycle; pods/s beside phase
+    11's and the telemetry and timeline hooks' shares of the window."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.loop import (
+        quality_arrays,
+        run_live,
+        telemetry_arrays,
+    )
+
+    label = "15 live default"
+    kernels.reset_launch_counts()
+    res = run_live(nodes, PODS, BATCH, device="cuda", quality_top_k=3,
+                   telemetry=True, timeline=True)
+    launches = dict(kernels.LAUNCHES)
+    sched = res["scheduler"]
+    tel = res["telemetry"]
+    data = np.load(golden("live_default"))
+    diff = np.nonzero(data["hosts"] != res["hosts"])[0]
+    check(diff.size == 0, f"{label}: {diff.size} pods bound apart from the "
+          f"JAX Scheduler; first pod index {diff[:1].tolist()}")
+    check(np.array_equal(data["bind_order"], res["bind_order"]),
+          f"{label}: the binder was called in another order than JAX's")
+    got = {**telemetry_arrays(res["telemetry_record"]),
+           **quality_arrays(res["quality_record"])}
+    for key, val in got.items():
+        want = data[key]
+        check(_same(want, val), f"{label}: {key} differs from the JAX "
+              f"Scheduler's: JAX {want.reshape(-1)[:6].tolist()} port "
+              f"{val.reshape(-1)[:6].tolist()}")
+    n_samples = len(got["sample_cycle"])
+    check(bool(np.all(got["sample_source"] == "device")),
+          f"{label}: samples from {set(got['sample_source'].tolist())}, "
+          f"not all from the device")
+    check(tel["samples_dropped"] == 0,
+          f"{label}: {tel['samples_dropped']} telemetry samples dropped")
+    check(res["quality"]["regret_dropped"] == 0,
+          f"{label}: {res['quality']['regret_dropped']} regret samples "
+          f"dropped")
+    cycles = sched.telemetry.cycles_total
+    check(launches["cluster_analytics"] == cycles == n_samples,
+          f"{label}: {launches['cluster_analytics']} K5 launches for "
+          f"{cycles} committed cycles and {n_samples} samples")
+    for k in ("select_hosts", "select_topk", "binpack_ffd"):
+        check(launches[k] > 0, f"{label}: {k} launched no time")
+    tl = res["timeline"]
+    out = {"launches": launches, "pods_per_s": res["pods_per_s"],
+           "seconds": res["seconds"], "cycles": cycles,
+           "samples": n_samples,
+           "telemetry_seconds": res["telemetry_seconds"],
+           "telemetry_share": res["telemetry_seconds"] / res["seconds"],
+           "timeline_seconds": res["timeline_seconds"],
+           "timeline_share": res["timeline_seconds"] / res["seconds"],
+           "quality_seconds": res["quality_seconds"],
+           "timeline": tl, "compile": tel["compile"], "hbm": tel["hbm"],
+           "gc_full": res["gc_full"]}
+    print(f"[{label}] pods_per_s {res['pods_per_s']:.1f} seconds "
+          f"{res['seconds']:.3f} | bindings, order, {n_samples} telemetry "
+          f"samples (cycle, analytics; all from the device, 0 dropped), "
+          f"drift state after {len(got['drift_fast'])} cycles, "
+          f"{len(got['cycle_pods'])} cycles of top-3 leaves and "
+          f"{len(got['regret_cycle'])} regret samples equal to the JAX "
+          f"Scheduler's | K5 launches {launches['cluster_analytics']} for "
+          f"{cycles} committed cycles, K1 {launches['select_hosts']} K3 "
+          f"{launches['select_topk']} K4 {launches['binpack_ffd']} | "
+          f"telemetry_seconds {res['telemetry_seconds']:.4f} share "
+          f"{out['telemetry_share']:.4f} | timeline_seconds "
+          f"{res['timeline_seconds']:.4f} share {out['timeline_share']:.4f} "
+          f"samples {tl['samples']} series {tl['series']} anomalies "
+          f"{tl['anomalies']} | quality_seconds "
+          f"{res['quality_seconds']:.4f} | last analytics cpu mean "
+          f"{tel['analytics']['utilization']['cpu']['mean']} fragmentation "
+          f"{tel['analytics']['fragmentation']} | kernel library "
+          f"{tel['compile']} | hbm {tel['hbm']} | phase 11 pods_per_s "
+          f"{live['pods_per_s']:.1f} seconds {live['seconds']:.3f} | full "
+          f"collections in the window {res['gc_full']['collections']}",
+          flush=True)
     return out
 
 
@@ -1242,6 +1475,10 @@ def main() -> None:
     live14 = phase_quality(nodes, live)
     print(f"[14 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
+    k5 = phase_k5()
+    live15 = phase_live_default(nodes, live)
+    print(f"[15 done] total seconds {time.monotonic() - t_start:.1f}",
+          flush=True)
     # last, so that nothing of it can change the cells' numbers above
     k2 = phase_k2()
 
@@ -1330,6 +1567,26 @@ def main() -> None:
         "ops": k4["ops"],
         "shape": k4["shape"],
         "launches_interval32": live14["launches_interval32"]["binpack_ffd"],
+    }, {
+        "name": "cluster_analytics",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/kernels/cluster_analytics.cu",
+        "replaces": "kubernetes_tpu/ops/analytics.py:249",
+        "launches": live15["launches"]["cluster_analytics"],
+        "max_abs_err": k5["max_abs_err"],
+        "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"],
+        "library_ms": None,
+        "ms_warm": k5["ms_warm"],
+        "stream_ops": k5["stream_ops"],
+        "empty_launch_ms": k5["empty_launch_ms"],
+        "launch_floor_ms": k5["launch_floor_ms"],
+        "over_floor": k5["over_floor"],
+        "cases": k5["cases"],
+        "shape": k5["shape"],
+        "committed_cycles": live15["cycles"],
     }]}
     print(f"total seconds {time.monotonic() - t_start:.1f}", flush=True)
     print(smi)

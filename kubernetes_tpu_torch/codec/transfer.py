@@ -17,6 +17,9 @@ The counterpart of the JAX package's codec/transfer.py:
     numpy.  On CUDA, AsyncFetch copies on a side stream into a pinned host
     buffer and a shared worker thread waits on its CUDA event, so the
     scheduling thread only blocks at `result()`, the ready-fence;
+  * `PinnedCopy`: a side launch's small output copied into pinned memory
+    behind it with a CUDA event, read an interval later (the quality
+    regret's and the telemetry analytics');
   * `transfer_totals` / `transfer_delta`: bytes and calls per direction and
     seam, counted from host array sizes (never a device sync).
 
@@ -425,6 +428,29 @@ def _side_stream(device: torch.device):
     if s is None:
         s = _SIDE_STREAMS[device.index] = torch.cuda.Stream(device=device)
     return s
+
+
+class PinnedCopy:
+    """A small device result copied into pinned host memory behind the work
+    that produces it on the current stream, with a CUDA event after the
+    copy: `result()` waits on that event only, so a caller that reads it an
+    interval later finds it landed and never syncs the stream.  A CPU
+    tensor is its own copy."""
+
+    def __init__(self, t: torch.Tensor) -> None:
+        self._event = None
+        if t.is_cuda:
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def result(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return np.array(self._host.numpy())
 
 
 class AsyncFetch:

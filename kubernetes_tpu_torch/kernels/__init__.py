@@ -20,13 +20,19 @@ models/binpack.py binpack_ffd: the first-fit packing of the quality
 observatory's regret counterfactual.  Its plain twin is models/binpack.py
 `binpack_ffd_plain`; models/binpack.py `binpack_ffd` dispatches.
 
+K5 `cluster_analytics` (cluster_analytics.cu) replaces the JAX package's
+ops/analytics.py _analytics / cluster_analytics: the telemetry hub's
+once-a-cycle analytics of the resident snapshot.  Its plain twin is
+ops/analytics.py `cluster_analytics_plain`; ops/analytics.py
+`cluster_analytics` dispatches.
+
 Each wrapper counts its launches in `LAUNCHES` (one each time it launches
 its kernels, nowhere else), so a run can show that its main path went
 through the kernels; `select_hosts_b1` also counts K1's one-row launches (the
 sequential engine's steps) on their own.  A preempt_one call puts one
 kernel launch on the stream, no memset and no copy (chip_smoke.py counts
 them under torch.profiler); the first call on a stream also zeroes that
-stream's ticket.  K3 and K4 put one kernel launch each on the stream.
+stream's ticket.  K3, K4 and K5 put one kernel launch each on the stream.
 The kernels are built from source at the first launch
 (kernels/_build.py); importing this module needs neither nvcc nor a card.
 """
@@ -36,7 +42,8 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = {"select_hosts": 0, "select_hosts_b1": 0, "preempt_one": 0,
-            "select_topk": 0, "select_topk_b1": 0, "binpack_ffd": 0}
+            "select_topk": 0, "select_topk_b1": 0, "binpack_ffd": 0,
+            "cluster_analytics": 0}
 
 # K1's variants, by the code select_hosts_launch takes: a block of 8 warps
 # to a row, one warp to a row (8 rows to a block), or a block to a row that
@@ -52,6 +59,8 @@ K2_MAX_SLOTS = 1024       # victim slots (sorted_victim_slots' cap)
 K2_MAX_COLS = 64          # extended resource columns
 K4_MAX_COLS = 16          # resource columns binpack_ffd takes
 K4_THREADS = 1024         # K4's one block
+K5_MAX_ROWS = 16384       # snapshot rows K5 takes in its one launch
+K5_WORDS = 40             # K5's output: ops/analytics.py PACKED_LAYOUT
 # K2's ticket: one uint32 a (device, stream), zero between launches (each
 # launch's last block sets it back)
 _K2_TICKETS: dict = {}
@@ -368,3 +377,55 @@ def barrier_floor_launch(steps: int) -> None:
     if err != 0:
         raise RuntimeError("floor launch failed: "
                            + lib.select_hosts_error_string(err).decode())
+
+
+def cluster_analytics(allocatable: torch.Tensor, requested: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """K5: the analytics of one snapshot, allocatable and requested f32[N,
+    R >= 4] and valid bool[N] on one CUDA device, as one int32[40] buffer
+    in ops/analytics.py PACKED_LAYOUT (f32 fields as their bits), see
+    ops/analytics.py cluster_analytics_plain.  Launches on the current
+    stream, so it reads the tensors as the stream's earlier work (the
+    snapshot's in-place scatter) left them.  Raises on anything the kernel
+    does not take and on a refused launch."""
+    for name, t in (("allocatable", allocatable), ("requested", requested),
+                    ("valid", valid)):
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"cluster_analytics launches on CUDA tensors "
+                             f"only ({name})")
+        if t.device != allocatable.device:
+            raise ValueError(f"cluster_analytics: {name} lies on "
+                             f"{t.device}, allocatable on "
+                             f"{allocatable.device}")
+    if allocatable.dtype != torch.float32 or requested.dtype != torch.float32:
+        raise TypeError(f"cluster_analytics wants f32 tables, got "
+                        f"{allocatable.dtype} and {requested.dtype}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"cluster_analytics wants a bool mask, got "
+                        f"{valid.dtype}")
+    if (allocatable.dim() != 2 or requested.shape != allocatable.shape
+            or valid.shape != allocatable.shape[:1]):
+        raise ValueError(f"cluster_analytics wants [N, R] tables and an "
+                         f"[N] mask, got {tuple(allocatable.shape)}, "
+                         f"{tuple(requested.shape)}, {tuple(valid.shape)}")
+    N, R = allocatable.shape
+    if R < 4:
+        raise ValueError(f"cluster_analytics wants R >= 4 columns, got {R}")
+    if N > K5_MAX_ROWS:
+        raise ValueError(f"cluster_analytics takes at most {K5_MAX_ROWS} "
+                         f"rows in one launch, got {N}")
+    dev = allocatable.device
+    out = torch.empty(K5_WORDS, dtype=torch.int32, device=dev)
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    ts = [t.contiguous() for t in (allocatable, requested, valid)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cluster_analytics_launch(
+            *(t.data_ptr() for t in ts), N, R, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("cluster_analytics launch failed: "
+                           + lib.select_hosts_error_string(err).decode())
+    LAUNCHES["cluster_analytics"] += 1
+    return out

@@ -6,6 +6,11 @@ first call (the caller is a wrapper about to launch on a CUDA tensor), and
 returns the shared library opened with ctypes.  The sources expose plain C
 entry points and include no PyTorch headers, so the build takes seconds.
 A failed build raises; nothing falls back to a plain version.
+
+`BUILD_STATS` records what library() did in this process: "builds" (the
+library compiled here), "loads" (a library an earlier process built under
+the same sources was opened) and the seconds they took; the telemetry
+hub reports them (runtime/telemetry.py compile_stats).
 """
 
 from __future__ import annotations
@@ -14,12 +19,14 @@ import ctypes
 import functools
 import glob
 import os
+import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
                          ".torch_ext_build")
 NAME = "kubernetes_tpu_torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+BUILD_STATS = {"builds": 0, "loads": 0, "seconds": 0.0}
 
 
 def sources() -> list:
@@ -33,6 +40,10 @@ def library() -> ctypes.CDLL:
     from torch.utils.cpp_extension import load
 
     os.makedirs(BUILD_DIR, exist_ok=True)
+    built = os.path.join(BUILD_DIR, NAME + ".so")
+    fresh = os.path.exists(built) and os.path.getmtime(built) >= max(
+        os.path.getmtime(s) for s in sources())
+    t0 = time.perf_counter()
     path = load(
         name=NAME,
         sources=sources(),
@@ -41,6 +52,8 @@ def library() -> ctypes.CDLL:
         is_python_module=False,
         verbose=False,
     )
+    BUILD_STATS["loads" if fresh else "builds"] += 1
+    BUILD_STATS["seconds"] += time.perf_counter() - t0
     lib = ctypes.CDLL(path)
     lib.select_hosts_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -65,6 +78,10 @@ def library() -> ctypes.CDLL:
     lib.binpack_ffd_smem_bytes.restype = ctypes.c_int
     lib.binpack_ffd_floor_launch.argtypes = [i, p]
     lib.binpack_ffd_floor_launch.restype = ctypes.c_int
+    lib.cluster_analytics_launch.argtypes = [p, p, p, i, i, p, p]
+    lib.cluster_analytics_launch.restype = ctypes.c_int
+    lib.cluster_analytics_max_rows.argtypes = []
+    lib.cluster_analytics_max_rows.restype = ctypes.c_int
     lib.select_hosts_error_string.argtypes = [ctypes.c_int]
     lib.select_hosts_error_string.restype = ctypes.c_char_p
     return lib

@@ -204,14 +204,11 @@ template <int C, int T>
 int launch(const float* reqs, int P, int R, const float* cap, int cap_stride,
            const int* order, int N, float* work, int smem, float* loads,
            uint8_t* placed, int* used, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k4_binpack_ffd<C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemDyn);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  // set on every launch: the attribute belongs to the current device
+  const cudaError_t e = cudaFuncSetAttribute(
+      k4_binpack_ffd<C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemDyn);
+  if (e != cudaSuccess) return (int)e;
   k4_binpack_ffd<C, T><<<1, T, smem, stream>>>(
       reqs, P, R, cap, cap_stride, order, N, work, smem > 0, loads, placed,
       used);

@@ -175,14 +175,11 @@ extern "C" int select_topk_launch(const float* scores, const uint8_t* mask,
   if (B <= 0 || N <= 0 || K <= 0 || K > N) return (int)cudaErrorInvalidValue;
   const int use_smem = N <= kSmemMaxN;
   const size_t smem = use_smem ? (size_t)N * sizeof(int) : 0;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k3_select_topk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(kSmemMaxN * sizeof(int)));
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  // set on every launch: the attribute belongs to the current device
+  const cudaError_t e = cudaFuncSetAttribute(
+      k3_select_topk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(kSmemMaxN * sizeof(int)));
+  if (e != cudaSuccess) return (int)e;
   k3_select_topk<<<B, kThreads, smem, stream>>>(
       scores, mask, hosts, feasible, N, K, use_smem, top_nodes, top_scores,
       feasible_count);

@@ -54,6 +54,7 @@ from kubernetes_tpu_torch.models.batched import (
     make_sequential_scheduler,
 )
 from kubernetes_tpu_torch.models.speculative import make_speculative_scheduler
+from kubernetes_tpu_torch.runtime.quality import DRIFT_SERIES
 
 ZONE_KEY = "failure-domain.beta.kubernetes.io/zone"
 HOSTNAME_KEY = "kubernetes.io/hostname"
@@ -302,20 +303,23 @@ def nominated_preemptors(n_nodes: int, k: int, make_pod=make_pod,
 def live_config(batch: int, engine: str = "speculative",
                 batched: bool = True, pipeline: bool = True,
                 preemption: bool = False, quality_top_k: int = 0,
-                quality_interval_cycles: int = 32):
+                quality_interval_cycles: int = 32, telemetry: bool = False,
+                telemetry_interval_cycles: int = 1, timeline: bool = False):
     """bench.py run_live's SchedulerConfig with the port's settings given
     explicitly: preemption off unless asked for, the placement-quality
     observatory at the given top-k width (0: off; the reference's default
-    is 3) and interval, the CPU degradation engine, telemetry and the
-    timeline off."""
+    is 3) and interval, telemetry at the given interval and the timeline
+    off unless asked for (the reference's defaults: on, interval 1), the
+    CPU degradation engine off."""
     from kubernetes_tpu_torch.runtime.scheduler import SchedulerConfig
 
     return SchedulerConfig(
         batch_size=batch, batch_window_s=0.0, engine=engine,
         disable_preemption=not preemption, batched_commit=batched,
-        pipeline_commit=pipeline, cpu_fallback=False, telemetry=False,
+        pipeline_commit=pipeline, cpu_fallback=False, telemetry=telemetry,
+        telemetry_interval_cycles=telemetry_interval_cycles,
         quality_top_k=quality_top_k,
-        quality_interval_cycles=quality_interval_cycles, timeline=False,
+        quality_interval_cycles=quality_interval_cycles, timeline=timeline,
     )
 
 
@@ -371,6 +375,89 @@ def finish_quality(obs, rec: dict) -> None:
         rec["regret"].append(dict(obs.regret))
 
 
+def record_telemetry(hub, obs=None) -> dict:
+    """Wrap a TelemetryHub's on_cycle (the port's or the JAX package's: the
+    same interface) to keep every sample it materializes: {"samples":
+    [(cycle, source, analytics dict)], "drift": [...]}.  With `obs`, the
+    scheduler's QualityObservatory, also wrap its on_cycle to keep its
+    drift detectors' state after each cycle: [{series: (fast, slow,
+    samples, alerts)}].  Call finish_telemetry once the scheduler is
+    drained."""
+    rec: dict = {"samples": [], "drift": []}
+    inner = hub.on_cycle
+
+    def on_cycle(**kw):
+        before = hub.samples_total
+        inner(**kw)
+        _take_sample(hub, rec, before)
+
+    hub.on_cycle = on_cycle
+    if obs is not None:
+        q_inner = obs.on_cycle
+
+        def q_on_cycle(**kw):
+            q_inner(**kw)
+            rec["drift"].append({
+                name: (obs.detectors[name].fast, obs.detectors[name].slow,
+                       obs.detectors[name].n, obs.detectors[name].alerts)
+                for name in DRIFT_SERIES})
+
+        obs.on_cycle = q_on_cycle
+    return rec
+
+
+def _take_sample(hub, rec: dict, before: int) -> None:
+    if hub.samples_total > before:
+        s = hub._ring[-1]
+        rec["samples"].append((s["cycle"], s["source"], s["analytics"]))
+
+
+def finish_telemetry(hub, rec: dict) -> None:
+    """Materialize the analytics launch still in flight into `rec`."""
+    before = hub.samples_total
+    hub.summary()
+    _take_sample(hub, rec, before)
+
+
+def telemetry_arrays(rec) -> dict:
+    """The golden file's flat arrays of a record_telemetry record: each
+    sample's cycle, source and analytics fields (stacked), and each
+    cycle's drift detector state (NaN before a detector's first sample)."""
+    from kubernetes_tpu_torch.ops.analytics import RESOURCE_NAMES, STAT_NAMES
+
+    a = [s[2] for s in rec["samples"]]
+    f32, i32 = np.float32, np.int32
+    out = dict(
+        sample_cycle=np.asarray([s[0] for s in rec["samples"]], i32),
+        sample_source=np.asarray([s[1] for s in rec["samples"]], dtype=str),
+        utilization=np.asarray(
+            [[[d["utilization"][r][st] for st in STAT_NAMES]
+              for r in RESOURCE_NAMES] for d in a], f32).reshape(-1, 4, 5),
+        largest_free=np.asarray(
+            [[d["largest_free"][r] for r in RESOURCE_NAMES] for d in a],
+            f32).reshape(-1, 4),
+        stranded=np.asarray(
+            [[d["stranded"]["cpu"], d["stranded"]["memory"]] for d in a],
+            f32).reshape(-1, 2),
+        fragmentation=np.asarray([d["fragmentation"] for d in a], f32),
+        imbalance=np.asarray([d["imbalance"] for d in a], f32),
+        occupancy=np.asarray([d["occupancy"] for d in a], i32).reshape(
+            -1, 10),
+        sample_nodes=np.asarray([d["nodes"] for d in a], i32),
+        pods_running=np.asarray([d["pods_running"] for d in a], f32),
+    )
+    drift = rec["drift"]
+    for k, name in enumerate(("fast", "slow")):
+        out["drift_" + name] = np.asarray(
+            [[np.nan if c[s][k] is None else c[s][k] for s in DRIFT_SERIES]
+             for c in drift], np.float64).reshape(-1, len(DRIFT_SERIES))
+    for k, name in ((2, "samples"), (3, "alerts")):
+        out["drift_" + name] = np.asarray(
+            [[c[s][k] for s in DRIFT_SERIES] for c in drift],
+            i32).reshape(-1, len(DRIFT_SERIES))
+    return out
+
+
 @contextlib.contextmanager
 def full_collections():
     """Counts the full (generation-2) collections of Python's cyclic
@@ -398,7 +485,9 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
              engine: str = "speculative", batched: bool = True,
              pipeline: bool = True, existing: int = 0, nominations=None,
              budget_s: float = 900.0, quality_top_k: int = 0,
-             quality_interval_cycles: int = 32) -> dict:
+             quality_interval_cycles: int = 32, telemetry: bool = False,
+             telemetry_interval_cycles: int = 1,
+             timeline: bool = False) -> dict:
     """bench.py run_live on the port: `n_pods` pending pods of `workload`
     through the live Scheduler, after a warmup batch of `batch` pods
     (pending_pod(n_pods + j)) drained outside the clock.  `existing`
@@ -425,7 +514,14 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     a regret sample) also "quality" (the observatory's summary after the
     last regret sample landed), "quality_record" (record_quality's, warmup
     included) and "quality_seconds" (scheduler_quality_seconds_total in
-    the timed window)."""
+    the timed window).  With telemetry on (a sample every
+    telemetry_interval_cycles cycles) also "telemetry" (the hub's summary
+    after the last sample landed), "telemetry_record"
+    (record_telemetry's, warmup included, with the quality observatory's
+    drift state when it is on) and "telemetry_seconds"
+    (scheduler_telemetry_seconds_total in the timed window); with the
+    timeline on, "timeline" (its summary) and "timeline_seconds"
+    (scheduler_timeline_seconds_total in the timed window)."""
     from kubernetes_tpu_torch.utils import metrics as m
     from kubernetes_tpu_torch.codec.transfer import transfer_delta, transfer_totals
     from kubernetes_tpu_torch.runtime.cache import SchedulerCache
@@ -449,10 +545,15 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
                       config=live_config(
                           batch, engine, batched, pipeline,
                           quality_top_k=quality_top_k,
-                          quality_interval_cycles=quality_interval_cycles),
+                          quality_interval_cycles=quality_interval_cycles,
+                          telemetry=telemetry,
+                          telemetry_interval_cycles=telemetry_interval_cycles,
+                          timeline=timeline),
                       device=device)
     qrec = (record_quality(sched.quality) if sched.quality is not None
             else None)
+    trec = (record_telemetry(sched.telemetry, sched.quality)
+            if sched.telemetry is not None else None)
 
     def _drain(budget: float) -> int:
         """run_once until nothing schedulable remains: active/backoff
@@ -490,6 +591,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     # the process did before
     gc.collect()
     q_s0 = m.QUALITY_SECONDS.value
+    tel_s0, tl_s0 = m.TELEMETRY_SECONDS.value, m.TIMELINE_SECONDS.value
     with full_collections() as gc_full:
         t0 = time.monotonic()
         for p in pending:
@@ -500,6 +602,8 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
             torch.cuda.synchronize(device)
         dt = time.monotonic() - t0
     q_s = m.QUALITY_SECONDS.value - q_s0
+    tel_s = m.TELEMETRY_SECONDS.value - tel_s0
+    tl_s = m.TIMELINE_SECONDS.value - tl_s0
     ph = dict(sched.phase_seconds)
     # "fetch" is the async D2H window measured on the fetch worker, so it
     # overlaps the host phases; host_stall and fetch_block (aliases) are a
@@ -512,6 +616,13 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
         finish_quality(sched.quality, qrec)
         extra = {"quality": sched.quality.summary(),
                  "quality_record": qrec, "quality_seconds": q_s}
+    if trec is not None:
+        finish_telemetry(sched.telemetry, trec)
+        extra.update(telemetry=sched.telemetry.summary(),
+                     telemetry_record=trec, telemetry_seconds=tel_s)
+    if sched.timeline is not None:
+        extra.update(timeline=sched.timeline.summary(),
+                     timeline_seconds=tl_s)
     return {
         **extra,
         "pods_per_s": placed / dt if dt > 0 else 0.0,

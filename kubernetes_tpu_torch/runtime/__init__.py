@@ -6,7 +6,9 @@ the device through models/.  queue.py, cache.py, events.py,
 flightrecorder.py, defaults.py, invariants.py and health.py's breaker are
 copies of the JAX package's modules with the imports rewritten;
 scheduler.py is the live cycle's port; quality.py the placement-quality
-observatory's, with its regret counterfactual in torch around kernel K4.
+observatory's, with its regret counterfactual in torch around kernel K4;
+telemetry.py the telemetry hub's, with the cluster analytics on kernel K5;
+timeline.py is a copy of the metrics timeline.
 """
 
 from kubernetes_tpu_torch.runtime.queue import PriorityQueue, PodBackoff

@@ -56,6 +56,13 @@ class ProcessDefault:
             if int(replica) == 0:
                 self._default = obj
 
+    def reset(self) -> None:
+        """Forget the default and every install (a test that built a
+        Scheduler leaves nothing behind for the next)."""
+        with self._lock:
+            self._default = None
+            self._replicas.clear()
+
     def replicas(self) -> Dict[int, Any]:
         """{replica id: instance} of every install this process saw."""
         with self._lock:

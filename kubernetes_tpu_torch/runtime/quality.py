@@ -26,8 +26,8 @@ Three pieces, as in the reference:
 
   * **Packing-drift detection.**  A dual-window EWMA step detector per
     series (margin, and the telemetry series utilization_cpu and
-    fragmentation, which stay idle until the port has the telemetry hub,
-    ROADMAP A9a): a fast EWMA stepping away from the slow one past the
+    fragmentation, fed the hub's last sample when telemetry is on): a
+    fast EWMA stepping away from the slow one past the
     threshold fires `scheduler_quality_drift_alerts_total{series=}` once
     (re-armed when the windows reconverge) plus a throttled
     `quality_drift` flight-recorder postmortem through the scheduler's
@@ -45,6 +45,7 @@ import numpy as np
 
 import torch
 
+from kubernetes_tpu_torch.codec.transfer import PinnedCopy
 from kubernetes_tpu_torch.models.binpack import binpack_ffd
 from kubernetes_tpu_torch.utils import klog
 from kubernetes_tpu_torch.utils import metrics as m
@@ -178,29 +179,6 @@ def _upload(a, device: torch.device) -> torch.Tensor:
     pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     pinned.copy_(t)
     return pinned.to(device, non_blocking=True)
-
-
-class _RegretLaunch:
-    """A dispatched counterfactual: its three scalars' D2H copy is queued
-    behind the launch into pinned memory with a CUDA event after it, so
-    reading them one interval later waits on a copy that has long landed
-    (on the CPU the values are already there)."""
-
-    def __init__(self, outs):
-        vec = torch.stack([o.reshape(()) for o in outs])
-        self._event = None
-        if vec.is_cuda:
-            self._host = torch.empty(3, dtype=torch.int32, pin_memory=True)
-            self._host.copy_(vec, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = vec
-
-    def result(self):
-        if self._event is not None:
-            self._event.synchronize()
-        return [int(x) for x in self._host.tolist()]
 
 
 class QualityObservatory:
@@ -465,7 +443,10 @@ class QualityObservatory:
             # the host waiting on it
             args = [_upload(a, self.device)
                     for a in (alloc, used, valid, masked)]
-            outs = _RegretLaunch(_ffd_counterfactual(*args))
+            # its three scalars come back through pinned memory, read one
+            # interval later
+            outs = PinnedCopy(torch.stack(
+                [o.reshape(()) for o in _ffd_counterfactual(*args)]))
         except Exception as e:  # noqa: BLE001 — a faulted side launch
             # costs one sample, never the cycle; the loss is counted
             self._drop_regret("dispatch", cycle, e)
@@ -488,7 +469,7 @@ class QualityObservatory:
             return None
         cycle, outs, actual = pending
         try:
-            ffd_nodes, ffd_placed, real = outs.result()
+            ffd_nodes, ffd_placed, real = (int(x) for x in outs.result())
         except Exception as e:  # noqa: BLE001 — one lost sample, counted
             self._drop_regret("read", cycle, e)
             return None

@@ -38,6 +38,14 @@ leaves ride the winners' D2H copy, and after each committed cycle the
 placement-quality observatory (runtime/quality.py) folds them into margins
 and feasible counts and, every quality_interval_cycles cycles, launches the
 FFD regret counterfactual (kernel K4) without waiting on it.
+
+With telemetry on (the JAX class's default), each committed cycle feeds the
+telemetry hub (runtime/telemetry.py): SLO events, queue pressure, the
+launch EWMA, and once every telemetry_interval_cycles the cluster analytics
+of the resident snapshot (kernel K5 on the card), read one interval later.
+The quality observatory then reads the sample the hub has just
+materialized, and last the metrics timeline (runtime/timeline.py), also
+ticked on idle polls, samples every metric once gauges have settled.
 """
 
 from __future__ import annotations
@@ -90,6 +98,8 @@ from kubernetes_tpu_torch.runtime.events import (
 )
 from kubernetes_tpu_torch.ops.select import TopKQuality
 from kubernetes_tpu_torch.runtime import quality as quality_mod
+from kubernetes_tpu_torch.runtime import telemetry as telemetry_mod
+from kubernetes_tpu_torch.runtime import timeline as timeline_mod
 from kubernetes_tpu_torch.runtime.flightrecorder import RECORDER, FlightRecorder
 from kubernetes_tpu_torch.runtime.health import DeviceHealth
 from kubernetes_tpu_torch.runtime.invariants import InvariantChecker
@@ -111,8 +121,8 @@ class SchedulerConfig:
     """The JAX package's SchedulerConfig, field for field and with its
     defaults, so both classes read the same.  The port's Scheduler refuses
     every setting that belongs to a later slice (see refused_settings): in
-    particular the defaults of cpu_fallback, telemetry and timeline are
-    refused, so callers pass the slice's settings explicitly."""
+    particular the default cpu_fallback=True is refused, so callers pass
+    cpu_fallback=False."""
 
     batch_size: int = 256
     batch_window_s: float = 0.001
@@ -205,8 +215,6 @@ def refused_settings(config: SchedulerConfig) -> List[Tuple[str, str]]:
     checks = (
         (c.cpu_fallback, "cpu_fallback=True",
          "A5 (the CPU degradation engine)"),
-        (c.telemetry, "telemetry=True", "A9 (observatories and ledger)"),
-        (c.timeline, "timeline=True", "A9 (observatories and ledger)"),
         (c.heartbeat_s > 0, f"heartbeat_s={c.heartbeat_s}",
          "A9 (observatories and ledger)"),
         (c.profile_dir is not None, "profile_dir",
@@ -312,6 +320,10 @@ class Scheduler:
     UNSCHED_REASON_ANNOTATION = "kubernetes-tpu.io/unschedulable-reason"
     POD_GROUP_LABEL = "pod-group.scheduling.sigs.k8s.io/name"
     _BIND_REJECT_MSG = "Binding rejected for %s/%s on %s"
+    # the rung of the reference's degradation ladder that serves every
+    # port cycle (one device, no CPU fallback), and its gauge value
+    _RUNG = "single_chip"
+    _RUNG_GAUGE = 2.0
 
     def __init__(
         self,
@@ -410,9 +422,9 @@ class Scheduler:
         # placement-quality top-k width: an output-only engine setting
         # (the winners are the same with it on and off)
         self._quality_k = max(0, int(self.config.quality_top_k))
-        if self._quality_k and self.device.type == "cuda":
-            # K3 and K4 are built now, so a build error raises here and
-            # not inside a cycle
+        if self.device.type == "cuda":
+            # the kernels (K1-K5) are built now, so a build error raises
+            # here and not inside a cycle
             from kubernetes_tpu_torch.kernels._build import library
 
             library()
@@ -496,6 +508,21 @@ class Scheduler:
         self.results: List[ScheduleResult] = []
         for ns, q in (self.config.namespace_quotas or {}).items():
             enc.set_namespace_quota(ns, q)
+        # cluster + device telemetry: the analytics launch (K5 on the
+        # card), memory and kernel-build facts, the launch EWMA, SLO burn
+        # alerting; installed as the process default
+        self.telemetry = None
+        if self.config.telemetry:
+            self.telemetry = telemetry_mod.TelemetryHub(
+                interval_cycles=self.config.telemetry_interval_cycles,
+                objectives=telemetry_mod.build_objectives(
+                    self.config.slo_objectives),
+                postmortem=self._postmortem,
+                device=self.device,
+            )
+            telemetry_mod.set_default(self.telemetry)
+        # shed watermark: per-cycle deltas feed the goodput SLO
+        self._shed_seen = 0
         # placement-quality observatory: margins and feasible counts off
         # the engines' top-k, the amortized regret counterfactual, drift
         # alerts through the postmortem seam; installed as the process
@@ -510,6 +537,21 @@ class Scheduler:
                 device=self.device,
             )
             quality_mod.set_default(self.quality)
+        # metrics timeline: every metric family sampled once per
+        # timeline_interval_s into a bounded ring, with event annotations
+        # and the online anomaly detector; ticked from the commit tail and
+        # the idle poll, installed as the process default
+        self.timeline = None
+        if self.config.timeline:
+            self.timeline = timeline_mod.TimelineStore(
+                interval_s=self.config.timeline_interval_s,
+                retention=self.config.timeline_retention,
+                detector=timeline_mod.AnomalyDetector(
+                    rules=self.config.timeline_rules,
+                    postmortem=self._postmortem,
+                ),
+            )
+            timeline_mod.set_default(self.timeline)
 
     # ------------------------------------------------------------- one cycle
 
@@ -562,12 +604,28 @@ class Scheduler:
     def _postmortem(self, trigger: str, detail: str = "") -> None:
         """Dump a flight-recorder postmortem for one anomaly trigger
         (throttled per trigger inside the recorder)."""
-        self.flight_recorder.postmortem(
+        snap = self.flight_recorder.postmortem(
             trigger, detail,
             state=self._postmortem_state,
             metrics_text=m.REGISTRY.expose,
             in_flight=[self._cur_span] if self._cur_span is not None else None,
         )
+        # a fired postmortem is also a timeline annotation (the detector's
+        # own firings already annotate themselves)
+        if snap is not None and not trigger.startswith("anomaly_"):
+            self._annotate("postmortem", f"{trigger}: {detail}",
+                           trigger=trigger)
+
+    def _annotate(self, kind: str, detail: str = "", **fields) -> None:
+        """Push one typed event onto the timeline (no-op when it is off).
+        Annotation never breaks the loop."""
+        tl = getattr(self, "timeline", None)  # None mid-__init__ too
+        if tl is None:
+            return
+        try:
+            tl.annotate(kind, detail, **fields)
+        except Exception as e:  # pragma: no cover - defensive
+            klog.errorf("timeline annotate failed: %s", e)
 
     def _postmortem_state(self) -> dict:
         q = self.queue
@@ -607,6 +665,8 @@ class Scheduler:
         )
         if to == "open":
             self._postmortem("breaker_open", f"{frm} -> {to}")
+        self._annotate("breaker", f"{frm} -> {to}", to=to)
+        m.LADDER_RUNG.set(self._RUNG_GAUGE)
 
     def _on_invariant_violation(self, rule: str, detail: str) -> None:
         self.recorder.eventf(
@@ -947,10 +1007,24 @@ class Scheduler:
         self._outcome_totals["placed"] += placed
         self._outcome_totals["unschedulable"] += len(results) - placed
         self.cycles_total += 1
+        if self.telemetry is not None:
+            # SLO events, pressure, the launch EWMA and the amortized
+            # analytics launch: never fails a committed cycle, its cost
+            # stamped into its own counter
+            t_tel = time.perf_counter()
+            try:
+                self._telemetry_cycle(inf, results, placed)
+            except Exception as e:  # noqa: BLE001
+                klog.errorf(
+                    "telemetry hook failed (cycle %d): %s", inf.cycle, e
+                )
+            finally:
+                m.TELEMETRY_SECONDS.inc(time.perf_counter() - t_tel)
         if self.quality is not None:
-            # margins off the top-k, feasible counts, drift detectors and
-            # the amortized regret counterfactual: never fails a committed
-            # cycle, its cost stamped into its own counter
+            # margins off the top-k, feasible counts, drift detectors (fed
+            # the sample telemetry has just materialized) and the amortized
+            # regret counterfactual: never fails a committed cycle, its
+            # cost stamped into its own counter
             t_q = time.perf_counter()
             try:
                 self.quality.on_cycle(
@@ -958,6 +1032,10 @@ class Scheduler:
                     hosts=staged.hosts, n_pods=len(inf.pods),
                     quality=inf.quality, reqs=inf.quality_reqs,
                     snapshot=inf.quality_snapshot,
+                    analytics=(
+                        self.telemetry.analytics
+                        if self.telemetry is not None else None
+                    ),
                 )
             except Exception as e:  # noqa: BLE001
                 klog.errorf(
@@ -966,10 +1044,70 @@ class Scheduler:
             finally:
                 m.QUALITY_SECONDS.inc(time.perf_counter() - t_q)
         m.PENDING_PODS.set(float(len(self.queue)))
+        # the timeline's cadence-gated sweep, after every gauge above has
+        # settled, so the sample reads this cycle's state
+        self._timeline_tick("timeline hook failed (cycle %d)" % inf.cycle)
         self.results.extend(results)
         if self.config.trace_threshold_s > 0:
             inf.trace.log_if_long(self.config.trace_threshold_s)
         return results
+
+    def _timeline_tick(self, what: str) -> None:
+        """One cadence-gated timeline sweep (commit tail and idle poll):
+        never fails the loop, its cost stamped into its own counter."""
+        if self.timeline is None:
+            return
+        t_tl = time.perf_counter()
+        try:
+            self.timeline.maybe_sample()
+        except Exception as e:  # noqa: BLE001
+            klog.errorf("%s: %s", what, e)
+        finally:
+            m.TIMELINE_SECONDS.inc(time.perf_counter() - t_tl)
+
+    def _telemetry_cycle(self, inf: _InFlight, results, placed: int) -> None:
+        """Feed the telemetry hub one committed cycle: SLO good/bad events
+        (deadline overrun, goodput vs shed), per-tier pending pressure, the
+        ladder facts (one device: width 0, rung single_chip), the
+        per-width launch EWMA, and the amortized analytics launch over the
+        RESIDENT snapshot (none, and the sample is counted dropped, when a
+        fault has invalidated it)."""
+        hub = self.telemetry
+        q = self.queue
+        shed_total = getattr(q, "shed_total", 0)
+        shed_delta = shed_total - self._shed_seen
+        self._shed_seen = shed_total
+        express = (
+            q.express_depth() if hasattr(q, "express_depth") else 0
+        )
+        active = q.active_depth() if hasattr(q, "active_depth") else len(q)
+        hub.record_pressure(
+            bulk=max(0, active - express), express=express,
+            parked=max(0, len(q) - active),
+        )
+        m.LADDER_RUNG.set(self._RUNG_GAUGE)
+        hub.record_mesh(
+            width=0, full_width=0, rung=self._RUNG, shard_states=None,
+            invariants=(
+                self.invariants.summary()
+                if self.invariants is not None else None
+            ),
+        )
+        if inf.fetch is not None:
+            hub.note_launch(inf.width or len(inf.pods), inf.fetch.seconds)
+        hub.on_cycle(
+            cycle=inf.cycle,
+            tier=inf.tier,
+            cycle_s=time.monotonic() - inf.t_cycle0,
+            placed=placed,
+            unschedulable=len(results) - placed,
+            shed=shed_delta,
+            degraded=False,
+            deadline_s=self.config.cycle_deadline_s,
+            resident=self._dev_snapshot.resident(
+                telemetry_mod.ANALYTICS_FIELDS),
+            span=inf.trace,
+        )
 
     def _tail_perpod(self, staged: _Staged):
         """The classic per-pod commit loop (batched_commit=False):
@@ -1407,6 +1545,9 @@ class Scheduler:
         pods PLACED.  With config.pipeline_commit, batches double-buffer:
         the call dispatches this batch and returns the PREVIOUS batch's
         placements (flush_pipeline drains the last one)."""
+        # an idle loop still samples the timeline (cadence-gated, so a
+        # loop that just sampled in the commit tail pays one clock read)
+        self._timeline_tick("timeline idle tick failed")
         t_pop = time.monotonic()
         pods = self.queue.pop_batch(
             self.config.batch_size,

@@ -51,6 +51,18 @@ and their order, the leaves of every cycle (concatenated, with the
 cycles' pod counts) and the regret samples' integers.
 
     python tests/make_torch_golden.py --live --quality 3   # ~1 min
+
+With --workload live-default, the JAX Scheduler runs the live cell (plain
+pods) at the reference's default SchedulerConfig with only cpu_fallback
+turned off (and bench.py run_live's batch, window, commit and preemption
+settings): telemetry at interval 1, the timeline, quality_top_k=3 at
+interval 32.  loop.record_telemetry wraps the hub's and the observatory's
+on_cycle; the file, tests/data/torch_port_golden_live_default.npz, holds
+the bindings and their order, every telemetry sample's cycle, source and
+analytics, the drift detectors' state after every cycle, and the quality
+record (top-k leaves, regret samples).
+
+    python tests/make_torch_golden.py --workload live-default   # ~20 s
 """
 
 from __future__ import annotations
@@ -69,7 +81,10 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if _ROOT not in sys.path:
     sys.path.insert(0, _ROOT)
 
-from kubernetes_tpu_torch.loop import quality_arrays  # noqa: E402
+from kubernetes_tpu_torch.loop import (  # noqa: E402
+    quality_arrays,
+    telemetry_arrays,
+)
 
 def golden_path(workload: str) -> str:
     """tests/data/torch_port_golden_<workload, dashes as underscores>.npz"""
@@ -125,7 +140,9 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
              engine: str = "speculative", batched: bool = True,
              pipeline: bool = True, existing: int = 0, nominated: int = 0,
              node_pods: int = 110, budget_s: float = 3600.0,
-             quality_top_k: int = 0, quality_interval_cycles: int = 32):
+             quality_top_k: int = 0, quality_interval_cycles: int = 32,
+             telemetry: bool = False, telemetry_interval_cycles: int = 1,
+             timeline: bool = False):
     """The JAX Scheduler's live cycle under the loop of bench.py run_live
     (and of the port's loop.run_live): a warmup batch of `batch` pods
     (index n_pods + j) drained first, `nominated` preemptors
@@ -135,7 +152,8 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
     indices in binder call order, unschedulable pod names, the final
     requested column matrix, the scheduler).  With quality_top_k > 0 the
     observatory is on and the scheduler carries `quality_record`
-    (loop.record_quality's, warmup included)."""
+    (loop.record_quality's, warmup included); with telemetry on it carries
+    `telemetry_record` (loop.record_telemetry's)."""
     import bench
     from kubernetes_tpu.api.factory import make_pod
     from kubernetes_tpu.runtime.cache import SchedulerCache
@@ -143,8 +161,10 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
     from kubernetes_tpu.runtime.scheduler import Scheduler, SchedulerConfig
     from kubernetes_tpu_torch.loop import (
         finish_quality,
+        finish_telemetry,
         nominated_preemptors,
         record_quality,
+        record_telemetry,
     )
 
     args, enc = _jax_fleet(n_nodes, workload, node_pods, existing)
@@ -164,12 +184,16 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
                           batch_size=batch, batch_window_s=0.0,
                           engine=engine, disable_preemption=True,
                           batched_commit=batched, pipeline_commit=pipeline,
-                          cpu_fallback=False, telemetry=False,
+                          cpu_fallback=False, telemetry=telemetry,
+                          telemetry_interval_cycles=telemetry_interval_cycles,
                           quality_top_k=quality_top_k,
                           quality_interval_cycles=quality_interval_cycles,
-                          timeline=False))
+                          timeline=timeline))
     if quality_top_k:
         sched.quality_record = record_quality(sched.quality)
+    if telemetry:
+        sched.telemetry_record = record_telemetry(sched.telemetry,
+                                                  sched.quality)
 
     def drain(budget):
         deadline = time.monotonic() + budget
@@ -192,9 +216,19 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
     drain(budget_s)
     if quality_top_k:
         finish_quality(sched.quality, sched.quality_record)
+    if telemetry:
+        finish_telemetry(sched.telemetry, sched.telemetry_record)
     unsched = sorted(r.pod.name for r in sched.results if r.node is None)
     return (hosts, np.asarray(order, np.int32), unsched,
             np.asarray(enc.snapshot(full=True).requested), sched)
+
+
+def jax_live_default(n_nodes: int, n_pods: int, batch: int):
+    """jax_live at the reference's default SchedulerConfig apart from
+    cpu_fallback (and run_live's own settings): telemetry at interval 1,
+    the timeline, quality_top_k=3 at interval 32, the plain workload."""
+    return jax_live(n_nodes, n_pods, batch, "plain", quality_top_k=3,
+                    telemetry=True, timeline=True)
 
 
 def jax_preemption(n_nodes: int, n_preemptors: int, batch: int,
@@ -346,7 +380,7 @@ def main():
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--workload", default="plain",
                     choices=("plain", "node-affinity", "pod-affinity",
-                             "pod-anti-affinity"))
+                             "pod-anti-affinity", "live-default"))
     ap.add_argument("--existing", type=int, default=0,
                     help="running pods added before the clock")
     ap.add_argument("--node-pods", type=int, default=110,
@@ -373,6 +407,26 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.workload == "live-default":
+        out = args.out or golden_path("live_default")
+        t0 = time.monotonic()
+        hosts, order, unsched, _, sched = jax_live_default(
+            args.nodes, args.pods, args.batch)
+        dt = time.monotonic() - t0
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(
+            out, hosts=hosts, bind_order=order,
+            unschedulable=np.asarray(unsched, dtype=str),
+            nodes=np.int32(args.nodes), pods=np.int32(args.pods),
+            batch=np.int32(args.batch),
+            **telemetry_arrays(sched.telemetry_record),
+            **quality_arrays(sched.quality_record),
+        )
+        print(f"wrote {out}: {int((hosts >= 0).sum())}/{len(hosts)} bound, "
+              f"{len(sched.telemetry_record['samples'])} telemetry samples, "
+              f"{len(sched.quality_record['regret'])} regret samples, "
+              f"{dt:.1f} s on the CPU")
+        return
     if args.live and args.preemption:
         out = args.out or live_golden_path(preemption=args.preemption)
         t0 = time.monotonic()

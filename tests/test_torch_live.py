@@ -198,9 +198,7 @@ def test_pipelined_fence_fault_requeues_both_batches():
 
 @pytest.mark.parametrize("field,value,item", [
     ("cpu_fallback", True, "A5"),
-    ("telemetry", True, "A9"),
     ("heartbeat_s", 1.0, "A9"),
-    ("timeline", True, "A9"),
     ("attribution", True, "A9"),
     ("decision_ledger", True, "A9"),
     ("capacity_planner", True, "A10"),
@@ -218,6 +216,30 @@ def test_refuses_later_slice_settings(field, value, item):
         _small_scheduler(**{field: value})
 
 
+@pytest.mark.parametrize("field,value,item", [
+    ("telemetry", True, "A9"),
+    ("timeline", True, "A9"),
+])
+def test_lifted_settings_construct_and_schedule(field, value, item):
+    """Settings a later slice lifted (ROADMAP `item`): the Scheduler
+    constructs with them on the CPU and places a cycle."""
+    from kubernetes_tpu_torch.runtime import telemetry, timeline
+
+    sched = _small_scheduler(**{field: value})
+    try:
+        for i in range(8):
+            sched.queue.add(loop.pending_pod(i))
+        sched.run_once(timeout=0.0)
+        assert sched.flush_pipeline() == 8
+        if field == "telemetry":
+            assert sched.telemetry.summary()["samples"] == 1
+        else:
+            assert sched.timeline.samples_total >= 1
+    finally:
+        telemetry._DEFAULT.reset()
+        timeline._DEFAULT.reset()
+
+
 def test_refuses_framework_extenders_and_default_config():
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         Scheduler(config=loop.live_config(8), framework=object(),
@@ -226,10 +248,11 @@ def test_refuses_framework_extenders_and_default_config():
         "filter_verb": "filter", "prioritize_verb": ""})()})()
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         Scheduler(config=loop.live_config(8), extenders=[ext], device="cpu")
-    # the JAX class's defaults that belong to later slices (quality_top_k=3
-    # is ported: tests/test_torch_quality.py)
+    # the JAX class's default that belongs to a later slice (quality_top_k=3
+    # is ported: tests/test_torch_quality.py; telemetry and the timeline:
+    # tests/test_torch_telemetry.py, tests/test_torch_timeline.py)
     assert {w for w, _ in refused_settings(SchedulerConfig())} == {
-        "cpu_fallback=True", "telemetry=True", "timeline=True"}
+        "cpu_fallback=True"}
     assert refused_settings(loop.live_config(8)) == []
 
 

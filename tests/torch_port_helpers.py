@@ -88,3 +88,41 @@ def assert_fields_equal(a, b, cls, what=""):
         assert x.shape == y.shape, (what, f.name, x.shape, y.shape)
         assert np.array_equal(x, y, equal_nan=x.dtype.kind == "f"), (
             what, f.name)
+
+
+@contextmanager
+def process_state_kept():
+    """Put back, on leaving, every process-wide default both packages'
+    runtimes keep (telemetry hub, timeline, quality and performance
+    observatories, ledger, capacity planner, flight recorder, autoscaler)
+    and both timeline anomaly counters' children, as they were on
+    entering.  A Scheduler of either package installs its observers as
+    process defaults, and a timeline rule that fires counts into its
+    package's counter under a series name holding quotes; a test that
+    built one leaves neither behind for a later test file in the same
+    worker process."""
+    import importlib
+
+    registries = []
+    for pkg in ("kubernetes_tpu", "kubernetes_tpu_torch"):
+        for name in ("telemetry", "timeline", "quality", "perfobs", "ledger",
+                     "capacity", "flightrecorder", "autoscaler"):
+            try:
+                mod = importlib.import_module(f"{pkg}.runtime.{name}")
+            except ImportError:
+                continue          # the port has no copy of this module
+            registries.append(mod._DEFAULT)
+    counters = [importlib.import_module(f"{pkg}.utils.metrics")
+                .TIMELINE_ANOMALIES
+                for pkg in ("kubernetes_tpu", "kubernetes_tpu_torch")]
+    held = [(d._default, dict(d._replicas)) for d in registries]
+    children = [dict(c._children) for c in counters]
+    try:
+        yield
+    finally:
+        for d, (default, replicas) in zip(registries, held):
+            with d._lock:
+                d._default, d._replicas = default, replicas
+        for c, kids in zip(counters, children):
+            with c._lock:
+                c._children = kids
