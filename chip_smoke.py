@@ -116,6 +116,26 @@ printing one line of numbers; any failure exits non-zero with no result:
      every sample from the device, none dropped, K5 launched once per
      committed cycle; pods/s beside phase 11's, and the shares of the
      window taken by the telemetry and the timeline hooks;
+ K6. the megacycle's spread-count commit (commit_group_counts.cu)
+     against its plain twin on the card, bit for bit, on every case of
+     kubernetes_tpu_torch/kernels/k6_cases.py (B in 1, 7, 2,048; N in 12,
+     6,144; G up to 64; every pod unschedulable, every pod on one node,
+     duplicate slots, counts near 2^24), gc never written; then its times
+     at the live cell's shape (N 6,144, G 32, B 2,048) with L2 cold and
+     warm, beside its bytes bound, an empty launch, its twin's and one
+     index_add of the same counts;
+ 16. the megacycle cell: loop.run_megacycle at full width with
+     megacycle_batches 1 and 4, each through a fresh Scheduler at the
+     reference's default config with only cpu_fallback off, launch counts
+     taken in each timed window: K = 4's bindings and order equal K = 1's
+     and tests/data/torch_port_golden_live_megacycle.npz (the JAX
+     Scheduler's), and so do its windows' top-k leaves, regret samples and
+     telemetry samples; at least one megacycle and one K6 launch in the
+     timed window, nothing dropped; pods/s and host seconds a pod for both
+     depths, printed, not judged;
+ 17. the live quality cell with 13 extended resource names on every node
+     (R = 32, K4's wide variant), a regret sample every cycle: none
+     dropped, every sample equal to the twin's on the same inputs;
  2b. (run last, so that nothing it does can change the cells' numbers)
      K2 (preempt_one) against its plain twin on the card, all four
      outputs equal, on every case of
@@ -132,7 +152,11 @@ printing one line of numbers; any failure exits non-zero with no result:
      child process: one k2_ kernel and nothing else, or the phase fails),
      an empty launch's time and the launch floor (the two multiplied).
 
-Then the card's name and power limit, the kernels' JSON record (K1-K5;
+Phases 14, K5 and 2b also hold K4 at 32 and 64 columns, K5 at 16,385 and
+40,000 rows (its multi-block sequence) and K2 at 66 and 130 columns (its
+wide variant) to their twins at full shapes, with their times.
+
+Then the card's name and power limit, the kernels' JSON record (K1-K6;
 K1's launches in each cell among its keys) and the device line.
 """
 
@@ -340,6 +364,26 @@ def phase_k2() -> dict:
           f"2b K2: one call put {ops} on the stream, not one k2_ kernel")
     out["launch_floor_ms"] = out["empty_launch_ms"] * out["stream_ops"]
     out["over_floor"] = out["ms"] / out["launch_floor_ms"]
+    # past 64 columns (the wide variant) at the full shape
+    out["wide"] = []
+    for e in (66, 130):
+        wc = k2_cases.wide_case(c, e)
+        aw = [torch.from_numpy(np.ascontiguousarray(wc[k])).to(dev)
+              for k in k2_cases.ARGS]
+        got = kernels.preempt_one(*aw)
+        want = preempt_one_plain(*aw[:10], tuple(aw[10:]))
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"2b K2: E={e} at the full shape differs from the twin")
+        out["wide"].append({
+            "E": e, "node": int(got[0]),
+            "ms": k1_bench.time_ms(lambda: kernels.preempt_one(*aw),
+                                   cold=True),
+            "ms_warm": k1_bench.time_ms(lambda: kernels.preempt_one(*aw),
+                                        cold=False),
+            "plain_ms": k1_bench.time_ms(
+                lambda: preempt_one_plain(*aw[:10], tuple(aw[10:]))),
+            "bound_ms": k1_bench.k2_bound_ms(aw)})
     print(f"[2b K2] equal to the twin on {len(names)} cases "
           f"(case:node/victims {' '.join(names)}) | at {out['shape']}: "
           f"cold_ms {out['ms']:.4f} warm_ms {out['ms_warm']:.4f} "
@@ -347,7 +391,12 @@ def phase_k2() -> dict:
           f"{out['bound_ms']:.5f} | stream_ops {out['stream_ops']} "
           f"empty_launch_ms {out['empty_launch_ms']:.4f} launch_floor_ms "
           f"{out['launch_floor_ms']:.4f} cold_over_floor "
-          f"{out['over_floor']:.2f}", flush=True)
+          f"{out['over_floor']:.2f} | "
+          + " | ".join(f"E={w['E']} (node {w['node']}, equal to the twin): "
+                       f"cold_ms {w['ms']:.4f} warm_ms {w['ms_warm']:.4f} "
+                       f"plain_cold_ms {w['plain_ms']:.4f} bound_ms "
+                       f"{w['bound_ms']:.5f}" for w in out["wide"]),
+          flush=True)
     return out
 
 
@@ -952,13 +1001,42 @@ def phase_k4() -> dict:
     out["bound_by"] = ("bytes" if out["bytes_ms"] >= out["ops_ms"]
                        else "operations")
     out["over_step_floor"] = out["ms"] / out["step_floor_ms"]
+    # the regret's full width with 32 and 64 columns (the wide variant)
+    out["wide"] = []
+    for r in (32, 64):
+        wc = k4_cases.full_width(r)
+        wr, wcap, wo = (torch.from_numpy(wc[k]).to(dev)
+                        for k in ("reqs", "cap", "order"))
+        got = binpack_ffd(wr, wcap, None, wo)
+        want = binpack_ffd_plain(wr, wcap, None, wo)
+        torch.cuda.synchronize()
+        check(all(_bits_equal(g, w) for g, w in zip(got, want)),
+              f"14 K4: R={r} at the full width differs from the twin")
+        wbytes = (P * r * 4 + N * r * 4 + P * 4) + (N * r * 4 + P + 4)
+        wops = _k4_ops(wc["reqs"], wc["cap"], wc["order"])
+        row = {"R": r, "bins": int(got[0]),
+               "ms": k1_bench.time_ms(
+                   lambda: binpack_ffd(wr, wcap, None, wo), cold=True),
+               "ms_warm": k1_bench.time_ms(
+                   lambda: binpack_ffd(wr, wcap, None, wo), cold=False),
+               "plain_ms": k1_bench.time_ms(
+                   lambda: binpack_ffd_plain(wr, wcap, None, wo), reps=3),
+               "bytes_ms": wbytes / k1_bench.HBM_BYTES_PER_S * 1e3,
+               "ops_ms": wops / F32_OPS_PER_S * 1e3}
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        out["wide"].append(row)
     print(f"[14 K4] equal to the twin on {len(names)} cases (case:bins "
           f"{' '.join(names)}) | at {out['shape']}: cold_ms {out['ms']:.4f} "
           f"warm_ms {out['ms_warm']:.4f} plain_cold_ms {out['plain_ms']:.2f} "
           f"bound_ms {out['bound_ms']:.5f} ({out['bound_by']}: bytes "
           f"{out['bytes_ms']:.5f}, {ops} operations {out['ops_ms']:.5f}) | "
           f"step_floor_ms {out['step_floor_ms']:.4f} cold_over_floor "
-          f"{out['over_step_floor']:.2f}", flush=True)
+          f"{out['over_step_floor']:.2f} | "
+          + " | ".join(f"R={w['R']} (bins {w['bins']}, equal to the twin): "
+                       f"cold_ms {w['ms']:.4f} warm_ms {w['ms_warm']:.4f} "
+                       f"plain_cold_ms {w['plain_ms']:.2f} bound_ms "
+                       f"{w['bound_ms']:.5f}" for w in out["wide"]),
+          flush=True)
     return out
 
 
@@ -1118,7 +1196,8 @@ def phase_k5() -> dict:
                  f"(N {c[0].shape[0]}): {f} kernel {view(g[f]).tolist()} "
                  f"twin {view(w[f]).tolist()}")
         names.append(name)
-    check(names[-1] == "widest", "K5: the last case is not the widest")
+    check(names[-2:] == [f"wide-{n}" for n in k5_cases.WIDE_N],
+          "K5: the multi-block cases are not the last")
     full = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
             for x in k5_cases.full_width_case()]
     N = int(full[0].shape[0])
@@ -1139,6 +1218,21 @@ def phase_k5() -> dict:
           f"K5: one call put {ops} on the stream, not one k5_ kernel")
     out["launch_floor_ms"] = out["empty_launch_ms"] * out["stream_ops"]
     out["over_floor"] = out["ms"] / out["launch_floor_ms"]
+    # past the one-launch width: the multi-block sequence
+    out["wide"] = []
+    cs = dict(k5_cases.cases())
+    for n in k5_cases.WIDE_N:
+        w = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in cs[f"wide-{n}"]]
+        out["wide"].append({
+            "N": n,
+            "ms": k1_bench.time_ms(lambda: kernels.cluster_analytics(*w),
+                                   cold=True),
+            "ms_warm": k1_bench.time_ms(
+                lambda: kernels.cluster_analytics(*w), cold=False),
+            "plain_ms": k1_bench.time_ms(
+                lambda: cluster_analytics_plain(*w), reps=20),
+            **_k5_bound(n)})
     print(f"[K5] bit-identical to the twin on {len(names)} cases "
           f"({' '.join(names)}) | at {out['shape']}: cold_ms "
           f"{out['ms']:.4f} warm_ms {out['ms_warm']:.4f} plain_ms (twin on "
@@ -1147,7 +1241,11 @@ def phase_k5() -> dict:
           f"{out['ops_ms']:.6f}) | stream_ops {out['stream_ops']} "
           f"empty_launch_ms {out['empty_launch_ms']:.4f} launch_floor_ms "
           f"{out['launch_floor_ms']:.4f} cold_over_floor "
-          f"{out['over_floor']:.2f}", flush=True)
+          f"{out['over_floor']:.2f} | "
+          + " | ".join(f"N={w['N']} (multi-block): cold_ms {w['ms']:.4f} "
+                       f"warm_ms {w['ms_warm']:.4f} plain_ms "
+                       f"{w['plain_ms']:.4f} bound_ms {w['bound_ms']:.6f}"
+                       for w in out["wide"]), flush=True)
     return out
 
 
@@ -1235,6 +1333,217 @@ def phase_live_default(nodes, live: dict) -> dict:
           f"collections in the window {res['gc_full']['collections']}",
           flush=True)
     return out
+
+
+def _k6_bound(N: int, G: int, B: int, S: int) -> dict:
+    """K6's least time: gc read once and the new counts written once
+    (N * G f32 each), the window's hosts and slots read once, over the
+    memory rate; its B * S adds over the f32 rate."""
+    from kubernetes_tpu_torch.kernels import k1_bench
+
+    bytes_ms = (2 * N * G * 4 + B * 4 + B * S * 5) / k1_bench.HBM_BYTES_PER_S \
+        * 1e3
+    ops_ms = B * S / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_k6() -> dict:
+    """K6 (commit_group_counts) against its plain twin on the card, bit for
+    bit, on every case of kernels/k6_cases.py, gc left unwritten; then its
+    times at the live cell's shape (N 6,144, G 32, B 2,048) with L2 cold
+    and warm, beside its bytes bound, an empty launch, its twin's and one
+    index_add of the placed pods' group one-hots into gc (the library
+    call that computes the same function)."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k1_bench, k6_cases
+    from kubernetes_tpu_torch.models.megacycle import (
+        commit_group_counts_plain,
+    )
+
+    dev = torch.device("cuda")
+    max_err = 0.0
+    names = []
+    for name, c in k6_cases.cases():
+        gc, hosts, gids, gvalid = (
+            torch.from_numpy(c[k]).to(dev)
+            for k in ("gc", "hosts", "group_ids", "group_valid"))
+        keep = gc.clone()
+        got = kernels.commit_group_counts(gc, hosts, gids, gvalid)
+        want = commit_group_counts_plain(gc, hosts, gids, gvalid)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _abs_err(got, want))
+        if not _bits_equal(got, want):
+            bad = torch.nonzero(got != want)
+            r, g = (int(x) for x in bad[0])
+            fail(f"K6: differs from the twin on case {name} at [{r}, {g}]: "
+                 f"kernel {float(got[r, g])} twin {float(want[r, g])}")
+        check(_bits_equal(gc, keep), f"K6: case {name} wrote into gc")
+        names.append(name)
+    check(names[-1] == "live", "K6: the last case is not the live shape")
+    N, G = gc.shape
+    B, S = gids.shape
+    acc = hosts >= 0
+    onehot = ((gids[:, :, None] == torch.arange(G, device=dev)[None, None])
+              & gvalid[..., None]).to(torch.float32).sum(dim=1)
+    rows, adds = hosts[acc].to(torch.int64), onehot[acc]
+    k6 = lambda: kernels.commit_group_counts(gc, hosts, gids,   # noqa: E731
+                                             gvalid)
+    lib = lambda: gc.index_add(0, rows, adds)                   # noqa: E731
+    check(_bits_equal(lib(), k6()), "K6: index_add gives other counts")
+    out = {"ms": k1_bench.time_ms(k6, cold=True),
+           "ms_warm": k1_bench.time_ms(k6, cold=False),
+           "plain_ms": k1_bench.time_ms(
+               lambda: commit_group_counts_plain(gc, hosts, gids, gvalid)),
+           "library_ms": k1_bench.time_ms(lib, cold=True),
+           "library_ms_warm": k1_bench.time_ms(lib, cold=False),
+           "empty_launch_ms": k1_bench.time_ms(kernels.noop_launch,
+                                               cold=False),
+           "max_abs_err": max_err, "cases": len(names),
+           "shape": {"N": int(N), "G": int(G), "B": int(B), "S": int(S)},
+           **_k6_bound(N, G, B, S)}
+    out["over_floor"] = out["ms"] / out["empty_launch_ms"]
+    print(f"[K6] bit-identical to the twin on {len(names)} cases, gc never "
+          f"written | at {out['shape']}: cold_ms {out['ms']:.4f} warm_ms "
+          f"{out['ms_warm']:.4f} plain_ms (twin on the card) "
+          f"{out['plain_ms']:.4f} index_add_cold_ms {out['library_ms']:.4f} "
+          f"index_add_warm_ms {out['library_ms_warm']:.4f} "
+          f"bound_ms {out['bound_ms']:.6f} ({out['bound_by']}) | "
+          f"empty_launch_ms {out['empty_launch_ms']:.4f} cold_over_empty "
+          f"{out['over_floor']:.2f}", flush=True)
+    return out
+
+
+MEGA_KS = (1, 4)
+
+
+def phase_megacycle(nodes, live: dict) -> dict:
+    """The megacycle cell: loop.run_megacycle (bench.py run_megacycle's
+    loop) at 5,000 nodes x 10,000 pods, batch 2,048, K in MEGA_KS, each
+    through a fresh Scheduler at the reference's default config with only
+    cpu_fallback off; kernel launches counted in each timed window.
+    K = 4's bindings and order equal K = 1's and
+    tests/data/torch_port_golden_live_megacycle.npz, the JAX Scheduler's,
+    and so do every window's top-k leaves, the regret samples and every
+    telemetry sample; at least one megacycle and one K6 launch in the
+    timed window; nothing dropped.  Prints pods/s and host seconds a pod
+    for each K (read, not judged)."""
+    from kubernetes_tpu_torch.loop import (
+        quality_arrays,
+        run_megacycle,
+        telemetry_arrays,
+    )
+
+    label = "16 megacycle"
+    res = run_megacycle(nodes, PODS, BATCH, ks=MEGA_KS, device="cuda")
+    check(res["identical"], f"{label}: K = 4 placed apart from K = 1")
+    curve = {c["k"]: c for c in res["curve"]}
+    for K, run in res["runs"].items():
+        check(run["quality"]["regret_dropped"] == 0,
+              f"{label}: K={K}: {run['quality']['regret_dropped']} regret "
+              f"samples dropped")
+        check(run["telemetry"]["samples_dropped"] == 0,
+              f"{label}: K={K}: {run['telemetry']['samples_dropped']} "
+              f"telemetry samples dropped")
+    K = max(MEGA_KS)
+    run, c4 = res["runs"][K], curve[K]
+    check(c4["megacycles"] >= 1, f"{label}: no megacycle in the timed window")
+    check(c4["launches"]["commit_group_counts"] >= 1,
+          f"{label}: K6 launched no time in the timed window")
+    check(curve[1]["megacycles"] == 0
+          and curve[1]["launches"]["commit_group_counts"] == 0,
+          f"{label}: K = 1 ran a megacycle")
+    data = np.load(golden("live_megacycle"))
+    check(int(data["k"]) == K, f"{label}: the golden is for K={data['k']}")
+    diff = np.nonzero(data["hosts"] != run["hosts"])[0]
+    check(diff.size == 0, f"{label}: {diff.size} pods bound apart from the "
+          f"JAX Scheduler; first pod index {diff[:1].tolist()}")
+    check(np.array_equal(data["bind_order"], run["bind_order"]),
+          f"{label}: the binder was called in another order than JAX's")
+    got = {**telemetry_arrays(run["telemetry_record"]),
+           **quality_arrays(run["quality_record"])}
+    for key, val in got.items():
+        want = data[key]
+        check(_same(want, val), f"{label}: {key} differs from the JAX "
+              f"Scheduler's: JAX {want.reshape(-1)[:6].tolist()} port "
+              f"{val.reshape(-1)[:6].tolist()}")
+    check(run["scheduler"].megacycles_total == int(data["megacycles"]),
+          f"{label}: {run['scheduler'].megacycles_total} megacycles, the "
+          f"JAX Scheduler {int(data['megacycles'])}")
+    print(f"[{label}] K={K}: bindings, order, {len(got['sample_cycle'])} "
+          f"telemetry samples, {len(got['cycle_pods'])} windows of top-3 "
+          f"leaves and {len(got['regret_cycle'])} regret samples equal to "
+          f"the JAX Scheduler's and K = 1's; 0 dropped | "
+          + " | ".join(
+              f"K={c['k']}: pods_per_s {c['pods_per_s']:.1f} seconds "
+              f"{c['seconds']:.3f} host_s_per_pod {c['host_s_per_pod']:.3e} "
+              f"host_seconds {c['host_seconds']:.4f} megacycles "
+              f"{c['megacycles']} K6 {c['launches']['commit_group_counts']} "
+              f"K1 {c['launches']['select_hosts']} K3 "
+              f"{c['launches']['select_topk']} K4 "
+              f"{c['launches']['binpack_ffd']} K5 "
+              f"{c['launches']['cluster_analytics']}"
+              for c in res["curve"])
+          + f" | phases K={K} "
+          + " ".join(f"{k} {v:.4f}" for k, v in run["phases"].items())
+          + f" | phase 11 pods_per_s {live['pods_per_s']:.1f}", flush=True)
+    return {"curve": res["curve"], "launches": c4["launches"]}
+
+
+def phase_wide_columns(label: str = "17 R=32 quality") -> dict:
+    """The live quality cell with 13 extended resource names on every node
+    (R = 32 columns), a regret sample every cycle, launch counts reset
+    just before and read just after: K4 launched once a sample, none
+    dropped, every sample equal to the regret twin's on the same inputs
+    (each side launch's inputs kept and the counterfactual run again on
+    the card with K4's plain twin in the kernel's place)."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.loop import bench_nodes, run_live
+    from kubernetes_tpu_torch.models.binpack import binpack_ffd_plain
+    from kubernetes_tpu_torch.runtime import quality as quality_mod
+
+    orig = quality_mod._ffd_counterfactual
+    seen = []
+
+    def recorded(*args):
+        outs = orig(*args)
+        seen.append((args, torch.stack([o.reshape(()) for o in outs])))
+        return outs
+
+    quality_mod._ffd_counterfactual = recorded
+    try:
+        kernels.reset_launch_counts()
+        res = run_live(bench_nodes(NODES, extended=13), PODS, BATCH,
+                       device="cuda", quality_top_k=3,
+                       quality_interval_cycles=1)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        quality_mod._ffd_counterfactual = orig
+    R = res["scheduler"].cache.encoder.dims.R
+    q = res["quality"]
+    check(R == 32, f"{label}: the encoder's resource axis is {R}, not 32")
+    check(q["regret_dropped"] == 0,
+          f"{label}: {q['regret_dropped']} regret samples dropped")
+    check(launches["binpack_ffd"] == len(seen) == q["regret_samples"] > 0,
+          f"{label}: {launches['binpack_ffd']} K4 launches, {len(seen)} "
+          f"side launches, {q['regret_samples']} regret samples")
+    kernel = quality_mod.binpack_ffd
+    quality_mod.binpack_ffd = binpack_ffd_plain
+    try:
+        for k, (args, got) in enumerate(seen):
+            want = torch.stack([o.reshape(()) for o in orig(*args)])
+            check(torch.equal(got, want), f"{label}: side launch {k}: "
+                  f"kernel {got.tolist()} twin {want.tolist()}")
+    finally:
+        quality_mod.binpack_ffd = kernel
+    check((res["hosts"] >= 0).all(), f"{label}: a pod went unbound")
+    print(f"[{label}] R {R}: {len(seen)} regret samples (nodes, placed, "
+          f"pods) equal to the twin's on the same inputs, 0 dropped, K4 "
+          f"launches {launches['binpack_ffd']} | pods_per_s "
+          f"{res['pods_per_s']:.1f} seconds {res['seconds']:.3f} | last "
+          f"regret {q['regret']}", flush=True)
+    return {"launches": launches, "samples": len(seen), "R": R}
 
 
 def _preemption_recount(nodes, running, res: dict, label: str) -> None:
@@ -1479,6 +1788,13 @@ def main() -> None:
     live15 = phase_live_default(nodes, live)
     print(f"[15 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
+    k6 = phase_k6()
+    mega = phase_megacycle(nodes, live)
+    print(f"[16 done] total seconds {time.monotonic() - t_start:.1f}",
+          flush=True)
+    phase_wide_columns()
+    print(f"[17 done] total seconds {time.monotonic() - t_start:.1f}",
+          flush=True)
     # last, so that nothing of it can change the cells' numbers above
     k2 = phase_k2()
 
@@ -1532,6 +1848,7 @@ def main() -> None:
         "shape": k2["shape"],
         "kernel_ms_in_an_attempt": live13["profiled_attempt"]["k2_ms"],
         "attempts": live13["attempts"],
+        "wide": k2["wide"],
     }, {
         "name": "select_topk",
         "route": "cuda",
@@ -1567,6 +1884,7 @@ def main() -> None:
         "ops": k4["ops"],
         "shape": k4["shape"],
         "launches_interval32": live14["launches_interval32"]["binpack_ffd"],
+        "wide": k4["wide"],
     }, {
         "name": "cluster_analytics",
         "route": "cuda",
@@ -1587,6 +1905,24 @@ def main() -> None:
         "cases": k5["cases"],
         "shape": k5["shape"],
         "committed_cycles": live15["cycles"],
+        "multi_block": k5["wide"],
+    }, {
+        "name": "commit_group_counts",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/kernels/commit_group_counts.cu",
+        "replaces": "kubernetes_tpu/models/megacycle.py:78",
+        "launches": mega["launches"]["commit_group_counts"],
+        "max_abs_err": k6["max_abs_err"],
+        "ms": k6["ms"],
+        "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"],
+        "bound_by": k6["bound_by"],
+        "library_ms": k6["library_ms"],
+        "ms_warm": k6["ms_warm"],
+        "library_ms_warm": k6["library_ms_warm"],
+        "empty_launch_ms": k6["empty_launch_ms"],
+        "cases": k6["cases"],
+        "shape": k6["shape"],
     }]}
     print(f"total seconds {time.monotonic() - t_start:.1f}", flush=True)
     print(smi)

@@ -26,13 +26,21 @@ once-a-cycle analytics of the resident snapshot.  Its plain twin is
 ops/analytics.py `cluster_analytics_plain`; ops/analytics.py
 `cluster_analytics` dispatches.
 
+K6 `commit_group_counts` (commit_group_counts.cu) replaces the JAX
+package's models/megacycle.py _commit_group_counts: the megacycle's
+chained SelectorSpread-count commit between two windows.  Its plain twin
+is models/megacycle.py `commit_group_counts_plain`; models/megacycle.py
+`commit_group_counts` dispatches.
+
 Each wrapper counts its launches in `LAUNCHES` (one each time it launches
 its kernels, nowhere else), so a run can show that its main path went
 through the kernels; `select_hosts_b1` also counts K1's one-row launches (the
 sequential engine's steps) on their own.  A preempt_one call puts one
 kernel launch on the stream, no memset and no copy (chip_smoke.py counts
 them under torch.profiler); the first call on a stream also zeroes that
-stream's ticket.  K3, K4 and K5 put one kernel launch each on the stream.
+stream's ticket.  K3, K4 and K6 put one kernel launch each on the stream;
+K5 one up to K5_ONE_LAUNCH_ROWS snapshot rows and, above, a sequence of
+launches (cluster_analytics.cu launch_wide), counted once a call.
 The kernels are built from source at the first launch
 (kernels/_build.py); importing this module needs neither nvcc nor a card.
 """
@@ -43,7 +51,7 @@ import torch
 
 LAUNCHES = {"select_hosts": 0, "select_hosts_b1": 0, "preempt_one": 0,
             "select_topk": 0, "select_topk_b1": 0, "binpack_ffd": 0,
-            "cluster_analytics": 0}
+            "cluster_analytics": 0, "commit_group_counts": 0}
 
 # K1's variants, by the code select_hosts_launch takes: a block of 8 warps
 # to a row, one warp to a row (8 rows to a block), or a block to a row that
@@ -56,10 +64,8 @@ K1_VARIANTS = ("block_vec4", "block_scalar", "warp_vec4", "warp_scalar",
 K1_WARP_MAX_N = 1024
 K1_ONE_READ_MAX_N = 8192  # rows up to this width are read once
 K2_MAX_SLOTS = 1024       # victim slots (sorted_victim_slots' cap)
-K2_MAX_COLS = 64          # extended resource columns
-K4_MAX_COLS = 16          # resource columns binpack_ffd takes
 K4_THREADS = 1024         # K4's one block
-K5_MAX_ROWS = 16384       # snapshot rows K5 takes in its one launch
+K5_ONE_LAUNCH_ROWS = 16384  # above, K5 runs its multi-block sequence
 K5_WORDS = 40             # K5's output: ops/analytics.py PACKED_LAYOUT
 # K2's ticket: one uint32 a (device, stream), zero between launches (each
 # launch's last block sets it back)
@@ -212,14 +218,14 @@ def preempt_one(*tensors):
     if not 0 < K <= K2_MAX_SLOTS:
         raise ValueError(f"preempt_one takes 1 to {K2_MAX_SLOTS} victim "
                          f"slots, got {K}")
-    if not (0 < E <= K2_MAX_COLS and VT <= E):
-        raise ValueError(f"preempt_one takes 1 to {K2_MAX_COLS} columns "
-                         f"with VT <= E, got E={E} VT={VT}")
+    if not (0 < E and VT <= E and N * E < (1 << 31)):
+        raise ValueError(f"preempt_one takes E >= 1 columns with VT <= E "
+                         f"and N * E < 2^31, got N={N} E={E} VT={VT}")
     from kubernetes_tpu_torch.kernels._build import library
 
     lib = library()
     ts = [t.contiguous() for t in tensors]
-    workspace = torch.empty(lib.preempt_one_workspace_ints(N, K, V),
+    workspace = torch.empty(lib.preempt_one_workspace_ints(N, K, V, E),
                             dtype=torch.int32, device=device)
     node = torch.empty((), dtype=torch.int32, device=device)
     victim_mask = torch.empty(M, dtype=torch.bool, device=device)
@@ -334,9 +340,9 @@ def binpack_ffd(pod_reqs: torch.Tensor, capacity: torch.Tensor,
     if order.shape != (P,):
         raise ValueError(f"binpack_ffd wants order of shape ({P},), got "
                          f"{tuple(order.shape)}")
-    if not (0 < R <= K4_MAX_COLS):
-        raise ValueError(f"binpack_ffd takes 1 to {K4_MAX_COLS} resource "
-                         f"columns, got {R}")
+    if R <= 0:
+        raise ValueError(f"binpack_ffd wants R >= 1 resource columns, got "
+                         f"{R}")
     if not (0 < N and N * R < (1 << 31) and P < (1 << 31)):
         raise ValueError(f"binpack_ffd: sizes N={N} R={R} P={P} out of "
                          f"range")
@@ -411,21 +417,78 @@ def cluster_analytics(allocatable: torch.Tensor, requested: torch.Tensor,
     N, R = allocatable.shape
     if R < 4:
         raise ValueError(f"cluster_analytics wants R >= 4 columns, got {R}")
-    if N > K5_MAX_ROWS:
-        raise ValueError(f"cluster_analytics takes at most {K5_MAX_ROWS} "
-                         f"rows in one launch, got {N}")
+    if N >= (1 << 30):
+        raise ValueError(f"cluster_analytics wants N < 2^30 rows, got {N}")
     dev = allocatable.device
     out = torch.empty(K5_WORDS, dtype=torch.int32, device=dev)
     from kubernetes_tpu_torch.kernels._build import library
 
     lib = library()
     ts = [t.contiguous() for t in (allocatable, requested, valid)]
+    # the multi-block sequence's partial sums, counts and histograms
+    work = torch.empty(lib.cluster_analytics_workspace_ints(N),
+                       dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cluster_analytics_launch(
-            *(t.data_ptr() for t in ts), N, R, out.data_ptr(), stream)
+            *(t.data_ptr() for t in ts), N, R, out.data_ptr(),
+            work.data_ptr() if work.numel() else None, stream)
     if err != 0:
         raise RuntimeError("cluster_analytics launch failed: "
                            + lib.select_hosts_error_string(err).decode())
     LAUNCHES["cluster_analytics"] += 1
+    return out
+
+
+def commit_group_counts(gc: torch.Tensor, hosts: torch.Tensor,
+                        group_ids: torch.Tensor,
+                        group_valid: torch.Tensor) -> torch.Tensor:
+    """K6: one megacycle window's spread-count commit, gc f32[N, G] plus
+    one for every valid (pod, slot) of group_ids i32[B, S] / group_valid
+    bool[B, S] whose pod's winner hosts i32[B] is a row of gc, as a NEW
+    f32[N, G] tensor on the tensors' CUDA device (gc is not written), see
+    models/megacycle.py commit_group_counts_plain.  Raises on anything the
+    kernel does not take and on a refused launch."""
+    for name, t in (("gc", gc), ("hosts", hosts), ("group_ids", group_ids),
+                    ("group_valid", group_valid)):
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"commit_group_counts launches on CUDA tensors "
+                             f"only ({name})")
+        if t.device != gc.device:
+            raise ValueError(f"commit_group_counts: {name} lies on "
+                             f"{t.device}, gc on {gc.device}")
+    if (gc.dtype != torch.float32 or hosts.dtype != torch.int32
+            or group_ids.dtype != torch.int32
+            or group_valid.dtype != torch.bool):
+        raise TypeError(f"commit_group_counts wants f32 gc, i32 hosts and "
+                        f"group_ids and a bool group_valid, got {gc.dtype}, "
+                        f"{hosts.dtype}, {group_ids.dtype}, "
+                        f"{group_valid.dtype}")
+    if (gc.dim() != 2 or hosts.dim() != 1 or group_ids.dim() != 2
+            or group_valid.shape != group_ids.shape
+            or group_ids.shape[0] != hosts.shape[0]):
+        raise ValueError(f"commit_group_counts wants gc [N, G], hosts [B] "
+                         f"and group slots [B, S], got {tuple(gc.shape)}, "
+                         f"{tuple(hosts.shape)}, {tuple(group_ids.shape)}, "
+                         f"{tuple(group_valid.shape)}")
+    N, G = gc.shape
+    B, S = group_ids.shape
+    if N >= (1 << 31) or G >= (1 << 31) or B * S >= (1 << 62):
+        raise ValueError(f"commit_group_counts: sizes N={N} G={G} B={B} "
+                         f"S={S} out of range")
+    out = torch.empty((N, G), dtype=torch.float32, device=gc.device)
+    if N == 0 or G == 0:
+        return out
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    ts = [t.contiguous() for t in (gc, hosts, group_ids, group_valid)]
+    with torch.cuda.device(gc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.commit_group_counts_launch(
+            *(t.data_ptr() for t in ts), N, G, B, S, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("commit_group_counts launch failed: "
+                           + lib.select_hosts_error_string(err).decode())
+    LAUNCHES["commit_group_counts"] += 1
     return out

@@ -66,7 +66,7 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.preempt_one_launch.argtypes = [p] * 15 + [i] * 7 + [p] * 7
     lib.preempt_one_launch.restype = ctypes.c_int
-    lib.preempt_one_workspace_ints.argtypes = [i] * 3
+    lib.preempt_one_workspace_ints.argtypes = [i] * 4
     lib.preempt_one_workspace_ints.restype = ctypes.c_int
     lib.select_topk_launch.argtypes = [p] * 4 + [i] * 3 + [p] * 4
     lib.select_topk_launch.restype = ctypes.c_int
@@ -78,10 +78,14 @@ def library() -> ctypes.CDLL:
     lib.binpack_ffd_smem_bytes.restype = ctypes.c_int
     lib.binpack_ffd_floor_launch.argtypes = [i, p]
     lib.binpack_ffd_floor_launch.restype = ctypes.c_int
-    lib.cluster_analytics_launch.argtypes = [p, p, p, i, i, p, p]
+    lib.cluster_analytics_launch.argtypes = [p, p, p, i, i, p, p, p]
     lib.cluster_analytics_launch.restype = ctypes.c_int
     lib.cluster_analytics_max_rows.argtypes = []
     lib.cluster_analytics_max_rows.restype = ctypes.c_int
+    lib.cluster_analytics_workspace_ints.argtypes = [i]
+    lib.cluster_analytics_workspace_ints.restype = ctypes.c_int
+    lib.commit_group_counts_launch.argtypes = [p] * 4 + [i] * 4 + [p] * 2
+    lib.commit_group_counts_launch.restype = ctypes.c_int
     lib.select_hosts_error_string.argtypes = [ctypes.c_int]
     lib.select_hosts_error_string.restype = ctypes.c_char_p
     return lib

@@ -22,8 +22,9 @@
 // block-wide min reduction and barrier; binpack_ffd_floor_launch times
 // exactly that with no memory traffic.  (PERF.md holds the times.)  What the design does about it:
 //  - One persistent block of T threads (1,024 for up to 8 columns, 512
-//    for up to 16).  Thread t owns bins t, t + T, ...: it alone reads and
-//    writes their loads, so a step needs no barrier to publish an update,
+//    for up to 16, 256 for up to 32, 128 for up to 64).  Thread t owns
+//    bins t, t + T, ...: it alone reads and writes their loads, so a
+//    step needs no barrier to publish an update,
 //    only one for the reduction.  Its first bin's loads and capacity live
 //    in registers, so a step over a cluster whose first fit lies in the
 //    first T bins touches no memory but the request row.
@@ -39,10 +40,18 @@
 //  - One barrier a round: each warp's minimum goes to a slot double
 //    buffered by the reductions' parity, and every warp reduces the slots
 //    itself.
-//  - Request rows are staged 64 steps at a time into a ring in shared
-//    memory (one extra barrier and one load latency a chunk), so a step
-//    reads its row with a broadcast from shared memory instead of waiting
-//    on device memory.
+//  - Request rows are staged 64 steps at a time (fewer past 16 columns:
+//    the ring stays 4 KiB) into a ring in shared memory (one extra
+//    barrier and one load latency a chunk), so a step reads its row with
+//    a broadcast from shared memory instead of waiting on device memory.
+// R is the next power of two past 4 + the extended resource names, so any
+// R can come.  Up to 64 columns the same kernel keeps the row in
+// registers with fewer threads (256 for 32 columns, 128 for 64); above,
+// k4_binpack_ffd_wide takes the same steps with no row in registers: a
+// step reads its request row from device memory (a broadcast through L1)
+// and every bin's loads from the shared-memory or workspace table, column
+// by column.  The arithmetic and the order of the reductions are the same
+// in every variant, so the result is too.
 // No tensor cores and no TMA: there is no matrix work.
 
 #include <cuda_runtime.h>
@@ -51,7 +60,7 @@
 
 namespace {
 
-constexpr int kMaxCols = 16;
+constexpr int kMaxCols = 16;  // the ring's row width up to 16 columns
 constexpr unsigned kFull = 0xffffffffu;
 // dynamic shared memory K4 may take (the card's 227 KiB a block, less a
 // few KiB for the static slots and the request ring)
@@ -80,6 +89,8 @@ __global__ void __launch_bounds__(T, 1) k4_binpack_ffd(
   extern __shared__ float smem[];
   __shared__ int red[2][32];
   __shared__ int tot[32];
+  // the ring holds kChunk rows of 16 columns: fewer rows when wider
+  constexpr int kCh = kChunk * kMaxCols / (C > kMaxCols ? C : kMaxCols);
   __shared__ float ring[kChunk * kMaxCols];  // [step in chunk][R]
   float* L = use_smem ? smem : work;  // [R][N]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -99,11 +110,11 @@ __global__ void __launch_bounds__(T, 1) k4_binpack_ffd(
   float rq[C];
   int parity = 0;  // the slot buffer of the next reduction
   for (int k = 0; k < P; ++k) {
-    const int j = k % kChunk;
+    const int j = k % kCh;
     if (j == 0) {
-      // the next kChunk request rows, in order, into the ring: every read
+      // the next kCh request rows, in order, into the ring: every read
       // of the previous chunk came before the last step's barrier
-      for (int i = tid; i < kChunk * R; i += T) {
+      for (int i = tid; i < kCh * R; i += T) {
         const int step = k + i / R;
         ring[i] = step < P
             ? __ldg(reqs + (size_t)row_of(order, step, P) * R + i % R)
@@ -184,6 +195,74 @@ __global__ void __launch_bounds__(T, 1) k4_binpack_ffd(
   }
 }
 
+// K4 for any R: the same steps with the loads of every bin in L ([R][N])
+// and the request row read from device memory.  Thread t owns bins t,
+// t + T, ...: it alone tests and updates them.
+template <int T>
+__global__ void __launch_bounds__(T, 1) k4_binpack_ffd_wide(
+    const float* __restrict__ reqs, int P, int R,
+    const float* __restrict__ cap, int cap_stride,
+    const int* __restrict__ order, int N, float* work, int use_smem,
+    float* __restrict__ loads_out, uint8_t* __restrict__ placed,
+    int* __restrict__ used) {
+  constexpr int kWarps = T / 32;
+  extern __shared__ float smem[];
+  __shared__ int red[2][32];
+  __shared__ int tot[32];
+  float* L = use_smem ? smem : work;  // [R][N]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int n = tid; n < N; n += T)
+    for (int r = 0; r < R; ++r) L[(size_t)r * N + n] = 0.0f;
+  int parity = 0;  // the slot buffer of the next reduction
+  for (int k = 0; k < P; ++k) {
+    const float* rq = reqs + (size_t)row_of(order, k, P) * R;
+    bool real = false;
+    for (int r = 0; r < R; ++r) real |= __ldg(rq + r) > 0.0f;
+    int idx = INT_MAX;
+    for (int base = 0; base < N && idx == INT_MAX; base += T) {
+      const int n = base + tid;
+      int mine = INT_MAX;
+      if (n < N) {
+        const float* c = cap + (size_t)n * cap_stride;
+        bool fit = true;
+        for (int r = 0; r < R && fit; ++r)
+          fit = __fadd_rn(L[(size_t)r * N + n], __ldg(rq + r)) <= __ldg(c + r);
+        if (fit) mine = n;
+      }
+      const int wmin = __reduce_min_sync(kFull, mine);
+      if (lane == 0) red[parity][warp] = wmin;
+      __syncthreads();
+      idx = __reduce_min_sync(kFull,
+                              lane < kWarps ? red[parity][lane] : INT_MAX);
+      parity ^= 1;
+    }
+    const bool ok = real && idx != INT_MAX;
+    if (ok && idx % T == tid)
+      for (int r = 0; r < R; ++r) {
+        float* l = L + (size_t)r * N + idx;
+        *l = __fadd_rn(*l, __ldg(rq + r));
+      }
+    if (tid == 0) placed[k] = (ok || !real) ? 1 : 0;
+  }
+  int mine_used = 0;
+  for (int n = tid; n < N; n += T) {
+    bool any = false;
+    for (int r = 0; r < R; ++r) {
+      const float v = L[(size_t)r * N + n];
+      loads_out[(size_t)n * R + r] = v;
+      any |= v > 0.0f;
+    }
+    mine_used += any;
+  }
+  mine_used = __reduce_add_sync(kFull, mine_used);
+  if (lane == 0) tot[warp] = mine_used;
+  __syncthreads();
+  if (warp == 0) {
+    const int s = __reduce_add_sync(kFull, lane < kWarps ? tot[lane] : 0);
+    if (lane == 0) used[0] = s;
+  }
+}
+
 // K4's step chain with nothing in it: per step one warp minimum, one slot
 // write, one barrier and one slot minimum, as K4's 1,024-thread variant
 // does; no memory.
@@ -215,6 +294,21 @@ int launch(const float* reqs, int P, int R, const float* cap, int cap_stride,
   return (int)cudaGetLastError();
 }
 
+int launch_wide(const float* reqs, int P, int R, const float* cap,
+                int cap_stride, const int* order, int N, float* work,
+                int smem, float* loads, uint8_t* placed, int* used,
+                cudaStream_t stream) {
+  constexpr int T = 1024;
+  const cudaError_t e = cudaFuncSetAttribute(
+      k4_binpack_ffd_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemDyn);
+  if (e != cudaSuccess) return (int)e;
+  k4_binpack_ffd_wide<T><<<1, T, smem, stream>>>(
+      reqs, P, R, cap, cap_stride, order, N, work, smem > 0, loads, placed,
+      used);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // bytes of dynamic shared memory K4 takes for N bins of R columns: their
@@ -230,16 +324,26 @@ extern "C" int binpack_ffd_launch(const float* reqs, int P, int R,
                                   const int* order, int N, float* work,
                                   float* loads, uint8_t* placed, int* used,
                                   cudaStream_t stream) {
-  if (P < 0 || R <= 0 || R > kMaxCols || N <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (P < 0 || R <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   const int smem = binpack_ffd_smem_bytes(N, R);
   if (smem == 0 && work == nullptr) return (int)cudaErrorInvalidValue;
-  // up to 8 columns: 1,024 threads (64 registers each); up to 16: 512
+  // up to 8 columns: 1,024 threads (64 registers each); up to 16: 512;
+  // up to 32: 256; up to 64: 128; more: the wide variant, no row in
+  // registers
   if (R <= 8)
     return launch<8, 1024>(reqs, P, R, cap, cap_stride, order, N, work, smem,
                            loads, placed, used, stream);
-  return launch<16, 512>(reqs, P, R, cap, cap_stride, order, N, work, smem,
-                         loads, placed, used, stream);
+  if (R <= 16)
+    return launch<16, 512>(reqs, P, R, cap, cap_stride, order, N, work, smem,
+                           loads, placed, used, stream);
+  if (R <= 32)
+    return launch<32, 256>(reqs, P, R, cap, cap_stride, order, N, work, smem,
+                           loads, placed, used, stream);
+  if (R <= 64)
+    return launch<64, 128>(reqs, P, R, cap, cap_stride, order, N, work, smem,
+                           loads, placed, used, stream);
+  return launch_wide(reqs, P, R, cap, cap_stride, order, N, work, smem, loads,
+                     placed, used, stream);
 }
 
 extern "C" int binpack_ffd_floor_launch(int steps, cudaStream_t stream) {

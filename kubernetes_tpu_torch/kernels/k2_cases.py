@@ -36,6 +36,9 @@ and cases of their own shapes:
   spread-1024   the 1,024-slot cap over 1,024 distinct rows of 1,100
   wide-31       random-0 with E = 31 and random-2 with E = 60 (copies of
   wide-60       the CPU column): the kernel's warp-a-row layouts
+  wide-66       random-1 with E = 66 and shared-vols with E = 130: past
+  wide-130      64 columns (the encoder's R of 64 and 128 give such E), the
+                wide variant's freed sums in the workspace
 and one case at the live cell's full shape (N=6,144 rows of which 5,000
 nodes, M=32,768, 20,500 running pods with 2,000 potential victims, so the
 1,024-slot cap binds).
@@ -56,7 +59,8 @@ PREEMPTOR_PRIORITY = 100
 NAMES = ("random-0", "random-1", "random-2", "random-3", "pdb-ports",
          "pdb-all", "crowded", "all-tie", "no-candidate", "impossible",
          "order-f32", "heavy-node", "block-edge", "shared-vols",
-         "spread-1024", "empty-row", "wide-31", "wide-60", "full-width")
+         "spread-1024", "empty-row", "wide-31", "wide-60", "wide-66",
+         "wide-130", "full-width")
 
 
 def _pad_to(a: np.ndarray, n: int, fill, axis: int = 0) -> np.ndarray:
@@ -563,5 +567,7 @@ def cases() -> list:
             ("empty-row", empty_row_case()),
             ("wide-31", wide_case(random_case(0, need_cpu=600.0), 31)),
             ("wide-60", wide_case(random_case(2, need_cpu=1600.0), 60)),
+            ("wide-66", wide_case(random_case(1, need_cpu=1100.0), 66)),
+            ("wide-130", wide_case(shared_vols_case(), 130)),
             ("full-width", full_width_case())]
     return out

@@ -10,9 +10,11 @@ Each case is a dict: reqs f32[P, R], cap f32[N, R] (per-bin) or f32[R]
 None).  They cover full bins (zero capacity rows), zero request rows (the
 padding of a batch), pods that fit nowhere, duplicate requests, values that
 are not integers (the f32 add and compare must round as the reference's),
-12 columns (K4's 512-thread variant), a bin matrix too big for K4's shared
-memory, and the regret's full width
-(N 6,144, P 2,048, R 8, the live cell's free capacity).
+12 columns (K4's 512-thread variant), 32, 64 and 128 columns (its wide
+variant: the encoder's R with 13 or more extended resource names), a bin
+matrix too big for K4's shared memory, and the regret's full width
+(N 6,144, P 2,048, R 8, the live cell's free capacity).  `full_width(r)`
+widens the last to r columns for the card's timings.
 """
 
 from __future__ import annotations
@@ -108,6 +110,18 @@ def cases():
     out.append(("wide-columns", dict(reqs=reqs, cap=cap,
                                      order=_ffd_order(reqs, cap),
                                      max_bins=None)))
+    # past 16 columns: sparse extended resources that some bins hold;
+    # 64 columns over 1,500 bins are past K4's shared memory
+    for r, n, p in ((32, 200, 300), (64, 1500, 256), (128, 100, 200)):
+        reqs = _pods(p, r, p)
+        ext = rng.random((p, r - 4)) < 0.05
+        reqs[:, 4:] = np.where(ext, rng.integers(1, 4, (p, r - 4)), 0)
+        cap = _fleet_free(rng, n, n, r, 0.5)
+        cap[:, 4:] = np.where(rng.random((n, r - 4)) < 0.3,
+                              rng.integers(0, 6, (n, r - 4)), 0)
+        out.append((f"cols-{r}", dict(reqs=reqs, cap=cap,
+                                      order=_ffd_order(reqs, cap),
+                                      max_bins=None)))
     # 8,192 bins of 8 columns: past K4's shared memory, a workspace
     cap = _fleet_free(rng, 8000, 8192, 8, 0.98)
     reqs = _pods(700, 8, 640)
@@ -125,3 +139,20 @@ def cases():
                                    order=_ffd_order(reqs, cap),
                                    max_bins=None)))
     return out
+
+
+def full_width(r: int) -> dict:
+    """The full-width case with r >= 8 columns: its first eight, and past
+    them extended resources that one node in ten holds and one pod in
+    twenty requests."""
+    c = dict(cases())["full-width"]
+    rng = np.random.default_rng(20261022)
+    P, N = c["reqs"].shape[0], c["cap"].shape[0]
+    reqs = np.zeros((P, r), np.float32)
+    cap = np.zeros((N, r), np.float32)
+    reqs[:, :8], cap[:, :8] = c["reqs"], c["cap"]
+    reqs[:, 8:] = np.where(rng.random((P, r - 8)) < 0.05 / (r - 8) * 4,
+                           1.0, 0.0) * (c["reqs"][:, :1] > 0)
+    cap[:5000, 8:] = np.where(rng.random((5000, r - 8)) < 0.1, 4.0, 0.0)
+    return dict(reqs=reqs, cap=cap, order=_ffd_order(reqs, cap),
+                max_bins=None)

@@ -14,8 +14,9 @@ over-committed (free clamped at 0, occupancy past 100%), recycled rows
 sort's tie and the maxima's order), quantile ties (a homogeneous fleet),
 occupancy exactly on decile edges, magnitudes from 1e-3 to 1e9 in one
 column (the add order shows), R = 4 and R = 5 (row strides), the live
-cell's full width (5,000 bench nodes padded to 6,144, R 8) and K5's
-widest one-launch shape (16,384 rows).
+cell's full width (5,000 bench nodes padded to 6,144, R 8), K5's widest
+one-launch shape (16,384 rows), and past it the multi-block sequence's
+(16,385 and 40,000 rows, signed zeros and recycled rows among them).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ GI = float(1 << 30)
 MI = float(1 << 20)
 CPU_MAX_N = 8192     # the CPU tests take the cases up to this many rows
 MAX_N = 16384        # K5 takes up to this many rows in one launch
+WIDE_N = (16385, 40000)  # past it: the multi-block sequence
 
 
 def _random(rng, n: int, r: int = 8, valid_frac: float = 0.8,
@@ -71,10 +73,26 @@ def _known():
     return alloc, req, valid
 
 
-def cases(max_n: int = MAX_N):
+def _wide(rng, n: int):
+    """A fleet of n rows past the one-launch width: recycled rows, -0.0
+    requests beside 0.0, over-committed nodes."""
+    al, rq, va = _fleet(rng, n - 300, n)
+    zero = rng.random(n) < 0.3
+    rq[zero, :4] = 0.0
+    rq[zero & (rng.random(n) < 0.5), :4] = -0.0
+    over = rng.random(n) < 0.02
+    rq[over, 0] = al[over, 0] * np.float32(1.25)
+    va[rng.choice(n - 300, 500, replace=False)] = False
+    al[n - 200:] = al[0]
+    rq[n - 200:] = rq[0]
+    return al, rq, va
+
+
+def cases(max_n=None):
     """[(name, (allocatable, requested, valid))] in a fixed order, the
-    live cell's full width last among those up to max_n rows (the widest
-    case, past CPU_MAX_N, after it)."""
+    live cell's full width last among those up to CPU_MAX_N rows (the
+    widest one-launch case and the multi-block ones after it), those up to
+    max_n rows (None: all)."""
     rng = np.random.default_rng(20261017)
     out = []
     out.append(("empty", (np.zeros((0, 8), np.float32),
@@ -144,7 +162,10 @@ def cases(max_n: int = MAX_N):
     out.append(("five-columns", (al, rq, va)))
     out.append(("full-width", _fleet(rng, 5000, 6144)))
     out.append(("widest", _fleet(rng, 15000, MAX_N)))
-    return [(name, c) for name, c in out if c[0].shape[0] <= max_n]
+    for n in WIDE_N:
+        out.append((f"wide-{n}", _wide(rng, n)))
+    return [(name, c) for name, c in out
+            if max_n is None or c[0].shape[0] <= max_n]
 
 
 def full_width_case():

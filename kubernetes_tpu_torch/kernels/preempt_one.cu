@@ -51,6 +51,10 @@
 //    with two columns a lane.  A victim's request row is one coalesced
 //    load, freed and the step's row are registers, the fit test is one
 //    ballot; `nvcc -Xptxas -v` reports no stack frame and no spill.
+//    Above 64 columns (E = R + 2 + VT, and the encoder makes any R) a warp
+//    takes a row and the row's freed sums live in a workspace row of E
+//    floats instead of registers; its lanes read the node tables and the
+//    request rows column by column, in the same order of operations.
 //  - Two warps an SM hid no latency.  Now a block has 16 warps and two fit
 //    an SM: at N = 6,144 the 192 blocks are resident at once.  Each thread
 //    issues its rows' candidate flags and node-table columns before the
@@ -74,7 +78,7 @@
 namespace {
 
 constexpr int kMaxSlots = 1024;  // the reference's victim-slot cap
-constexpr int kMaxCols = 64;     // extended resource columns
+constexpr int kMaxCols = 64;     // columns the register variants take
 constexpr int kRows = 32;        // node rows a block owns
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
@@ -132,7 +136,8 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
 }
 
 // K2 in one launch.  Template: kG lanes a row (16 or 32; a warp takes 32 /
-// kG rows at once) and kC columns a lane (E <= kG * kC).
+// kG rows at once) and kC columns a lane (E <= kG * kC), or kC = 0: any E,
+// the freed sums of row r in wide_f[r * E, (r + 1) * E).
 template <int kG, int kC>
 __global__ void __launch_bounds__(kThreads, 1024 / kThreads) k2_preempt(
     const float* __restrict__ requested, const float* __restrict__ allocatable,
@@ -148,7 +153,9 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) k2_preempt(
     int vt, int* __restrict__ picks, int* __restrict__ vic, int* evicted,
     unsigned* __restrict__ ticket, int32_t* __restrict__ node_out,
     uint8_t* __restrict__ victim_mask, int32_t* __restrict__ n_victims_out,
-    int32_t* __restrict__ n_viol_out) {
+    int32_t* __restrict__ n_viol_out, float* __restrict__ wide_f) {
+  constexpr bool kWide = kC == 0;
+  constexpr int kCr = kWide ? 1 : kC;  // register arrays' length
   constexpr int kGroups = 32 / kG;          // rows a warp takes at once
   constexpr int kPass = kWarps * kGroups;   // rows a block takes at once
   constexpr int kPasses = kRows / kPass;
@@ -209,7 +216,7 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) k2_preempt(
     const int k = tid + u * kThreads;
     sm[u] = k < n_slots ? slots[k] : -1;
   }
-  float q[kPasses][kC], al[kPasses][kC], ini[kPasses][kC], pr[kC];
+  float q[kPasses][kCr], al[kPasses][kCr], ini[kPasses][kCr], pr[kCr];
 #pragma unroll
   for (int c = 0; c < kC; ++c) {
     const int col = gl + c * kG;
@@ -303,7 +310,7 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) k2_preempt(
     // row's volume identities start at their listed holders (only this
     // row's lanes touch them).
     struct Listed {
-      float rw[kC];  // the request row, this lane's columns (0 outside)
+      float rw[kCr];  // the request row, this lane's columns (0 outside)
       int vid;       // the entry's volume id number gl, or -1
     };
     auto load_listed = [&](int t, Listed& x) {
@@ -318,9 +325,16 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) k2_preempt(
       }
       x.vid = act && gl < vmax ? slot_vids[(size_t)s_k[i] * vmax + gl] : -1;
     };
-    float f[kC];
+    float f[kCr];
 #pragma unroll
     for (int cc = 0; cc < kC; ++cc) f[cc] = 0.0f;
+    // the wide variant's freed sums: this row's workspace row, lane-owned
+    // columns gl + kG * c
+    float* fw = kWide && cand[s] ? wide_f + (size_t)r * e : nullptr;
+    if constexpr (kWide) {
+      if (fw != nullptr)
+        for (int col = gl; col < e; col += kG) fw[col] = 0.0f;
+    }
     bool has_seg = false;
     const int tmax = __reduce_max_sync(kFull, cnt);
     Listed lcur{}, lnext{};
@@ -342,6 +356,11 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) k2_preempt(
 #pragma unroll
           for (int cc = 0; cc < kC; ++cc)
             if (gl + cc * kG < e) f[cc] = __fadd_rn(f[cc], lcur.rw[cc]);
+          if constexpr (kWide) {
+            const float* row = pods_req + (size_t)s_m[i] * e;
+            for (int col = gl; col < e; col += kG)
+              fw[col] = __fadd_rn(fw[col], row[col]);
+          }
         }
       }
       if (kAhead) lcur = lnext;
@@ -351,6 +370,13 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) k2_preempt(
     for (int cc = 0; cc < kC; ++cc) {
       const int col = gl + cc * kG;
       if (col < e && col >= rv) f[cc] = __fadd_rn(f[cc], ini[s][cc]);
+    }
+    if constexpr (kWide) {
+      if (fw != nullptr)
+        for (int col = gl; col < e; col += kG)
+          if (col >= rv)
+            fw[col] = __fadd_rn(fw[col],
+                                freed_vol_init[(size_t)r * vt + col - rv]);
     }
     // the pod fits: no requested column of the row's lanes with
     // (requested - freed) + pod_req > allocatable
@@ -362,10 +388,30 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) k2_preempt(
                __fadd_rn(__fsub_rn(q[s][cc], w[cc]), pr[cc]) > al[s][cc];
       return (__ballot_sync(kFull, bad) & gmask) == 0u;
     };
-    const bool possible = fits(f) && cand[s];  // every lane votes
+    // the same test in the wide variant, on the row's columns of the
+    // node tables and w(col); `on`: the row is a candidate (its tables may
+    // be read).  Every lane votes.
+    auto fits_wide = [&](bool on, auto w) {
+      bool bad = false;
+      if (on)
+        for (int col = gl; col < e; col += kG) {
+          const float p = pod_req[col];
+          if (p > 0.0f)
+            bad |= __fadd_rn(__fsub_rn(requested[(size_t)r * e + col],
+                                       w(col)),
+                             p) > allocatable[(size_t)r * e + col];
+        }
+      return (__ballot_sync(kFull, bad) & gmask) == 0u;
+    };
+    bool possible;  // every lane votes
+    if constexpr (kWide)
+      possible = fits_wide(cand[s], [&](int col) { return fw[col]; }) &&
+                 cand[s];
+    else
+      possible = fits(f) && cand[s];
     // the reprieve: the row's entries in slot order
     struct Step {
-      float rw[kC];  // the request row, this lane's columns
+      float rw[kCr];  // the request row, this lane's columns
       int vid0;      // the entry's first volume id, or -1
       int p;         // priority, start and PDB flag of an in-segment entry
       float st;
@@ -403,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) k2_preempt(
       const int k = s_k[i];
       const bool seg = act && s_row[i] < kRows;
       const int* vids = slot_vids + (size_t)k * vmax;
-      float w[kC];
+      float w[kCr];
 #pragma unroll
       for (int cc = 0; cc < kC; ++cc) {
         const int col = gl + cc * kG;
@@ -412,7 +458,7 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) k2_preempt(
       // reprieving the first holder of a fully evicted volume restores its
       // attachment; the counts are read before this step's decrements
       if (act && vt > 0) {
-        float d[kC];
+        float d[kCr];
 #pragma unroll
         for (int cc = 0; cc < kC; ++cc) d[cc] = 0.0f;
         for (int v = 0; v < vmax; ++v) {
@@ -430,7 +476,35 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) k2_preempt(
           if (col < e && col >= rv) w[cc] = __fadd_rn(w[cc], -d[cc]);
         }
       }
-      const bool keep = fits(w) && act;
+      bool keep;
+      if constexpr (kWide) {
+        // w(col): freed less the victim's request, less one in a volume
+        // column whose identity the reprieve would restore (the counts
+        // read before this step's decrements)
+        const float* prow = pods_req + (size_t)s_m[i] * e;
+        auto wcol = [&](int col) {
+          float x = __fsub_rn(fw[col], prow[col]);
+          if (vt > 0 && col >= rv) {
+            float dd = 0.0f;
+            for (int v = 0; v < vmax; ++v) {
+              const int id = v == 0 ? cur.vid0 : vids[v];
+              if (id < 0) continue;
+              const int ty = vid_type[id];
+              if (ty < 0 || ty >= vt || evicted[id] < vid_total[id]) continue;
+              if (ty == col - rv) dd += 1.0f;
+            }
+            x = __fadd_rn(x, -dd);
+          }
+          return x;
+        };
+        keep = fits_wide(act, wcol) && act;
+        if (keep)
+          for (int col = gl; col < e; col += kG) fw[col] = wcol(col);
+        // every lane has read the counts before lane 0 decrements them
+        __syncwarp();
+      } else {
+        keep = fits(w) && act;
+      }
       if (keep) {
 #pragma unroll
         for (int cc = 0; cc < kC; ++cc) f[cc] = w[cc];
@@ -539,11 +613,13 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) k2_preempt(
 
 }  // namespace
 
-// int32 scratch one launch needs: a Pick a block, then each slot's verdict
-// [n_slots] (the row it is a victim on, or -1) and the evicted counters
-// [n_vids].
-extern "C" int preempt_one_workspace_ints(int n, int n_slots, int n_vids) {
-  return kPickInts * ((n + kRows - 1) / kRows) + n_slots + n_vids;
+// 32-bit scratch one launch needs: a Pick a block, then each slot's verdict
+// [n_slots] (the row it is a victim on, or -1), the evicted counters
+// [n_vids] and, above kMaxCols columns, the freed sums f32[n, e].
+extern "C" int preempt_one_workspace_ints(int n, int n_slots, int n_vids,
+                                          int e) {
+  return kPickInts * ((n + kRows - 1) / kRows) + n_slots + n_vids +
+         (e > kMaxCols ? n * e : 0);
 }
 
 // One preemption pick: one kernel launch and no other stream operation.
@@ -562,21 +638,23 @@ extern "C" int preempt_one_launch(
     int vmax, int n_vids, int vt, int* workspace, unsigned* ticket,
     int32_t* node_out, uint8_t* victim_mask, int32_t* n_victims_out,
     int32_t* n_viol_out, cudaStream_t stream) {
-  if (n <= 0 || e <= 0 || e > kMaxCols || vt < 0 || vt > e || m_total <= 0 ||
+  if (n <= 0 || e <= 0 || vt < 0 || vt > e || m_total <= 0 ||
       n_slots <= 0 || n_slots > kMaxSlots || vmax <= 0 || n_vids <= 0)
     return (int)cudaErrorInvalidValue;
   const int blocks = (n + kRows - 1) / kRows;
   int* picks = workspace;
   int* vic = picks + (size_t)kPickInts * blocks;
   int* evicted = vic + n_slots;
-  auto kernel = e <= 16   ? k2_preempt<16, 1>
-                : e <= 32 ? k2_preempt<32, 1>
-                          : k2_preempt<32, 2>;
+  float* wide = reinterpret_cast<float*>(evicted + n_vids);
+  auto kernel = e <= 16          ? k2_preempt<16, 1>
+                : e <= 32        ? k2_preempt<32, 1>
+                : e <= kMaxCols  ? k2_preempt<32, 2>
+                                 : k2_preempt<32, 0>;
   kernel<<<blocks, kThreads, 0, stream>>>(
       requested, allocatable, pod_req, candidates, pods_node, pods_priority,
       pods_req, pods_violating, pods_start, slots, n_slots, slot_vids, vmax,
       vid_type, vid_total, vid_listed, freed_vol_init, n, e, m_total, vt,
       picks, vic, evicted, ticket, node_out, victim_mask, n_victims_out,
-      n_viol_out);
+      n_viol_out, wide);
   return (int)cudaGetLastError();
 }

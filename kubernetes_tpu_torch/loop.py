@@ -38,7 +38,7 @@ import copy
 import dataclasses
 import gc
 import time
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -66,11 +66,13 @@ ENGINES = ("speculative", "sequential")
 
 def bench_nodes(n_nodes: int, pods_per_node: int = NODE_PODS_CAP,
                 cpu: str = "32", mem: str = "256Gi",
-                make_node=make_node) -> List[Node]:
+                make_node=make_node, extended: int = 0) -> List[Node]:
     """The bench fleet: zone i%8, tier b on every third node, a NoSchedule
-    taint on one node in 50; `cpu` and `mem` per node.  make_node: the
-    object factory (the JAX package's gives the same nodes to its
-    scheduler)."""
+    taint on one node in 50; `cpu` and `mem` per node, and 8 of each of
+    `extended` extended resources (example.com/res-j: with 13 or more the
+    encoder's resource axis grows to 32 columns).  make_node: the object
+    factory (the JAX package's gives the same nodes to its scheduler)."""
+    extra = {f"example.com/res-{j}": "8" for j in range(extended)}
     return [
         make_node(
             f"node-{i}",
@@ -81,6 +83,7 @@ def bench_nodes(n_nodes: int, pods_per_node: int = NODE_PODS_CAP,
             taints=[{"key": "dedicated", "value": "x", "effect": "NoSchedule"}]
             if i % 50 == 0
             else [],
+            allocatable_extra=extra or None,
         )
         for i in range(n_nodes)
     ]
@@ -304,13 +307,15 @@ def live_config(batch: int, engine: str = "speculative",
                 batched: bool = True, pipeline: bool = True,
                 preemption: bool = False, quality_top_k: int = 0,
                 quality_interval_cycles: int = 32, telemetry: bool = False,
-                telemetry_interval_cycles: int = 1, timeline: bool = False):
+                telemetry_interval_cycles: int = 1, timeline: bool = False,
+                megacycle_batches: int = 1):
     """bench.py run_live's SchedulerConfig with the port's settings given
     explicitly: preemption off unless asked for, the placement-quality
     observatory at the given top-k width (0: off; the reference's default
     is 3) and interval, telemetry at the given interval and the timeline
     off unless asked for (the reference's defaults: on, interval 1), the
-    CPU degradation engine off."""
+    megacycle depth (1: single cycles, the reference's default), the CPU
+    degradation engine off."""
     from kubernetes_tpu_torch.runtime.scheduler import SchedulerConfig
 
     return SchedulerConfig(
@@ -320,6 +325,7 @@ def live_config(batch: int, engine: str = "speculative",
         telemetry_interval_cycles=telemetry_interval_cycles,
         quality_top_k=quality_top_k,
         quality_interval_cycles=quality_interval_cycles, timeline=timeline,
+        megacycle_batches=megacycle_batches,
     )
 
 
@@ -487,10 +493,11 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
              budget_s: float = 900.0, quality_top_k: int = 0,
              quality_interval_cycles: int = 32, telemetry: bool = False,
              telemetry_interval_cycles: int = 1,
-             timeline: bool = False) -> dict:
+             timeline: bool = False, megacycle_batches: int = 1,
+             warmup: Optional[int] = None) -> dict:
     """bench.py run_live on the port: `n_pods` pending pods of `workload`
-    through the live Scheduler, after a warmup batch of `batch` pods
-    (pending_pod(n_pods + j)) drained outside the clock.  `existing`
+    through the live Scheduler, after a warmup of `warmup` pods (default
+    `batch`; pending_pod(n_pods + j)) drained outside the clock.  `existing`
     running pods are added first; `nominations` [(pod, node name)] are
     registered on the queue (queue.update_nominated_pod) after the warmup
     and before the clock: preemptors that wait for their victims and are
@@ -498,10 +505,12 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
 
     Returns bench.py's keys (pods_per_s, seconds, placed, unschedulable,
     commit_seconds, phases, phase_sum_seconds, overlap_efficiency,
-    setup_seconds; unrounded) and: "hosts" i32[n_pods + batch] bound node
+    setup_seconds; unrounded) and: "hosts" i32[n_pods + warmup] bound node
     row per pod index (-1 unbound), "bind_order" i32[] pod indices in
     binder call order (warmup included), "node_names" row -> name,
-    "cycles" committed in the timed window, "commit_state_seconds" and
+    "cycles" committed in the timed window, "megacycles" run in it (with
+    megacycle_batches > 1), "launches" each kernel's launches in it
+    (kernels.LAUNCHES), "commit_state_seconds" and
     "tail_seconds" (the two halves of commit), "scatter_rows" dirty rows
     scattered per update in the timed window, "transfers" the timed
     window's bytes and calls per seam, "snapshot_bytes" one full snapshot
@@ -522,17 +531,19 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     (scheduler_telemetry_seconds_total in the timed window); with the
     timeline on, "timeline" (its summary) and "timeline_seconds"
     (scheduler_timeline_seconds_total in the timed window)."""
+    from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.utils import metrics as m
     from kubernetes_tpu_torch.codec.transfer import transfer_delta, transfer_totals
     from kubernetes_tpu_torch.runtime.cache import SchedulerCache
     from kubernetes_tpu_torch.runtime.queue import PriorityQueue
     from kubernetes_tpu_torch.runtime.scheduler import Scheduler
 
+    warmup = batch if warmup is None else warmup
     t_setup = time.monotonic()
     enc = build_encoder(nodes, existing)
     cache = SchedulerCache(enc)
     queue = PriorityQueue()
-    hosts = np.full(n_pods + batch, -1, np.int32)
+    hosts = np.full(n_pods + warmup, -1, np.int32)
     order: List[int] = []
 
     def binder(pod, node_name):
@@ -548,7 +559,8 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
                           quality_interval_cycles=quality_interval_cycles,
                           telemetry=telemetry,
                           telemetry_interval_cycles=telemetry_interval_cycles,
-                          timeline=timeline),
+                          timeline=timeline,
+                          megacycle_batches=megacycle_batches),
                       device=device)
     qrec = (record_quality(sched.quality) if sched.quality is not None
             else None)
@@ -570,7 +582,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
                 time.sleep(0.002)  # backoff expiries: don't hot-spin
         return placed + sched.flush_pipeline()
 
-    for j in range(batch):
+    for j in range(warmup):
         queue.add(pending_pod(n_pods + j, workload))
     _drain(600)
     for pod, node_name in nominations or ():
@@ -581,7 +593,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     for k in sched.phase_seconds:
         sched.phase_seconds[k] = 0.0
     sched.commit_state_seconds = 0.0
-    cycles0 = sched.cycles_total
+    cycles0, mega0 = sched.cycles_total, sched.megacycles_total
     scatter0 = len(sched._dev_snapshot.scatter_rows)
     xfer0 = transfer_totals()
     # pod objects are built outside the clock; the queue adds are inside
@@ -592,6 +604,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     gc.collect()
     q_s0 = m.QUALITY_SECONDS.value
     tel_s0, tl_s0 = m.TELEMETRY_SECONDS.value, m.TIMELINE_SECONDS.value
+    launches0 = dict(kernels.LAUNCHES)
     with full_collections() as gc_full:
         t0 = time.monotonic()
         for p in pending:
@@ -601,6 +614,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.monotonic() - t0
+    launches = {k: v - launches0[k] for k, v in kernels.LAUNCHES.items()}
     q_s = m.QUALITY_SECONDS.value - q_s0
     tel_s = m.TELEMETRY_SECONDS.value - tel_s0
     tl_s = m.TIMELINE_SECONDS.value - tl_s0
@@ -640,6 +654,8 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
         "bind_order": np.asarray(order, np.int32),
         "node_names": {row: name for name, row in enc.node_rows.items()},
         "cycles": sched.cycles_total - cycles0,
+        "megacycles": sched.megacycles_total - mega0,
+        "launches": launches,
         "commit_state_seconds": sched.commit_state_seconds,
         "tail_seconds": ph["commit"] - sched.commit_state_seconds,
         "scatter_rows": sched._dev_snapshot.scatter_rows[scatter0:],
@@ -652,6 +668,54 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
             r.pod.name for r in sched.results if r.node is None),
         "gc_full": gc_full,
         "scheduler": sched,
+    }
+
+
+def run_megacycle(nodes: Sequence[Node], n_pods: int, batch: int,
+                  ks: Sequence[int] = (1, 4), device="cuda",
+                  engine: str = "speculative", pipeline: bool = True,
+                  budget_s: float = 900.0) -> dict:
+    """bench.py run_megacycle on the port: run_live of the plain workload
+    once for each megacycle depth K in `ks`, each through a fresh Scheduler
+    at the reference's default SchedulerConfig with only cpu_fallback off
+    (live_config with telemetry at interval 1, the timeline, quality_top_k=3
+    at interval 32; `pipeline` False commits each megacycle before the next
+    dispatch).  Each K first drains the same warmup of
+    batch * max(2, max(ks)) + batch // 2 pods outside the clock, enough to
+    form the deepest megacycle and a trailing single cycle.
+
+    Returns {"curve": [per K: k, pods_per_s, host_s_per_pod, host_seconds,
+    seconds, placed, megacycles and kernel launches in the timed window],
+    "identical": every K's placements (warmup included) equal the first
+    K's, "runs": {K: run_live's result}}.  Host seconds are the scheduling
+    thread's phase seconds in the timed window (pop, encode, dispatch,
+    host_stall, commit; the port has no perf observatory yet, and its
+    dispatch phase holds the speculative engine's rounds, one host sync a
+    round).  Unrounded."""
+    warm_n = batch * max(2, max(ks)) + max(1, batch // 2)
+    curve, runs, placements = [], {}, {}
+    for K in ks:
+        run = run_live(nodes, n_pods, batch, device=device, engine=engine,
+                       pipeline=pipeline, budget_s=budget_s,
+                       quality_top_k=3, telemetry=True, timeline=True,
+                       megacycle_batches=K, warmup=warm_n)
+        ph = run["phases"]
+        host_s = sum(ph[k] for k in ("pop", "encode", "dispatch",
+                                     "host_stall", "commit"))
+        placements[K] = {(r.pod.namespace, r.pod.name): r.node
+                         for r in run["scheduler"].results}
+        curve.append({
+            "k": K, "pods_per_s": run["pods_per_s"],
+            "host_s_per_pod": host_s / run["placed"] if run["placed"] else None,
+            "host_seconds": host_s, "seconds": run["seconds"],
+            "placed": run["placed"], "megacycles": run["megacycles"],
+            "launches": run["launches"],
+        })
+        runs[K] = run
+    return {
+        "curve": curve,
+        "identical": all(placements[K] == placements[ks[0]] for K in ks),
+        "runs": runs,
     }
 
 

@@ -190,7 +190,8 @@ class QualityObservatory:
     readers (/debug/quality, heartbeat, bench) come from other threads
     and take the lock only around ring/summary state.  A cycle without a
     top-k (quality=None) contributes only to the cycle count.  `device`
-    is where the regret counterfactual runs (the scheduler's)."""
+    is where the regret counterfactual runs (the scheduler's; the card
+    unless the caller passes "cpu")."""
 
     def __init__(
         self,
@@ -202,7 +203,7 @@ class QualityObservatory:
         drift_threshold: float = 0.25,
         drift_min_samples: int = 32,
         clock: Callable[[], float] = time.monotonic,
-        device="cpu",
+        device="cuda",
     ):
         self.top_k = max(0, int(top_k))
         self.device = torch.device(device)

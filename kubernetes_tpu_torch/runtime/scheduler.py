@@ -39,6 +39,18 @@ placement-quality observatory (runtime/quality.py) folds them into margins
 and feasible counts and, every quality_interval_cycles cycles, launches the
 FFD regret counterfactual (kernel K4) without waiting on it.
 
+With megacycle_batches = K > 1, a window whose pods couple to later
+windows only through resources and at most one spread group
+(_megacycle_ready / _megacycle_safe, as in the reference) pops up to K - 1
+more such windows, and the K windows run as one megacycle
+(models/megacycle.py): one dispatch chains them through the cluster state
+on the device (the spread counts by kernel K6), one fence and one fetch
+bring back all K winner vectors, and the K state commits land in window
+order before the next dispatch encodes.  The megacycle is one retryable
+unit: a classified fault relaunches all K windows with the same rotation
+bases; an error that escapes requeues every window not yet committed and
+still runs the committed windows' tails.
+
 With telemetry on (the JAX class's default), each committed cycle feeds the
 telemetry hub (runtime/telemetry.py): SLO events, queue pressure, the
 launch EWMA, and once every telemetry_interval_cycles the cluster analytics
@@ -76,6 +88,7 @@ from kubernetes_tpu_torch.codec.transfer import (
     transfer_delta,
     transfer_totals,
 )
+from kubernetes_tpu_torch.kernels import wrap_i32
 from kubernetes_tpu_torch.models.batched import (
     batch_has_pod_affinity,
     encode_batch_affinity,
@@ -83,6 +96,10 @@ from kubernetes_tpu_torch.models.batched import (
     encode_nominated,
     encode_nominated_block,
     make_sequential_scheduler,
+)
+from kubernetes_tpu_torch.models.megacycle import (
+    make_megacycle_scheduler,
+    stack_windows,
 )
 from kubernetes_tpu_torch.models.preemption import (
     make_preempt_eval,
@@ -224,8 +241,6 @@ def refused_settings(config: SchedulerConfig) -> List[Tuple[str, str]]:
          "A9 (observatories and ledger)"),
         (c.capacity_planner, "capacity_planner=True",
          "A10 (capacity and replicas)"),
-        (c.megacycle_batches > 1, f"megacycle_batches={c.megacycle_batches}",
-         "A7 (megacycle)"),
         (c.replicas > 1, f"replicas={c.replicas}",
          "A10 (capacity and replicas)"),
         (bool(c.shard_devices), f"shard_devices={c.shard_devices}",
@@ -284,8 +299,14 @@ class _InFlight:
     # counterfactual's pod side
     quality_reqs: object = None
     # THIS cycle's pre-dispatch host snapshot refs (allocatable,
-    # requested, valid; immutable under the encoder's copy-on-write)
+    # requested, valid; immutable under the encoder's copy-on-write): set
+    # for every single cycle, but only for window 0 of a megacycle (later
+    # windows placed against chained state the snapshot predates)
     quality_snapshot: Optional[tuple] = None
+    # (k, K) when this cycle is window k of a K-window megacycle: its
+    # winners came from one shared dispatch and fetch, whose seconds are
+    # attributed 1/K to each window
+    mega: Optional[Tuple[int, int]] = None
 
 
 @dataclass
@@ -307,6 +328,41 @@ class _Staged:
     stall_s: float = 0.0
     # THIS cycle's wire traffic, taken at the commit fence
     xfer_delta: Optional[dict] = None
+
+
+@dataclass
+class _MegaFlight:
+    """One dispatched megacycle: K window _InFlight records sharing one
+    dispatch (stacked i32[K, B] winners, one AsyncFetch that also carries
+    the stacked quality leaves, one relaunch closure).  The fault handling
+    treats it as one retryable unit: a classified fault at the fence
+    relaunches the whole megacycle with the same windows and rotation
+    bases."""
+
+    windows: List[_InFlight]
+    fetch: object                # AsyncFetch of the stacked winners
+    relaunch: Optional[Callable] = None
+
+
+class _HostResult:
+    """AsyncFetch-shaped handle for one megacycle window's slice of the
+    fetched winners (and quality leaves), already on the host; `seconds`
+    and its split carry 1/K of the shared fetch's."""
+
+    def __init__(self, hosts: np.ndarray, extras: tuple = (),
+                 seconds: float = 0.0, execute_seconds: float = 0.0,
+                 materialize_seconds: float = 0.0) -> None:
+        self._hosts = hosts
+        self._extras = extras
+        self.seconds = seconds
+        self.execute_seconds = execute_seconds
+        self.materialize_seconds = materialize_seconds
+
+    def result(self) -> np.ndarray:
+        return self._hosts
+
+    def extras_result(self) -> tuple:
+        return self._extras
 
 
 class Scheduler:
@@ -450,6 +506,14 @@ class Scheduler:
         self._engine_kind = (
             "sequential" if self._speculative_fn is None else "speculative"
         )
+        # the device-resident megacycle: the K-window driver over the same
+        # engine the single cycles run, so its placements are chained
+        # single-cycle placements by construction
+        self._mega_fn = (
+            make_megacycle_scheduler(**engine_kw, engine=self._engine_kind)
+            if self.config.megacycle_batches > 1 else None
+        )
+        self.megacycles_total = 0
         # incremental host->device snapshot upload: unchanged fields keep
         # their resident tensors between cycles, dirty rows scatter in
         self._dev_snapshot = DeviceSnapshotCache(self.device)
@@ -1262,6 +1326,319 @@ class Scheduler:
         )
         return list(results), [pods[i] for i in staged.fit_idx]
 
+    # ------------------------------------------------------------ megacycle
+    #
+    # Chain K pre-encoded windows through the cluster state in one dispatch
+    # (models/megacycle.py) and commit the K winner vectors behind the next
+    # dispatch.  The gates admit exactly the windows whose cross-window
+    # coupling the device carry (resources + lean SelectorSpread counts)
+    # reproduces bit for bit; everything else rides single cycles.
+
+    def _megacycle_ready(self) -> bool:
+        """Scheduler-level gate: can this control-plane state form a
+        megacycle at all?  Attribute reads only, checked once a run_once
+        before any extra pop."""
+        cfg = self.config
+        if self._mega_fn is None or not cfg.batched_commit:
+            return False
+        if self.queue.nominated_pods():
+            return False  # two-pass nominated state is host-recomputed
+        if self.cache.encoder.term_groups:
+            return False  # live affinity terms: commits move topo state
+        if cfg.filter_config.service_affinity_labels:
+            return False  # CheckServiceAffinity reads existing-pod state
+        return True
+
+    def _megacycle_safe(self, pods: Sequence[Pod]) -> bool:
+        """Pod-level gate for one window: every pod's only cross-window
+        effect must be resources and at most one spread group (the
+        encoder's lean shape, whose counts the device carry chains
+        exactly).  Mirrors encode_pods' own group-membership rule."""
+        spread = self.cache.encoder._spread
+        memo: Dict[tuple, int] = {}
+        for p in pods:
+            if self.POD_GROUP_LABEL in p.labels:
+                return False
+            a = p.spec.affinity
+            if a is not None and (
+                a.pod_affinity is not None
+                or a.pod_anti_affinity is not None
+            ):
+                return False
+            if p.spec.volumes or p.host_ports():
+                return False
+            if spread:
+                sig = (p.namespace, tuple(sorted(p.labels.items())))
+                n = memo.get(sig)
+                if n is None:
+                    n = sum(
+                        1 for ns, sel in spread
+                        if ns == p.namespace and sel.matches(p.labels)
+                    )
+                    memo[sig] = n
+                if n > 1:
+                    return False
+        return True
+
+    def _pop_megacycle_windows(self, first: Sequence[Pod], width: int):
+        """Pop up to K - 1 more windows behind the already-popped `first`
+        (queue depth permitting, never blocking), keeping only
+        megacycle-safe ones; the kept count is floored to a power of two.
+        Returns (windows, their scheduling cycles).  Leftover windows (the
+        power-of-two remainder, or the first unsafe window) are readded to
+        the queue (shed-exempt, like every requeue of a popped pod) and
+        pop again on the next iteration."""
+        windows: List[List[Pod]] = [list(first)]
+        cycles = [self.queue.scheduling_cycle]
+        leftovers: List[List[Pod]] = []
+        t_pop = time.monotonic()
+        while len(windows) < self.config.megacycle_batches:
+            w = self.queue.pop_batch(width, 0.0, 0.0)
+            if not w:
+                break
+            if self.invariants is not None:
+                self.invariants.note_popped(w, self.queue.scheduling_cycle)
+            if self._megacycle_safe(w):
+                windows.append(w)
+                cycles.append(self.queue.scheduling_cycle)
+            else:
+                leftovers.append(w)
+                break
+        self._phase("pop", time.monotonic() - t_pop)
+        k_eff = 1 << (len(windows).bit_length() - 1)  # power-of-two floor
+        leftovers = windows[k_eff:] + leftovers
+        for w in leftovers:
+            for p in w:
+                self.queue.readd(p)
+        return windows[:k_eff], cycles[:k_eff]
+
+    def _dispatch_megacycle(self, windows: List[List[Pod]],
+                            cycles: List[int]) -> _MegaFlight:
+        """Encode the K windows against ONE snapshot, stack them, and
+        dispatch the megacycle.  Returns with the device computing all K
+        windows; the stacked winners' copy is in flight."""
+        K = len(windows)
+        t_cycle0 = time.monotonic()
+        xfer0 = transfer_totals()
+        enc = self.cache.encoder
+        spans = [
+            Span(
+                "schedule_cycle", start=t_cycle0, pods=len(w),
+                cycle=cycles[k], tier=TIER_BULK, mega=f"{k + 1}/{K}",
+            )
+            for k, w in enumerate(windows)
+        ]
+        self._cur_span = spans[0]
+        enc_span = spans[0].child("encode", windows=K)
+        with self.cache._lock:
+            batches = [enc.encode_pods(w) for w in windows]
+            shapes = {
+                tuple(np.shape(getattr(b, f.name))
+                      for f in dataclasses.fields(b))
+                for b in batches
+            }
+            if len(shapes) > 1:
+                # a later window grew a sticky pad dim: one more pass
+                # encodes every window at the (now stable) max shapes
+                batches = [enc.encode_pods(w) for w in windows]
+            ports = [encode_batch_ports(enc, w) for w in windows]
+            cluster, generation = self.cache.snapshot()
+            dirty_rows = enc.take_dirty_rows()
+        enc_span.finish()
+        # each window's rotation base: the base plus the cumulative RAW pod
+        # counts, the values K separate cycles would have seen (int32)
+        li0: List[int] = []
+        acc = self._last_index
+        for w in windows:
+            li0.append(wrap_i32(acc))
+            acc += len(w)
+        self._last_index = acc
+        batch_k = stack_windows(batches)
+        ports_k = stack_windows(ports)
+        t_disp = time.monotonic()
+        self._phase("encode", t_disp - t_cycle0)
+        mega_fn = self._mega_fn
+
+        def launch():
+            """(Re-)dispatch the K encoded windows with the same bases:
+            the transient-retry path's relaunch."""
+            device_faults.check(device_faults.SITE_DISPATCH)
+            dev_cluster = self._dev_snapshot.update(
+                cluster, dirty_rows=dirty_rows
+            )
+            out = mega_fn(dev_cluster, batch_k, ports_k, li0)
+            hosts = out[0]
+            # the stacked top-k leaves ride the winners' copy
+            extras = out[2] if self._quality_k else ()
+            return hosts, AsyncFetch(hosts, extras=extras)
+
+        disp_span = spans[0].child("dispatch", windows=K)
+        _, fetch = self._launch_resilient(launch)
+        disp_span.finish()
+        t_disp_end = time.monotonic()
+        self._phase("dispatch", t_disp_end - t_disp)
+        infs: List[_InFlight] = []
+        for k, w in enumerate(windows):
+            spans[k].annotate(
+                batch=len(w),
+                dirty_rows=(
+                    len(dirty_rows) if k == 0 and dirty_rows is not None
+                    else -1
+                ),
+                breaker=self.device_health.state,
+                engine=self._engine_kind,
+            )
+            infs.append(_InFlight(
+                pods=list(w), hosts_dev=None, fetch=None,
+                generation=generation, cycle=cycles[k], t_cycle0=t_cycle0,
+                trace=spans[k], relaunch=None, last_index0=li0[k],
+                tier=TIER_BULK, width=batches[k].n_pods,
+                enqueue_s=(t_disp_end - t_cycle0) / K,
+                xfer0=xfer0 if k == 0 else None,
+                quality_reqs=(
+                    batches[k].req if self.quality is not None else None
+                ),
+                # only window 0 placed against exactly this snapshot: the
+                # later windows skip the FFD counterfactual
+                quality_snapshot=(
+                    (cluster.allocatable, cluster.requested, cluster.valid)
+                    if self.quality is not None and k == 0 else None
+                ),
+                mega=(k, K),
+            ))
+        self.megacycles_total += 1
+        m.MEGACYCLES.inc()
+        m.MEGACYCLE_DEPTH.set(float(K))
+        return _MegaFlight(windows=infs, fetch=fetch, relaunch=launch)
+
+    def _commit_state_mega(self, mf: _MegaFlight,
+                           staged: List[_Staged]) -> List[_Staged]:
+        """The megacycle's resilient fence, then the windows' state
+        commits in window order.  One retryable unit: a classified fault
+        relaunches the WHOLE megacycle (same encoded windows, same bases);
+        once the retries are spent the error propagates (the port has no
+        CPU degradation engine).
+
+        `staged` is the CALLER's list, appended window by window as each
+        state commit lands: if an error escapes mid-loop the caller
+        (_commit_state_mega_or_requeue) sees exactly which windows
+        committed.  Every window keeps the snapshot's generation: the
+        reference chains window k - 1's post-commit generation into window
+        k only where its replica reconciler stamps one (ROADMAP A10)."""
+        K = len(mf.windows)
+        attempt = 0
+        relaunch_pending = False
+        t_fence0 = time.monotonic()
+        while True:
+            try:
+                if relaunch_pending:
+                    # a classified fault raised by the re-dispatch itself
+                    # feeds the same retry policy
+                    _, mf.fetch = mf.relaunch()
+                    relaunch_pending = False
+                hosts_all = np.asarray(mf.fetch.result())
+                for k, inf in enumerate(mf.windows):
+                    self._validate_hosts(hosts_all[k], len(inf.pods))
+                qual_all = (mf.fetch.extras_result() if self._quality_k
+                            else None)
+                break
+            except BaseException as e:
+                fc = classify_device_error(e)
+                if fc is None:
+                    raise
+                self._note_device_fault(
+                    fc, e,
+                    "megacycle-dispatch" if relaunch_pending
+                    else "megacycle-fence",
+                )
+                mf.windows[0].trace.annotate(
+                    fault_class=fc, fault_attempts=attempt + 1
+                )
+                if self._fault_retry_allowed(
+                    fc, attempt, can_relaunch=mf.relaunch is not None
+                ):
+                    attempt += 1
+                    relaunch_pending = True
+                    continue
+                raise
+        stall = time.monotonic() - t_fence0
+        self.device_health.record_success()
+        self._phase("host_stall", stall)
+        f = mf.fetch
+        for k, inf in enumerate(mf.windows):
+            inf.fetch = _HostResult(
+                hosts_all[k],
+                extras=(
+                    tuple(np.asarray(x)[k] for x in qual_all)
+                    if qual_all is not None else ()
+                ),
+                seconds=f.seconds / K,
+                execute_seconds=f.execute_seconds / K,
+                materialize_seconds=f.materialize_seconds / K,
+            )
+            st = self._commit_state(inf)
+            if k == 0:
+                st.stall_s += stall
+            staged.append(st)
+        return staged
+
+    def _commit_state_mega_or_requeue(
+        self, mf: _MegaFlight
+    ) -> List[_Staged]:
+        """The megacycle's batch-loss guard: on an error that escaped the
+        classified retry, the pods of every window whose state was NOT yet
+        committed are requeued, the tails of the committed windows still
+        run (their winners sit assumed and must bind), every uncommitted
+        window's span is recorded with the error, and the error
+        propagates."""
+        staged: List[_Staged] = []
+        try:
+            return self._commit_state_mega(mf, staged)
+        except BaseException as e:
+            done = {id(st.inf) for st in staged}
+            err = f"{type(e).__name__}: {e}"
+            for inf in mf.windows:
+                if id(inf) not in done:
+                    self.queue.add_unschedulable_batch(inf.pods, inf.cycle)
+                    inf.trace.annotate(error=err)
+                    inf.trace.finish()
+                    self.flight_recorder.record(inf.trace)
+            if classify_device_error(e) is None:
+                self._postmortem("unclassified_error", err)
+            for st in staged:
+                self._commit_tail(st)
+            raise
+
+    def _commit_state_prev(self, prev) -> List[_Staged]:
+        """The in-flight slot's state commit: a megacycle yields K staged
+        windows, a single cycle one."""
+        if isinstance(prev, _MegaFlight):
+            return self._commit_state_mega_or_requeue(prev)
+        return [self._commit_state_or_requeue(prev)]
+
+    def schedule_megacycle(
+        self, windows: List[List[Pod]], cycles: Optional[List[int]] = None,
+    ) -> List[ScheduleResult]:
+        """Place K windows through one megacycle, synchronously (the
+        schedule_cycle counterpart; the pipelined loop uses the in-flight
+        slot instead).  The caller guarantees _megacycle_ready() and
+        _megacycle_safe() of every window."""
+        self.flush_pipeline()
+        if cycles is None:
+            cycles = [self.queue.scheduling_cycle] * len(windows)
+        try:
+            mf = self._dispatch_megacycle(windows, cycles)
+        except BaseException:
+            for w in windows:
+                self.queue.add_unschedulable_batch(
+                    list(w), self.queue.scheduling_cycle
+                )
+            raise
+        results: List[ScheduleResult] = []
+        for st in self._commit_state_mega_or_requeue(mf):
+            results.extend(self._commit_tail(st))
+        return results
+
     # ------------------------------------------------------- assume/bind
 
     def _record_scheduled(self, pod: Pod, node_name: str, e2e: float,
@@ -1510,33 +1887,48 @@ class Scheduler:
         inf, self._in_flight = self._in_flight, None
         if inf is None:
             return 0
-        results = self._commit_tail(self._commit_state_or_requeue(inf))
-        return sum(1 for r in results if r.node is not None)
+        n = 0
+        for st in self._commit_state_prev(inf):
+            results = self._commit_tail(st)
+            n += sum(1 for r in results if r.node is not None)
+        return n
 
-    def _run_pipelined(self, pods: Sequence[Pod]) -> int:
+    def _run_pipelined(self, pods: Sequence[Pod],
+                       mega: Optional[Tuple[List[List[Pod]], List[int]]]
+                       = None) -> int:
         """Double-buffered cycle: apply the in-flight batch's STATE half
         (fetch + batched assume — the part the next snapshot must see),
         dispatch the new batch, then run the previous batch's side-effect
-        tail."""
+        tail.  With `mega` = (windows, cycles) the new dispatch is a
+        megacycle, and the in-flight slot may hold one: all its K state
+        commits land before the new dispatch encodes, and all K tails run
+        after it."""
         prev, self._in_flight = self._in_flight, None
         n = 0
-        staged = None
+        staged: List[_Staged] = []
         dispatched = False
         try:
             if prev is not None:
-                staged = self._commit_state_or_requeue(prev)
-            self._in_flight = self._encode_and_dispatch(pods)
+                staged = self._commit_state_prev(prev)
+            if mega is not None:
+                self._in_flight = self._dispatch_megacycle(*mega)
+            else:
+                self._in_flight = self._encode_and_dispatch(pods)
             dispatched = True
         finally:
             if not dispatched:
                 # batch k+1 was popped but never reached the device:
                 # requeue it — popped pods must never be lost
+                lost = (
+                    [p for w in mega[0] for p in w]
+                    if mega is not None else list(pods)
+                )
                 self.queue.add_unschedulable_batch(
-                    list(pods), self.queue.scheduling_cycle
+                    lost, self.queue.scheduling_cycle
                 )
             # batch k's tail MUST run even if batch k+1's dispatch raises
-            if staged is not None:
-                results = self._commit_tail(staged)
+            for st in staged:
+                results = self._commit_tail(st)
                 n += sum(1 for r in results if r.node is not None)
         return n
 
@@ -1574,6 +1966,19 @@ class Scheduler:
             )
             raise NotImplementedError(
                 "pod-group (gang) pods are not ported yet (ROADMAP A8)")
+        # megacycle formation: when the control plane and this window are
+        # chain-safe, pop up to K - 1 more windows and dispatch them as one
+        # megacycle; an ineligible window rides the single-cycle path,
+        # placements identical either way
+        windows = None
+        if self._megacycle_ready() and self._megacycle_safe(pods):
+            windows, win_cycles = self._pop_megacycle_windows(
+                pods, self.config.batch_size)
+        if windows is not None and len(windows) > 1:
+            if self.config.pipeline_commit:
+                return self._run_pipelined(pods, mega=(windows, win_cycles))
+            return sum(1 for r in self.schedule_megacycle(windows, win_cycles)
+                       if r.node is not None)
         if self.config.pipeline_commit and self.config.batched_commit:
             return self._run_pipelined(pods)
         return sum(1 for r in self.schedule_cycle(pods) if r.node is not None)

@@ -287,7 +287,8 @@ class TelemetryHub:
 
     Analytics cadence is AMORTIZED: on each due cycle the hub first
     materializes the launch dispatched one interval ago and only then
-    dispatches the next.  `device` is the scheduler's (where the memory
+    dispatches the next.  `device` (the card unless the caller passes
+    "cpu") is the scheduler's (where the memory
     statistics are read)."""
 
     def __init__(
@@ -298,7 +299,7 @@ class TelemetryHub:
         postmortem: Optional[Callable[[str, str], None]] = None,
         clock: Callable[[], float] = time.monotonic,
         ewma_alpha: float = 0.2,
-        device="cpu",
+        device="cuda",
     ):
         self.interval_cycles = max(1, int(interval_cycles))
         self.slo = SLOEvaluator(objectives, clock=clock)

@@ -592,7 +592,7 @@ CYCLE_PHASE_SECONDS = REGISTRY.register(
 )
 
 # device-resident megacycle: K pre-encoded batches chained
-# through the cluster state in one XLA launch (models/megacycle.py)
+# through the cluster state in one dispatch (models/megacycle.py)
 MEGACYCLES = REGISTRY.register(
     Counter(
         "scheduler_megacycles_total",

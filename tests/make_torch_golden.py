@@ -63,6 +63,16 @@ analytics, the drift detectors' state after every cycle, and the quality
 record (top-k leaves, regret samples).
 
     python tests/make_torch_golden.py --workload live-default   # ~20 s
+
+With --megacycle K, the JAX Scheduler runs the megacycle cell
+(`jax_megacycle`, the loop of bench.py run_megacycle and of the port's
+loop.run_megacycle) at the same default config with megacycle_batches=K:
+a warmup of batch * max(2, K) + batch // 2 pods, then the pods.  The file,
+tests/data/torch_port_golden_live_megacycle.npz, holds the bindings and
+their order, every window's top-k leaves, the regret samples and every
+telemetry sample.
+
+    python tests/make_torch_golden.py --megacycle 4   # ~1 min
 """
 
 from __future__ import annotations
@@ -109,16 +119,21 @@ GOLDENS = {"plain": 0, "pod-anti-affinity": 1000, "pod-affinity": 0}
 
 
 def _jax_fleet(n_nodes: int, workload: str, node_pods: int = 110,
-               existing: int = 0):
+               existing: int = 0, extended: int = 0):
     """(bench args, JAX SnapshotEncoder) of bench.py's fleet with
-    `node_pods` slots per node and `existing` running pods, the objects
-    the port's loop.build_encoder builds."""
+    `node_pods` slots per node, `existing` running pods and `extended`
+    extended resources a node (loop.bench_nodes'), the objects the port's
+    loop.build_encoder builds."""
     import bench
     from kubernetes_tpu.api.factory import make_node, make_pod
+    from kubernetes_tpu_torch.loop import bench_nodes
 
     args = SimpleNamespace(nodes=n_nodes, workload=workload)
     nodes = bench._bench_nodes(args)
-    if node_pods != bench._NODE_PODS_CAP:
+    if extended:
+        nodes = bench_nodes(n_nodes, node_pods, make_node=make_node,
+                            extended=extended)
+    elif node_pods != bench._NODE_PODS_CAP:
         nodes = [
             make_node(n.name, cpu="32", mem="256Gi", pods=node_pods,
                       labels=dict(n.labels),
@@ -142,7 +157,7 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
              node_pods: int = 110, budget_s: float = 3600.0,
              quality_top_k: int = 0, quality_interval_cycles: int = 32,
              telemetry: bool = False, telemetry_interval_cycles: int = 1,
-             timeline: bool = False):
+             timeline: bool = False, extended: int = 0):
     """The JAX Scheduler's live cycle under the loop of bench.py run_live
     (and of the port's loop.run_live): a warmup batch of `batch` pods
     (index n_pods + j) drained first, `nominated` preemptors
@@ -153,7 +168,8 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
     requested column matrix, the scheduler).  With quality_top_k > 0 the
     observatory is on and the scheduler carries `quality_record`
     (loop.record_quality's, warmup included); with telemetry on it carries
-    `telemetry_record` (loop.record_telemetry's)."""
+    `telemetry_record` (loop.record_telemetry's).  `extended`: extended
+    resources on every node (loop.bench_nodes')."""
     import bench
     from kubernetes_tpu.api.factory import make_pod
     from kubernetes_tpu.runtime.cache import SchedulerCache
@@ -167,7 +183,7 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
         record_telemetry,
     )
 
-    args, enc = _jax_fleet(n_nodes, workload, node_pods, existing)
+    args, enc = _jax_fleet(n_nodes, workload, node_pods, existing, extended)
     cache = SchedulerCache(enc)
     queue = PriorityQueue()
     hosts = np.full(n_pods + batch, -1, np.int32)
@@ -229,6 +245,70 @@ def jax_live_default(n_nodes: int, n_pods: int, batch: int):
     the timeline, quality_top_k=3 at interval 32, the plain workload."""
     return jax_live(n_nodes, n_pods, batch, "plain", quality_top_k=3,
                     telemetry=True, timeline=True)
+
+
+def jax_megacycle(n_nodes: int, n_pods: int, batch: int, k: int,
+                  engine: str = "speculative", pipeline: bool = True,
+                  warm_k: int = 0, budget_s: float = 3600.0):
+    """The JAX Scheduler under the loop of bench.py run_megacycle (and of
+    the port's loop.run_megacycle) for one depth K: the reference's
+    default SchedulerConfig with cpu_fallback off and run_live's batch,
+    window, commit and preemption settings, megacycle_batches=k; a warmup
+    of batch * max(2, warm_k or k) + batch // 2 pods (index n_pods + j),
+    then `n_pods` pods.  Returns (hosts i32[n_pods + warmup] bound row per
+    pod index, bind_order, the scheduler carrying `quality_record` and
+    `telemetry_record`)."""
+    import bench
+    from kubernetes_tpu.runtime.cache import SchedulerCache
+    from kubernetes_tpu.runtime.queue import PriorityQueue
+    from kubernetes_tpu.runtime.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch.loop import (
+        finish_quality,
+        finish_telemetry,
+        record_quality,
+        record_telemetry,
+    )
+
+    args, enc = _jax_fleet(n_nodes, "plain")
+    queue = PriorityQueue()
+    warm_n = batch * max(2, warm_k or k) + max(1, batch // 2)
+    hosts = np.full(n_pods + warm_n, -1, np.int32)
+    order = []
+
+    def binder(pod, node_name):
+        i = int(pod.name.rsplit("-", 1)[1])
+        hosts[i] = enc.node_rows[node_name]
+        order.append(i)
+        return True
+
+    sched = Scheduler(cache=SchedulerCache(enc), queue=queue, binder=binder,
+                      config=SchedulerConfig(
+                          batch_size=batch, batch_window_s=0.0,
+                          engine=engine, disable_preemption=True,
+                          batched_commit=True, pipeline_commit=pipeline,
+                          megacycle_batches=k, cpu_fallback=False))
+    sched.quality_record = record_quality(sched.quality)
+    sched.telemetry_record = record_telemetry(sched.telemetry, sched.quality)
+
+    def drain(budget):
+        deadline = time.monotonic() + budget
+        while time.monotonic() < deadline:
+            got = sched.run_once(timeout=0.0)
+            if got == 0 and not sched.pipeline_pending:
+                if not queue.has_schedulable():
+                    break
+                time.sleep(0.002)
+        sched.flush_pipeline()
+
+    for j in range(warm_n):
+        queue.add(bench._pending_pod(args, n_pods + j))
+    drain(budget_s)
+    for i in range(n_pods):
+        queue.add(bench._pending_pod(args, i))
+    drain(budget_s)
+    finish_quality(sched.quality, sched.quality_record)
+    finish_telemetry(sched.telemetry, sched.telemetry_record)
+    return hosts, np.asarray(order, np.int32), sched
 
 
 def jax_preemption(n_nodes: int, n_preemptors: int, batch: int,
@@ -399,6 +479,9 @@ def main():
                          "writes the _live_quality golden)")
     ap.add_argument("--quality-interval", type=int, default=1,
                     help="with --live --quality: quality_interval_cycles")
+    ap.add_argument("--megacycle", type=int, default=0,
+                    help="the megacycle cell at this depth K (the "
+                         "_live_megacycle golden)")
     ap.add_argument("--preemption", type=int, default=0,
                     help="with --live: the preemption cell with this many "
                          "preemptors (loop.run_preemption's loop)")
@@ -407,6 +490,27 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.megacycle:
+        out = args.out or golden_path("live_megacycle")
+        t0 = time.monotonic()
+        hosts, order, sched = jax_megacycle(
+            args.nodes, args.pods, args.batch, args.megacycle)
+        dt = time.monotonic() - t0
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(
+            out, hosts=hosts, bind_order=order,
+            nodes=np.int32(args.nodes), pods=np.int32(args.pods),
+            batch=np.int32(args.batch), k=np.int32(args.megacycle),
+            megacycles=np.int32(sched.megacycles_total),
+            **telemetry_arrays(sched.telemetry_record),
+            **quality_arrays(sched.quality_record),
+        )
+        print(f"wrote {out}: {int((hosts >= 0).sum())}/{len(hosts)} bound, "
+              f"{sched.megacycles_total} megacycles, "
+              f"{len(sched.telemetry_record['samples'])} telemetry samples, "
+              f"{len(sched.quality_record['regret'])} regret samples, "
+              f"{dt:.1f} s on the CPU")
+        return
     if args.workload == "live-default":
         out = args.out or golden_path("live_default")
         t0 = time.monotonic()

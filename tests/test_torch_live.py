@@ -202,7 +202,6 @@ def test_pipelined_fence_fault_requeues_both_batches():
     ("attribution", True, "A9"),
     ("decision_ledger", True, "A9"),
     ("capacity_planner", True, "A10"),
-    ("megacycle_batches", 4, "A7"),
     ("replicas", 2, "A10"),
     ("shard_devices", 2, "A11"),
     ("mesh_shape", "2x4", "A11"),
@@ -219,22 +218,29 @@ def test_refuses_later_slice_settings(field, value, item):
 @pytest.mark.parametrize("field,value,item", [
     ("telemetry", True, "A9"),
     ("timeline", True, "A9"),
+    ("megacycle_batches", 4, "A7"),
 ])
 def test_lifted_settings_construct_and_schedule(field, value, item):
     """Settings a later slice lifted (ROADMAP `item`): the Scheduler
-    constructs with them on the CPU and places a cycle."""
+    constructs with them on the CPU and places a cycle (with
+    megacycle_batches, two 8-pod windows in one megacycle)."""
     from kubernetes_tpu_torch.runtime import telemetry, timeline
 
     sched = _small_scheduler(**{field: value})
+    n = 16 if field == "megacycle_batches" else 8
     try:
-        for i in range(8):
+        for i in range(n):
             sched.queue.add(loop.pending_pod(i))
         sched.run_once(timeout=0.0)
-        assert sched.flush_pipeline() == 8
+        assert sched.flush_pipeline() == n
         if field == "telemetry":
             assert sched.telemetry.summary()["samples"] == 1
-        else:
+        elif field == "timeline":
             assert sched.timeline.samples_total >= 1
+        else:
+            assert sched.megacycles_total == 1
+            assert [r.pod.name for r in sched.results] == [
+                loop.pending_pod(i).name for i in range(n)]
     finally:
         telemetry._DEFAULT.reset()
         timeline._DEFAULT.reset()

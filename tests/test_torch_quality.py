@@ -454,6 +454,29 @@ def test_live_quality_matches_jax_scheduler(case):
     assert res["quality_seconds"] > 0
 
 
+def test_live_quality_with_thirteen_extended_resources():
+    """13 extended resource names on every node grow the resource axis to
+    32 columns (past K4's register rows): the bindings, every cycle's
+    top-k leaves and the regret samples (one a cycle) equal the JAX
+    Scheduler's, and none is dropped."""
+    from make_torch_golden import jax_live
+
+    hosts, order, _, _, sched = jax_live(
+        64, 300, 64, quality_top_k=3, quality_interval_cycles=1,
+        extended=13)
+    res = loop.run_live(loop.bench_nodes(64, extended=13), 300, 64,
+                        device="cpu", quality_top_k=3,
+                        quality_interval_cycles=1)
+    assert res["scheduler"].cache.encoder.dims.R == 32
+    assert sched.cache.encoder.dims.R == 32
+    np.testing.assert_array_equal(res["hosts"], hosts)
+    np.testing.assert_array_equal(res["bind_order"], order)
+    want = loop.quality_arrays(sched.quality_record)
+    _same_arrays(want, loop.quality_arrays(res["quality_record"]))
+    assert want["regret_cycle"].size > 1
+    assert res["quality"]["regret_dropped"] == 0
+
+
 def test_live_quality_on_off_same_bindings():
     """The observatory is read-only: the same bindings, in the same order,
     with quality on (every cycle sampled) and off, redone batches

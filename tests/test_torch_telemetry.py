@@ -37,7 +37,7 @@ from kubernetes_tpu.runtime import telemetry as jax_telemetry
 from kubernetes_tpu_torch import kernels, loop
 from kubernetes_tpu_torch.kernels import k5_cases
 from kubernetes_tpu_torch.ops import analytics
-from kubernetes_tpu_torch.runtime import telemetry
+from kubernetes_tpu_torch.runtime import quality, telemetry
 from kubernetes_tpu_torch.runtime import timeline as port_timeline
 from kubernetes_tpu_torch.runtime.cache import SchedulerCache
 from kubernetes_tpu_torch.runtime.queue import PriorityQueue
@@ -116,6 +116,27 @@ def test_twin_bit_equal_to_jitted_jax_and_numpy(name, case):
     # the port's own numpy copy is the reference's
     _assert_bit_equal(analytics.cluster_analytics_np(a, r, v), ref,
                       f"{name} numpy copy")
+
+
+@pytest.mark.parametrize("n", k5_cases.WIDE_N)
+def test_twin_past_the_one_launch_width(n):
+    """The cases K5 takes through its multi-block sequence (past 16,384
+    rows): the twin bit for bit against the jitted JAX reference, -0.0
+    beside 0.0 and recycled rows included."""
+    a, r, v = dict(k5_cases.cases())[f"wide-{n}"]
+    assert a.shape[0] == n > k5_cases.MAX_N
+    zeros = r[v, :4] == 0.0
+    assert np.signbit(r[v, :4][zeros]).any()
+    assert (~np.signbit(r[v, :4][zeros])).any()
+    _assert_bit_equal(_twin_np(_twin(a, r, v)),
+                      jax_analytics.cluster_analytics(a, r, v), f"wide-{n}")
+
+
+def test_hub_and_observatory_default_to_the_card():
+    """Built on their own, the hub and the quality observatory run on the
+    card, as every other entry point of the port does."""
+    assert telemetry.TelemetryHub().device == torch.device("cuda")
+    assert quality.QualityObservatory().device == torch.device("cuda")
 
 
 def test_twin_on_the_jax_suites_random_snapshots():
@@ -267,7 +288,7 @@ def test_hub_interval_ring_and_ewma_match_the_reference():
     hubs = (
         telemetry.TelemetryHub(interval_cycles=3, ring_capacity=4,
                                postmortem=lambda t, d: pm[0].append(t),
-                               clock=clocks[0]),
+                               clock=clocks[0], device="cpu"),
         jax_telemetry.TelemetryHub(interval_cycles=3, ring_capacity=4,
                                    postmortem=lambda t, d: pm[1].append(t),
                                    clock=clocks[1]),
@@ -323,7 +344,7 @@ def test_device_memory_and_compile_stats_on_the_cpu():
 
 
 def test_a_faulted_sample_is_counted_not_raised(monkeypatch):
-    hub = telemetry.TelemetryHub(interval_cycles=1)
+    hub = telemetry.TelemetryHub(interval_cycles=1, device="cpu")
     a, r, v = (torch.from_numpy(np.ascontiguousarray(x))
                for x in dict(CPU_CASES)["known"])
 
