@@ -87,31 +87,58 @@ def transfer_delta(prev: "dict[str, dict]") -> "dict[str, dict]":
 # ------------------------------------------------------------ host -> device
 
 
-def _h2d(a, device: torch.device, seam: "str | None" = None) -> torch.Tensor:
-    """One host array (numpy, or a tensor anywhere) -> a tensor on device;
-    CUDA destinations go through pinned memory, asynchronously.  A copy
-    from host memory is accounted under `seam` when one is given."""
-    if isinstance(a, torch.Tensor):
-        if a.device == device:
-            return a
-        t = a
-    else:
-        a = np.asarray(a)
-        if not a.flags.writeable or not a.flags.c_contiguous:
-            a = np.array(a, copy=True, order="C")
-        t = torch.from_numpy(a)
-    if seam is not None and t.device.type == "cpu":
-        note_transfer("h2d", seam, t.numel() * t.element_size())
-    if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+def _h2d_packed(values, device: torch.device,
+                seam: "str | None" = None) -> list:
+    """Arrays (numpy, anything np.asarray takes, or tensors) -> tensors on
+    `device`, in order.  A tensor already on `device` passes through; the
+    host values cross in ONE copy from one staging buffer (pinned for a
+    CUDA device, so the copy does not block the host), each a 16-byte
+    aligned view of the copy with its dtype and shape, sharing no memory
+    with the host arrays.  A batch's ~60 small fields thus pay one staging
+    and one copy, not one each.  The host bytes are accounted under `seam`
+    as one call."""
+    out = list(values)
+    layout, off, nbytes = [], 0, 0
+    for i, v in enumerate(values):
+        if isinstance(v, torch.Tensor):
+            if v.device == device:
+                continue
+            if v.device.type != "cpu":
+                out[i] = v.to(device)
+                continue
+            a = v.numpy()
+        else:
+            a = np.asarray(v)
+        if not a.flags.c_contiguous:
+            a = np.ascontiguousarray(a)
+        off = (off + 15) & ~15
+        layout.append((i, off, a))
+        off += a.nbytes
+        nbytes += a.nbytes
+    if not layout:
+        return out
+    host = torch.empty(max(off, 1), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    staged = host.numpy()
+    for _, o, a in layout:
+        staged[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    if seam is not None:
+        note_transfer("h2d", seam, nbytes)
+    dev = host.to(device, non_blocking=True)   # no copy on the CPU
+    for i, o, a in layout:
+        out[i] = (dev[o:o + a.nbytes]
+                  .view(torch.from_numpy(np.empty(0, a.dtype)).dtype)
+                  .view(a.shape))
+    return out
 
 
 def _dc_to(obj, cls, device: torch.device, seam: "str | None" = None):
     """A dataclass of arrays (the port's or the JAX package's, read field
-    by field) -> the port's `cls` of tensors on device."""
-    return cls(**{f.name: _h2d(getattr(obj, f.name), device, seam)
-                  for f in fields(cls)})
+    by field) -> the port's `cls` of tensors on device, its host fields in
+    one packed copy (_h2d_packed)."""
+    names = [f.name for f in fields(cls)]
+    return cls(**dict(zip(names, _h2d_packed(
+        [getattr(obj, n) for n in names], torch.device(device), seam))))
 
 
 def upload_cluster(cluster, device) -> ClusterTensors:
@@ -123,16 +150,23 @@ def upload_cluster(cluster, device) -> ClusterTensors:
 def upload_batch(pods, ports, device, extra_mask=None,
                  extra_score=None):
     """(PodBatch, BatchPortState, extra_mask, extra_score) on `device`,
-    copied from pinned host memory without blocking the host."""
+    in one copy from pinned host memory without blocking the host."""
     from kubernetes_tpu_torch.models.batched import BatchPortState
 
     device = torch.device(device)
-    pods_t = _dc_to(pods, PodBatch, device, "batch")
-    ports_t = _dc_to(ports, BatchPortState, device, "batch")
+    pf = [f.name for f in fields(PodBatch)]
+    qf = [f.name for f in fields(BatchPortState)]
+    vals = _h2d_packed(
+        [getattr(pods, n) for n in pf] + [getattr(ports, n) for n in qf]
+        + [x for x in (extra_mask, extra_score) if x is not None],
+        device, "batch")
+    pods_t = PodBatch(**dict(zip(pf, vals)))
+    ports_t = BatchPortState(**dict(zip(qf, vals[len(pf):])))
+    extra = iter(vals[len(pf) + len(qf):])
     emask = (None if extra_mask is None
-             else _h2d(extra_mask, device, "batch").to(torch.bool))
+             else next(extra).to(torch.bool))
     escore = (None if extra_score is None
-              else _h2d(extra_score, device, "batch").to(torch.float32))
+              else next(extra).to(torch.float32))
     return pods_t, ports_t, emask, escore
 
 
@@ -141,7 +175,7 @@ def upload_affinity(aff_state, device):
     `device` (None passes through).  The factored form (a
     LeanBatchAffinity, the port's or the JAX package's) crosses the link
     from pinned memory without blocking and is densified on the device; a
-    dense state is copied field by field."""
+    dense state is copied in one packed copy."""
     from kubernetes_tpu_torch.models.batched import (
         BatchAffinityState,
         LeanBatchAffinity,
@@ -152,9 +186,9 @@ def upload_affinity(aff_state, device):
         return None
     device = torch.device(device)
     if hasattr(aff_state, "aff_gm"):
-        return densify_batch_affinity(LeanBatchAffinity(
-            *(_h2d(getattr(aff_state, f), device, "affinity")
-              for f in LeanBatchAffinity._fields)))
+        return densify_batch_affinity(LeanBatchAffinity(*_h2d_packed(
+            [getattr(aff_state, f) for f in LeanBatchAffinity._fields],
+            device, "affinity")))
     return _dc_to(aff_state, BatchAffinityState, device, "affinity")
 
 
@@ -188,16 +222,6 @@ def _scatter_rows(dev: torch.Tensor, rows: torch.Tensor,
     int64 row indices on dev's device; vals: [len(rows), ...] rows."""
     faults.check(faults.SITE_SCATTER)
     return dev.index_copy_(0, rows, vals)
-
-
-def _upload_full(host: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A whole field as a resident tensor that shares no memory with the
-    host array: the dirty-row scatter writes into it in place, and the
-    encoder's snapshot arrays are immutable by its copy-on-write
-    contract."""
-    if device.type == "cuda":
-        return _h2d(host, device)
-    return torch.from_numpy(np.array(host, copy=True, order="C"))
 
 
 class DeviceSnapshotCache:
@@ -265,10 +289,14 @@ class DeviceSnapshotCache:
         faults.check(faults.SITE_SNAPSHOT_UPDATE)
         device = self.device
         staged: dict = {}
-        rows_arr = rows_dev = None
+        scatter = []    # (field, host array, its padded dirty rows)
+        rows_arr = rows_p = None
         if dirty_rows is not None and len(dirty_rows) > 0:
             rows_arr = np.asarray(dirty_rows, np.int32)
-        scattered = False
+            # pad rows to a pow2 bucket (repeat the first row), as the
+            # reference does for its compiled scatter shapes
+            pad = _pow2(len(rows_arr)) - len(rows_arr)
+            rows_p = np.concatenate([rows_arr, np.repeat(rows_arr[:1], pad)])
         for f in fields(cluster):
             host = np.asarray(getattr(cluster, f.name))
             prev = self._host.get(f.name)
@@ -284,29 +312,15 @@ class DeviceSnapshotCache:
                 and host.ndim >= 1
                 and len(rows_arr) <= host.shape[0] // _SCATTER_MAX_FRAC
             ):
-                sub = host[rows_arr]
-                if not np.array_equal(prev[rows_arr], sub):
-                    # pad rows to a pow2 bucket (repeat the first row), as
-                    # the reference does for its compiled scatter shapes
-                    k = _pow2(len(rows_arr))
-                    if k > len(rows_arr):
-                        pad = k - len(rows_arr)
-                        rows_p = np.concatenate(
-                            [rows_arr, np.repeat(rows_arr[:1], pad)])
-                        sub_p = np.concatenate(
-                            [sub, np.repeat(sub[:1], pad, axis=0)])
-                    else:
-                        rows_p, sub_p = rows_arr, sub
-                    # the delta that actually crosses the link: the padded
-                    # row-index vector + the padded row values
-                    note_transfer("h2d", "dirty_scatter",
-                                  rows_p.nbytes + sub_p.nbytes)
-                    if rows_dev is None:
-                        rows_dev = _h2d(rows_p, device).to(torch.int64)
-                    _scatter_rows(self._dev[f.name], rows_dev,
-                                  _h2d(np.ascontiguousarray(sub_p), device))
-                    scattered = True
-                self._host[f.name] = host
+                sub = host[rows_p]
+                if np.array_equal(prev[rows_arr], sub[:len(rows_arr)]):
+                    self._host[f.name] = host
+                    continue
+                # the delta that actually crosses the link: the padded
+                # row-index vector + the padded row values
+                note_transfer("h2d", "dirty_scatter",
+                              rows_p.nbytes + sub.nbytes)
+                scatter.append((f.name, host, sub))
                 continue
             if (
                 prev is None
@@ -317,13 +331,23 @@ class DeviceSnapshotCache:
                 staged[f.name] = host
             else:
                 self._host[f.name] = host  # content-equal: no upload needed
-        if scattered:
+        if scatter:
+            # the row indices and every changed field's rows in one copy
+            vals = _h2d_packed([rows_p] + [v for _, _, v in scatter], device)
+            rows_dev = vals[0].to(torch.int64)
+            for (name, host, _), v in zip(scatter, vals[1:]):
+                _scatter_rows(self._dev[name], rows_dev, v)
+                self._host[name] = host
             self.scatter_rows.append(len(rows_arr))
         if staged:
             note_transfer("h2d", "snapshot_upload",
                           sum(a.nbytes for a in staged.values()))
-            uploaded = {n: _upload_full(a, device) for n, a in staged.items()}
-            self._dev.update(uploaded)
+            # copies that share no memory with the host arrays: the
+            # dirty-row scatter writes into them in place, and the
+            # encoder's snapshot arrays are immutable by its copy-on-write
+            # contract
+            self._dev.update(zip(staged, _h2d_packed(list(staged.values()),
+                                                     device)))
             self._host.update(staged)
         return ClusterTensors(**self._dev)
 

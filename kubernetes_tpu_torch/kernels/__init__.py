@@ -32,15 +32,22 @@ chained SelectorSpread-count commit between two windows.  Its plain twin
 is models/megacycle.py `commit_group_counts_plain`; models/megacycle.py
 `commit_group_counts` dispatches.
 
+K7 `fold_predicates` (fold_predicates.cu) replaces the fold of the JAX
+package's ops/predicates.py filter_batch (`jnp.all(stack, 1) & alive`) and
+first_failure, as models/generic.py schedule_batch_independent computes
+them for the extender seam.  Its plain twin is ops/predicates.py
+`fold_predicates_plain`; ops/predicates.py `fold_predicates` dispatches.
+
 Each wrapper counts its launches in `LAUNCHES` (one each time it launches
 its kernels, nowhere else), so a run can show that its main path went
 through the kernels; `select_hosts_b1` also counts K1's one-row launches (the
 sequential engine's steps) on their own.  A preempt_one call puts one
 kernel launch on the stream, no memset and no copy (chip_smoke.py counts
 them under torch.profiler); the first call on a stream also zeroes that
-stream's ticket.  K3, K4 and K6 put one kernel launch each on the stream;
-K5 one up to K5_ONE_LAUNCH_ROWS snapshot rows and, above, a sequence of
-launches (cluster_analytics.cu launch_wide), counted once a call.
+stream's ticket.  K3, K4, K6 and K7 put one kernel launch each on the
+stream; K5 one up to K5_ONE_LAUNCH_ROWS snapshot rows and, above, a
+sequence of launches (cluster_analytics.cu launch_wide), counted once a
+call.
 The kernels are built from source at the first launch
 (kernels/_build.py); importing this module needs neither nvcc nor a card.
 """
@@ -51,7 +58,8 @@ import torch
 
 LAUNCHES = {"select_hosts": 0, "select_hosts_b1": 0, "preempt_one": 0,
             "select_topk": 0, "select_topk_b1": 0, "binpack_ffd": 0,
-            "cluster_analytics": 0, "commit_group_counts": 0}
+            "cluster_analytics": 0, "commit_group_counts": 0,
+            "fold_predicates": 0}
 
 # K1's variants, by the code select_hosts_launch takes: a block of 8 warps
 # to a row, one warp to a row (8 rows to a block), or a block to a row that
@@ -492,3 +500,56 @@ def commit_group_counts(gc: torch.Tensor, hosts: torch.Tensor,
                            + lib.select_hosts_error_string(err).decode())
     LAUNCHES["commit_group_counts"] += 1
     return out
+
+
+def fold_predicates(per_pred: torch.Tensor, valid: torch.Tensor,
+                    pod_valid: torch.Tensor):
+    """K7: the fold of one filter pass, per_pred bool[B, K, N] (K >= 1
+    predicate rows), valid bool[N] and pod_valid bool[B] on one CUDA
+    device -> (mask bool[B, N], failure i32[B, N]), see ops/predicates.py
+    fold_predicates_plain.  Raises on anything the kernel does not take
+    and on a refused launch."""
+    for name, t in (("per_pred", per_pred), ("valid", valid),
+                    ("pod_valid", pod_valid)):
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"fold_predicates launches on CUDA tensors only "
+                             f"({name})")
+        if t.device != per_pred.device:
+            raise ValueError(f"fold_predicates: {name} lies on {t.device}, "
+                             f"per_pred on {per_pred.device}")
+        if t.dtype != torch.bool:
+            raise TypeError(f"fold_predicates wants bool {name}, got "
+                            f"{t.dtype}")
+    if per_pred.dim() != 3:
+        raise ValueError(f"fold_predicates wants per_pred [B, K, N], got "
+                         f"{tuple(per_pred.shape)}")
+    B, K, N = per_pred.shape
+    if valid.shape != (N,) or pod_valid.shape != (B,):
+        raise ValueError(f"fold_predicates wants valid ({N},) and pod_valid "
+                         f"({B},), got {tuple(valid.shape)} and "
+                         f"{tuple(pod_valid.shape)}")
+    if K < 1 or B * K * N >= (1 << 62) or N >= (1 << 31) or B >= (1 << 31):
+        raise ValueError(f"fold_predicates: sizes B={B} K={K} N={N} out of "
+                         f"range")
+    dev = per_pred.device
+    mask = torch.empty((B, N), dtype=torch.bool, device=dev)
+    failure = torch.empty((B, N), dtype=torch.int32, device=dev)
+    if B == 0 or N == 0:
+        return mask, failure
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    ts = [t.contiguous() for t in (per_pred, valid, pod_valid)]
+    vec = int(N % 4 == 0 and ts[0].data_ptr() % 4 == 0
+              and ts[1].data_ptr() % 4 == 0 and mask.data_ptr() % 4 == 0
+              and failure.data_ptr() % 16 == 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fold_predicates_launch(
+            *(t.data_ptr() for t in ts), B, K, N, vec, mask.data_ptr(),
+            failure.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("fold_predicates launch failed: "
+                           + lib.select_hosts_error_string(err).decode())
+    LAUNCHES["fold_predicates"] += 1
+    return mask, failure

@@ -86,6 +86,8 @@ def library() -> ctypes.CDLL:
     lib.cluster_analytics_workspace_ints.restype = ctypes.c_int
     lib.commit_group_counts_launch.argtypes = [p] * 4 + [i] * 4 + [p] * 2
     lib.commit_group_counts_launch.restype = ctypes.c_int
+    lib.fold_predicates_launch.argtypes = [p] * 3 + [i] * 4 + [p] * 3
+    lib.fold_predicates_launch.restype = ctypes.c_int
     lib.select_hosts_error_string.argtypes = [ctypes.c_int]
     lib.select_hosts_error_string.restype = ctypes.c_char_p
     return lib

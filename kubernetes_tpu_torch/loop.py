@@ -494,7 +494,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
              quality_interval_cycles: int = 32, telemetry: bool = False,
              telemetry_interval_cycles: int = 1,
              timeline: bool = False, megacycle_batches: int = 1,
-             warmup: Optional[int] = None) -> dict:
+             warmup: Optional[int] = None, sidecar=None) -> dict:
     """bench.py run_live on the port: `n_pods` pending pods of `workload`
     through the live Scheduler, after a warmup of `warmup` pods (default
     `batch`; pending_pod(n_pods + j)) drained outside the clock.  `existing`
@@ -530,7 +530,16 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     drift state when it is on) and "telemetry_seconds"
     (scheduler_telemetry_seconds_total in the timed window); with the
     timeline on, "timeline" (its summary) and "timeline_seconds"
-    (scheduler_timeline_seconds_total in the timed window)."""
+    (scheduler_timeline_seconds_total in the timed window).
+
+    sidecar: an ExtenderServer (extender_sidecar()) the Scheduler reaches
+    through one HTTP extender with filter, prioritize and bind verbs,
+    NodeCacheCapable: true, weight 1; the bind verb binds in place of the
+    binder, so with pipeline off each batch's binds reach the sidecar's
+    mirror before the next batch's fan-out and no reply hangs on thread
+    timing.  Then also "extender_seconds" (the Scheduler's fan-out seconds)
+    and the sidecar's "filter_seconds" (by part) and "filter_requests",
+    all in the timed window."""
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.utils import metrics as m
     from kubernetes_tpu_torch.codec.transfer import transfer_delta, transfer_totals
@@ -546,12 +555,35 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     hosts = np.full(n_pods + warmup, -1, np.int32)
     order: List[int] = []
 
-    def binder(pod, node_name):
-        i = int(pod.name.rsplit("-", 1)[1])
+    def record(name, node_name):
+        i = int(name.rsplit("-", 1)[1])
         hosts[i] = enc.node_rows[node_name]
         order.append(i)
+
+    def binder(pod, node_name):
+        record(pod.name, node_name)
         return True
 
+    extenders = []
+    if sidecar is not None:
+        from kubernetes_tpu_torch.extender.client import (
+            ExtenderConfig,
+            HTTPExtender,
+        )
+
+        host, port = sidecar.address[:2]
+        ext = HTTPExtender(ExtenderConfig(
+            url_prefix=f"http://{host}:{port}", filter_verb="filter",
+            prioritize_verb="prioritize", bind_verb="bind", weight=1,
+            node_cache_capable=True, http_timeout=120.0))
+        ext_bind = ext.bind
+
+        def bind(namespace, name, uid, node):
+            ext_bind(namespace, name, uid, node)
+            record(name, node)
+
+        ext.bind = bind
+        extenders.append(ext)
     sched = Scheduler(cache=cache, queue=queue, binder=binder,
                       config=live_config(
                           batch, engine, batched, pipeline,
@@ -561,7 +593,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
                           telemetry_interval_cycles=telemetry_interval_cycles,
                           timeline=timeline,
                           megacycle_batches=megacycle_batches),
-                      device=device)
+                      extenders=extenders, device=device)
     qrec = (record_quality(sched.quality) if sched.quality is not None
             else None)
     trec = (record_telemetry(sched.telemetry, sched.quality)
@@ -605,6 +637,10 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     q_s0 = m.QUALITY_SECONDS.value
     tel_s0, tl_s0 = m.TELEMETRY_SECONDS.value, m.TIMELINE_SECONDS.value
     launches0 = dict(kernels.LAUNCHES)
+    ext_s0 = sched.extender_seconds
+    if sidecar is not None:
+        filter0 = dict(sidecar.filter_seconds)
+        requests0 = sidecar.filter_requests
     with full_collections() as gc_full:
         t0 = time.monotonic()
         for p in pending:
@@ -637,6 +673,12 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     if sched.timeline is not None:
         extra.update(timeline=sched.timeline.summary(),
                      timeline_seconds=tl_s)
+    if sidecar is not None:
+        extra.update(
+            extender_seconds=sched.extender_seconds - ext_s0,
+            filter_seconds={k: v - filter0[k]
+                            for k, v in sidecar.filter_seconds.items()},
+            filter_requests=sidecar.filter_requests - requests0)
     return {
         **extra,
         "pods_per_s": placed / dt if dt > 0 else 0.0,
@@ -846,3 +888,203 @@ def run_preemption(nodes: Sequence[Node], running: Sequence[Pod],
         "gc_full": gc_full,
         "scheduler": sched,
     }
+
+
+# ------------------------------------------------------------ the extender seam
+#
+# drive_extender plays a stock kube-scheduler with NodeCacheCapable: true
+# against a sidecar over HTTP (extender/server.py, or the JAX package's, as
+# tests/make_torch_golden.py drives it); run_live(sidecar=...) runs the
+# live Scheduler with one HTTP extender pointed at extender_sidecar().
+
+
+def canonical_digest(obj) -> bytes:
+    """sha256 of a reply body as canonical JSON (sorted keys, no spaces)."""
+    import hashlib
+    import json
+
+    return hashlib.sha256(json.dumps(
+        obj, sort_keys=True, separators=(",", ":")).encode()).digest()
+
+
+class _JsonClient:
+    """POSTs JSON to one host over one held HTTP connection (reopened when
+    the server closes it, as an HTTP/1.0 server does after each reply).
+    `held`: whether the last reply left the connection open."""
+
+    def __init__(self, addr, timeout: float):
+        import http.client
+
+        self._conn = http.client.HTTPConnection(addr[0], addr[1],
+                                                timeout=timeout)
+        self.held = False
+
+    def post(self, path: str, obj):
+        """(reply body, seconds); a reply status other than 200 raises."""
+        import json
+
+        t0 = time.perf_counter()
+        self._conn.request("POST", path, body=json.dumps(obj).encode(),
+                           headers={"Content-Type": "application/json"})
+        resp = self._conn.getresponse()
+        data = resp.read()
+        self.held = not resp.will_close
+        if resp.status != 200:
+            raise RuntimeError(
+                f"POST {path}: HTTP {resp.status}: {data[:200]!r}")
+        return json.loads(data), time.perf_counter() - t0
+
+    def close(self) -> None:
+        self._conn.close()
+
+
+def _post_pipelined(addr, requests, timeout: float) -> None:
+    """POST every (path, JSON object) of `requests` over one HTTP/1.1
+    connection without waiting for each reply, as a watch relay streams
+    its events: a writer thread sends while this thread reads the replies
+    in order; a reply status other than 200 raises.  The server must hold
+    the connection open (the port's sidecar does; an HTTP/1.0 server
+    closes it after one reply)."""
+    import json
+    import socket
+    import threading
+
+    sock = socket.create_connection(addr, timeout=timeout)
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    head = (b"POST %s HTTP/1.1\r\nHost: " + f"{addr[0]}:{addr[1]}".encode()
+            + b"\r\nContent-Type: application/json\r\n"
+            b"Content-Length: %d\r\n\r\n")
+
+    def send() -> None:
+        chunk = []
+        try:
+            for path, obj in requests:
+                body = json.dumps(obj).encode()
+                chunk.append(head % (path.encode(), len(body)) + body)
+                if len(chunk) == 64:
+                    sock.sendall(b"".join(chunk))
+                    chunk = []
+            sock.sendall(b"".join(chunk))
+        except OSError:
+            pass   # the reader sees the connection end and raises
+
+    writer = threading.Thread(target=send, daemon=True)
+    writer.start()
+    try:
+        with sock.makefile("rb") as f:
+            for path, _ in requests:
+                status, length = f.readline(), 0
+                for line in iter(f.readline, b"\r\n"):
+                    if not line:
+                        break
+                    key, _, value = line.partition(b":")
+                    if key.strip().lower() == b"content-length":
+                        length = int(value)
+                body = f.read(length)
+                if status.split(b" ", 2)[1:2] != [b"200"]:
+                    raise RuntimeError(
+                        f"POST {path}: {status.strip()!r}: {body[:200]!r}")
+    finally:
+        sock.close()
+        writer.join()
+
+
+def drive_extender(addr, nodes: Sequence[Node], running: Sequence[Pod] = (),
+                   pods: Sequence[Pod] = (), preemptors: Sequence[Pod] = (),
+                   n_selectors: int = N_DEPLOY,
+                   timeout: float = 120.0) -> dict:
+    """Drive an extender sidecar at `addr` (host, port) as a stock
+    kube-scheduler with NodeCacheCapable: true does.  First the sync:
+    every node by /sync/node, the bench's `n_selectors` spread selectors
+    by /sync/service, every running pod by /sync/pod.  Then for each of
+    `pods` in order: /filter with every node name; unless it leaves no
+    node, /prioritize with the filter's nodenames, the highest score taken
+    (ties go to the first in filter order) and /bind to it.  Then one
+    /preempt for each of `preemptors`, each reply's victims deleted by
+    /sync/pod/remove before the next (running pods carry no uid, so a
+    victim's uid is its namespace/name).  Objects of either package; they
+    go over the wire as api/serialize.py writes them.  When the sidecar
+    holds its connection after the first sync reply (HTTP/1.1 keep-alive,
+    as the port's does), the rest of the sync is sent without waiting for
+    each reply (_post_pipelined), as a watch relay streams its events.
+
+    Returns "digests" {verb: [sha256 of each reply as canonical JSON]},
+    "bound" [node name per pod, "" when the filter left none],
+    "preempt_replies" [each /preempt reply], "latency" {verb: [seconds of
+    each request, client side]} and "sync_seconds"."""
+    from kubernetes_tpu_torch.api.serialize import node_to_dict, pod_to_dict
+
+    digests = {v: [] for v in ("filter", "prioritize", "bind", "preempt")}
+    latency = {v: [] for v in digests}
+    client = _JsonClient(addr, timeout)
+    t0 = time.perf_counter()
+    sync = [("/sync/node", node_to_dict(node)) for node in nodes]
+    sync += [("/sync/service", {"namespace": "default",
+                                "selector": {"app": f"dep-{d}"}})
+             for d in range(n_selectors)]
+    sync += [("/sync/pod", pod_to_dict(pod)) for pod in running]
+    if sync:
+        client.post(*sync[0])
+    if client.held:
+        _post_pipelined(addr, sync[1:], timeout)
+    else:
+        for path, obj in sync[1:]:
+            client.post(path, obj)
+    sync_s = time.perf_counter() - t0
+    names = [n.name for n in nodes]
+    bound: List[str] = []
+
+    def verb(name, args):
+        reply, dt = client.post("/" + name, args)
+        digests[name].append(canonical_digest(reply))
+        latency[name].append(dt)
+        return reply
+
+    for pod in pods:
+        wire = pod_to_dict(pod)
+        feasible = verb("filter", {"pod": wire, "nodenames": names})
+        ok = feasible["nodenames"]
+        if not ok:
+            bound.append("")
+            continue
+        scores = verb("prioritize", {"pod": wire, "nodenames": ok})
+        best = scores[0]
+        for e in scores[1:]:
+            if e["score"] > best["score"]:
+                best = e
+        verb("bind", {"PodName": pod.name, "PodNamespace": pod.namespace,
+                      "PodUID": pod.metadata.uid, "Node": best["host"]})
+        bound.append(best["host"])
+    replies = []
+    for pod in preemptors:
+        reply = verb("preempt", {"pod": pod_to_dict(pod)})
+        replies.append(reply)
+        # the scheduler deletes the victims through the API server, and
+        # the watch relays each deletion to the sidecar
+        for meta in reply["nodeNameToMetaVictims"].values():
+            for victim in meta["pods"]:
+                ns, _, name = victim["uid"].partition("/")
+                client.post("/sync/pod/remove",
+                            {"namespace": ns, "name": name})
+    client.close()
+    return {"digests": digests, "bound": bound, "preempt_replies": replies,
+            "latency": latency, "sync_seconds": sync_s}
+
+
+@contextlib.contextmanager
+def extender_sidecar(nodes: Sequence[Node], existing: int = 0,
+                     device="cuda"):
+    """An ExtenderServer on `device`, started on a free port of 127.0.0.1,
+    its mirror holding `nodes`, the bench's spread selectors and
+    `existing` running pods (build_encoder's); stopped on exit.  For
+    run_live(sidecar=...)."""
+    from kubernetes_tpu_torch.extender.server import ExtenderServer
+    from kubernetes_tpu_torch.runtime.cache import SchedulerCache
+
+    server = ExtenderServer(
+        cache=SchedulerCache(build_encoder(nodes, existing)), device=device)
+    server.start()
+    try:
+        yield server
+    finally:
+        server.stop()

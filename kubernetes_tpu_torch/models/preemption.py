@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.codec.schema import PRED_INDEX
-from kubernetes_tpu_torch.codec.transfer import _h2d, host_fetch
+from kubernetes_tpu_torch.codec.transfer import _h2d_packed, host_fetch
 
 # Failures preemption can NEVER fix (generic_scheduler.go:65-123
 # unresolvablePredicateFailureErrors): evicting pods does not change node
@@ -329,19 +329,17 @@ def preempt_inputs(encoder, pod, cands, arena, slots, violating, max_vols,
     vol_tables = encoder.victim_volume_tables(slots)
     pods_ext = pods_ext.copy()
     pods_ext[:, requested_ext.shape[1] - vol_tables[4].shape[1]:] = 0.0
-    dev = torch.device(device)
-
-    def up(a, dtype):
-        return _h2d(np.ascontiguousarray(a, dtype), dev, "preempt")
-
-    return (up(requested_ext, np.float32), up(allocatable_ext, np.float32),
-            up(pod_req_ext, np.float32), up(cands, np.bool_),
-            up(arena.node, np.int32), up(arena.priority, np.int32),
-            up(pods_ext, np.float32), up(violating, np.bool_),
-            up(dense_start_ranks(arena.start), np.float32),
-            up(slots, np.int32),
-            tuple(up(a, np.float32 if i == 4 else np.int32)
-                  for i, a in enumerate(vol_tables)))
+    f32, i32 = np.float32, np.int32
+    up = _h2d_packed(
+        [np.asarray(a, t) for a, t in (
+            (requested_ext, f32), (allocatable_ext, f32), (pod_req_ext, f32),
+            (cands, np.bool_), (arena.node, i32), (arena.priority, i32),
+            (pods_ext, f32), (violating, np.bool_),
+            (dense_start_ranks(arena.start), f32), (slots, i32))]
+        + [np.asarray(a, f32 if i == 4 else i32)
+           for i, a in enumerate(vol_tables)],
+        torch.device(device), "preempt")
+    return (*up[:10], tuple(up[10:]))
 
 
 def _tick(timing, key, t0):

@@ -410,12 +410,10 @@ def match_inter_pod_affinity(cluster: ClusterTensors, pods: PodBatch):
 # ------------------------------------------------------------ the full stack
 
 
-def filter_batch(cluster: ClusterTensors, pods: PodBatch, cfg: FilterConfig,
-                 unsched_taint_key: int = 0, need_per: bool = True):
-    """Run every predicate; returns (mask bool[B, N], per_pred bool[B, K, N]).
-
-    per_pred rows follow PREDICATE_ORDER.  With need_per=False, per_pred is
-    None and the stack is never materialized (the engines' hot path)."""
+def _predicate_rows(cluster: ClusterTensors, pods: PodBatch,
+                    cfg: FilterConfig, unsched_taint_key: int):
+    """Every predicate's bool[B, N] verdict, one at a time in
+    PREDICATE_ORDER; a predicate the profile disables reads all true."""
     B, N = pods.n_pods, cluster.n_nodes
     ones = _ones(B, N, cluster.valid.device)
     res = pod_fits_resources(cluster, pods)
@@ -462,25 +460,35 @@ def filter_batch(cluster: ClusterTensors, pods: PodBatch, cfg: FilterConfig,
             lambda: match_inter_pod_affinity(cluster, pods),
     }
     enabled = set(cfg.enabled) if cfg.enabled is not None else None
-    alive = cluster.valid[None] & pods.valid[:, None]
-    rows = []
-    mask = alive
     for name, _ in sorted(PRED_INDEX.items(), key=lambda kv: kv[1]):
-        if enabled is not None and name not in enabled:
-            # disabled by the provider/Policy profile: never filters, never
-            # appears in failure attribution
-            row = ones
-        else:
-            row = per[name]()
-        if need_per:
-            rows.append(row)
-        else:
-            # hot path: fold the AND pairwise instead of materializing the
-            # [B, K, N] stack
-            mask = mask & row
+        # disabled by the provider/Policy profile: never filters, never
+        # appears in failure attribution
+        yield ones if enabled is not None and name not in enabled \
+            else per[name]()
+
+
+def predicate_stack(cluster: ClusterTensors, pods: PodBatch,
+                    cfg: FilterConfig, unsched_taint_key: int = 0):
+    """bool[B, K, N]: every predicate's verdict, rows in PREDICATE_ORDER."""
+    return torch.stack(
+        list(_predicate_rows(cluster, pods, cfg, unsched_taint_key)), dim=1)
+
+
+def filter_batch(cluster: ClusterTensors, pods: PodBatch, cfg: FilterConfig,
+                 unsched_taint_key: int = 0, need_per: bool = True):
+    """Run every predicate; returns (mask bool[B, N], per_pred bool[B, K, N]).
+
+    per_pred rows follow PREDICATE_ORDER.  With need_per=False, per_pred is
+    None and the stack is never materialized (the engines' hot path)."""
+    alive = cluster.valid[None] & pods.valid[:, None]
     if need_per:
-        stack = torch.stack(rows, dim=1)
+        stack = predicate_stack(cluster, pods, cfg, unsched_taint_key)
         return torch.all(stack, dim=1) & alive, stack
+    # hot path: fold the AND pairwise instead of materializing the
+    # [B, K, N] stack
+    mask = alive
+    for row in _predicate_rows(cluster, pods, cfg, unsched_taint_key):
+        mask = mask & row
     return mask, None
 
 
@@ -491,3 +499,21 @@ def first_failure(per_pred):
     idx = torch.argmax(failed.to(torch.uint8), dim=1)  # first True along K
     any_fail = torch.any(failed, dim=1)
     return torch.where(any_fail, idx, NUM_PREDICATES).to(torch.int32)
+
+
+def fold_predicates_plain(per_pred, valid, pod_valid):
+    """K7's plain twin: (mask bool[B, N], failure i32[B, N]) of one filter
+    pass, the reference's `jnp.all(stack, 1) & alive` and first_failure
+    (failure ignores valid and pod_valid)."""
+    mask = torch.all(per_pred, dim=1) & valid[None] & pod_valid[:, None]
+    return mask, first_failure(per_pred)
+
+
+def fold_predicates(per_pred, valid, pod_valid):
+    """The fold of one filter pass: K7 on CUDA tensors (it launches or
+    raises), its plain twin on CPU tensors."""
+    if per_pred.is_cuda:
+        from kubernetes_tpu_torch import kernels
+
+        return kernels.fold_predicates(per_pred, valid, pod_valid)
+    return fold_predicates_plain(per_pred, valid, pod_valid)

@@ -51,6 +51,17 @@ unit: a classified fault relaunches all K windows with the same rotation
 bases; an error that escapes requeues every window not yet committed and
 still runs the committed windows' tails.
 
+With extenders (HTTPExtender, extender/client.py; built from a Policy
+profile's "extenders" entries when none are passed), each cycle fans its
+pods out to the filter and prioritize verbs after the encode, 16 pods at
+a time, each pod's chain in config order: a filter reply vetoes nodes in
+the engine's extra mask, a prioritize reply adds score * weight to its
+extra score, and a pod whose non-ignorable extender errored is masked out
+and requeued as a plain error (no FitError, no preemption).  A bind-verb
+extender binds the pods it manages in place of the binder, and
+preempt-verb extenders vet each preemption's node and victims.  A batch
+with filter or prioritize extenders never joins a megacycle.
+
 With telemetry on (the JAX class's default), each committed cycle feeds the
 telemetry hub (runtime/telemetry.py): SLO events, queue pressure, the
 launch EWMA, and once every telemetry_interval_cycles the cluster analytics
@@ -255,9 +266,6 @@ def refused_settings(config: SchedulerConfig) -> List[Tuple[str, str]]:
         (c.compile_cache_dir is not None, "compile_cache_dir",
          "A12 (latency tiers and raw-speed knobs)"),
         (c.engine not in ENGINES, f"engine={c.engine!r}", "(no engine)"),
-        (c.profile is not None and bool(
-            getattr(c.profile, "extender_configs", None)),
-         "profile.extender_configs", "A8 (gang and extender)"),
     )
     return [(what, item) for cond, what, item in checks if cond]
 
@@ -282,6 +290,9 @@ class _InFlight:
     cycle: int
     t_cycle0: float
     trace: Span                  # the cycle's ROOT span
+    # batch index -> message of every pod a non-ignorable extender failed:
+    # requeued as a plain error, no FitError and no preemption
+    ext_failed: Dict[int, str] = field(default_factory=dict)
     # re-dispatch the SAME encoded batch (transient-retry path)
     relaunch: Optional[Callable[[], Tuple[object, AsyncFetch]]] = None
     last_index0: int = 0         # selectHost rotation base for this batch
@@ -404,15 +415,7 @@ class Scheduler:
         self.config = config if config is not None else SchedulerConfig()
         refused = refused_settings(self.config)
         if framework is not None:
-            refused.append(("framework", "A8 (gang and extender)"))
-        if any(e.config.filter_verb or e.config.prioritize_verb
-               for e in (extenders or ())):
-            refused.append(("an extender with a filter or prioritize verb",
-                            "A8 (gang and extender)"))
-        if any(getattr(e, "supports_preemption", False)
-               for e in (extenders or ())):
-            refused.append(("an extender with a preempt verb",
-                            "A8 (gang and extender)"))
+            refused.append(("framework", "A8 (gang and framework plugins)"))
         if ledger is not None:
             refused.append(("ledger", "A9 (observatories and ledger)"))
         if (replica_of > 1 or reconciler is not None
@@ -518,7 +521,16 @@ class Scheduler:
         # their resident tensors between cycles, dirty rows scatter in
         self._dev_snapshot = DeviceSnapshotCache(self.device)
         self.framework = None
+        # scheduler-side extender chain (core/extender.go; chained in config
+        # order at generic_scheduler.go:527-554); built from the Policy's
+        # "extenders" entries when not injected directly
+        if extenders is None and prof is not None and prof.extender_configs:
+            from kubernetes_tpu_torch.extender.client import HTTPExtender
+
+            extenders = [HTTPExtender(c) for c in prof.extender_configs]
         self.extenders = list(extenders or [])
+        # seconds of the cycles' extender fan-outs (the "extenders" span)
+        self.extender_seconds = 0.0
         self._recorder_defaulted = recorder is None
         self.recorder = recorder if recorder is not None else EventRecorder()
         self.victim_deleter = victim_deleter or (
@@ -866,8 +878,31 @@ class Scheduler:
             nom_block = encode_nominated_block(
                 enc, nominated_pairs, pods, batch.n_pods, cluster.n_nodes,
             )
+            # point-in-time name->row map consistent with THIS snapshot;
+            # extender round-trips below run outside the lock, and the live
+            # node_rows dict may be mutated (rows recycled/regrown) meanwhile
+            node_row_map = dict(enc.node_rows) if self.extenders else None
         enc_span.finish()
-        extra_mask = None if nom_block is None else ~nom_block
+        extra_mask = extra_score = None
+        ext_failed: Dict[int, str] = {}
+        # bind-/preempt-only extenders don't participate in filter/score;
+        # skip the fan-out (and keep extra_mask None) when none do
+        if any(
+            e.config.filter_verb or e.config.prioritize_verb
+            for e in self.extenders
+        ):
+            ext_span = trace.child("extenders", n=len(self.extenders))
+            extra_mask, extra_score, ext_failed = self._apply_extenders(
+                pods, node_row_map, cluster.n_nodes, n_rows=batch.n_pods,
+                trace_ctx=trace.traceparent(),
+            )
+            ext_span.finish()
+            self.extender_seconds += ext_span.duration
+        if nom_block is not None:
+            # pass-one infeasibility from nominated ports/anti-affinity
+            extra_mask = (
+                ~nom_block if extra_mask is None else (extra_mask & ~nom_block)
+            )
         t_disp = time.monotonic()
         self._phase("encode", t_disp - t_cycle0, tier)
         fn = self._schedule_fn
@@ -888,7 +923,7 @@ class Scheduler:
             )
             out = fn(
                 dev_cluster, batch, ports, last_index0, nominated,
-                extra_mask, None, aff_state,
+                extra_mask, extra_score, aff_state,
             )
             hosts = out[0]
             # only the compact winners buffer (i32[B] node rows) crosses
@@ -912,7 +947,8 @@ class Scheduler:
         return _InFlight(
             pods=list(pods), hosts_dev=hosts_dev, fetch=fetch,
             generation=generation, cycle=cycle, t_cycle0=t_cycle0,
-            trace=trace, relaunch=launch, last_index0=last_index0,
+            trace=trace, ext_failed=ext_failed, relaunch=launch,
+            last_index0=last_index0,
             tier=tier, width=batch.n_pods, enqueue_s=t_disp_end - t_cycle0,
             xfer0=xfer0,
             quality_reqs=batch.req if self.quality is not None else None,
@@ -1010,6 +1046,8 @@ class Scheduler:
         enc = self.cache.encoder
         winners = staged.winners
         for i, pod in enumerate(pods):
+            if i in inf.ext_failed:
+                continue
             row = int(hosts[i])
             if row < 0:
                 staged.fit_idx.append(i)
@@ -1187,6 +1225,20 @@ class Scheduler:
         fit_errors: List[Pod] = []
         for i, pod in enumerate(pods):
             row = int(hosts[i])
+            if i in inf.ext_failed:
+                # non-ignorable extender error: plain error requeue, NOT a
+                # FitError — no preemption (scheduler.go:463 preempts only
+                # on core.FitError; extender errors surface as plain errors)
+                self.queue.add_unschedulable(pod, cycle)
+                results.append(ScheduleResult(pod, None, generation))
+                m.SCHEDULE_ATTEMPTS.inc(result=m.SCHEDULE_ERROR)
+                self.recorder.eventf(
+                    "Pod", pod.namespace, pod.name,
+                    EVENT_TYPE_WARNING, "FailedScheduling",
+                    "extender error: %s", inf.ext_failed[i],
+                    trace_id=inf.trace.trace_id,
+                )
+                continue
             if row < 0:
                 # FitError path: park in unschedulableQ with backoff
                 # (factory.go MakeDefaultErrorFunc), then try preemption
@@ -1247,6 +1299,15 @@ class Scheduler:
                 EVENT_TYPE_WARNING, "FailedScheduling",
                 "0/%d nodes are available" % n_nodes, tid,
             )
+        for i, msg in inf.ext_failed.items():
+            pod = pods[i]
+            results[i] = ScheduleResult(pod, None, generation)
+            losers.append(pod)
+            events[i] = (
+                "Pod", pod.namespace, pod.name,
+                EVENT_TYPE_WARNING, "FailedScheduling",
+                "extender error: %s" % msg, tid,
+            )
         # enqueue stamps BEFORE the bind fan-out; failed binds restore
         # theirs so a requeued pod keeps its first-enqueue time
         winner_qts = self.queue.take_enqueue_times(
@@ -1297,8 +1358,10 @@ class Scheduler:
         m.BINDING_LATENCY.observe_batch(bind_dts)
         if staged.fit_idx:
             m.SCHEDULE_ATTEMPTS.inc(len(staged.fit_idx), result=m.UNSCHEDULABLE)
-        if n_bind_failed:
-            m.SCHEDULE_ATTEMPTS.inc(n_bind_failed, result=m.SCHEDULE_ERROR)
+        if inf.ext_failed or n_bind_failed:
+            m.SCHEDULE_ATTEMPTS.inc(
+                len(inf.ext_failed) + n_bind_failed, result=m.SCHEDULE_ERROR
+            )
         if bound:
             m.SCHEDULE_ATTEMPTS.inc(len(bound), result=m.SCHEDULED)
             e2es = [
@@ -1326,6 +1389,122 @@ class Scheduler:
         )
         return list(results), [pods[i] for i in staged.fit_idx]
 
+    # ------------------------------------------------------------ extenders
+
+    def _apply_extenders(self, pods, rows, n_nodes, n_rows=None,
+                         trace_ctx=""):
+        """Chain the configured HTTP extenders per pod: each filter
+        round-trip intersects the feasibility mask (an extender can only
+        veto, never resurrect — generic_scheduler.go:527-554), prioritize
+        results add score*weight (:774-804, merged before selectHost).
+
+        `rows` is the snapshot-consistent name->row map captured under the
+        cache lock.  The extender chain is sequential per pod (each link
+        sees the previous link's narrowed list), but pods fan out across a
+        small thread pool — the reference's 16-goroutine analog for the
+        network-bound section.  Returns (mask bool[n_rows, n_nodes], score
+        f32[n_rows, n_nodes], failed{batch index: message}), host arrays
+        at the engine batch width (the pad rows stay all-true / zero and
+        pods.valid masks them on the device); a pod whose non-ignorable
+        extender errored is fully masked and listed in failed."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from kubernetes_tpu_torch.extender.client import ExtenderError
+
+        B, N = len(pods), n_nodes
+        Bp = n_rows if n_rows is not None else B
+        mask = np.ones((Bp, N), bool)
+        score = np.zeros((Bp, N), np.float32)
+        failed: Dict[int, str] = {}
+        all_names = [n for n, r in rows.items() if r < N]
+
+        def one_pod(i_pod):
+            i, pod = i_pod
+            # pool workers re-enter the CYCLE's trace context explicitly
+            # (thread-locals don't cross the executor boundary), so every
+            # extender round-trip carries the cycle's traceparent header
+            with use_traceparent(trace_ctx):
+                return _one_pod_traced(i, pod)
+
+        def _one_pod_traced(i, pod):
+            names = list(all_names)
+            for ext in self.extenders:
+                if not ext.is_interested(pod):
+                    continue
+                try:
+                    ok, _failed_nodes = ext.filter(pod, names)
+                except ExtenderError as e:
+                    if ext.is_ignorable:
+                        # skip it, let the rest decide (:534-537)
+                        continue
+                    failed[i] = str(e)
+                    mask[i, :] = False
+                    return
+                okset = set(ok)
+                for n in names:
+                    if n not in okset:
+                        mask[i, rows[n]] = False
+                names = [n for n in names if n in okset]
+                if not names:
+                    return
+            for ext in self.extenders:
+                if not ext.is_interested(pod) or not ext.config.prioritize_verb:
+                    continue
+                try:
+                    scores, weight = ext.prioritize(pod, names)
+                except ExtenderError:
+                    # prioritize errors are ignorable by design (:784-787)
+                    continue
+                for n, sc in scores.items():
+                    r = rows.get(n)
+                    if r is not None and r < N:
+                        score[i, r] += sc * weight
+
+        if B == 1:
+            one_pod((0, pods[0]))
+        else:
+            with ThreadPoolExecutor(max_workers=16) as pool:
+                list(pool.map(one_pod, enumerate(pods)))
+        return mask, score, failed
+
+    def _extender_preemption(self, pod, node_name, victims, res):
+        """Run ProcessPreemption through every preempt-verb extender that is
+        interested; each may narrow the victim set or drop the node entirely
+        (return None -> abort, nothing evicted).  Non-preempt-verb extenders
+        are skipped, ignorable errors skip just that extender
+        (generic_scheduler.go:342-369)."""
+        chain = [
+            e for e in self.extenders
+            if e.supports_preemption and e.is_interested(pod)
+        ]
+        if not chain:
+            return victims
+        from kubernetes_tpu_torch.extender.client import ExtenderError
+
+        meta = {
+            node_name: {
+                "pods": [{"uid": v.metadata.uid or f"{v.namespace}/{v.name}"}
+                         for v in victims],
+                "numPDBViolations": int(getattr(res, "n_pdb_violations", 0)),
+            }
+        }
+        for ext in chain:
+            try:
+                meta = ext.process_preemption(pod, meta)
+            except ExtenderError:
+                if ext.is_ignorable:
+                    continue
+                return None
+            if node_name not in meta:
+                return None
+        keep = {
+            p.get("uid") for p in meta[node_name].get("pods", [])
+        }
+        return [
+            v for v in victims
+            if (v.metadata.uid or f"{v.namespace}/{v.name}") in keep
+        ]
+
     # ------------------------------------------------------------ megacycle
     #
     # Chain K pre-encoded windows through the cluster state in one dispatch
@@ -1341,6 +1520,11 @@ class Scheduler:
         cfg = self.config
         if self._mega_fn is None or not cfg.batched_commit:
             return False
+        if any(
+            e.config.filter_verb or e.config.prioritize_verb
+            for e in self.extenders
+        ):
+            return False  # the fan-out is per-single-batch host work
         if self.queue.nominated_pods():
             return False  # two-pass nominated state is host-recomputed
         if self.cache.encoder.term_groups:
@@ -1793,7 +1977,7 @@ class Scheduler:
                 violating, arena.start,
             )
             ps["arrays"] += time.monotonic() - t
-            row, _, victims, _ = pick_preemption_node(
+            row, _, victims, res = pick_preemption_node(
                 enc, pod, cands, arena, slots, violating,
                 self.config.filter_config.max_vols, device=self.device,
                 timing=ps,
@@ -1803,6 +1987,13 @@ class Scheduler:
                 self._clear_nomination(pod)
                 return None
             node_name = enc.row_name(row)
+        # preempt-verb extenders vet the candidate + victim set
+        # (processPreemptionWithExtenders, generic_scheduler.go:342-369);
+        # HTTP round-trips happen outside the cache lock
+        victims = self._extender_preemption(pod, node_name, victims, res)
+        if victims is None:
+            self._clear_nomination(pod)
+            return None
         for v in victims:
             self.victim_deleter(v)
             if self.invariants is not None:

@@ -73,6 +73,32 @@ their order, every window's top-k leaves, the regret samples and every
 telemetry sample.
 
     python tests/make_torch_golden.py --megacycle 4   # ~1 min
+
+With --extender, the golden is the JAX package's extender sidecar driven
+over HTTP by loop.drive_extender (`jax_extender`), as a stock
+kube-scheduler with NodeCacheCapable: true drives it: the bench fleet of
+--nodes nodes, the 20 spread selectors and --existing running pods
+synced, then --pods pending pods through /filter, /prioritize and /bind;
+and a second sidecar synced with the preemption cell's fleet and running
+pods (loop.preemption_fleet, loop.preemption_running_pods) answering one
+/preempt for each of the first --preempt preemptors (loop.preemptors).
+The file, tests/data/torch_port_golden_extender.npz, holds the sha256 of
+every reply as canonical JSON, the bound node per pod and the /preempt
+replies.
+
+    python tests/make_torch_golden.py --extender --pods 512 \
+        --existing 1000                                    # ~4-5 min
+
+With --live --extender, the golden is the JAX Scheduler in the live cell
+with one HTTP extender (filter, prioritize and bind verbs) pointed at the
+JAX package's sidecar in the same process (`jax_live(extender=True)`, the
+loop of the port's loop.run_live(sidecar=...)), pipeline_commit off, a
+warmup of --warmup pods (default --batch), then --pods pods.  The file,
+tests/data/torch_port_golden_live_extender.npz, holds the bound row per
+pod and the bind order.
+
+    python tests/make_torch_golden.py --live --extender --pods 1024 \
+        --batch 256 --warmup 64                            # ~6-7 min
 """
 
 from __future__ import annotations
@@ -157,10 +183,11 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
              node_pods: int = 110, budget_s: float = 3600.0,
              quality_top_k: int = 0, quality_interval_cycles: int = 32,
              telemetry: bool = False, telemetry_interval_cycles: int = 1,
-             timeline: bool = False, extended: int = 0):
+             timeline: bool = False, extended: int = 0,
+             warmup=None, extender: bool = False):
     """The JAX Scheduler's live cycle under the loop of bench.py run_live
-    (and of the port's loop.run_live): a warmup batch of `batch` pods
-    (index n_pods + j) drained first, `nominated` preemptors
+    (and of the port's loop.run_live): a warmup of `warmup` pods (default
+    `batch`; index n_pods + j) drained first, `nominated` preemptors
     (loop.nominated_preemptors, built with the JAX factory) registered on
     the queue, then the `n_pods` pods enqueued and drained.  Returns (hosts
     i32[n_pods + batch] bound row per pod index, bind_order i32[] pod
@@ -169,7 +196,12 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
     observatory is on and the scheduler carries `quality_record`
     (loop.record_quality's, warmup included); with telemetry on it carries
     `telemetry_record` (loop.record_telemetry's).  `extended`: extended
-    resources on every node (loop.bench_nodes')."""
+    resources on every node (loop.bench_nodes').  With `extender`, the
+    scheduler reaches a JAX ExtenderServer in this process, whose mirror
+    holds the same fleet, through one HTTP extender with filter,
+    prioritize and bind verbs, NodeCacheCapable: true, weight 1 (the
+    port's loop.run_live(sidecar=...)); its bind verb binds in place of
+    the binder."""
     import bench
     from kubernetes_tpu.api.factory import make_pod
     from kubernetes_tpu.runtime.cache import SchedulerCache
@@ -183,19 +215,48 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
         record_telemetry,
     )
 
+    warmup = batch if warmup is None else warmup
     args, enc = _jax_fleet(n_nodes, workload, node_pods, existing, extended)
     cache = SchedulerCache(enc)
     queue = PriorityQueue()
-    hosts = np.full(n_pods + batch, -1, np.int32)
+    hosts = np.full(n_pods + warmup, -1, np.int32)
     order = []
 
-    def binder(pod, node_name):
-        i = int(pod.name.rsplit("-", 1)[1])
+    def record(name, node_name):
+        i = int(name.rsplit("-", 1)[1])
         hosts[i] = enc.node_rows[node_name]
         order.append(i)
+
+    def binder(pod, node_name):
+        record(pod.name, node_name)
         return True
 
+    extenders, server = [], None
+    if extender:
+        from kubernetes_tpu.extender.client import (
+            ExtenderConfig,
+            HTTPExtender,
+        )
+        from kubernetes_tpu.extender.server import ExtenderServer
+
+        server = ExtenderServer(cache=SchedulerCache(_jax_fleet(
+            n_nodes, workload, node_pods, existing, extended)[1]))
+        server.start()
+        host, port = server.address[:2]
+        ext = HTTPExtender(ExtenderConfig(
+            url_prefix=f"http://{host}:{port}", filter_verb="filter",
+            prioritize_verb="prioritize", bind_verb="bind", weight=1,
+            node_cache_capable=True, http_timeout=120.0))
+        ext_bind = ext.bind
+
+        def bind(namespace, name, uid, node):
+            ext_bind(namespace, name, uid, node)
+            record(name, node)
+
+        ext.bind = bind
+        extenders.append(ext)
     sched = Scheduler(cache=cache, queue=queue, binder=binder,
+                      extenders=extenders,
                       config=SchedulerConfig(
                           batch_size=batch, batch_window_s=0.0,
                           engine=engine, disable_preemption=True,
@@ -221,15 +282,19 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
                 time.sleep(0.002)
         sched.flush_pipeline()
 
-    for j in range(batch):
-        queue.add(bench._pending_pod(args, n_pods + j))
-    drain(budget_s)
-    for pod, node_name in nominated_preemptors(n_nodes, nominated,
-                                               make_pod=make_pod):
-        queue.update_nominated_pod(pod, node_name)
-    for i in range(n_pods):
-        queue.add(bench._pending_pod(args, i))
-    drain(budget_s)
+    try:
+        for j in range(warmup):
+            queue.add(bench._pending_pod(args, n_pods + j))
+        drain(budget_s)
+        for pod, node_name in nominated_preemptors(n_nodes, nominated,
+                                                   make_pod=make_pod):
+            queue.update_nominated_pod(pod, node_name)
+        for i in range(n_pods):
+            queue.add(bench._pending_pod(args, i))
+        drain(budget_s)
+    finally:
+        if server is not None:
+            server.stop()
     if quality_top_k:
         finish_quality(sched.quality, sched.quality_record)
     if telemetry:
@@ -363,6 +428,60 @@ def jax_preemption(n_nodes: int, n_preemptors: int, batch: int,
             np.asarray(enc.snapshot(full=True).requested), sched)
 
 
+def jax_extender(n_nodes: int, n_pods: int, existing: int,
+                 n_preempt: int, server=None):
+    """loop.drive_extender against the JAX package's sidecar (or `server`,
+    a class taking cache=): the bench fleet with `existing` running pods
+    and `n_pods` pending pods, then a second sidecar with the preemption
+    cell's fleet and running pods answering `n_preempt` /preempt
+    requests.  Returns (the bench drive, the preemption drive)."""
+    from kubernetes_tpu_torch import loop
+
+    if server is None:
+        from kubernetes_tpu.extender.server import ExtenderServer as server
+    nodes = loop.bench_nodes(n_nodes)
+    running = [loop.existing_pod(i, nodes) for i in range(existing)]
+    pods = [loop.pending_pod(i) for i in range(n_pods)]
+    srv = server()
+    srv.start()
+    try:
+        main = loop.drive_extender(srv.address, nodes, running, pods)
+    finally:
+        srv.stop()
+    fleet = loop.preemption_fleet(n_nodes)
+    srv = server()
+    srv.start()
+    try:
+        pre = loop.drive_extender(
+            srv.address, fleet, loop.preemption_running_pods(fleet),
+            preemptors=loop.preemptors(n_preempt))
+    finally:
+        srv.stop()
+    return main, pre
+
+
+def extender_arrays(main: dict, pre: dict) -> dict:
+    """The extender golden's arrays: each verb's reply digests (uint8 [n,
+    32]), the bound node per pod as its bench index (-1 none) and the
+    /preempt replies as canonical JSON."""
+    import json
+
+    def d(v):
+        return np.asarray([list(x) for x in v], np.uint8).reshape(-1, 32)
+
+    return dict(
+        filter=d(main["digests"]["filter"]),
+        prioritize=d(main["digests"]["prioritize"]),
+        bind=d(main["digests"]["bind"]),
+        preempt=d(pre["digests"]["preempt"]),
+        bound=np.asarray([int(b.rsplit("-", 1)[1]) if b else -1
+                          for b in main["bound"]], np.int32),
+        preempt_replies=np.asarray(
+            [json.dumps(r, sort_keys=True, separators=(",", ":"))
+             for r in pre["preempt_replies"]], dtype=str),
+    )
+
+
 def preemption_arrays(preemptions, bindings):
     """The golden file's flat arrays of a preemption run: preemptor names,
     node names, victims per preemption (counts and the flat names), bound
@@ -485,11 +604,57 @@ def main():
     ap.add_argument("--preemption", type=int, default=0,
                     help="with --live: the preemption cell with this many "
                          "preemptors (loop.run_preemption's loop)")
+    ap.add_argument("--extender", action="store_true",
+                    help="the extender sidecar driven over HTTP "
+                         "(loop.drive_extender; the _extender golden), or "
+                         "with --live the live Scheduler with an HTTP "
+                         "extender (jax_live(extender=True); the "
+                         "_live_extender golden)")
+    ap.add_argument("--warmup", type=int, default=None,
+                    help="with --live --extender: warmup pods (default "
+                         "--batch)")
+    ap.add_argument("--preempt", type=int, default=16,
+                    help="with --extender: /preempt requests of the "
+                         "preemption cell's first preemptors")
     args = ap.parse_args()
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.extender and args.live:
+        out = args.out or golden_path("live_extender")
+        t0 = time.monotonic()
+        hosts, order, _, _, _ = jax_live(
+            args.nodes, args.pods, args.batch, pipeline=False,
+            warmup=args.warmup, extender=True)
+        dt = time.monotonic() - t0
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(
+            out, hosts=hosts, bind_order=order,
+            nodes=np.int32(args.nodes), pods=np.int32(args.pods),
+            batch=np.int32(args.batch),
+            warmup=np.int32(len(hosts) - args.pods),
+        )
+        print(f"wrote {out}: {int((hosts >= 0).sum())}/{len(hosts)} bound "
+              f"(warmup included), {dt:.1f} s on the CPU")
+        return
+    if args.extender:
+        out = args.out or golden_path("extender")
+        t0 = time.monotonic()
+        main, pre = jax_extender(args.nodes, args.pods, args.existing,
+                                 args.preempt)
+        dt = time.monotonic() - t0
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(
+            out, **extender_arrays(main, pre),
+            nodes=np.int32(args.nodes), pods=np.int32(args.pods),
+            existing=np.int32(args.existing),
+        )
+        print(f"wrote {out}: {sum(1 for b in main['bound'] if b)}/"
+              f"{len(main['bound'])} bound, {len(pre['preempt_replies'])} "
+              f"/preempt replies, sync {main['sync_seconds']:.1f} s + "
+              f"{pre['sync_seconds']:.1f} s, {dt:.1f} s on the CPU")
+        return
     if args.megacycle:
         out = args.out or golden_path("live_megacycle")
         t0 = time.monotonic()

@@ -70,6 +70,27 @@ def test_walk_covers_the_preemption_slice():
             "kubernetes_tpu_torch.models.preemption"} <= names
 
 
+def test_walk_covers_the_extender_slice():
+    """The import walk reaches the modules the extender slice added: the
+    sidecar and its client, the independent scheduling model, the config
+    copy, the binary and K7's case list."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    mods = ("extender/__init__.py", "extender/server.py",
+            "extender/client.py", "models/generic.py", "config/__init__.py",
+            "config/featuregates.py", "config/profile.py", "config/types.py",
+            "cmd/__init__.py", "cmd/base.py", "cmd/extender.py",
+            "api/serialize.py", "kernels/k7_cases.py")
+    for mod in mods:
+        assert f"kubernetes_tpu_torch/{mod}" in rel, mod
+    names = {m.name for m in pkgutil.walk_packages(
+        [PKG], "kubernetes_tpu_torch.")}
+    assert {"kubernetes_tpu_torch.extender.server",
+            "kubernetes_tpu_torch.extender.client",
+            "kubernetes_tpu_torch.models.generic",
+            "kubernetes_tpu_torch.config.types",
+            "kubernetes_tpu_torch.cmd.extender"} <= names
+
+
 def test_forbidden_name_rule():
     assert _forbidden("kubernetes_tpu.codec")
     assert _forbidden("jax.numpy")
@@ -107,7 +128,8 @@ def test_kernel_sources_and_build_settings():
     assert srcs and all(os.path.dirname(s) == os.path.join(PKG, "kernels")
                         for s in srcs)
     assert {os.path.basename(s) for s in srcs} >= {"select_hosts.cu",
-                                                   "preempt_one.cu"}
+                                                   "preempt_one.cu",
+                                                   "fold_predicates.cu"}
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.CUDA_FLAGS
     assert "--use_fast_math" not in _build.CUDA_FLAGS
     assert os.path.basename(_build.BUILD_DIR) == ".torch_ext_build"

@@ -247,19 +247,51 @@ def test_lifted_settings_construct_and_schedule(field, value, item):
 
 
 def test_refuses_framework_extenders_and_default_config():
+    """Framework plugins stay refused (ROADMAP A8; extenders are lifted:
+    test_extender_stub_places_a_cycle, tests/test_torch_extender.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         Scheduler(config=loop.live_config(8), framework=object(),
                   device="cpu")
-    ext = type("Ext", (), {"config": type("C", (), {
-        "filter_verb": "filter", "prioritize_verb": ""})()})()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        Scheduler(config=loop.live_config(8), extenders=[ext], device="cpu")
     # the JAX class's default that belongs to a later slice (quality_top_k=3
     # is ported: tests/test_torch_quality.py; telemetry and the timeline:
     # tests/test_torch_telemetry.py, tests/test_torch_timeline.py)
     assert {w for w, _ in refused_settings(SchedulerConfig())} == {
         "cpu_fallback=True"}
     assert refused_settings(loop.live_config(8)) == []
+
+
+def test_extender_stub_places_a_cycle():
+    """A filter/prioritize extender (lifted with the extender slice,
+    ROADMAP A8): the Scheduler constructs with one on the CPU and places a
+    cycle through it, every pod on the one node the stub approves."""
+    from kubernetes_tpu_torch.extender.client import (
+        ExtenderConfig,
+        HTTPExtender,
+    )
+
+    calls = []
+
+    def transport(url, payload, timeout):
+        verb = url.rsplit("/", 1)[1]
+        calls.append(verb)
+        if verb == "filter":
+            return {"nodenames": ["node-4"], "failedNodes": {}, "error": ""}
+        return [{"host": n, "score": 1} for n in payload["nodenames"]]
+
+    ext = HTTPExtender(ExtenderConfig(
+        url_prefix="http://stub", filter_verb="filter",
+        prioritize_verb="prioritize", node_cache_capable=True),
+        transport=transport)
+    cache = SchedulerCache(loop.build_encoder(loop.bench_nodes(16)))
+    sched = Scheduler(cache=cache, queue=PriorityQueue(),
+                      config=loop.live_config(8), extenders=[ext],
+                      device="cpu")
+    for i in range(8):
+        sched.queue.add(loop.pending_pod(i))
+    sched.run_once(timeout=0.0)
+    sched.flush_pipeline()
+    assert [r.node for r in sched.results] == ["node-4"] * 8
+    assert calls.count("filter") == 8 and calls.count("prioritize") == 8
 
 
 def test_cuda_device_without_a_card_raises():

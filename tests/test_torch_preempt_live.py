@@ -305,7 +305,10 @@ def test_preempt_device_fault_reaches_breaker_and_propagates(site):
 
 def test_accepts_preemption_and_refuses_preempt_verb_extenders():
     """disable_preemption=False (the JAX class's default) is accepted with
-    cpu_fallback=False; a preempt-verb extender is refused under A8."""
+    cpu_fallback=False; a preempt-verb extender, refused until the
+    extender slice lifted it (ROADMAP A8's extender half), is accepted and
+    vets each preemption: one that drops the node vetoes it
+    (tests/test_torch_extender.py holds the chain to the JAX Scheduler)."""
     cfg = loop.live_config(8, preemption=True)
     assert not cfg.disable_preemption and not cfg.cpu_fallback
     assert port_sched.refused_settings(cfg) == []
@@ -313,10 +316,13 @@ def test_accepts_preemption_and_refuses_preempt_verb_extenders():
     assert sched.preemptions == [] and sched._preempt_eval is not None
     ext = SimpleNamespace(
         config=SimpleNamespace(filter_verb="", prioritize_verb=""),
-        supports_preemption=True)
-    with pytest.raises(NotImplementedError,
-                       match="preempt verb.*ROADMAP A8"):
-        port_sched.Scheduler(config=cfg, extenders=[ext], device="cpu")
+        supports_preemption=True, is_ignorable=False,
+        is_interested=lambda pod: True,
+        process_preemption=lambda pod, meta: {})
+    sched = port_sched.Scheduler(config=cfg, extenders=[ext], device="cpu")
+    assert sched.extenders == [ext]
+    assert sched._extender_preemption(loop.pending_pod(0), "node-1", [],
+                                      None) is None
 
 
 def test_live_preemption_golden_file():
