@@ -164,6 +164,47 @@ printing one line of numbers; any failure exits non-zero with no result:
      tests/data/torch_port_golden_live_extender.npz (the JAX Scheduler
      with the JAX sidecar), K7 launched twice a pod on the sidecar;
      pods/s and the extenders span's share of the window;
+ K9. the FFD class order (ffd_order.cu) against its plain twin on the card,
+     bit for bit, on every case of kubernetes_tpu_torch/kernels/
+     k9_cases.py (ties, duplicates, zero rows, zero-capacity columns, -0.0
+     beside 0.0, C 1 and 777, R 1 to 64, C 65,536, the per-pod sweep's
+     50,000 pods); then its times at the BASELINE sweep (256 classes x
+     10,000 shapes) with L2 cold and warm, beside its bound, an empty
+     launch and its twin's;
+ K8. the count-carrying first-fit scan (binpack_counts.cu) against its
+     twin, bit for bit, on every case of k8_cases.py (full bins and zero
+     rows, zero classes, every class overflowing, counts near the int32
+     clip, fractional inputs, negative order entries, max_bins 1 and
+     2,048, R 4 to 64, 1,500 lanes, the workspace, per-bin N 6,144, 16,385
+     and 40,000); then at the BASELINE sweep (10,000 lanes of 2,048 bins)
+     its twin's run (kept for phase 20, its admissions counted for the
+     bound) and the kernel's times;
+ K10. the replicas' admission scan (reconcile_admit.cu) against its twin,
+     bit for bit, on every case of k10_cases.py (one node, one tenant,
+     quota vetoes, no quota, padding, stale rows, the 1e-3 slack's edge, Bp
+     1 to 2,048, R 1 to 33); then its times at Bp 2,048, R 8;
+ 20. BASELINE's fifth configuration, the what-if: models/binpack.py what_if
+     of 50,000 pending pods in 256 classes over 10,000 candidate shapes
+     with 2,048 bins (one K9 and one K8 launch): bins and ok on every lane
+     equal to the twin's and to tests/data/torch_port_golden_what_if.npz
+     (the JAX binpack_shapes_compressed), and on the first 4 shapes the
+     per-pod sweep (K9 over the 50,000 pods, then K4 a lane) needs the
+     same bins; the solve's milliseconds and shapes a second;
+ 21. the live capacity cell: loop.run_live at full width with the capacity
+     planner every cycle over phase 20's first 64 shapes, every node
+     pre-filled to 3.5 free CPU and the pending pods' requests drawn from
+     phase 20's classes (the last batch's fit no node): bindings, order
+     and every solve equal to
+     tests/data/torch_port_golden_live_capacity.npz (the JAX
+     Scheduler's), placements equal to a planner-off run, K8 and K9
+     launched twice a solve and no solve dropped; pods/s and the hook's
+     share of the window;
+ 22. the replicas: loop.run_replicas at full width with 1 and 2 replicas,
+     then the four-tenant storm with a 50-CPU quota on the flooding
+     tenant: every pod placed or accounted for, no invariant violation,
+     every replica drained, K10 launched once a scan, every scan replayed
+     through the twin equal, at least one quota veto; pods/s a replica
+     count, conflicts and the fast path printed, not judged;
  2b. (run last, so that nothing it does can change the cells' numbers)
      K2 (preempt_one) against its plain twin on the card, all four
      outputs equal, on every case of
@@ -184,7 +225,7 @@ Phases 14, K5 and 2b also hold K4 at 32 and 64 columns, K5 at 16,385 and
 40,000 rows (its multi-block sequence) and K2 at 66 and 130 columns (its
 wide variant) to their twins at full shapes, with their times.
 
-Then the card's name and power limit, the kernels' JSON record (K1-K7;
+Then the card's name and power limit, the kernels' JSON record (K1-K10;
 K1's launches in each cell among its keys) and the device line.
 """
 
@@ -1957,6 +1998,387 @@ def phase_preemption(label: str) -> dict:
     return out
 
 
+# ------------------------------------------ capacity and replicas (A10a)
+
+INT32_OPS_PER_S = F32_OPS_PER_S / 2   # an SM has 64 INT32 lanes beside its
+#                                       128 FP32 ones (Hopper white paper)
+WHAT_IF_BINS = 2048    # bench.py --autoscale-bins, BASELINE's what-if
+CAPACITY_SHAPES = 64   # the live capacity cell's catalog: phase 20's first
+STORM_QUOTA = {"cpu": "50"}   # the flooding tenant's quota in phase 22
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _baseline_sweep(device="cuda"):
+    """BASELINE's fifth configuration on the card: (classes f32[256, 8],
+    counts i32[256], shapes f32[10,000, 8], pod reqs f32[50,000, 8]) from
+    loop.what_if_workload, compressed as models/binpack.py what_if does."""
+    from kubernetes_tpu_torch import loop
+    from kubernetes_tpu_torch.models.binpack import compress_classes
+
+    reqs, shapes = loop.what_if_workload()
+    classes, counts = compress_classes(reqs, pad_to_pow2=True)
+    dev = torch.device(device)
+    return (torch.from_numpy(classes).to(dev),
+            torch.from_numpy(counts).to(dev),
+            torch.from_numpy(shapes).to(dev), reqs)
+
+
+def _timing(fn, twin_ms: float, bytes_: int, ops: int, reps: int) -> dict:
+    """A kernel's times with L2 cold and warm, beside its bound (bytes over
+    the memory rate, operations over the INT32 rate), an empty launch and
+    its twin's time (given)."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k1_bench
+
+    out = {"ms": k1_bench.time_ms(fn, reps=reps, cold=True),
+           "ms_warm": k1_bench.time_ms(fn, reps=reps, cold=False),
+           "plain_ms": twin_ms,
+           "empty_launch_ms": k1_bench.time_ms(kernels.noop_launch,
+                                               cold=False),
+           "bytes": int(bytes_), "ops": int(ops),
+           "bytes_ms": bytes_ / k1_bench.HBM_BYTES_PER_S * 1e3,
+           "ops_ms": ops / INT32_OPS_PER_S * 1e3, "library_ms": None}
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    out["bound_by"] = ("bytes" if out["bytes_ms"] >= out["ops_ms"]
+                       else "operations")
+    return out
+
+
+def _cuda_ms(fn) -> "tuple[float, object]":
+    """(milliseconds, result) of one fn() between two CUDA events."""
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    torch.cuda.synchronize()
+    a.record()
+    res = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), res
+
+
+def phase_k9(sweep, device="cuda") -> dict:
+    """K9 (ffd_order) against its plain twin on the card, bit for bit, on
+    every case of kernels/k9_cases.py; then its times at the BASELINE
+    sweep (256 classes under 10,000 shapes) with L2 cold and warm, beside
+    its bound (a comparison sort's C log2 C compares and the C R divisions
+    a lane, over the INT32 rate; its bytes over the memory rate), an empty
+    launch and the twin's time on the card."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k9_cases
+    from kubernetes_tpu_torch.models.binpack import ffd_order_plain
+
+    dev = torch.device(device)
+    names = []
+    for name, c in k9_cases.cases():
+        reqs, caps = (torch.from_numpy(c[k]).to(dev) for k in ("reqs",
+                                                               "caps"))
+        got = kernels.ffd_order(reqs, caps)
+        want = ffd_order_plain(reqs, caps)
+        _sync(dev)
+        if not torch.equal(got, want):
+            bad = torch.nonzero(got != want)[0].tolist()
+            fail(f"K9: differs from the twin on case {name} at {bad}: "
+                 f"kernel {got[bad[0], bad[1]].item()} twin "
+                 f"{want[bad[0], bad[1]].item()}")
+        names.append(name)
+    classes, _, shapes, _ = sweep
+    S, (C, R) = shapes.shape[0], classes.shape
+    twin_ms, _ = _cuda_ms(lambda: ffd_order_plain(classes, shapes))
+    out = _timing(lambda: kernels.ffd_order(classes, shapes), twin_ms,
+                  C * R * 4 + S * R * 4 + S * C * 4,
+                  S * (C * int(np.ceil(np.log2(max(C, 2)))) + C * R), reps=10)
+    out.update(max_abs_err=0.0, cases=len(names),
+               shape={"S": S, "C": C, "R": R})
+    print(f"[K9] bit-identical to the twin on {len(names)} cases "
+          f"({', '.join(names)}) | at {out['shape']}: cold_ms "
+          f"{out['ms']:.4f} warm_ms {out['ms_warm']:.4f} plain_ms (twin on "
+          f"the card) {out['plain_ms']:.3f} bound_ms {out['bound_ms']:.5f} "
+          f"({out['bound_by']}) empty_launch_ms "
+          f"{out['empty_launch_ms']:.4f}", flush=True)
+    return out
+
+
+def phase_k8(sweep, device="cuda") -> dict:
+    """K8 (binpack_counts) against its plain twin on the card, bit for
+    bit, on every case of kernels/k8_cases.py; then at the BASELINE sweep
+    (10,000 lanes of 2,048 bins, the 256 classes in K9's order): the
+    twin's run on the card (kept for phase 20, its admissions counted),
+    the kernel's times with L2 cold and warm beside its bound (its bytes,
+    and four INT32 operations for every (bin, requested column) admission
+    a step must evaluate up to its last fill, on this data) and an empty
+    launch."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k8_cases
+    from kubernetes_tpu_torch.models.binpack import binpack_counts_plain
+
+    dev = torch.device(device)
+    names = []
+    for name, c in k8_cases.cases():
+        args = [torch.from_numpy(c[k]).to(dev)
+                for k in ("reqs", "counts", "caps", "order")]
+        got = kernels.binpack_counts(*args, c["n_bins"], c["per_bin"], True)
+        want = binpack_counts_plain(*args, c["n_bins"], c["per_bin"], True)
+        _sync(dev)
+        for g, w, what in zip(got, want, ("used", "placed", "loads",
+                                          "touched")):
+            if not ((g is None and w is None) or _bits_equal(g, w)):
+                fail(f"K8: {what} differs from the twin on case {name}: "
+                     f"kernel {g.reshape(-1)[:8].tolist()} twin "
+                     f"{w.reshape(-1)[:8].tolist()}")
+        names.append(name)
+    classes, counts, shapes, _ = sweep
+    order = kernels.ffd_order(classes, shapes)
+    S, (C, R) = shapes.shape[0], classes.shape
+    work: dict = {}
+    twin_ms, twin = _cuda_ms(lambda: binpack_counts_plain(
+        classes, counts, shapes, order, WHAT_IF_BINS, False, work=work))
+    got = kernels.binpack_counts(classes, counts, shapes, order,
+                                 WHAT_IF_BINS, False)
+    _sync(dev)
+    check(_bits_equal(got[0], twin[0]) and _bits_equal(got[1], twin[1]),
+          "K8: differs from the twin at the BASELINE sweep")
+    out = _timing(lambda: kernels.binpack_counts(
+        classes, counts, shapes, order, WHAT_IF_BINS, False), twin_ms,
+        C * R * 4 + C * 4 + S * R * 4 + S * C * 4 + S * 4 + S * C * 4,
+        4 * work["bin_columns"], reps=5)
+    out.update(max_abs_err=0.0, cases=len(names), twin=twin,
+               shape={"S": S, "C": C, "R": R, "bins": WHAT_IF_BINS},
+               bin_columns=work["bin_columns"])
+    print(f"[K8] bit-identical to the twin on {len(names)} cases "
+          f"({', '.join(names)}) | at {out['shape']}: cold_ms "
+          f"{out['ms']:.4f} warm_ms {out['ms_warm']:.4f} plain_ms (twin on "
+          f"the card) {out['plain_ms']:.1f} bound_ms {out['bound_ms']:.5f} "
+          f"({out['bound_by']}: {work['bin_columns']} admissions) "
+          f"empty_launch_ms {out['empty_launch_ms']:.4f}", flush=True)
+    return out
+
+
+def phase_k10(device="cuda") -> dict:
+    """K10 (reconcile_admit) against its plain twin on the card, bit for
+    bit, on every case of kernels/k10_cases.py; then its times at Bp
+    2,048, R 8 (the last case) with L2 cold and warm, beside its bound
+    (its bytes, and the six compares and subtractions a column a candidate
+    over the INT32 rate), an empty launch and the twin's on the card."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k10_cases
+    from kubernetes_tpu_torch.runtime.reconciler import admit_scan_plain
+
+    dev = torch.device(device)
+    keys = ("u_node", "u_ns", "order", "reqs", "node_head", "ns_head")
+    names = []
+    for name, c in k10_cases.cases():
+        args = [torch.from_numpy(c[k]).to(dev) for k in keys]
+        got = kernels.reconcile_admit(*args)
+        want = admit_scan_plain(*args)
+        _sync(dev)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"K10: differs from the twin on case {name}")
+        names.append(f"{name}:{int(got[0].sum())}/{int(got[1].sum())}")
+    check(names[-1].startswith("bp2048"), "K10: the last case is not Bp 2048")
+    Bp, R = args[3].shape
+    twin_ms, _ = _cuda_ms(lambda: admit_scan_plain(*args))
+    out = _timing(lambda: kernels.reconcile_admit(*args), twin_ms,
+                  3 * Bp * 4 + 3 * Bp * R * 4 + 2 * Bp, 6 * Bp * R, reps=20)
+    out.update(max_abs_err=0.0, cases=len(names), shape={"Bp": Bp, "R": R})
+    print(f"[K10] bit-identical to the twin on {len(names)} cases "
+          f"(case:admitted/quota_ok {' '.join(names)}) | at {out['shape']}: "
+          f"cold_ms {out['ms']:.4f} warm_ms {out['ms_warm']:.4f} plain_ms "
+          f"(twin on the card) {out['plain_ms']:.2f} bound_ms "
+          f"{out['bound_ms']:.6f} ({out['bound_by']}) empty_launch_ms "
+          f"{out['empty_launch_ms']:.4f}", flush=True)
+    return out
+
+
+def phase_what_if(sweep, k8: dict, label: str = "20 what-if",
+                  device="cuda") -> dict:
+    """BASELINE's fifth configuration: models/binpack.py what_if of the
+    50,000-pod backlog over 10,000 shapes with 2,048 bins, launch counts
+    reset just before and read just after (one K9 and one K8 launch):
+    bins and ok on every lane equal to the twin's (phase K8's run on the
+    card) and to tests/data/torch_port_golden_what_if.npz (the JAX
+    binpack_shapes_compressed); on the first 4 shapes the per-pod sweep
+    (K9 over 50,000 pods, then K4 a lane) needs the same bins; the solve's
+    milliseconds and shapes a second."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.models.binpack import binpack_shapes, what_if
+
+    classes, counts, shapes, reqs = sweep
+    shapes_np = shapes.cpu().numpy()
+    what_if(reqs, shapes_np[:2], max_bins=WHAT_IF_BINS,
+            device=device)                                # first call
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    fits = what_if(reqs, shapes_np, max_bins=WHAT_IF_BINS, device=device)
+    solve_s = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(launches["ffd_order"] == 1 and launches["binpack_counts"] == 1,
+          f"{label}: launches {launches}, not one K9 and one K8")
+    S = shapes.shape[0]
+    bins = np.full(S, -1, np.int64)
+    for s, b in fits:
+        bins[s] = b
+    ok = bins >= 0
+    used_t, placed_t = (x.cpu().numpy() for x in k8["twin"][:2])
+    ok_t = placed_t.astype(np.int64).sum(-1) == int(counts.sum())
+    check(np.array_equal(ok, ok_t) and np.array_equal(bins[ok],
+                                                      used_t[ok_t]),
+          f"{label}: what_if differs from the twin on the card")
+    data = np.load(golden("what_if"))
+    g = int(data["lanes"])
+    check(np.array_equal(data["ok"], ok[:g])
+          and np.array_equal(data["bins"], used_t[:g]),
+          f"{label}: differs from the JAX golden on its {g} lanes")
+    t1 = time.monotonic()
+    pb, pok = binpack_shapes(torch.from_numpy(reqs).to(shapes.device),
+                             shapes[:4], max_bins=WHAT_IF_BINS)
+    pb, pok = pb.cpu().numpy(), pok.cpu().numpy()
+    per_pod_s = time.monotonic() - t1
+    check(np.array_equal(pok, ok[:4])
+          and np.array_equal(pb[pok], bins[:4][pok]),
+          f"{label}: the per-pod sweep needs {pb.tolist()} bins "
+          f"(ok {pok.tolist()}), the compressed {bins[:4].tolist()}")
+    out = {"solve_ms": solve_s * 1e3, "shapes_per_s": S / solve_s,
+           "fitting": int(ok.sum()), "golden_lanes": g,
+           "per_pod_seconds": per_pod_s, "launches": launches}
+    print(f"[{label}] 50,000 pods in {int((counts > 0).sum())} classes x "
+          f"{S} shapes, {WHAT_IF_BINS} bins: solve_ms {out['solve_ms']:.2f} "
+          f"shapes_per_s {out['shapes_per_s']:.0f}, {out['fitting']} shapes "
+          f"fit | equal to the twin on {S} lanes and to the JAX golden on "
+          f"{g} | per-pod sweep on 4 shapes ({per_pod_s:.2f} s) needs the "
+          f"same bins {pb.tolist()}", flush=True)
+    return out
+
+
+def phase_live_capacity(label: str = "21 live capacity",
+                        device="cuda") -> dict:
+    """loop.run_live at full width with the capacity planner every cycle
+    over phase 20's first 64 shapes, the fleet pre-filled to 3.5 free CPU a
+    node (loop.capacity_running_pods) and the pending pods' requests drawn
+    from phase 20's classes (loop.capacity_requests: the last batch's fit
+    no node), launch counts reset just before and
+    read just after: bindings, order and every solve equal to
+    tests/data/torch_port_golden_live_capacity.npz (the JAX Scheduler's);
+    placements equal to a planner-off run; K8 and K9 twice a solve, none
+    dropped; pods/s and the hook's share of the window."""
+    from kubernetes_tpu_torch import kernels, loop
+
+    data = np.load(golden("live_capacity"))
+    backlog, caps = loop.what_if_workload()
+    reqs = loop.capacity_requests(backlog, PODS, BATCH, BATCH)
+    nodes = loop.bench_nodes(NODES)
+    kw = dict(device=device,
+              make_pending=lambda i: loop.capacity_pod(i, reqs),
+              running=loop.capacity_running_pods(nodes))
+    kernels.reset_launch_counts()
+    res = loop.run_live(nodes, PODS, BATCH, capacity_planner=True,
+                        capacity_interval_cycles=1,
+                        node_shape_catalog=loop.shape_catalog(
+                            caps[:CAPACITY_SHAPES]), **kw)
+    launches = res["launches"]
+    check(np.array_equal(res["hosts"], data["hosts"])
+          and np.array_equal(res["bind_order"], data["bind_order"]),
+          f"{label}: bindings differ from the JAX Scheduler's (port "
+          f"{int((res['hosts'] >= 0).sum())} bound, golden "
+          f"{int((data['hosts'] >= 0).sum())})")
+    samples = loop.capacity_arrays(res["capacity_samples"])[
+        "capacity_samples"]
+    check(np.array_equal(samples, data["capacity_samples"]),
+          f"{label}: the solves differ from the JAX planner's: port "
+          f"{samples[:1]} golden {data['capacity_samples'][:1]}")
+    cap = res["capacity"]
+    check(cap["solves_dropped"] == 0,
+          f"{label}: {cap['solves_dropped']} solves dropped")
+    d = res["capacity_dispatches"]
+    check(d > 0 and launches["binpack_counts"] == 2 * d
+          and launches["ffd_order"] == 2 * d,
+          f"{label}: K8 {launches['binpack_counts']} and K9 "
+          f"{launches['ffd_order']} launches for {d} solves, not two each")
+    overflow = [json.loads(x)["overflow_pods"] for x in samples]
+    absorbed = [json.loads(x)["absorbed_existing"] for x in samples]
+    check(max(overflow) > 0 and max(absorbed) > 0,
+          f"{label}: no solve both absorbed and overflowed ({absorbed}, "
+          f"{overflow})")
+    off = loop.run_live(nodes, PODS, BATCH, **kw)
+    check(np.array_equal(off["hosts"], res["hosts"])
+          and np.array_equal(off["bind_order"], res["bind_order"]),
+          f"{label}: placements differ with the planner off")
+    share = res["capacity_seconds"] / res["seconds"]
+    reco = cap["recommendation"] or {}
+    out = {"pods_per_s": res["pods_per_s"], "seconds": res["seconds"],
+           "placed": res["placed"], "solves": len(samples),
+           "dispatches_in_window": d, "launches": launches,
+           "capacity_seconds": res["capacity_seconds"],
+           "capacity_share": share, "overflow": overflow,
+           "absorbed": absorbed, "pods_per_s_planner_off":
+               off["pods_per_s"], "scale_up": reco.get("scale_up")}
+    print(f"[{label}] pods_per_s {res['pods_per_s']:.1f} (planner off "
+          f"{off['pods_per_s']:.1f}) placed {res['placed']} | {len(samples)} "
+          f"solves equal to the JAX planner's, {d} in the window, absorbed "
+          f"{absorbed} overflow {overflow}, last scale_up "
+          f"{reco.get('scale_up')} | hook {res['capacity_seconds']:.3f} s, "
+          f"share of the window {share:.4f} | K8 "
+          f"{launches['binpack_counts']} K9 {launches['ffd_order']} "
+          f"launches, 0 dropped | bindings and order equal to the JAX "
+          f"Scheduler's and to the planner-off run", flush=True)
+    return out
+
+
+def phase_replicas(label: str = "22 replicas", device="cuda") -> dict:
+    """loop.run_replicas at full width (pipeline_commit and preemption
+    off) at N = 1 and 2, then the four-tenant storm at N = 2 with a finite
+    quota on the flooding tenant: every offered pod placed or accounted
+    for, no invariant violation, every replica drained; the reconciler's
+    kernel_calls equal to its scans and to K10's launches; every scan's
+    inputs replayed through the twin give the kernel's admit and
+    quota_ok; at least one scan and one quota veto.  Pods/s a replica
+    count, conflicts and the fast-path share are printed, not judged."""
+    from kubernetes_tpu_torch import loop
+    from kubernetes_tpu_torch.runtime.reconciler import admit_scan_plain
+
+    res = loop.run_replicas(loop.bench_nodes(NODES), PODS, BATCH, ns=(1, 2),
+                            device=device, storm_quota=STORM_QUOTA,
+                            record_scans=True)
+    curve, storm = res["curve"], res["storm"]
+    for c in curve:
+        check(c["placed"] == PODS and c["invariant_violations"] == 0
+              and c["drained_clean"] and c["kernel_calls"] == c["scans"],
+              f"{label}: N={c['replicas']}: {c}")
+    check(storm["lost"] == 0 and storm["invariant_violations"] == 0
+          and storm["drained_clean"]
+          and storm["kernel_calls"] == storm["scans"],
+          f"{label}: storm {storm}")
+    check(storm["scans"] >= 1 and storm["quota_vetoes"] >= 1,
+          f"{label}: the storm ran {storm['scans']} scans with "
+          f"{storm['quota_vetoes']} quota vetoes")
+    calls = sum(c["kernel_calls"] for c in curve) + storm["kernel_calls"]
+    check(res["launches"]["reconcile_admit"] == calls == len(res["scans"]),
+          f"{label}: K10 launched {res['launches']['reconcile_admit']} "
+          f"times for {calls} scans ({len(res['scans'])} recorded)")
+    for k, (inputs, admit, quota_ok) in enumerate(res["scans"]):
+        a, q = admit_scan_plain(*(torch.from_numpy(x) for x in inputs))
+        check(np.array_equal(a.numpy(), admit)
+              and np.array_equal(q.numpy(), quota_ok),
+              f"{label}: scan {k} replayed through the twin differs")
+    out = {"curve": curve, "storm": storm, "scans": len(res["scans"]),
+           "launches": res["launches"]}
+    print(f"[{label}] " + " | ".join(
+        f"N={c['replicas']}: pods_per_s {c['pods_per_s']:.1f} "
+        f"({c['pods_per_s'] / c['replicas']:.1f} a replica) conflicts "
+        f"{c['conflicts']} fast_path {c['fast_path']} scans {c['scans']}"
+        for c in curve)
+        + f" | storm: offered {storm['offered']} placed {storm['placed']} "
+        f"left {storm['left_in_queue']} shed {storm['shed']} lost 0, per "
+        f"tenant {storm['per_tenant']}, quota vetoes "
+        f"{storm['quota_vetoes']}, scans {storm['scans']} | "
+        f"{len(res['scans'])} scans replayed through the twin, equal; K10 "
+        f"launches {res['launches']['reconcile_admit']}", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2078,6 +2500,22 @@ def main() -> None:
           flush=True)
     live19 = phase_live_extender()
     print(f"[19 done] total seconds {time.monotonic() - t_start:.1f}",
+          flush=True)
+    t_new = time.monotonic()
+    sweep = _baseline_sweep()
+    k9 = phase_k9(sweep)
+    k8 = phase_k8(sweep)
+    k10 = phase_k10()
+    what = phase_what_if(sweep, k8)
+    k8.pop("twin")
+    print(f"[20 done] total seconds {time.monotonic() - t_start:.1f}",
+          flush=True)
+    live21 = phase_live_capacity()
+    print(f"[21 done] total seconds {time.monotonic() - t_start:.1f}",
+          flush=True)
+    rep22 = phase_replicas()
+    print(f"[22 done] total seconds {time.monotonic() - t_start:.1f}, "
+          f"phases K8-K10 and 20-22 {time.monotonic() - t_new:.1f}",
           flush=True)
     # last, so that nothing of it can change the cells' numbers above
     k2 = phase_k2()
@@ -2226,6 +2664,36 @@ def main() -> None:
         "shape": k7["shape"],
         "shapes": k7["shapes"],
         "launches_live_extender": live19["launches"]["fold_predicates"],
+    }, {
+        "name": "binpack_counts",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/kernels/binpack_counts.cu",
+        "replaces": "kubernetes_tpu/models/binpack.py:148",
+        "launches": live21["launches"]["binpack_counts"],
+        **{k: k8[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "ms_warm",
+                              "empty_launch_ms", "cases", "shape",
+                              "bin_columns")},
+        "launches_what_if": what["launches"]["binpack_counts"],
+    }, {
+        "name": "ffd_order",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/kernels/ffd_order.cu",
+        "replaces": "kubernetes_tpu/models/binpack.py:127",
+        "launches": live21["launches"]["ffd_order"],
+        **{k: k9[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "ms_warm",
+                              "empty_launch_ms", "cases", "shape")},
+        "launches_what_if": what["launches"]["ffd_order"],
+    }, {
+        "name": "reconcile_admit",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/kernels/reconcile_admit.cu",
+        "replaces": "kubernetes_tpu/runtime/reconciler.py:209",
+        "launches": rep22["launches"]["reconcile_admit"],
+        **{k: k10[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "ms_warm",
+                               "empty_launch_ms", "cases", "shape")},
     }]}
     print(f"total seconds {time.monotonic() - t_start:.1f}", flush=True)
     print(smi)

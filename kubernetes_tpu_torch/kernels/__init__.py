@@ -38,6 +38,20 @@ first_failure, as models/generic.py schedule_batch_independent computes
 them for the extender seam.  Its plain twin is ops/predicates.py
 `fold_predicates_plain`; ops/predicates.py `fold_predicates` dispatches.
 
+K8 `binpack_counts` (binpack_counts.cu) replaces the scan of the JAX
+package's models/binpack.py binpack_ffd_counts: the count-carrying
+first-fit of the capacity planner's two stages and of the what-if sweep.
+K9 `ffd_order` (ffd_order.cu) replaces models/binpack.py ffd_order, the
+shape-relative FFD order each of those lanes packs in.  Their plain twins
+are models/binpack.py `binpack_counts_plain` and `ffd_order_plain`;
+models/binpack.py `binpack_ffd_counts`, `ffd_order_batch` and their
+callers dispatch.
+
+K10 `reconcile_admit` (reconcile_admit.cu) replaces the admission scan of
+the JAX package's runtime/reconciler.py ConflictReconciler._kernel: the
+replicas' sequenced commit check.  Its plain twin is runtime/reconciler.py
+`admit_scan_plain`; runtime/reconciler.py `admit_scan` dispatches.
+
 Each wrapper counts its launches in `LAUNCHES` (one each time it launches
 its kernels, nowhere else), so a run can show that its main path went
 through the kernels; `select_hosts_b1` also counts K1's one-row launches (the
@@ -47,7 +61,8 @@ them under torch.profiler); the first call on a stream also zeroes that
 stream's ticket.  K3, K4, K6 and K7 put one kernel launch each on the
 stream; K5 one up to K5_ONE_LAUNCH_ROWS snapshot rows and, above, a
 sequence of launches (cluster_analytics.cu launch_wide), counted once a
-call.
+call.  K8 and K10 put one kernel launch each on the stream, K9 one per
+K9_MAX_LANES lanes (counted once a call).
 The kernels are built from source at the first launch
 (kernels/_build.py); importing this module needs neither nvcc nor a card.
 """
@@ -59,7 +74,8 @@ import torch
 LAUNCHES = {"select_hosts": 0, "select_hosts_b1": 0, "preempt_one": 0,
             "select_topk": 0, "select_topk_b1": 0, "binpack_ffd": 0,
             "cluster_analytics": 0, "commit_group_counts": 0,
-            "fold_predicates": 0}
+            "fold_predicates": 0, "ffd_order": 0, "binpack_counts": 0,
+            "reconcile_admit": 0}
 
 # K1's variants, by the code select_hosts_launch takes: a block of 8 warps
 # to a row, one warp to a row (8 rows to a block), or a block to a row that
@@ -75,6 +91,7 @@ K2_MAX_SLOTS = 1024       # victim slots (sorted_victim_slots' cap)
 K4_THREADS = 1024         # K4's one block
 K5_ONE_LAUNCH_ROWS = 16384  # above, K5 runs its multi-block sequence
 K5_WORDS = 40             # K5's output: ops/analytics.py PACKED_LAYOUT
+K9_MAX_LANES = 65535      # lanes of one K9 launch (its grid's y extent)
 # K2's ticket: one uint32 a (device, stream), zero between launches (each
 # launch's last block sets it back)
 _K2_TICKETS: dict = {}
@@ -553,3 +570,162 @@ def fold_predicates(per_pred: torch.Tensor, valid: torch.Tensor,
                            + lib.select_hosts_error_string(err).decode())
     LAUNCHES["fold_predicates"] += 1
     return mask, failure
+
+
+def _cuda_args(name: str, specs) -> torch.device:
+    """Check (tensor, dtype, label) triples for one launch: CUDA, one
+    device, the dtype.  Returns the device."""
+    dev = None
+    for t, dtype, label in specs:
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"{name} launches on CUDA tensors only "
+                             f"({label})")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: {label} lies on {t.device}, the "
+                             f"first argument on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} wants {dtype} {label}, got {t.dtype}")
+    return dev
+
+
+def _launch_error(lib, name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.select_hosts_error_string(err).decode())
+
+
+def ffd_order(reqs: torch.Tensor, caps: torch.Tensor) -> torch.Tensor:
+    """K9: the FFD order of the items reqs f32[C, R] under each lane's
+    capacity caps f32[S, R], on their CUDA device -> order i32[S, C]; see
+    models/binpack.py ffd_order_plain.  Lanes past the grid's 65,535 go in
+    more launches of the same call (counted once).  Raises on anything the
+    kernel does not take and on a refused launch."""
+    dev = _cuda_args("ffd_order", ((reqs, torch.float32, "reqs"),
+                                   (caps, torch.float32, "caps")))
+    if reqs.dim() != 2 or caps.dim() != 2 or caps.shape[1] != reqs.shape[1]:
+        raise ValueError(f"ffd_order wants reqs [C, R] and caps [S, R], got "
+                         f"{tuple(reqs.shape)} and {tuple(caps.shape)}")
+    C, R = reqs.shape
+    S = caps.shape[0]
+    if C <= 0 or R <= 0 or C * R >= (1 << 31) or S * C >= (1 << 62):
+        raise ValueError(f"ffd_order: sizes C={C} R={R} S={S} out of range")
+    order = torch.empty((S, C), dtype=torch.int32, device=dev)
+    if S == 0:
+        return order
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    reqs = reqs.contiguous()
+    caps = caps.contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for s0 in range(0, S, K9_MAX_LANES):
+            s1 = min(S, s0 + K9_MAX_LANES)
+            _launch_error(lib, "ffd_order", lib.ffd_order_launch(
+                reqs.data_ptr(), C, R, caps[s0:s1].data_ptr(), s1 - s0,
+                order[s0:s1].data_ptr(), stream))
+    LAUNCHES["ffd_order"] += 1
+    return order
+
+
+def binpack_counts(reqs: torch.Tensor, counts: torch.Tensor,
+                   caps: torch.Tensor, order: torch.Tensor, n_bins: int,
+                   per_bin: bool, want_loads: bool = False):
+    """K8: the count-carrying first-fit scan of classes reqs f32[C, R] with
+    counts i32[C], in order i32[S, C], on one CUDA device.  Uniform
+    (per_bin False): lane s packs into n_bins bins of caps[s] (caps
+    f32[S, R]).  Per-bin (per_bin True, S 1): bin b has capacity caps[b]
+    (caps f32[n_bins, R]).  Returns (used i32[S], placed i32[S, C] in scan
+    positions, loads f32[S, n_bins, R] or None, touched bool[n_bins] in
+    per-bin mode else None); see models/binpack.py binpack_counts_plain.
+    Raises on anything the kernel does not take and on a refused launch."""
+    dev = _cuda_args("binpack_counts", (
+        (reqs, torch.float32, "reqs"), (counts, torch.int32, "counts"),
+        (caps, torch.float32, "caps"), (order, torch.int32, "order")))
+    if reqs.dim() != 2 or counts.shape != (reqs.shape[0],):
+        raise ValueError(f"binpack_counts wants reqs [C, R] and counts [C], "
+                         f"got {tuple(reqs.shape)} and "
+                         f"{tuple(counts.shape)}")
+    C, R = reqs.shape
+    S = order.shape[0] if order.dim() == 2 else -1
+    want_caps = (n_bins, R) if per_bin else (S, R)
+    if order.dim() != 2 or order.shape[1] != C or caps.shape != want_caps \
+            or (per_bin and S != 1):
+        raise ValueError(f"binpack_counts wants order [S, {C}] and caps "
+                         f"{'[n_bins, R] with S 1' if per_bin else '[S, R]'}"
+                         f", got {tuple(order.shape)} and "
+                         f"{tuple(caps.shape)} (n_bins {n_bins})")
+    if (C <= 0 or R <= 0 or S <= 0 or n_bins <= 0
+            or n_bins * R >= (1 << 31) or C * R >= (1 << 31)):
+        raise ValueError(f"binpack_counts: sizes C={C} R={R} S={S} "
+                         f"n_bins={n_bins} out of range")
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    ts = [t.contiguous() for t in (reqs, counts, caps, order)]
+    used = torch.empty(S, dtype=torch.int32, device=dev)
+    placed = torch.empty((S, C), dtype=torch.int32, device=dev)
+    loads = (torch.empty((S, n_bins, R), dtype=torch.float32, device=dev)
+             if want_loads else None)
+    touched = (torch.empty(n_bins, dtype=torch.bool, device=dev)
+               if per_bin else None)
+    work = torch.empty(int(lib.binpack_counts_workspace_floats(S, n_bins, R)),
+                       dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch_error(lib, "binpack_counts", lib.binpack_counts_launch(
+            ts[0].data_ptr(), ts[1].data_ptr(), C, R, ts[2].data_ptr(),
+            int(per_bin), int(n_bins), ts[3].data_ptr(), S, work.data_ptr(),
+            used.data_ptr(), placed.data_ptr(),
+            loads.data_ptr() if loads is not None else None,
+            touched.data_ptr() if touched is not None else None, stream))
+    LAUNCHES["binpack_counts"] += 1
+    return used, placed, loads, touched
+
+
+def reconcile_admit(u_node: torch.Tensor, u_ns: torch.Tensor,
+                    order: torch.Tensor, reqs: torch.Tensor,
+                    node_head: torch.Tensor, ns_head: torch.Tensor):
+    """K10: the sequenced admission scan over Bp candidate slots, u_node,
+    u_ns, order i32[Bp] and reqs, node_head, ns_head f32[Bp, R] on one CUDA
+    device -> (admit bool[Bp], quota_ok bool[Bp]) in candidate order; see
+    runtime/reconciler.py admit_scan_plain.  Raises on anything the kernel
+    does not take and on a refused launch."""
+    dev = _cuda_args("reconcile_admit", (
+        (u_node, torch.int32, "u_node"), (u_ns, torch.int32, "u_ns"),
+        (order, torch.int32, "order"), (reqs, torch.float32, "reqs"),
+        (node_head, torch.float32, "node_head"),
+        (ns_head, torch.float32, "ns_head")))
+    if reqs.dim() != 2:
+        raise ValueError(f"reconcile_admit wants reqs [Bp, R], got "
+                         f"{tuple(reqs.shape)}")
+    Bp, R = reqs.shape
+    for t, label in ((u_node, "u_node"), (u_ns, "u_ns"), (order, "order")):
+        if t.shape != (Bp,):
+            raise ValueError(f"reconcile_admit wants {label} ({Bp},), got "
+                             f"{tuple(t.shape)}")
+    for t, label in ((node_head, "node_head"), (ns_head, "ns_head")):
+        if t.shape != (Bp, R):
+            raise ValueError(f"reconcile_admit wants {label} ({Bp}, {R}), "
+                             f"got {tuple(t.shape)}")
+    if Bp <= 0 or R <= 0 or Bp * R >= (1 << 30):
+        raise ValueError(f"reconcile_admit: sizes Bp={Bp} R={R} out of "
+                         f"range")
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    ts = [t.contiguous() for t in (u_node, u_ns, order, reqs, node_head,
+                                   ns_head)]
+    admit = torch.empty(Bp, dtype=torch.bool, device=dev)
+    quota_ok = torch.empty(Bp, dtype=torch.bool, device=dev)
+    work = torch.empty(int(lib.reconcile_admit_workspace_floats(Bp, R)),
+                       dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch_error(lib, "reconcile_admit", lib.reconcile_admit_launch(
+            *(t.data_ptr() for t in ts), Bp, R, work.data_ptr(),
+            admit.data_ptr(), quota_ok.data_ptr(), stream))
+    LAUNCHES["reconcile_admit"] += 1
+    return admit, quota_ok

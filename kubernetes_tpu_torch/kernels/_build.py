@@ -88,6 +88,17 @@ def library() -> ctypes.CDLL:
     lib.commit_group_counts_launch.restype = ctypes.c_int
     lib.fold_predicates_launch.argtypes = [p] * 3 + [i] * 4 + [p] * 3
     lib.fold_predicates_launch.restype = ctypes.c_int
+    lib.ffd_order_launch.argtypes = [p, i, i, p, i, p, p]
+    lib.ffd_order_launch.restype = ctypes.c_int
+    lib.binpack_counts_launch.argtypes = (
+        [p, p, i, i, p, i, i, p, i] + [p] * 6)
+    lib.binpack_counts_launch.restype = ctypes.c_int
+    lib.binpack_counts_workspace_floats.argtypes = [i, i, i]
+    lib.binpack_counts_workspace_floats.restype = ctypes.c_longlong
+    lib.reconcile_admit_launch.argtypes = [p] * 6 + [i, i] + [p] * 4
+    lib.reconcile_admit_launch.restype = ctypes.c_int
+    lib.reconcile_admit_workspace_floats.argtypes = [i, i]
+    lib.reconcile_admit_workspace_floats.restype = ctypes.c_longlong
     lib.select_hosts_error_string.argtypes = [ctypes.c_int]
     lib.select_hosts_error_string.restype = ctypes.c_char_p
     return lib

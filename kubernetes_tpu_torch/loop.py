@@ -29,6 +29,14 @@ from batch to batch.
 `_bench_nodes` fleet (32 CPU, 256Gi, 110 pods per node, 8 zones, tier a/b,
 one tainted node in 50) and `_pending_pod` (the plain, node-affinity,
 pod-affinity and pod-anti-affinity shapes of scheduler_bench_test.go).
+
+`what_if_workload` is the port's copy of bench.py `_autoscale_workload`
+(the BASELINE what-if: a backlog drawn from controller-stamped request
+classes over a grid of candidate shapes); `shape_catalog`,
+`capacity_requests`, `capacity_pod` and `capacity_running_pods` turn it
+into the live capacity cell's shape catalog, pending pods and pre-filled
+fleet.  `run_replicas` is the port of
+bench.py run_replicas: the replica curve and the tenant storm.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import json
 import time
 from typing import List, Optional, Sequence
 
@@ -308,14 +317,17 @@ def live_config(batch: int, engine: str = "speculative",
                 preemption: bool = False, quality_top_k: int = 0,
                 quality_interval_cycles: int = 32, telemetry: bool = False,
                 telemetry_interval_cycles: int = 1, timeline: bool = False,
-                megacycle_batches: int = 1):
+                megacycle_batches: int = 1, capacity_planner: bool = False,
+                capacity_interval_cycles: int = 256,
+                node_shape_catalog=None):
     """bench.py run_live's SchedulerConfig with the port's settings given
     explicitly: preemption off unless asked for, the placement-quality
     observatory at the given top-k width (0: off; the reference's default
     is 3) and interval, telemetry at the given interval and the timeline
     off unless asked for (the reference's defaults: on, interval 1), the
-    megacycle depth (1: single cycles, the reference's default), the CPU
-    degradation engine off."""
+    megacycle depth (1: single cycles, the reference's default), the
+    capacity planner off unless asked for (with its interval and shape
+    catalog), the CPU degradation engine off."""
     from kubernetes_tpu_torch.runtime.scheduler import SchedulerConfig
 
     return SchedulerConfig(
@@ -326,6 +338,9 @@ def live_config(batch: int, engine: str = "speculative",
         quality_top_k=quality_top_k,
         quality_interval_cycles=quality_interval_cycles, timeline=timeline,
         megacycle_batches=megacycle_batches,
+        capacity_planner=capacity_planner,
+        capacity_interval_cycles=capacity_interval_cycles,
+        node_shape_catalog=node_shape_catalog,
     )
 
 
@@ -464,6 +479,14 @@ def telemetry_arrays(rec) -> dict:
     return out
 
 
+def capacity_arrays(samples) -> dict:
+    """npz-ready form of a capacity planner's solve samples: each as
+    canonical JSON (sorted keys) without its wall-clock "time"."""
+    return {"capacity_samples": np.asarray(
+        [json.dumps({k: v for k, v in x.items() if k != "time"},
+                    sort_keys=True) for x in samples], dtype=str)}
+
+
 @contextlib.contextmanager
 def full_collections():
     """Counts the full (generation-2) collections of Python's cyclic
@@ -494,7 +517,10 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
              quality_interval_cycles: int = 32, telemetry: bool = False,
              telemetry_interval_cycles: int = 1,
              timeline: bool = False, megacycle_batches: int = 1,
-             warmup: Optional[int] = None, sidecar=None) -> dict:
+             warmup: Optional[int] = None, sidecar=None,
+             capacity_planner: bool = False,
+             capacity_interval_cycles: int = 256, node_shape_catalog=None,
+             make_pending=None, running: Sequence[Pod] = ()) -> dict:
     """bench.py run_live on the port: `n_pods` pending pods of `workload`
     through the live Scheduler, after a warmup of `warmup` pods (default
     `batch`; pending_pod(n_pods + j)) drained outside the clock.  `existing`
@@ -539,7 +565,17 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     mirror before the next batch's fan-out and no reply hangs on thread
     timing.  Then also "extender_seconds" (the Scheduler's fan-out seconds)
     and the sidecar's "filter_seconds" (by part) and "filter_requests",
-    all in the timed window."""
+    all in the timed window.
+
+    capacity_planner: the Scheduler's capacity planner at
+    capacity_interval_cycles over node_shape_catalog; then also
+    "capacity" (its summary after the last solve landed),
+    "capacity_samples" (every solve's sample, oldest first, warmup
+    included), "capacity_dispatches" (solves dispatched in the timed
+    window) and "capacity_seconds" (scheduler_capacity_seconds_total in
+    the timed window).  make_pending: pod i of the cell (default
+    pending_pod(i, workload)); running: pods already bound to their
+    nodes, added after the `existing` ones."""
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.utils import metrics as m
     from kubernetes_tpu_torch.codec.transfer import transfer_delta, transfer_totals
@@ -548,8 +584,13 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     from kubernetes_tpu_torch.runtime.scheduler import Scheduler
 
     warmup = batch if warmup is None else warmup
+    if make_pending is None:
+        def make_pending(i):
+            return pending_pod(i, workload)
     t_setup = time.monotonic()
     enc = build_encoder(nodes, existing)
+    for pod in running:
+        enc.add_pod(pod)
     cache = SchedulerCache(enc)
     queue = PriorityQueue()
     hosts = np.full(n_pods + warmup, -1, np.int32)
@@ -592,7 +633,10 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
                           telemetry=telemetry,
                           telemetry_interval_cycles=telemetry_interval_cycles,
                           timeline=timeline,
-                          megacycle_batches=megacycle_batches),
+                          megacycle_batches=megacycle_batches,
+                          capacity_planner=capacity_planner,
+                          capacity_interval_cycles=capacity_interval_cycles,
+                          node_shape_catalog=node_shape_catalog),
                       extenders=extenders, device=device)
     qrec = (record_quality(sched.quality) if sched.quality is not None
             else None)
@@ -615,7 +659,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
         return placed + sched.flush_pipeline()
 
     for j in range(warmup):
-        queue.add(pending_pod(n_pods + j, workload))
+        queue.add(make_pending(n_pods + j))
     _drain(600)
     for pod, node_name in nominations or ():
         queue.update_nominated_pod(pod, node_name)
@@ -629,13 +673,16 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     scatter0 = len(sched._dev_snapshot.scatter_rows)
     xfer0 = transfer_totals()
     # pod objects are built outside the clock; the queue adds are inside
-    pending = [pending_pod(i, workload) for i in range(n_pods)]
+    pending = [make_pending(i) for i in range(n_pods)]
     # and so is the cyclic collector's work on everything built before the
     # clock: else whether a full collection falls inside it depends on all
     # the process did before
     gc.collect()
     q_s0 = m.QUALITY_SECONDS.value
     tel_s0, tl_s0 = m.TELEMETRY_SECONDS.value, m.TIMELINE_SECONDS.value
+    cap_s0 = m.CAPACITY_SECONDS.value
+    cap_d0 = (sched.capacity.dispatches_total
+              if sched.capacity is not None else 0)
     launches0 = dict(kernels.LAUNCHES)
     ext_s0 = sched.extender_seconds
     if sidecar is not None:
@@ -654,6 +701,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     q_s = m.QUALITY_SECONDS.value - q_s0
     tel_s = m.TELEMETRY_SECONDS.value - tel_s0
     tl_s = m.TIMELINE_SECONDS.value - tl_s0
+    cap_s = m.CAPACITY_SECONDS.value - cap_s0
     ph = dict(sched.phase_seconds)
     # "fetch" is the async D2H window measured on the fetch worker, so it
     # overlaps the host phases; host_stall and fetch_block (aliases) are a
@@ -673,6 +721,13 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     if sched.timeline is not None:
         extra.update(timeline=sched.timeline.summary(),
                      timeline_seconds=tl_s)
+    if sched.capacity is not None:
+        cap_d = sched.capacity.dispatches_total - cap_d0
+        sched.capacity.finalize()
+        extra.update(capacity=sched.capacity.summary(),
+                     capacity_samples=sched.capacity.debug_payload()[
+                         "samples"],
+                     capacity_dispatches=cap_d, capacity_seconds=cap_s)
     if sidecar is not None:
         extra.update(
             extender_seconds=sched.extender_seconds - ext_s0,
@@ -1088,3 +1143,237 @@ def extender_sidecar(nodes: Sequence[Node], existing: int = 0,
         yield server
     finally:
         server.stop()
+
+
+# ------------------------------------------- the what-if and capacity cells
+
+WHAT_IF_SEED = 20260804   # bench.py _autoscale_workload's seed
+# the live capacity cell: a running pod of this size on every node leaves
+# 3.5 CPU free; the pending pods take backlog rows of at most SMALL
+# milliCPU (a node holds a dozen), except the last partial batch, whose
+# rows ask for more than BIG milliCPU (they fit no node and overflow to the
+# shape catalog).  Small pods a dozen to a node keep the speculative
+# engine's rounds free of capacity bounces, which would send every batch
+# through the sequential redo
+CAPACITY_FILL_CPU, CAPACITY_FILL_MEM = "28500m", "64Gi"
+CAPACITY_SMALL_MILLI, CAPACITY_BIG_MILLI = 300, 3500
+
+
+def what_if_workload(pods: int = 50000, classes: int = 256,
+                     shapes: int = 10000, seed: int = WHAT_IF_SEED):
+    """bench.py _autoscale_workload on the port: a backlog of `pods`
+    request vectors drawn from `classes` distinct controller-stamped ones
+    (milliCPU 50-4000, memory 64-8192 Mi, one pod slot), and a random cpu x
+    memory grid of `shapes` candidate shapes (4-128 cores, 16-512 GiB, 110
+    pod slots), R 8, integer units.  Returns (reqs f32[pods, 8], shapes
+    f32[shapes, 8]); the defaults are BASELINE's fifth configuration."""
+    rng = np.random.default_rng(seed)
+    r = 8
+    n_classes = max(1, classes)
+    base = np.zeros((n_classes, r), np.float32)
+    base[:, 0] = rng.integers(50, 4000, n_classes)       # milliCPU
+    base[:, 1] = rng.integers(64, 8192, n_classes)       # memory (Mi)
+    base[:, 3] = 1.0                                     # one pod slot
+    reqs = base[rng.integers(0, n_classes, pods)]
+    s = max(1, shapes)
+    caps = np.zeros((s, r), np.float32)
+    caps[:, 0] = rng.integers(4000, 128001, s)           # 4-128 cores
+    caps[:, 1] = rng.integers(16 * 1024, 512 * 1024 + 1, s)  # 16G-512G
+    caps[:, 3] = 110.0
+    return reqs, caps
+
+
+def shape_catalog(shapes: np.ndarray) -> List[dict]:
+    """The planner's node-shape catalog entries for what_if_workload's
+    shapes (milliCPU, MiB, pod slots)."""
+    return [{"name": f"shape-{s}", "cpu": f"{int(row[0])}m",
+             "memory": f"{int(row[1])}Mi", "pods": float(row[3])}
+            for s, row in enumerate(shapes)]
+
+
+def capacity_requests(reqs: np.ndarray, n_pods: int, warmup: int,
+                      batch: int) -> np.ndarray:
+    """The live capacity cell's requests, one row a pod index (the warmup's
+    after the cell's), drawn in order (cycling) from what_if_workload's
+    backlog `reqs`: rows of at most CAPACITY_SMALL_MILLI milliCPU, except
+    for the last n_pods % batch pods (a whole batch when that is 0), which
+    take rows above CAPACITY_BIG_MILLI.  So only the last batch holds pods
+    that fit no node, and every solve before it sees them in the
+    backlog."""
+    n_big = n_pods % batch or batch
+    n_small = n_pods - n_big
+    small = np.resize(reqs[reqs[:, 0] <= CAPACITY_SMALL_MILLI],
+                      (n_small + warmup, reqs.shape[1]))
+    big = np.resize(reqs[reqs[:, 0] > CAPACITY_BIG_MILLI],
+                    (n_big, reqs.shape[1]))
+    return np.concatenate([small[:n_small], big, small[n_small:]])
+
+
+def capacity_pod(i: int, reqs: np.ndarray, make_pod=make_pod) -> Pod:
+    """Pending pod i of the live capacity cell: row i of `reqs`
+    (capacity_requests') as its requests, in the plain workload's
+    deployment."""
+    d = i % N_DEPLOY
+    return make_pod(f"pod-{i}", cpu=f"{int(reqs[i, 0])}m",
+                    mem=f"{int(reqs[i, 1])}Mi", labels={"app": f"dep-{d}"},
+                    owner=("ReplicaSet", f"rs-{d}"))
+
+
+def capacity_running_pods(nodes: Sequence[Node],
+                          make_pod=make_pod) -> List[Pod]:
+    """The live capacity cell's pre-fill: one running pod of
+    CAPACITY_FILL_CPU / CAPACITY_FILL_MEM on every node."""
+    return [make_pod(f"fill-{k}", cpu=CAPACITY_FILL_CPU,
+                     mem=CAPACITY_FILL_MEM, node_name=n.name,
+                     labels={"app": "fill"})
+            for k, n in enumerate(nodes)]
+
+
+# ------------------------------------------------------------- replicas
+
+
+def replica_config(batch: int, engine: str = "speculative",
+                   namespace_quotas: Optional[dict] = None):
+    """bench.py run_replicas' SchedulerConfig: the reference's defaults
+    (telemetry, the timeline, quality top-k 3) with a zero batch window,
+    preemption off, batched commit without the pipeline, and the CPU
+    degradation engine off."""
+    from kubernetes_tpu_torch.runtime.scheduler import SchedulerConfig
+
+    return SchedulerConfig(
+        batch_size=batch, batch_window_s=0.0, engine=engine,
+        disable_preemption=True, batched_commit=True,
+        pipeline_commit=False, cpu_fallback=False,
+        namespace_quotas=namespace_quotas)
+
+
+def _replica_set(nodes, n_replicas, batch, engine, device,
+                 namespace_quotas=None, record_scans=False):
+    from kubernetes_tpu_torch.runtime.cache import SchedulerCache
+    from kubernetes_tpu_torch.runtime.queue import PriorityQueue
+    from kubernetes_tpu_torch.runtime.replicas import SchedulerReplicaSet
+
+    rs = SchedulerReplicaSet(
+        replicas=n_replicas, cache=SchedulerCache(build_encoder(nodes)),
+        queue=PriorityQueue(shards=n_replicas),
+        binder=lambda pod, node: True,
+        config=replica_config(batch, engine, namespace_quotas),
+        device=device)
+    if record_scans:
+        rs.reconciler.recorded = []
+    return rs
+
+
+def run_replicas(nodes: Sequence[Node], n_pods: int, batch: int,
+                 ns: Sequence[int] = (1, 2), device="cuda",
+                 engine: str = "speculative", storm_pods: int = 2048,
+                 storm_quota: Optional[dict] = None,
+                 budget_s: float = 900.0, record_scans: bool = False) -> dict:
+    """bench.py run_replicas on the port: the same plain workload drained
+    by N queue-sharded replicas (a SchedulerReplicaSet on a fresh encoder
+    of `nodes` for every N in `ns`), after a warmup of batch * max(ns)
+    pods outside the clock; then the multi-tenant storm at max(ns): one
+    flooding tenant ("flood", every other pod, with `storm_quota` as its
+    namespace quota when given) against three paced ones, min(n_pods,
+    storm_pods) pods offered after the same warmup.
+
+    Returns {"curve": [per N: replicas, pods_per_s, seconds, placed,
+    conflicts, requeued, fast_path, scans, kernel_calls, quota_vetoes,
+    invariant_violations, drained_clean], "storm": {offered, placed, shed,
+    left_in_queue, lost, per_tenant, no_tenant_starved, quota_vetoes,
+    scans, kernel_calls, invariant_violations, drained_clean, seconds},
+    "scans": [(inputs, admit, quota_ok) of every admission scan, every N
+    and the storm] when record_scans, "launches": each kernel's launches
+    over the timed windows}.  Unrounded."""
+    from kubernetes_tpu_torch import kernels
+
+    curve, scans = [], []
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def timed(rs, pods):
+        """Warm the set outside the clock, then add `pods` and drain them
+        on the clock.  Returns (placed, seconds, the reconciler's stats
+        over the clock)."""
+        rs.prewarm()
+        for j in range(warm_n):
+            rs.queue.add(pending_pod(n_pods + j))
+        rs.run_until_drained(budget_s=600)
+        rs.stop()
+        if rs.reconciler.recorded is not None:
+            rs.reconciler.recorded.clear()
+        for s in rs.schedulers:
+            s.results.clear()
+        gc.collect()
+        l0 = dict(kernels.LAUNCHES)
+        st0 = dict(rs.reconciler.stats())
+        t0 = time.monotonic()
+        for p in pods:
+            rs.queue.add(p)
+        placed = rs.run_until_drained(budget_s=budget_s)
+        dt = time.monotonic() - t0
+        rs.stop()
+        for k, v in kernels.LAUNCHES.items():
+            launches[k] += v - l0[k]
+        if rs.reconciler.recorded is not None:
+            scans.extend(rs.reconciler.recorded)
+        st = {k: v - st0[k] for k, v in rs.reconciler.stats().items()}
+        return placed, dt, st
+
+    warm_n = batch * max(ns)
+    for N in ns:
+        rs = _replica_set(nodes, N, batch, engine, device,
+                          record_scans=record_scans)
+        placed, dt, st = timed(rs, [pending_pod(i) for i in range(n_pods)])
+        curve.append({
+            "replicas": N, "pods_per_s": placed / dt if dt > 0 else 0.0,
+            "seconds": dt, "placed": placed,
+            "conflicts": st["conflicts_total"],
+            "requeued": st["conflicts_total"] + st["quota_vetoes_total"],
+            "fast_path": st["fast_path_total"], "scans": st["scans_total"],
+            "kernel_calls": st["kernel_calls"],
+            "quota_vetoes": st["quota_vetoes_total"],
+            "invariant_violations": rs.invariant_violations_total(),
+            "drained_clean": rs.assert_drained(),
+        })
+        rs.close()
+    # the storm: every offered pod must be placed, parked or accounted for
+    n_max = max(ns)
+    rs = _replica_set(nodes, n_max, batch, engine, device,
+                      namespace_quotas=({"flood": storm_quota}
+                                        if storm_quota else None),
+                      record_scans=record_scans)
+    offered = []
+    for i in range(min(n_pods, storm_pods)):
+        p = pending_pod(i)
+        p.metadata.namespace = ("flood" if i % 2 == 0
+                                else f"tenant{i % 3}")
+        offered.append(p)
+    _, dt, st = timed(rs, offered)
+    placed_keys, per_tenant = set(), {}
+    for s in rs.schedulers:
+        for r in s.results:
+            if r.node is not None:
+                placed_keys.add((r.pod.namespace, r.pod.name))
+                per_tenant[r.pod.namespace] = (
+                    per_tenant.get(r.pod.namespace, 0) + 1)
+    storm_placed = sum(1 for p in offered
+                       if (p.namespace, p.name) in placed_keys)
+    left, shed = len(rs.queue), rs.queue.shed_total
+    tenants = ["flood"] + [f"tenant{t}" for t in range(3)]
+    storm = {
+        "seconds": dt, "offered": len(offered), "placed": storm_placed,
+        "shed": shed, "left_in_queue": left,
+        "lost": len(offered) - storm_placed - shed - left,
+        "per_tenant": {t: per_tenant.get(t, 0) for t in tenants},
+        "no_tenant_starved": all(per_tenant.get(t, 0) > 0 for t in tenants),
+        "quota_vetoes": st["quota_vetoes_total"],
+        "scans": st["scans_total"], "kernel_calls": st["kernel_calls"],
+        "conflicts": st["conflicts_total"],
+        "invariant_violations": rs.invariant_violations_total(),
+        "drained_clean": rs.assert_drained(),
+    }
+    rs.close()
+    out = {"curve": curve, "storm": storm, "launches": launches}
+    if record_scans:
+        out["scans"] = scans
+    return out

@@ -73,6 +73,7 @@ ticked on idle polls, samples every metric once gauges have settled.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import threading
@@ -125,7 +126,9 @@ from kubernetes_tpu_torch.runtime.events import (
     EventRecorder,
 )
 from kubernetes_tpu_torch.ops.select import TopKQuality
+from kubernetes_tpu_torch.runtime import capacity as capacity_mod
 from kubernetes_tpu_torch.runtime import quality as quality_mod
+from kubernetes_tpu_torch.runtime import reconciler as reconciler_mod
 from kubernetes_tpu_torch.runtime import telemetry as telemetry_mod
 from kubernetes_tpu_torch.runtime import timeline as timeline_mod
 from kubernetes_tpu_torch.runtime.flightrecorder import RECORDER, FlightRecorder
@@ -250,10 +253,6 @@ def refused_settings(config: SchedulerConfig) -> List[Tuple[str, str]]:
         (c.attribution, "attribution=True", "A9 (observatories and ledger)"),
         (c.decision_ledger, "decision_ledger=True",
          "A9 (observatories and ledger)"),
-        (c.capacity_planner, "capacity_planner=True",
-         "A10 (capacity and replicas)"),
-        (c.replicas > 1, f"replicas={c.replicas}",
-         "A10 (capacity and replicas)"),
         (bool(c.shard_devices), f"shard_devices={c.shard_devices}",
          "A11 (multi-device)"),
         (c.mesh_shape is not None, "mesh_shape", "A11 (multi-device)"),
@@ -318,6 +317,18 @@ class _InFlight:
     # winners came from one shared dispatch and fetch, whose seconds are
     # attributed 1/K to each window
     mega: Optional[Tuple[int, int]] = None
+    # the capacity planner's host snapshot refs (allocatable, requested,
+    # valid) of the state this cycle placed against (window 0 only)
+    capacity_snapshot: Optional[tuple] = None
+    # --- queue-sharded replicas ---
+    # the encoded batch's request matrix (host ref): the reconciler's
+    # admission scan input
+    reqs: object = None
+    # the reconciler's commit sequence number (-1 outside replica mode)
+    commit_seq: int = -1
+    # the encoder generation right after this cycle's commit (the chained
+    # fence of a megacycle's next window)
+    gen_after: int = -1
 
 
 @dataclass
@@ -339,6 +350,11 @@ class _Staged:
     stall_s: float = 0.0
     # THIS cycle's wire traffic, taken at the commit fence
     xfer_delta: Optional[dict] = None
+    # replica mode: (batch index, pod) of winners a sequenced-earlier
+    # commit beat to the node's headroom (readded to the owner shard) and
+    # of winners a namespace quota vetoed (parked unschedulable)
+    race_lost: List[Tuple] = field(default_factory=list)
+    quota_lost: List[Tuple] = field(default_factory=list)
 
 
 @dataclass
@@ -418,16 +434,28 @@ class Scheduler:
             refused.append(("framework", "A8 (gang and framework plugins)"))
         if ledger is not None:
             refused.append(("ledger", "A9 (observatories and ledger)"))
-        if (replica_of > 1 or reconciler is not None
-                or snapshot_hub is not None
-                or share_engines_with is not None):
-            refused.append(("scheduler replicas",
-                            "A10 (capacity and replicas)"))
         if refused:
             raise NotImplementedError(
                 "not ported yet: " + "; ".join(
                     f"{what} (ROADMAP {item})" for what, item in refused))
         self.device = torch.device(device)
+        # queue-sharded replicas: this instance's replica index (= the
+        # stable queue hash-shard it pops), the shared sequenced reconciler
+        # and the shared snapshot hub; replica_of == 1 with neither is the
+        # single-loop scheduler
+        self._replica_id = int(replica_id)
+        self._replica_of = max(1, int(replica_of))
+        self._reconciler = reconciler
+        self._hub = snapshot_hub
+        self.conflicts_total = 0        # race losers this replica requeued
+        self.race_requeued_total = 0
+        self.quota_vetoed_total = 0
+        if self._reconciler is not None and not self.config.batched_commit:
+            raise ValueError(
+                "replica mode requires batched_commit: the conflict "
+                "reconciler admits a cycle's winners as one sequenced "
+                "critical section"
+            )
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Scheduler(device='cuda') needs a CUDA device; pass "
@@ -498,24 +526,34 @@ class Scheduler:
             quality_topk=self._quality_k,
             device=self.device,
         )
-        self._schedule_fn = make_sequential_scheduler(**engine_kw)
-        self._speculative_fn = (
-            make_speculative_scheduler(**engine_kw)
-            if self.config.engine == "speculative" else None
-        )
-        self._preempt_eval = make_preempt_eval(
-            self.config.filter_config, self._unsched_key
-        )
+        if share_engines_with is not None:
+            # replica siblings reuse the primary's engines
+            self._schedule_fn = share_engines_with._schedule_fn
+            self._speculative_fn = share_engines_with._speculative_fn
+            self._preempt_eval = share_engines_with._preempt_eval
+        else:
+            self._schedule_fn = make_sequential_scheduler(**engine_kw)
+            self._speculative_fn = (
+                make_speculative_scheduler(**engine_kw)
+                if self.config.engine == "speculative" else None
+            )
+            self._preempt_eval = make_preempt_eval(
+                self.config.filter_config, self._unsched_key
+            )
         self._engine_kind = (
             "sequential" if self._speculative_fn is None else "speculative"
         )
         # the device-resident megacycle: the K-window driver over the same
         # engine the single cycles run, so its placements are chained
         # single-cycle placements by construction
-        self._mega_fn = (
-            make_megacycle_scheduler(**engine_kw, engine=self._engine_kind)
-            if self.config.megacycle_batches > 1 else None
-        )
+        if share_engines_with is not None:
+            self._mega_fn = share_engines_with._mega_fn
+        else:
+            self._mega_fn = (
+                make_megacycle_scheduler(**engine_kw,
+                                         engine=self._engine_kind)
+                if self.config.megacycle_batches > 1 else None
+            )
         self.megacycles_total = 0
         # incremental host->device snapshot upload: unchanged fields keep
         # their resident tensors between cycles, dirty rows scatter in
@@ -550,6 +588,7 @@ class Scheduler:
         }
         self._last_index = 0
         self._stop = threading.Event()
+        self._in_cycle = False
         # classified retry/backoff + circuit breaker (runtime/health.py)
         self.device_health = DeviceHealth(
             failure_threshold=self.config.breaker_failure_threshold,
@@ -596,7 +635,8 @@ class Scheduler:
                 postmortem=self._postmortem,
                 device=self.device,
             )
-            telemetry_mod.set_default(self.telemetry)
+            telemetry_mod.set_default(self.telemetry,
+                                      replica=self._replica_id)
         # shed watermark: per-cycle deltas feed the goodput SLO
         self._shed_seen = 0
         # placement-quality observatory: margins and feasible counts off
@@ -612,7 +652,7 @@ class Scheduler:
                 drift_threshold=self.config.quality_drift_threshold,
                 device=self.device,
             )
-            quality_mod.set_default(self.quality)
+            quality_mod.set_default(self.quality, replica=self._replica_id)
         # metrics timeline: every metric family sampled once per
         # timeline_interval_s into a bounded ring, with event annotations
         # and the online anomaly detector; ticked from the commit tail and
@@ -627,7 +667,59 @@ class Scheduler:
                     postmortem=self._postmortem,
                 ),
             )
-            timeline_mod.set_default(self.timeline)
+            timeline_mod.set_default(self.timeline, replica=self._replica_id)
+        # the capacity planner: every capacity_interval_cycles committed
+        # cycles the backlog is class-compressed and packed, into the
+        # existing headroom first and the overflow over the node-shape
+        # catalog (kernels K9 and K8 on the card), as a side launch read
+        # back one interval later; placements are identical with it on or
+        # off.  Installed as the process default
+        self.capacity = None
+        if self.config.capacity_planner:
+            self.capacity = capacity_mod.CapacityPlanner(
+                catalog=self.config.node_shape_catalog,
+                interval_cycles=self.config.capacity_interval_cycles,
+                device=self.device,
+            )
+            capacity_mod.set_default(self.capacity, replica=self._replica_id)
+        # the replica registry the /debug/replicas roll-up serves
+        reconciler_mod.register_scheduler(self)
+        m.REPLICAS.set(float(self._replica_of))
+
+    def attach_hub(self, hub) -> None:
+        """Late-bind the shared SnapshotHub (the replica set builds it FROM
+        replica 0's DeviceSnapshotCache, then attaches it).  Only valid
+        before any cycle dispatched."""
+        self._hub = hub
+
+    # ------------------------------------------ resident-snapshot seams
+    #
+    # Every touch of the resident device snapshot goes through these, so
+    # replica mode can swap in the SHARED SnapshotHub: a hub launch
+    # refreshes to the CURRENT cache truth and runs the engine's enqueue
+    # under the hub's lock (the port's resident snapshot is scattered in
+    # place).  Single mode keeps this instance's own DeviceSnapshotCache
+    # and its dirty-row contract.
+
+    def _device_launch(self, cluster, generation, dirty_rows, fn):
+        """Run fn(device cluster) against the resident snapshot.  Returns
+        (host cluster, generation, fn's result): in hub mode those the hub
+        refreshed to, else the caller's."""
+        if self._hub is not None:
+            return self._hub.launch(fn)
+        dev = self._dev_snapshot.update(cluster, dirty_rows=dirty_rows)
+        return cluster, generation, fn(dev)
+
+    def _device_invalidate(self) -> None:
+        if self._hub is not None:
+            self._hub.invalidate()
+        else:
+            self._dev_snapshot.invalidate()
+
+    def _device_resident(self, fields):
+        if self._hub is not None:
+            return self._hub.resident(fields)
+        return self._dev_snapshot.resident(fields)
 
     # ------------------------------------------------------------- one cycle
 
@@ -793,7 +885,7 @@ class Scheduler:
             m.FAULT_RETRIES.inc(**{"class": fc})
             time.sleep(self.device_health.backoff_s(attempt))
             return True
-        self._dev_snapshot.invalidate()
+        self._device_invalidate()
         return False
 
     def _commit_state_resilient(self, inf: _InFlight) -> _Staged:
@@ -870,8 +962,11 @@ class Scheduler:
             nominated = encode_nominated(enc, nominated_pairs)
             cluster, generation = self.cache.snapshot()
             # the rows the incremental snapshot refreshed, taken under the
-            # lock so the row set corresponds exactly to THIS snapshot
-            dirty_rows = enc.take_dirty_rows()
+            # lock so the row set corresponds exactly to THIS snapshot; in
+            # hub mode the dirty stream's single consumer is the hub
+            dirty_rows = (
+                enc.take_dirty_rows() if self._hub is None else None
+            )
             # ports + anti-affinity contributions of nominated pods (the
             # non-resource half of podFitsOnNode's pass one) as a host
             # mask folded into extra_mask below
@@ -909,6 +1004,9 @@ class Scheduler:
         if self._speculative_fn is not None:
             fn = self._speculative_fn
         last_index0 = self._last_index
+        # hub mode: the launch refreshes to the newest resident state, and
+        # the cycle carries the generation and snapshot the engine saw
+        launch_box = {"cluster": cluster, "generation": generation}
 
         def launch():
             """(Re-)dispatch THIS encoded batch.  Captured by
@@ -916,15 +1014,15 @@ class Scheduler:
             computation with the same rotation base; dirty_rows are
             re-passed safely — fields whose upload already landed
             identity-skip, and after an invalidate() everything re-uploads
-            whole."""
+            whole.  Hub mode refreshes to the CURRENT cache truth."""
             device_faults.check(device_faults.SITE_DISPATCH)
-            dev_cluster = self._dev_snapshot.update(
-                cluster, dirty_rows=dirty_rows
-            )
-            out = fn(
-                dev_cluster, batch, ports, last_index0, nominated,
-                extra_mask, extra_score, aff_state,
-            )
+            c2, g2, out = self._device_launch(
+                cluster, generation, dirty_rows,
+                lambda dev_cluster: fn(
+                    dev_cluster, batch, ports, last_index0, nominated,
+                    extra_mask, extra_score, aff_state,
+                ))
+            launch_box["cluster"], launch_box["generation"] = c2, g2
             hosts = out[0]
             # only the compact winners buffer (i32[B] node rows) crosses
             # back, with the quality top-k's three leaves on the same
@@ -944,18 +1042,22 @@ class Scheduler:
         )
         t_disp_end = time.monotonic()
         self._phase("dispatch", t_disp_end - t_disp, tier)
+        if self._replica_of > 1:
+            trace.annotate(replica=self._replica_id)
+        used = launch_box["cluster"]
+        refs = (used.allocatable, used.requested, used.valid)
         return _InFlight(
             pods=list(pods), hosts_dev=hosts_dev, fetch=fetch,
-            generation=generation, cycle=cycle, t_cycle0=t_cycle0,
+            generation=launch_box["generation"], cycle=cycle,
+            t_cycle0=t_cycle0,
             trace=trace, ext_failed=ext_failed, relaunch=launch,
             last_index0=last_index0,
             tier=tier, width=batch.n_pods, enqueue_s=t_disp_end - t_cycle0,
             xfer0=xfer0,
             quality_reqs=batch.req if self.quality is not None else None,
-            quality_snapshot=(
-                (cluster.allocatable, cluster.requested, cluster.valid)
-                if self.quality is not None else None
-            ),
+            quality_snapshot=refs if self.quality is not None else None,
+            capacity_snapshot=refs if self.capacity is not None else None,
+            reqs=batch.req if self._reconciler is not None else None,
         )
 
     def _launch_resilient(self, launch):
@@ -1058,7 +1160,39 @@ class Scheduler:
             assumed = copy.copy(pod)
             assumed.spec = spec
             winners.append((i, pod, assumed, node_name))
-        # ONE lock acquisition + one encoder delta for the whole batch
+        if self._reconciler is not None:
+            # the SEQUENCED optimistic-concurrency commit: the admission
+            # check and the assume run as ONE critical section under the
+            # cache lock, so the headroom the check read is exactly the
+            # headroom the delta lands on; race losers readd to their
+            # owner shard in the tail, quota losers park unschedulable
+            with self.cache._lock:
+                kept, staged.race_lost, staged.quota_lost = (
+                    self._reconciler.reconcile(self, inf, winners, hosts))
+                if kept is not winners:
+                    staged.winners = winners = list(kept)
+                self._assume_winners(winners, hosts)
+                inf.gen_after = enc.generation
+            if staged.race_lost or staged.quota_lost:
+                self.conflicts_total += len(staged.race_lost)
+                self.race_requeued_total += len(staged.race_lost)
+                self.quota_vetoed_total += len(staged.quota_lost)
+                inf.trace.annotate(conflicts=len(staged.race_lost),
+                                   quota_vetoed=len(staged.quota_lost))
+        else:
+            self._assume_winners(winners, hosts)
+        staged.state_seconds = time.monotonic() - t_state0
+        self.commit_state_seconds += staged.state_seconds
+        inf.trace.add_child(
+            "commit", t_state0, time.monotonic(), winners=len(winners),
+        )
+        return staged
+
+    def _assume_winners(self, winners, hosts) -> None:
+        """ONE lock acquisition + one encoder delta for the whole batch,
+        then the capacity invariant over exactly the rows it committed to,
+        read under the cache lock."""
+        enc = self.cache.encoder
         self.cache.assume_pods([a for _, _, a, _ in winners])
         if self.invariants is not None and winners:
             rows = sorted({int(hosts[i]) for i, _, _, _ in winners})
@@ -1067,12 +1201,6 @@ class Scheduler:
                     rows, enc.a_requested, enc.a_allocatable,
                     row_name=enc.row_name,
                 )
-        staged.state_seconds = time.monotonic() - t_state0
-        self.commit_state_seconds += staged.state_seconds
-        inf.trace.add_child(
-            "commit", t_state0, time.monotonic(), winners=len(winners),
-        )
-        return staged
 
     def _commit_tail(self, staged: _Staged) -> List[ScheduleResult]:
         """Side-effect tail of a cycle: binds, events, metrics, requeues,
@@ -1145,6 +1273,19 @@ class Scheduler:
                 )
             finally:
                 m.QUALITY_SECONDS.inc(time.perf_counter() - t_q)
+        if self.capacity is not None:
+            # the amortized what-if solve over the backlog and the shape
+            # catalog: never fails a committed cycle, its cost stamped into
+            # its own counter
+            t_cap = time.perf_counter()
+            try:
+                self._capacity_cycle(inf)
+            except Exception as e:  # noqa: BLE001
+                klog.errorf(
+                    "capacity hook failed (cycle %d): %s", inf.cycle, e
+                )
+            finally:
+                m.CAPACITY_SECONDS.inc(time.perf_counter() - t_cap)
         m.PENDING_PODS.set(float(len(self.queue)))
         # the timeline's cadence-gated sweep, after every gauge above has
         # settled, so the sample reads this cycle's state
@@ -1153,6 +1294,54 @@ class Scheduler:
         if self.config.trace_threshold_s > 0:
             inf.trace.log_if_long(self.config.trace_threshold_s)
         return results
+
+    def _capacity_cycle(self, inf: _InFlight) -> None:
+        """Feed the capacity planner one committed cycle: the cycle's host
+        snapshot refs, a lazy backlog reader (invoked only on due
+        cycles), the node-name resolver for the drainable report, and the
+        encoder's read-only extended-resource column lookup."""
+        enc = self.cache.encoder
+
+        def node_names():
+            return {row: name for name, row in enc.node_rows.items()}
+
+        self.capacity.on_cycle(
+            cycle=inf.cycle,
+            backlog=self._capacity_backlog,
+            snapshot=inf.capacity_snapshot,
+            node_names=node_names,
+            res_col=enc.res_col_readonly,
+        )
+
+    def _capacity_backlog(self, cap: int):
+        """The pending+unschedulable backlog in the planner's pre-grouped
+        form (distinct request vectors f32[G, R], counts i[G]; at most
+        `cap` pods), encoded read-only: pods group by their containers'
+        requests and each distinct content encodes once."""
+        enc = self.cache.encoder
+        q = self.queue
+        pods = q.backlog_pods(cap) if hasattr(q, "backlog_pods") else []
+        if not pods:
+            return np.zeros((0, enc.dims.R), np.float32)
+        groups: Dict[tuple, list] = {}
+        for p in pods:
+            rk = (
+                tuple(
+                    tuple(c.requests.items()) for c in p.spec.containers
+                ),
+                () if not p.spec.init_containers else tuple(
+                    tuple(c.requests.items())
+                    for c in p.spec.init_containers
+                ),
+            )
+            g = groups.get(rk)
+            if g is None:
+                groups[rk] = [enc.backlog_req_vector(p), 1]
+            else:
+                g[1] += 1
+        vecs = np.stack([v for v, _ in groups.values()])
+        counts = np.asarray([c for _, c in groups.values()], np.int64)
+        return vecs, counts
 
     def _timeline_tick(self, what: str) -> None:
         """One cadence-gated timeline sweep (commit tail and idle poll):
@@ -1197,19 +1386,24 @@ class Scheduler:
         )
         if inf.fetch is not None:
             hub.note_launch(inf.width or len(inf.pods), inf.fetch.seconds)
-        hub.on_cycle(
-            cycle=inf.cycle,
-            tier=inf.tier,
-            cycle_s=time.monotonic() - inf.t_cycle0,
-            placed=placed,
-            unschedulable=len(results) - placed,
-            shed=shed_delta,
-            degraded=False,
-            deadline_s=self.config.cycle_deadline_s,
-            resident=self._dev_snapshot.resident(
-                telemetry_mod.ANALYTICS_FIELDS),
-            span=inf.trace,
-        )
+        # in hub mode a sibling's refresh scatters into the resident
+        # snapshot in place: read it and enqueue the analytics under the
+        # hub's lock
+        with (self._hub.hold() if self._hub is not None
+              else contextlib.nullcontext()):
+            hub.on_cycle(
+                cycle=inf.cycle,
+                tier=inf.tier,
+                cycle_s=time.monotonic() - inf.t_cycle0,
+                placed=placed,
+                unschedulable=len(results) - placed,
+                shed=shed_delta,
+                degraded=False,
+                deadline_s=self.config.cycle_deadline_s,
+                resident=self._device_resident(
+                    telemetry_mod.ANALYTICS_FIELDS),
+                span=inf.trace,
+            )
 
     def _tail_perpod(self, staged: _Staged):
         """The classic per-pod commit loop (batched_commit=False):
@@ -1308,6 +1502,27 @@ class Scheduler:
                 EVENT_TYPE_WARNING, "FailedScheduling",
                 "extender error: %s" % msg, tid,
             )
+        # optimistic-concurrency losers: a sequenced-earlier replica commit
+        # spent this pod's node headroom — readd it to its OWNER shard
+        # (active queue, shed-exempt), not the unschedulable parking lot
+        for i, pod in staged.race_lost:
+            results[i] = ScheduleResult(pod, None, generation)
+            events[i] = (
+                "Pod", pod.namespace, pod.name,
+                EVENT_TYPE_NORMAL, "PlacementConflict",
+                "lost optimistic concurrency race for node headroom; "
+                "requeued", tid,
+            )
+        # namespace-quota vetoes park unschedulable WITH backoff
+        for i, pod in staged.quota_lost:
+            results[i] = ScheduleResult(pod, None, generation)
+            losers.append(pod)
+            events[i] = (
+                "Pod", pod.namespace, pod.name,
+                EVENT_TYPE_WARNING, "QuotaExceeded",
+                "namespace %s placement quota exhausted" % pod.namespace,
+                tid,
+            )
         # enqueue stamps BEFORE the bind fan-out; failed binds restore
         # theirs so a requeued pod keeps its first-enqueue time
         winner_qts = self.queue.take_enqueue_times(
@@ -1353,6 +1568,12 @@ class Scheduler:
                     % (pod.namespace, pod.name, node_name), tid,
                 )
         self.queue.add_unschedulable_batch(losers, cycle)
+        for _, pod in staged.race_lost:
+            self.queue.readd(pod)
+        if staged.quota_lost:
+            m.SCHEDULE_ATTEMPTS.inc(
+                len(staged.quota_lost), result=m.UNSCHEDULABLE
+            )
         if bound and self.queue.has_nominated():
             self.queue.delete_nominated_batch([p for _, p, _ in bound])
         m.BINDING_LATENCY.observe_batch(bind_dts)
@@ -1576,8 +1797,13 @@ class Scheduler:
         cycles = [self.queue.scheduling_cycle]
         leftovers: List[List[Pod]] = []
         t_pop = time.monotonic()
+        # a replica's later windows come from its own shard too
+        mega_pop_kw = (
+            {"shard": self._replica_id, "of": self._replica_of}
+            if self._replica_of > 1 else {}
+        )
         while len(windows) < self.config.megacycle_batches:
-            w = self.queue.pop_batch(width, 0.0, 0.0)
+            w = self.queue.pop_batch(width, 0.0, 0.0, **mega_pop_kw)
             if not w:
                 break
             if self.invariants is not None:
@@ -1627,7 +1853,9 @@ class Scheduler:
                 batches = [enc.encode_pods(w) for w in windows]
             ports = [encode_batch_ports(enc, w) for w in windows]
             cluster, generation = self.cache.snapshot()
-            dirty_rows = enc.take_dirty_rows()
+            dirty_rows = (
+                enc.take_dirty_rows() if self._hub is None else None
+            )
         enc_span.finish()
         # each window's rotation base: the base plus the cumulative RAW pod
         # counts, the values K separate cycles would have seen (int32)
@@ -1642,15 +1870,18 @@ class Scheduler:
         t_disp = time.monotonic()
         self._phase("encode", t_disp - t_cycle0)
         mega_fn = self._mega_fn
+        launch_box = {"cluster": cluster, "generation": generation}
 
         def launch():
             """(Re-)dispatch the K encoded windows with the same bases:
-            the transient-retry path's relaunch."""
+            the transient-retry path's relaunch (hub mode refreshes to the
+            current cache truth)."""
             device_faults.check(device_faults.SITE_DISPATCH)
-            dev_cluster = self._dev_snapshot.update(
-                cluster, dirty_rows=dirty_rows
-            )
-            out = mega_fn(dev_cluster, batch_k, ports_k, li0)
+            c2, g2, out = self._device_launch(
+                cluster, generation, dirty_rows,
+                lambda dev_cluster: mega_fn(dev_cluster, batch_k, ports_k,
+                                            li0))
+            launch_box["cluster"], launch_box["generation"] = c2, g2
             hosts = out[0]
             # the stacked top-k leaves ride the winners' copy
             extras = out[2] if self._quality_k else ()
@@ -1661,6 +1892,8 @@ class Scheduler:
         disp_span.finish()
         t_disp_end = time.monotonic()
         self._phase("dispatch", t_disp_end - t_disp)
+        used = launch_box["cluster"]
+        refs = (used.allocatable, used.requested, used.valid)
         infs: List[_InFlight] = []
         for k, w in enumerate(windows):
             spans[k].annotate(
@@ -1672,9 +1905,12 @@ class Scheduler:
                 breaker=self.device_health.state,
                 engine=self._engine_kind,
             )
+            if self._replica_of > 1:
+                spans[k].annotate(replica=self._replica_id)
             infs.append(_InFlight(
                 pods=list(w), hosts_dev=None, fetch=None,
-                generation=generation, cycle=cycles[k], t_cycle0=t_cycle0,
+                generation=launch_box["generation"], cycle=cycles[k],
+                t_cycle0=t_cycle0,
                 trace=spans[k], relaunch=None, last_index0=li0[k],
                 tier=TIER_BULK, width=batches[k].n_pods,
                 enqueue_s=(t_disp_end - t_cycle0) / K,
@@ -1683,10 +1919,15 @@ class Scheduler:
                     batches[k].req if self.quality is not None else None
                 ),
                 # only window 0 placed against exactly this snapshot: the
-                # later windows skip the FFD counterfactual
+                # later windows skip the FFD counterfactual and the planner
                 quality_snapshot=(
-                    (cluster.allocatable, cluster.requested, cluster.valid)
-                    if self.quality is not None and k == 0 else None
+                    refs if self.quality is not None and k == 0 else None
+                ),
+                capacity_snapshot=(
+                    refs if self.capacity is not None and k == 0 else None
+                ),
+                reqs=(
+                    batches[k].req if self._reconciler is not None else None
                 ),
                 mega=(k, K),
             ))
@@ -1706,9 +1947,10 @@ class Scheduler:
         `staged` is the CALLER's list, appended window by window as each
         state commit lands: if an error escapes mid-loop the caller
         (_commit_state_mega_or_requeue) sees exactly which windows
-        committed.  Every window keeps the snapshot's generation: the
-        reference chains window k - 1's post-commit generation into window
-        k only where its replica reconciler stamps one (ROADMAP A10)."""
+        committed.  The chained fence: in replica mode window k placed
+        against the state window k - 1's commit produced, so it carries the
+        generation that commit left (the reconciler stamps it); without a
+        reconciler every window keeps the snapshot's generation."""
         K = len(mf.windows)
         attempt = 0
         relaunch_pending = False
@@ -1749,7 +1991,10 @@ class Scheduler:
         self.device_health.record_success()
         self._phase("host_stall", stall)
         f = mf.fetch
+        prev_gen = -1
         for k, inf in enumerate(mf.windows):
+            if k > 0 and prev_gen >= 0:
+                inf.generation = prev_gen
             inf.fetch = _HostResult(
                 hosts_all[k],
                 extras=(
@@ -1761,6 +2006,7 @@ class Scheduler:
                 materialize_seconds=f.materialize_seconds / K,
             )
             st = self._commit_state(inf)
+            prev_gen = inf.gen_after
             if k == 0:
                 st.stall_s += stall
             staged.append(st)
@@ -1935,7 +2181,9 @@ class Scheduler:
             with enc.batch_width(1):
                 batch = enc.encode_pods([pod])
             cluster, _ = self.cache.snapshot()
-            dirty_rows = enc.take_dirty_rows()
+            dirty_rows = (
+                enc.take_dirty_rows() if self._hub is None else None
+            )
         # device work outside the cache lock.  The snapshot is a
         # point-in-time copy; the candidates may be one event stale against
         # the state re-read below, as in the reference (the pick's
@@ -1944,12 +2192,12 @@ class Scheduler:
         # cycle's own: preempt runs only on the scheduling thread's commit
         # tail, interleaved with the cycles, never concurrent.
         try:
-            dev_cluster = self._dev_snapshot.update(
-                cluster, dirty_rows=dirty_rows)
             dev_batch = _dc_to(batch, PodBatch, self.device, "preempt")
-            cands = host_fetch(
-                self._preempt_eval(dev_cluster, dev_batch), tag="preempt"
-            )[0].copy()
+            _, _, cands = self._device_launch(
+                cluster, 0, dirty_rows,
+                lambda dev_cluster: host_fetch(
+                    self._preempt_eval(dev_cluster, dev_batch),
+                    tag="preempt")[0].copy())
         except BaseException as e:
             fc = classify_device_error(e)
             if fc is None:
@@ -1958,7 +2206,7 @@ class Scheduler:
             # CPU degradation engine in the port it propagates
             self._note_device_fault(fc, e, "preempt")
             self.device_health.record_failure(fc)
-            self._dev_snapshot.invalidate()
+            self._device_invalidate()
             raise
         finally:
             t = self._tick_preempt("candidates", t)
@@ -2132,11 +2380,19 @@ class Scheduler:
         # loop that just sampled in the commit tail pays one clock read)
         self._timeline_tick("timeline idle tick failed")
         t_pop = time.monotonic()
+        # a queue-sharded replica drains only its own stable hash-shard:
+        # pops are disjoint across replicas, and every requeue of a popped
+        # pod lands back on this shard
+        pop_kw = (
+            {"shard": self._replica_id, "of": self._replica_of}
+            if self._replica_of > 1 else {}
+        )
         pods = self.queue.pop_batch(
             self.config.batch_size,
             # with a batch in flight, don't block in the pop
             0.0 if self.pipeline_pending else timeout,
             self.config.batch_window_s,
+            **pop_kw,
         )
         if self.invariants is not None:
             self.invariants.note_popped(pods, self.queue.scheduling_cycle)
@@ -2145,6 +2401,20 @@ class Scheduler:
             # idle poll: drain any in-flight batch so binds/events/requeues
             # don't wait for the next arrival
             return self.flush_pipeline()
+        self._in_cycle = True
+        try:
+            return self._run_popped(pods)
+        finally:
+            self._in_cycle = False
+
+    @property
+    def in_cycle(self) -> bool:
+        """True from a non-empty pop until its cycle returns (a replica
+        set's drain waits on it)."""
+        return self._in_cycle
+
+    def _run_popped(self, pods) -> int:
+        """run_once past a non-empty pop."""
         if (
             not self.extenders
             and not self.queue.nominated_pods()

@@ -184,7 +184,10 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
              quality_top_k: int = 0, quality_interval_cycles: int = 32,
              telemetry: bool = False, telemetry_interval_cycles: int = 1,
              timeline: bool = False, extended: int = 0,
-             warmup=None, extender: bool = False):
+             warmup=None, extender: bool = False,
+             capacity_planner: bool = False,
+             capacity_interval_cycles: int = 256, node_shape_catalog=None,
+             make_pending=None, running=None):
     """The JAX Scheduler's live cycle under the loop of bench.py run_live
     (and of the port's loop.run_live): a warmup of `warmup` pods (default
     `batch`; index n_pods + j) drained first, `nominated` preemptors
@@ -201,7 +204,11 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
     holds the same fleet, through one HTTP extender with filter,
     prioritize and bind verbs, NodeCacheCapable: true, weight 1 (the
     port's loop.run_live(sidecar=...)); its bind verb binds in place of
-    the binder."""
+    the binder.  capacity_planner, capacity_interval_cycles and
+    node_shape_catalog set the Scheduler's capacity planner (the
+    scheduler's `capacity` then holds every solve); make_pending(i) builds
+    pod i (default bench.py's pending pod of `workload`) and
+    running(nodes) the pods bound before the warmup."""
     import bench
     from kubernetes_tpu.api.factory import make_pod
     from kubernetes_tpu.runtime.cache import SchedulerCache
@@ -217,6 +224,15 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
 
     warmup = batch if warmup is None else warmup
     args, enc = _jax_fleet(n_nodes, workload, node_pods, existing, extended)
+    if make_pending is None:
+        def make_pending(i):
+            return bench._pending_pod(args, i)
+    if running is not None:
+        from kubernetes_tpu_torch.loop import bench_nodes as _nodes
+        from kubernetes_tpu.api.factory import make_node
+
+        for pod in running(_nodes(n_nodes, node_pods, make_node=make_node)):
+            enc.add_pod(pod)
     cache = SchedulerCache(enc)
     queue = PriorityQueue()
     hosts = np.full(n_pods + warmup, -1, np.int32)
@@ -265,7 +281,10 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
                           telemetry_interval_cycles=telemetry_interval_cycles,
                           quality_top_k=quality_top_k,
                           quality_interval_cycles=quality_interval_cycles,
-                          timeline=timeline))
+                          timeline=timeline,
+                          capacity_planner=capacity_planner,
+                          capacity_interval_cycles=capacity_interval_cycles,
+                          node_shape_catalog=node_shape_catalog))
     if quality_top_k:
         sched.quality_record = record_quality(sched.quality)
     if telemetry:
@@ -284,13 +303,13 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
 
     try:
         for j in range(warmup):
-            queue.add(bench._pending_pod(args, n_pods + j))
+            queue.add(make_pending(n_pods + j))
         drain(budget_s)
         for pod, node_name in nominated_preemptors(n_nodes, nominated,
                                                    make_pod=make_pod):
             queue.update_nominated_pod(pod, node_name)
         for i in range(n_pods):
-            queue.add(bench._pending_pod(args, i))
+            queue.add(make_pending(i))
         drain(budget_s)
     finally:
         if server is not None:
@@ -299,6 +318,8 @@ def jax_live(n_nodes: int, n_pods: int, batch: int, workload: str = "plain",
         finish_quality(sched.quality, sched.quality_record)
     if telemetry:
         finish_telemetry(sched.telemetry, sched.telemetry_record)
+    if capacity_planner:
+        sched.capacity.finalize()
     unsched = sorted(r.pod.name for r in sched.results if r.node is None)
     return (hosts, np.asarray(order, np.int32), unsched,
             np.asarray(enc.snapshot(full=True).requested), sched)
@@ -310,6 +331,46 @@ def jax_live_default(n_nodes: int, n_pods: int, batch: int):
     the timeline, quality_top_k=3 at interval 32, the plain workload."""
     return jax_live(n_nodes, n_pods, batch, "plain", quality_top_k=3,
                     telemetry=True, timeline=True)
+
+
+def jax_live_capacity(n_nodes: int, n_pods: int, batch: int,
+                      shapes: int = 64, interval: int = 1):
+    """jax_live of the live capacity cell (the port's loop.run_live with the
+    same settings): the bench fleet pre-filled by
+    loop.capacity_running_pods, pending pod i with row i of
+    loop.capacity_requests (drawn from loop.what_if_workload's backlog) as
+    its requests (loop.capacity_pod), and the capacity planner every
+    `interval` cycles over the first `shapes` what-if shapes
+    (loop.shape_catalog)."""
+    from kubernetes_tpu.api.factory import make_pod
+    from kubernetes_tpu_torch import loop
+
+    backlog, caps = loop.what_if_workload()
+    reqs = loop.capacity_requests(backlog, n_pods, batch, batch)
+    return jax_live(
+        n_nodes, n_pods, batch, capacity_planner=True,
+        capacity_interval_cycles=interval,
+        node_shape_catalog=loop.shape_catalog(caps[:shapes]),
+        make_pending=lambda i: loop.capacity_pod(i, reqs, make_pod=make_pod),
+        running=lambda nodes: loop.capacity_running_pods(
+            nodes, make_pod=make_pod))
+
+
+def jax_what_if(lanes: int, max_bins: int = 2048):
+    """The JAX binpack_shapes_compressed on loop.what_if_workload's backlog
+    (compressed as what_if compresses it) over its first `lanes` shapes:
+    (bins i32[lanes], ok bool[lanes])."""
+    from kubernetes_tpu.models.binpack import (
+        binpack_shapes_compressed,
+        compress_classes,
+    )
+    from kubernetes_tpu_torch import loop
+
+    reqs, caps = loop.what_if_workload()
+    classes, counts = compress_classes(reqs, pad_to_pow2=True)
+    bins, ok = binpack_shapes_compressed(classes, counts, caps[:lanes],
+                                         max_bins=max_bins)
+    return np.asarray(bins), np.asarray(ok)
 
 
 def jax_megacycle(n_nodes: int, n_pods: int, batch: int, k: int,
@@ -613,6 +674,12 @@ def main():
     ap.add_argument("--warmup", type=int, default=None,
                     help="with --live --extender: warmup pods (default "
                          "--batch)")
+    ap.add_argument("--capacity", action="store_true",
+                    help="with --live: the live capacity cell "
+                         "(jax_live_capacity; the _live_capacity golden)")
+    ap.add_argument("--what-if", type=int, default=0, metavar="LANES",
+                    help="the BASELINE what-if's first LANES shapes "
+                         "(jax_what_if; the _what_if golden)")
     ap.add_argument("--preempt", type=int, default=16,
                     help="with --extender: /preempt requests of the "
                          "preemption cell's first preemptors")
@@ -621,6 +688,38 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.what_if:
+        out = args.out or golden_path("what_if")
+        t0 = time.monotonic()
+        bins, ok = jax_what_if(args.what_if)
+        dt = time.monotonic() - t0
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(out, bins=bins, ok=ok, max_bins=np.int32(2048),
+                            lanes=np.int32(args.what_if))
+        print(f"wrote {out}: {args.what_if} lanes, {int(ok.sum())} fit, "
+              f"{dt:.1f} s on the CPU")
+        return
+    if args.live and args.capacity:
+        from kubernetes_tpu_torch.loop import capacity_arrays
+
+        out = args.out or golden_path("live_capacity")
+        t0 = time.monotonic()
+        hosts, order, unsched, _, sched = jax_live_capacity(
+            args.nodes, args.pods, args.batch)
+        dt = time.monotonic() - t0
+        samples = sched.capacity.debug_payload()["samples"]
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(
+            out, hosts=hosts, bind_order=order,
+            unschedulable=np.asarray(unsched, dtype=str),
+            nodes=np.int32(args.nodes), pods=np.int32(args.pods),
+            batch=np.int32(args.batch), **capacity_arrays(samples))
+        print(f"wrote {out}: {int((hosts >= 0).sum())}/{len(hosts)} bound, "
+              f"{len(samples)} solves, overflow "
+              f"{[x['overflow_pods'] for x in samples]}, absorbed "
+              f"{[x['absorbed_existing'] for x in samples]}, "
+              f"{dt:.1f} s on the CPU")
+        return
     if args.extender and args.live:
         out = args.out or golden_path("live_extender")
         t0 = time.monotonic()

@@ -91,6 +91,24 @@ def test_walk_covers_the_extender_slice():
             "kubernetes_tpu_torch.cmd.extender"} <= names
 
 
+def test_walk_covers_the_capacity_slice():
+    """The import walk reaches the modules the capacity and replica slice
+    added: the planner, the reconciler and hub, the replica set, and the
+    case lists of K8, K9 and K10."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    mods = ("runtime/capacity.py", "runtime/reconciler.py",
+            "runtime/replicas.py", "models/binpack.py",
+            "kernels/k8_cases.py", "kernels/k9_cases.py",
+            "kernels/k10_cases.py")
+    for mod in mods:
+        assert f"kubernetes_tpu_torch/{mod}" in rel, mod
+    names = {m.name for m in pkgutil.walk_packages(
+        [PKG], "kubernetes_tpu_torch.")}
+    assert {"kubernetes_tpu_torch.runtime.capacity",
+            "kubernetes_tpu_torch.runtime.reconciler",
+            "kubernetes_tpu_torch.runtime.replicas"} <= names
+
+
 def test_forbidden_name_rule():
     assert _forbidden("kubernetes_tpu.codec")
     assert _forbidden("jax.numpy")
@@ -129,7 +147,10 @@ def test_kernel_sources_and_build_settings():
                         for s in srcs)
     assert {os.path.basename(s) for s in srcs} >= {"select_hosts.cu",
                                                    "preempt_one.cu",
-                                                   "fold_predicates.cu"}
+                                                   "fold_predicates.cu",
+                                                   "binpack_counts.cu",
+                                                   "ffd_order.cu",
+                                                   "reconcile_admit.cu"}
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.CUDA_FLAGS
     assert "--use_fast_math" not in _build.CUDA_FLAGS
     assert os.path.basename(_build.BUILD_DIR) == ".torch_ext_build"

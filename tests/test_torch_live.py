@@ -35,6 +35,7 @@ from kubernetes_tpu_torch.runtime.scheduler import (
 )
 
 from make_torch_golden import jax_live, live_golden_path
+from torch_port_helpers import process_state_kept
 
 
 @functools.lru_cache(maxsize=None)
@@ -211,8 +212,27 @@ def test_pipelined_fence_fault_requeues_both_batches():
     ("compile_cache_dir", "/tmp/cache", "A12"),
 ])
 def test_refuses_later_slice_settings(field, value, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        _small_scheduler(**{field: value})
+    """Settings of a later slice raise, naming their ROADMAP item.  A10's
+    (the capacity planner, replicas) are lifted: the Scheduler accepts
+    them on the CPU and places a cycle (with the planner, its first solve
+    lands)."""
+    if item != "A10":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            _small_scheduler(**{field: value})
+        return
+    with process_state_kept():
+        sched = _small_scheduler(**{field: value},
+                                 capacity_interval_cycles=1)
+        for i in range(8):
+            sched.queue.add(loop.pending_pod(i))
+        sched.run_once(timeout=0.0)
+        assert sched.flush_pipeline() == 8
+        if field == "capacity_planner":
+            sched.capacity.finalize()
+            summary = sched.capacity.summary()
+            assert summary["solves"] == 1 and summary["solves_dropped"] == 0
+        else:
+            assert sched.config.replicas == 2 and sched._replica_of == 1
 
 
 @pytest.mark.parametrize("field,value,item", [
