@@ -26,10 +26,12 @@ printing one line of numbers; any failure exits non-zero with no result:
   6. the phase-3 winners against tests/data/torch_port_golden_plain.npz,
      the JAX speculative engine's winners for the same workload;
   7. torch.profiler over one warm speculative round of the plain cell and
-     the mean sequential step of the redo cell: the top device ops, K1's
-     share of the round, the kernel launches in one step; then one warm
-     round of the pod-anti-affinity cell (the share of the affinity
-     einsums and matmuls) and one sequential step with the affinity carry;
+     the mean sequential step of the redo cell: the top device ops, K1's,
+     K11's and K12's share of the round (one K11 and at least one K12
+     launch in it, or the phase fails), the kernel launches in one step;
+     then one warm round of the pod-anti-affinity cell (the share of the
+     affinity einsums and matmuls) and one sequential step with the
+     affinity carry;
   8. scheduler_perf's pod-anti-affinity workload at full width with 1,000
      running pods: winners equal to
      tests/data/torch_port_golden_pod_anti_affinity.npz, and a numpy
@@ -144,6 +146,24 @@ printing one line of numbers; any failure exits non-zero with no result:
      extender's shape [1, 23, 6,144] and at [2,048, 23, 6,144] with L2
      cold and warm, beside its bytes bound, an empty launch, its twin's
      and torch.all's (the mask half alone);
+ K11. the predicate pass (filter_pass.cu) against its plain twin on the
+     card, bit for bit, on every case of kubernetes_tpu_torch/kernels/
+     k11_cases.py (every selector operator with NaN and infinite numeric
+     labels, wildcard tolerations and PAD effects, wildcard host IPs, CSI
+     per-driver columns, profile subsets, label presence and service
+     affinity, padding rows, N not a multiple of 4, non-lean affinity and
+     volume terms): the stack, the mask, and filter_batch's need_per mask
+     (the stack folded by K7); then its times on the bench fleet at [1,
+     6,144] in stack mode (the sidecar's) and [2,048, 6,144] in mask mode
+     (the engines') with L2 cold and warm, beside its bound (bytes and
+     operations from the shapes), an empty launch and its twin's;
+ K12. the score pass (score_pass.cu) against its plain twin, bit for bit,
+     on every case of kernels/k12_cases.py (stock, every-priority and a
+     Policy's weights, skip_zero_weight, shipped and group-column spread
+     counts, no zones, zero maxima, InterPodAffinity with and without
+     spread, ImageLocality's clamps, RTC's ends, a snapshot past one
+     block's shared memory), the total and every row with need_per and the
+     total without; then its times at [1, 6,144] and [2,048, 6,144];
  18. the extender sidecar: the port's ExtenderServer on the card driven
      over HTTP on 127.0.0.1 by loop.drive_extender as a stock
      kube-scheduler with NodeCacheCapable: true drives it (the bench
@@ -154,8 +174,11 @@ printing one line of numbers; any failure exits non-zero with no result:
      JAX sidecar's), K7 launched twice a pod; then a second sidecar synced
      with phase 13's fleet and 20,500 running pods answers the first 16
      preemptors' /preempt (each reply's victims deleted before the next)
-     equal to the same golden, K2 launched; per-verb latency p50 / p99 and
-     requests/s, the split of a /filter request, the syncs' seconds;
+     equal to the same golden, K2 launched; K11 (stack mode) and K12
+     launched twice a pod; per-verb latency p50 / p99 and requests/s, the
+     split of a /filter request, the syncs' seconds, and one warm /filter's
+     device operations counted by torch.profiler in a child process (at
+     most 30, or the phase fails);
  19. the live extender: loop.run_live through the port's Scheduler with
      one HTTP extender (filter, prioritize, bind verbs) pointed at the
      port's sidecar in this process, 5,000 nodes, a 64-pod warmup batch,
@@ -225,8 +248,14 @@ Phases 14, K5 and 2b also hold K4 at 32 and 64 columns, K5 at 16,385 and
 40,000 rows (its multi-block sequence) and K2 at 66 and 130 columns (its
 wide variant) to their twins at full shapes, with their times.
 
-Then the card's name and power limit, the kernels' JSON record (K1-K10;
-K1's launches in each cell among its keys) and the device line.
+Every phase whose cell filters and scores (3-19, 21, 22) checks that its
+run launched K11 and K12, and K7 once for every K11 stack (stack mode:
+the sidecar's requests, the preemption candidates); phase 7's round
+profile reports K11's and K12's device ms and share.
+
+Then the card's name and power limit, the kernels' JSON record (K1-K12;
+K1's, K11's and K12's launches in each cell among their keys) and the
+device line.
 """
 
 from __future__ import annotations
@@ -254,6 +283,8 @@ REDO_AFF_PODS = 9800   # the affinity redo cell: the 2-slot fleet's free slots
 NOMINATED = 256        # preemptors of the live-with-nominations cell
 PREEMPTORS = 256       # pending pods of the live preemption cell
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
+INT32_OPS_PER_S = F32_OPS_PER_S / 2   # an SM has 64 INT32 lanes beside its
+#                                       128 FP32 ones (Hopper white paper)
 
 
 def fail(msg: str) -> None:
@@ -367,6 +398,24 @@ from kubernetes_tpu_torch.kernels import k1_bench, k5_cases
 a = [torch.from_numpy(np.ascontiguousarray(x)).to(sys.argv[2])
      for x in k5_cases.full_width_case()]
 print(json.dumps(k1_bench.stream_ops(lambda: kernels.cluster_analytics(*a))))
+"""
+
+
+_FILTER_OPS_CHILD = """
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from kubernetes_tpu_torch import loop
+from kubernetes_tpu_torch.api.serialize import pod_to_dict
+from kubernetes_tpu_torch.extender.server import ExtenderServer
+from kubernetes_tpu_torch.kernels import k1_bench
+from kubernetes_tpu_torch.runtime.cache import SchedulerCache
+nodes = loop.bench_nodes(5000)
+srv = ExtenderServer(cache=SchedulerCache(loop.build_encoder(nodes, 1000)),
+                     device=sys.argv[2])
+args = {"pod": pod_to_dict(loop.pending_pod(0)),
+        "nodenames": [n.name for n in nodes]}
+print(json.dumps(k1_bench.stream_ops(lambda: srv.filter(args))))
 """
 
 
@@ -565,6 +614,7 @@ def _run_pair(label: str, nodes, pods, require_all: bool, existing=0):
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     check(launches["select_hosts"] > 0,
           f"{label}: the main path launched K1 no time")
+    _passes_launched(label, launches)
     diff = np.nonzero(res["hosts"] != plain["hosts"])[0]
     check(diff.size == 0, f"{label}: K1 and plain select disagree on "
           f"{diff.size} pods, first pod {diff[:1].tolist()}")
@@ -579,7 +629,8 @@ def _run_pair(label: str, nodes, pods, require_all: bool, existing=0):
           f"{ph['commit']:.3f} rounds {res['rounds']} redos {res['redos']} "
           f"scheduled {res['scheduled']} peak_device_GiB {peak_gb:.2f} | "
           f"plain-select pods_per_s "
-          f"{plain['pods_per_s']:.1f} | K1 launches {launches['select_hosts']}",
+          f"{plain['pods_per_s']:.1f} | K1 launches {launches['select_hosts']}"
+          f" K11 {launches['filter_pass']} K12 {launches['score_pass']}",
           flush=True)
     return res, launches
 
@@ -648,6 +699,14 @@ def _is_k1(name: str) -> bool:
     return "select_hosts_kernel" in name
 
 
+def _is_k11(name: str) -> bool:
+    return "k11_filter_pass" in name
+
+
+def _is_k12(name: str) -> bool:
+    return "k12_score_pass" in name or "k12_zone_index" in name
+
+
 def _split(dev):
     """(kernel launches, copies and sets, device ms, K1 launches, K1 ms)."""
     copies = [ms for n, _, ms in dev if n.startswith(("Memcpy", "Memset"))]
@@ -713,14 +772,25 @@ def _round_line(label, run, fn, out: dict) -> str:
     kern, copies, dev_ms, k1_n, k1_ms = _split(dev)
     ein, mm = _inclusive_ms(prof, "aten::einsum"), _inclusive_ms(
         prof, "aten::matmul")
+    k11 = [ms for n, _, ms in dev if _is_k11(n)]
+    k12 = [ms for n, _, ms in dev if _is_k12(n)]
+    check(len(k11) == 1 and k12,
+          f"7 profile: the {label} round launched K11 {len(k11)} times and "
+          f"K12 {len(k12)}")
     out[label] = {"wall_ms": wall * 1e3, "device_ms": dev_ms,
                   "kernels": kern, "k1_ms": k1_ms, "einsum_ms": ein,
-                  "matmul_ms": mm}
+                  "matmul_ms": mm, "k11_launches": len(k11),
+                  "k11_ms": sum(k11), "k12_launches": len(k12),
+                  "k12_ms": sum(k12)}
     return (f"{label} round (B={BATCH}, 1 round): wall_ms {wall * 1e3:.3f} "
             f"device_ms {dev_ms:.3f} idle_share "
             f"{1 - dev_ms / (wall * 1e3):.3f} kernels {kern} copies "
             f"{copies} K1 launches {k1_n} K1_ms {k1_ms:.4f} K1_share "
-            f"{k1_ms / dev_ms:.4f} einsum_ms {ein:.3f} einsum_share "
+            f"{k1_ms / dev_ms:.4f} K11 launches {len(k11)} K11_ms "
+            f"{sum(k11):.4f} K11_share {sum(k11) / dev_ms:.4f} K12 "
+            f"launches (zone index and pass) {len(k12)} K12_ms "
+            f"{sum(k12):.4f} K12_share {sum(k12) / dev_ms:.4f} "
+            f"einsum_ms {ein:.3f} einsum_share "
             f"{ein / dev_ms:.4f} matmul_ms {mm:.3f} matmul_share "
             f"{mm / dev_ms:.4f} | top: {_top_ops(prof, dev)}")
 
@@ -1700,6 +1770,579 @@ def phase_k7() -> dict:
     return out
 
 
+def _bench_batches(sizes=(1, 2048)) -> dict:
+    """{B: (cluster, pods, unsched key, zone key)} on the card: the bench
+    fleet (NODES nodes, padded to 6,144 rows, 20 spread selectors, 1 node
+    in 50 tainted) and its first B pending pods, as the engines and the
+    sidecar see them; and under "pod-anti-affinity" / "pod-affinity" the
+    first 2,048 pods of those workloads on the same fleet (with
+    EXISTING_ANTI running pods for the first), a batch that is not lean in
+    the pair products (K11's hits and K12's IPA sums)."""
+    from kubernetes_tpu_torch.codec.schema import cluster_to_torch, pods_to_torch
+    from kubernetes_tpu_torch.loop import bench_nodes, build_encoder, pending_pod
+
+    nodes = bench_nodes(NODES)
+    out = {}
+    for workload, existing, sizes_w in (
+            ("plain", 0, sizes), ("pod-anti-affinity", EXISTING_ANTI, (2048,)),
+            ("pod-affinity", 0, (2048,))):
+        enc = build_encoder(nodes, existing)
+        pods = [pending_pod(i, workload) for i in range(max(sizes_w))]
+        ct = cluster_to_torch(enc.snapshot(), "cuda")
+        key = enc.interner.intern("node.kubernetes.io/unschedulable")
+        for B in sizes_w:
+            out[B if workload == "plain" else workload] = (
+                ct, pods_to_torch(enc.encode_pods(pods[:B]), "cuda"), key,
+                enc.getzone_key)
+    return out
+
+
+def _arg_bytes(specs, ct, pb, keep=None) -> int:
+    """Bytes of the snapshot's and the batch's fields a kernel binds
+    (kernels._K11_ARGS / _K12_ARGS), each read once; `keep`: None, or the
+    struct fields that are read (a lean batch leaves some unbound, a row
+    that is off reads none of its own)."""
+    total = 0
+    for field, owner, attr, _, _ in specs:
+        if keep is None or field in keep:
+            t = getattr(ct if owner == "c" else pb, attr)
+            total += t.numel() * t.element_size()
+    return total
+
+
+def _count(x) -> torch.Tensor:
+    """Per row: the number of true (or non-PAD) entries of x [rows, ...],
+    as f64."""
+    from kubernetes_tpu_torch.codec.schema import PAD
+
+    if x.dtype != torch.bool:
+        x = x != PAD
+    return x.reshape(x.shape[0], -1).sum(1, dtype=torch.float64)
+
+
+def _pairs(pod=0.0, node=0.0, pod_x=0.0, node_x=None):
+    """A per-pair operation count, pod[b] + node[n] + pod_x[b] * node_x[n]
+    (each a scalar or a f64 vector), kept in factors."""
+    return (pod, node, pod_x, node_x)
+
+
+def _dot(x, v: torch.Tensor) -> float:
+    return (float((x * v).sum()) if isinstance(x, torch.Tensor)
+            else float(x) * float(v.sum()))
+
+
+def _charge(cost, alive: torch.Tensor) -> float:
+    """The sum of a _pairs count over the pairs where alive bool[B, N]."""
+    pod, node, pod_x, node_x = cost
+    a = alive.double()
+    total = _dot(pod, a.sum(1)) + _dot(node, a.sum(0))
+    if node_x is not None:
+        total += _dot(pod_x, a @ node_x)
+    return total
+
+
+# K11's walk over the predicates (filter_pass.cu eval_node), by
+# PREDICATE_ORDER index: the node-only flags, the resource and volume
+# rows, ports, disks, taints, the label rows, the selector, the
+# GeneralPredicates fold and the pair rows
+K11_WALK = (0, 19, 20, 21, 1, 3, 6, 12, 13, 14, 15, 16, 17, 18, 4, 7, 8, 9,
+            10, 11, 5, 2, 22)
+
+
+def _k11_costs(ct, pb, cfg, offsets) -> dict:
+    """{PREDICATE_ORDER index: (int32 operations, f32 operations), each a
+    _pairs count}: what K11 does for each (pod, node) pair at that
+    predicate on these inputs, counting only the entries that hold
+    something: the pod's valid selector keys and required expressions
+    against the node's label slots in use, its valid ports against the
+    node's used ports, its disk ids against the node's, its valid
+    tolerations against the node's NoSchedule / NoExecute taints, its
+    nonzero requests and volume counts, its valid pair terms (one hit
+    compare each); one operation for a predicate's verdict.  The
+    GeneralPredicates parts (host, resources, ports, selector) are charged
+    where they are computed, once."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.codec.schema import PAD
+
+    B, N = pb.n_pods, ct.n_nodes
+    P = _pairs
+    labels_n = _count(ct.label_keys)
+    enabled, _, presence, svc = kernels._filter_config(
+        cfg, ct.vol_counts.shape[1])
+    on = lambda k: (enabled >> k) & 1                       # noqa: E731
+    zero = P()
+    costs = {k: (P(pod=1.0), zero) for k in (0, 20, 21)}
+    costs[19] = (P(pod=2.0), zero)
+    costs[1] = (P(pod=2.0), zero)
+    costs[3] = (P(pod=2.0), zero)
+    R = ct.allocatable.shape[1]
+    costs[6] = (P(pod=1.0), P(pod=R + 2 * _count(pb.req > 0)))
+    overlap = 2.0 if pb.vol_overlap.shape[-1] == N else 0.0
+
+    def vol(cols):
+        f = sum(1.0 + overlap + 3.0 * (pb.new_vol_counts[:, c] > 0).double()
+                for c in cols)
+        return P(pod=1.0), P(pod=f)
+
+    VT = ct.vol_counts.shape[1]
+    for k, cols in ((12, [0]), (13, [1]), (14, [2] + list(range(5, VT))),
+                    (15, [3]), (16, [4])):
+        costs[k] = vol(cols)
+    for k, name, valid in ((17, "vb", pb.vol_bind_valid),
+                           (18, "vz", pb.vol_zone_valid)):
+        hits = _count(valid) if offsets.get(name, -1) >= 0 else 0.0
+        costs[k] = (P(pod=2.0 if k == 17 else 1.0), P(pod=hits))
+    costs[4] = (P(pod=1.0, pod_x=5.0 * _count(pb.port_valid),
+                  node_x=_count(ct.port_used)), zero)
+    costs[7] = (P(pod=1.0, pod_x=_count(pb.disk_vol_ids),
+                  node_x=_count(ct.disk_vol_ids)), zero)
+    taints = ((ct.taint_effect == 0) | (ct.taint_effect == 2)).sum(
+        1, dtype=torch.float64)
+    costs[8] = (P(pod=1.0, node=taints,
+                  pod_x=4.0 * _count(pb.tol_valid), node_x=taints), zero)
+    costs[9] = (P(pod=1.0), zero)
+    costs[10] = (P(pod=1.0, pod_x=float(len(presence)), node_x=labels_n),
+                 zero)
+    lookups = 0.0
+    for j in range(len(svc)):
+        lookups = lookups + 1.0 + ((pb.svc_aff_fixed[:, j] == PAD)
+                                   & (pb.svc_aff_d0 >= 0)).double()
+    costs[11] = (P(pod=1.0, pod_x=lookups, node_x=labels_n), zero)
+    req_aff = pb.has_req_affinity.double()
+    exprs = pb.expr_valid & pb.term_valid[:, :, None]
+    lookups = _count(pb.ns_valid) + req_aff * _count(exprs)
+    vals = (_count(pb.ns_valid) + req_aff * (
+        _count(pb.term_valid)
+        + (pb.expr_nval * exprs).reshape(B, -1).sum(1, dtype=torch.float64)))
+    costs[5] = (P(pod=1.0 + vals, pod_x=lookups, node_x=labels_n), zero)
+    costs[2] = (P(pod=4.0), zero)
+    if offsets.get("aff", -1) >= 0:
+        costs[22] = (P(pod=1.0), P(pod=1.0 + _count(pb.anti_term_valid)
+                                   + 2.0 * _count(pb.aff_term_valid)))
+    else:
+        costs[22] = (P(pod=1.0), zero)
+    if not on(8) and on(9):
+        costs[9] = costs[8]               # the taint walk is NoExecute's
+    # a GeneralPredicates part is computed when its own row or General's
+    # is on
+    general = bool(on(2))
+    return {k: c for k, c in costs.items()
+            if on(k) or (general and k in (3, 4, 5, 6))}
+
+
+def _k11_bound(ct, pb, cfg, stack: bool, stack_rows=None) -> dict:
+    """K11's least time on these inputs: the fields it binds and the hits
+    rows read once, the output written once (1 byte a pair, 23 with the
+    stack), over the memory rate; against its operations (_k11_costs),
+    the int32 compares over the int32 rate and the f32 ones over the f32
+    rate, the two pipes side by side.  Stack mode evaluates every pair;
+    mask mode skips a pair whose node or pod is padding and stops a
+    pair's walk at its first failing predicate (from stack_rows, the
+    twin's stack of these inputs)."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k1_bench
+    from kubernetes_tpu_torch.ops.predicates import pair_hits
+
+    B, N = pb.n_pods, ct.n_nodes
+    hits, offsets = pair_hits(ct, pb)
+    costs = _k11_costs(ct, pb, cfg, offsets)
+    alive = (torch.ones((B, N), dtype=torch.bool, device=ct.valid.device)
+             if stack else pb.valid[:, None] & ct.valid[None])
+    int_ops = f32_ops = 0.0
+    for k in K11_WALK:
+        if k in costs:
+            int_ops += _charge(costs[k][0], alive)
+            f32_ops += _charge(costs[k][1], alive)
+        if not stack:
+            # the walk stops at the first failure (a disabled row reads
+            # all true)
+            alive = alive & stack_rows[:, k]
+    skip = () if pb.vol_overlap.shape[-1] == N else ("vol_overlap",)
+    keep = {s[0] for s in kernels._K11_ARGS} - set(skip)
+    in_bytes = _arg_bytes(kernels._K11_ARGS, ct, pb, keep)
+    if hits is not None:
+        in_bytes += hits.numel() * 4
+    out = B * N * (23 if stack else 1)
+    bytes_ms = (in_bytes + out) / k1_bench.HBM_BYTES_PER_S * 1e3
+    ops_ms = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "int_ops": int_ops, "f32_ops": f32_ops,
+            "ops_per_pair": (int_ops + f32_ops) / (B * N),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+# the struct fields K12 reads for a priority row beyond those every row
+# reads (allocatable, node_nonzero, pod_nonzero), by PRIORITY_ORDER index
+K12_ROW_FIELDS = {
+    0: ("group_counts", "group_ids", "group_valid", "spread_counts"),
+    1: ("valid",),
+    4: ("avoid_owner", "owner_uid"),
+    5: ("label_keys", "label_vals", "label_nums", "node_name_id",
+        "pref_weight", "pref_term_valid", "pref_expr_key", "pref_expr_op",
+        "pref_expr_vals", "pref_expr_nval", "pref_expr_num",
+        "pref_expr_valid"),
+    6: ("taint_key", "taint_val", "taint_effect", "tol_key", "tol_op",
+        "tol_val", "tol_effect", "tol_valid"),
+    7: ("image_id", "image_size", "image_ids"),
+    9: ("label_keys",),
+    11: ("limits2",),
+}
+
+
+def _k12_bound(ct, pb, weights, all_rows: bool, need_per: bool, zone_key,
+               score_cfg=None) -> dict:
+    """K12's least time on these inputs for the rows this call computes
+    (every row with all_rows, else the nonzero weights'): the fields those
+    rows read, the IPA sums when the batch has them, the zone index's reads
+    (the pair keys, and each node's zone-pair columns up to its zone pair)
+    and the total (with need_per the 12 rows too) written once, over the
+    memory rate; against its operations, counting only the entries that hold something (the pod's
+    valid preferred terms and expressions against the node's label slots
+    in use, its valid tolerations against the node's PreferNoSchedule
+    taints, its images against the node's, the node's avoid slots, its
+    spread groups), the int32 compares over the int32 rate and the f32
+    operations over the f32 rate, the two pipes side by side."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.codec.schema import ScoreConfig
+    from kubernetes_tpu_torch.kernels import k1_bench
+
+    score_cfg = score_cfg or ScoreConfig()
+    B, N = pb.n_pods, ct.n_nodes
+    P = _pairs
+    w = np.asarray(weights, np.float32)
+    rows = [k for k in range(12) if all_rows or w[k] != 0.0]
+    labels_n = _count(ct.label_keys)
+    ipa = ct.topo_pairs.shape[1] == pb.pref_pair_weights.shape[-1] and 1 in rows
+    lean_spread = pb.spread_counts.shape[-1] != N
+    ints, f32s = [P()], [P(pod=2.0 + 2.0 * sum(w[k] != 0.0 for k in rows))]
+    if 0 in rows:
+        groups = _count(pb.group_valid) if lean_spread else 0.0
+        ints.append(P(pod=2.0 * groups if lean_spread else 0.0))
+        f32s.append(P(pod=groups + 14.0))
+    if ipa:
+        f32s.append(P(node=7.0 * ct.valid.double()))
+    if 2 in rows or 8 in rows:
+        f32s.append(P(pod=4.0 + 12.0 * (2 in rows) + 10.0 * (8 in rows)))
+    if 3 in rows:
+        f32s.append(P(pod=13.0))
+    if 4 in rows:
+        ints.append(P(pod=1.0, node=2.0 * _count(ct.avoid_owner)))
+    if 5 in rows and pb.pref_term_valid.shape[1] > 0:
+        exprs = pb.pref_expr_valid & pb.pref_term_valid[:, :, None]
+        vals = (pb.pref_expr_nval * exprs).reshape(B, -1).sum(
+            1, dtype=torch.float64)
+        ints.append(P(pod=vals, pod_x=_count(exprs), node_x=labels_n))
+        f32s.append(P(pod=_count(pb.pref_term_valid) + 6.0))
+    if 6 in rows:
+        prefer = (ct.taint_effect == 1).sum(1, dtype=torch.float64)
+        ints.append(P(pod=1.0, node=prefer,
+                      pod_x=4.0 * _count(pb.tol_valid), node_x=prefer))
+        f32s.append(P(pod=7.0, node=prefer))
+    if 7 in rows:
+        imgs = _count(pb.image_ids)
+        ints.append(P(pod_x=2.0 * imgs, node_x=_count(ct.image_id)))
+        f32s.append(P(pod=5.0, pod_x=imgs, node_x=_count(ct.image_id)))
+    if 9 in rows:
+        n_prefs = float(len(score_cfg.label_prefs))
+        ints.append(P(node=n_prefs * labels_n))
+        f32s.append(P(pod=2.0 * n_prefs))
+    if 10 in rows:
+        f32s.append(P(pod=2.0 * (10.0 + len(score_cfg.rtc_shape)) + 2.0))
+    if 11 in rows:
+        f32s.append(P(pod=6.0))
+    every = torch.ones((B, N), dtype=torch.bool, device=ct.valid.device)
+    int_ops = sum(_charge(x, every) for x in ints)
+    f32_ops = sum(_charge(x, every) for x in f32s)
+    keep = {"allocatable", "node_nonzero", "pod_nonzero"}
+    for k in rows:
+        keep |= set(K12_ROW_FIELDS.get(k, ()))
+    if lean_spread:
+        keep.discard("spread_counts")
+    in_bytes = _arg_bytes(kernels._K12_ARGS, ct, pb, keep)
+    if ipa:
+        in_bytes += B * N * 4
+    if 0 in rows:
+        # the zone index: the zone pairs' columns, found once from the pair
+        # keys, of each node's pair row up to its zone pair; the index
+        # written and read back
+        is_zone = ct.pair_topo_key == zone_key
+        zone = ct.topo_pairs[:, is_zone]
+        first = torch.where(zone.any(1), zone.int().argmax(1) + 1,
+                            zone.shape[1])
+        zone_walk = float(first.sum(dtype=torch.float64))
+        int_ops += is_zone.numel() + zone_walk
+        in_bytes += zone_walk + is_zone.numel() * 4 + 8 * N
+    out = B * N * 4 * (13 if need_per else 1)
+    bytes_ms = (in_bytes + out) / k1_bench.HBM_BYTES_PER_S * 1e3
+    ops_ms = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "int_ops": int_ops, "f32_ops": f32_ops,
+            "ops_per_pair": (int_ops + f32_ops) / (B * N),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _case_tensors(case, device="cuda"):
+    """A k11_cases / k12_cases case as the port's dataclasses on device."""
+    from kubernetes_tpu_torch.codec import schema as ts
+
+    ct = ts.ClusterTensors(**{k: torch.from_numpy(np.array(v))
+                              for k, v in case["cluster"].items()})
+    pb = ts.PodBatch(**{k: torch.from_numpy(np.array(v))
+                        for k, v in case["pods"].items()})
+    return ts.cluster_to_torch(ct, device), ts.pods_to_torch(pb, device)
+
+
+def _k11_against_twin(label, ct, pb, cfg, key, modes=("stack", "mask",
+                                                      "need_per mask")):
+    """K11 against its twin on one batch: the stack (stack mode), the mask
+    (mask mode) and filter_batch's need_per mask (the stack folded by K7),
+    bit for bit; fails at the first difference."""
+    from kubernetes_tpu_torch.ops import predicates as tp
+
+    want_mask, want_stack = tp.filter_batch_plain(ct, pb, cfg, key)
+    runs = {"stack": lambda: tp.predicate_stack(ct, pb, cfg, key),
+            "mask": lambda: tp.filter_batch(ct, pb, cfg, key,
+                                            need_per=False)[0],
+            "need_per mask": lambda: tp.filter_batch(ct, pb, cfg, key)[0]}
+    for what in modes:
+        g = runs[what]()
+        torch.cuda.synchronize()
+        w = want_stack if what == "stack" else want_mask
+        if not torch.equal(g, w):
+            at = [int(x) for x in torch.nonzero(g != w)[0]]
+            fail(f"K11: {what} differs from the twin on {label} at {at}: "
+                 f"kernel {g[tuple(at)].item()} twin {w[tuple(at)].item()}")
+    return want_stack
+
+
+def _k12_against_twin(label, ct, pb, need_pers=(True, False), **kw):
+    """K12 against its twin on one batch: the total and, with need_per,
+    every row, bit for bit; fails at the first difference."""
+    from kubernetes_tpu_torch.ops import priorities as tpr
+
+    for need_per in need_pers:
+        got = tpr.score_batch(ct, pb, need_per=need_per, **kw)
+        want = tpr.score_batch_plain(ct, pb, need_per=need_per, **kw)
+        torch.cuda.synchronize()
+        pairs = [("total", got[0], want[0])]
+        if need_per:
+            pairs += [(f"row {i}", got[1][:, i], want[1][:, i])
+                      for i in range(want[1].shape[1])]
+        for what, g, w in pairs:
+            if not _bits_equal(g, w):
+                b, n = (int(x) for x in torch.nonzero(
+                    g.view(torch.int32) != w.view(torch.int32))[0])
+                fail(f"K12: {what} (need_per {need_per}) differs from the "
+                     f"twin on {label} at [{b}, {n}]: kernel "
+                     f"{g[b, n].item()!r} twin {w[b, n].item()!r}")
+
+
+AFFINITY_WORKLOADS = ("pod-anti-affinity", "pod-affinity")
+
+
+def phase_k11(bench: dict) -> dict:
+    """K11 (filter_pass) against its plain twin on the card, bit for bit,
+    on every case of kernels/k11_cases.py and at full width on the bench
+    fleet: the plain batch and the pod-anti-affinity and pod-affinity
+    batches (pair hits present), each in the default profile and in
+    static_pass's (the resource fit out, and MatchInterPodAffinity with
+    in-batch affinity); the stack (stack mode), the mask (mask mode) and
+    filter_batch's need_per mask (the stack folded by K7).  Then its times
+    on the plain batch at [1, 6,144] (stack mode, the sidecar's route) and
+    [2,048, 6,144] (mask mode, the engines' route) with L2 cold and warm,
+    beside its bound, an empty launch and its twin's time."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.codec.schema import FilterConfig
+    from kubernetes_tpu_torch.kernels import k1_bench, k11_cases
+    from kubernetes_tpu_torch.models.batched import static_profile
+    from kubernetes_tpu_torch.ops import predicates as tp
+    from kubernetes_tpu_torch.ops.priorities import DEFAULT_PRIORITY_WEIGHTS
+
+    names = []
+    for name, case in k11_cases.cases():
+        ct, pb = _case_tensors(case)
+        _k11_against_twin(f"case {name}", ct, pb, FilterConfig(**case["cfg"]),
+                          case["unsched_key"])
+        names.append(name)
+    cfg = FilterConfig()
+    full = []
+    for batch in (2048,) + AFFINITY_WORKLOADS:
+        ct, pb, key, _ = bench[batch]
+        if batch in AFFINITY_WORKLOADS:
+            check(tp.pair_hits(ct, pb)[0] is not None,
+                  f"K11: the {batch} batch is lean in the pair products")
+        for prof, c in (
+                ("default", cfg),
+                ("static", static_profile(cfg, DEFAULT_PRIORITY_WEIGHTS)[0]),
+                ("static in-batch", static_profile(
+                    cfg, DEFAULT_PRIORITY_WEIGHTS, True)[0])):
+            _k11_against_twin(f"the bench fleet's {batch} batch, {prof} "
+                              f"profile", ct, pb, c, key)
+            full.append(f"{batch} {prof}")
+    empty = k1_bench.time_ms(kernels.noop_launch, cold=False)
+    shapes = {}
+    for B, stack in ((1, True), (2048, False)):
+        ct, pb, key, _ = bench[B]
+        if stack:
+            k11 = lambda: tp.predicate_stack(ct, pb, cfg, key)  # noqa: E731
+            twin = lambda: tp.predicate_stack_plain(       # noqa: E731
+                ct, pb, cfg, key)
+        else:
+            k11 = lambda: tp.filter_batch(                 # noqa: E731
+                ct, pb, cfg, key, need_per=False)[0]
+            twin = lambda: tp.filter_batch_plain(          # noqa: E731
+                ct, pb, cfg, key, need_per=False)[0]
+        rows = tp.predicate_stack_plain(ct, pb, cfg, key)
+        shapes[f"b{B}"] = {
+            "B": B, "N": ct.n_nodes, "mode": "stack" if stack else "mask",
+            "ms": k1_bench.time_ms(k11, cold=True),
+            "ms_warm": k1_bench.time_ms(k11, cold=False),
+            "plain_ms": k1_bench.time_ms(twin, reps=10),
+            **_k11_bound(ct, pb, cfg, stack, rows)}
+        del rows
+    main = shapes["b2048"]
+    out = {**{k: main[k] for k in ("ms", "ms_warm", "plain_ms", "bound_ms",
+                                   "bound_by")},
+           "empty_launch_ms": empty, "max_abs_err": 0.0, "cases": len(names),
+           "full_width": full,
+           "shape": {k: main[k] for k in ("B", "N", "mode")},
+           "shapes": shapes}
+    print(f"[K11] bit-identical to the twin on {len(names)} cases and "
+          f"{len(full)} full-width batches ({', '.join(full)}), stack, mask "
+          f"and need_per mask | " + " | ".join(
+              f"[{d['B']}, {d['N']}] {d['mode']}: cold_ms {d['ms']:.4f} "
+              f"warm_ms {d['ms_warm']:.4f} plain_ms (twin on the card) "
+              f"{d['plain_ms']:.4f} bound_ms {d['bound_ms']:.6f} "
+              f"({d['bound_by']}; bytes_ms {d['bytes_ms']:.6f} ops_ms "
+              f"{d['ops_ms']:.6f}: int32 {d['int_ops']:.0f} f32 "
+              f"{d['f32_ops']:.0f}, {d['ops_per_pair']:.2f} a pair)"
+              for d in shapes.values())
+          + f" | empty_launch_ms {empty:.4f}", flush=True)
+    return out
+
+
+def _round_weights(ct, pb, aff: bool) -> np.ndarray:
+    """The weights a speculative round scores this batch with: the stock
+    ones, IPA zeroed for a batch with pod affinity (aff), SelectorSpread
+    zeroed for a spread-lean batch (models/speculative.py)."""
+    from kubernetes_tpu_torch.ops.priorities import (DEFAULT_PRIORITY_WEIGHTS,
+                                                     PRIO_INDEX)
+
+    w = np.array(DEFAULT_PRIORITY_WEIGHTS, np.float32)
+    if aff:
+        w[PRIO_INDEX["InterPodAffinityPriority"]] = 0.0
+    if pb.spread_counts.shape[-1] != ct.n_nodes:
+        w[PRIO_INDEX["SelectorSpreadPriority"]] = 0.0
+    return w
+
+
+def phase_k12(bench: dict) -> dict:
+    """K12 (score_pass) against its plain twin on the card, bit for bit,
+    on every case of kernels/k12_cases.py and at full width on the bench
+    fleet: the plain batch and the pod-anti-affinity and pod-affinity
+    batches (IPA sums present), with the stock weights (need_per on and
+    off), the round's (skip_zero_weight) and static_pass's (the
+    state-independent rows alone); the total and every row with need_per.
+    Then its times on the plain batch at [1, 6,144] (the sidecar's: stock
+    weights, SelectorSpread on, the zone index and the pass) and [2,048,
+    6,144] (the round's: SelectorSpread zeroed for the spread-lean batch,
+    skip_zero_weight, one launch), total only, with L2 cold and warm,
+    beside the bound of each configuration, an empty launch and its
+    twin's time."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.codec.schema import FilterConfig, ScoreConfig
+    from kubernetes_tpu_torch.kernels import k1_bench, k12_cases
+    from kubernetes_tpu_torch.models.batched import static_profile
+    from kubernetes_tpu_torch.ops import priorities as tpr
+
+    names = []
+    for name, case in k12_cases.cases():
+        ct, pb = _case_tensors(case)
+        _k12_against_twin(f"case {name}", ct, pb, weights=case["weights"],
+                          zone_key_id=case["zone_key"],
+                          skip_zero_weight=case["skip_zero_weight"],
+                          score_cfg=ScoreConfig(**case["score_cfg"]))
+        names.append(name)
+    w_stock = tpr.DEFAULT_PRIORITY_WEIGHTS
+    full = []
+    for batch in (2048,) + AFFINITY_WORKLOADS:
+        ct, pb, _, zk = bench[batch]
+        if batch in AFFINITY_WORKLOADS:
+            check(pb.pref_pair_weights.shape[-1] == ct.topo_pairs.shape[1],
+                  f"K12: the {batch} batch has no IPA sums")
+        aff = batch in AFFINITY_WORKLOADS
+        _k12_against_twin(f"the bench fleet's {batch} batch, stock weights",
+                          ct, pb, weights=w_stock, zone_key_id=zk)
+        _k12_against_twin(f"the bench fleet's {batch} batch, the round's "
+                          f"weights", ct, pb, need_pers=(False,),
+                          weights=_round_weights(ct, pb, aff),
+                          zone_key_id=zk, skip_zero_weight=True)
+        for in_batch in (False, True):
+            _k12_against_twin(
+                f"the bench fleet's {batch} batch, static_pass's weights "
+                f"(in-batch affinity {in_batch})", ct, pb,
+                need_pers=(False,), zone_key_id=zk,
+                weights=static_profile(FilterConfig(), w_stock, in_batch)[1])
+        full.append(str(batch))
+    empty = k1_bench.time_ms(kernels.noop_launch, cold=False)
+    shapes = {}
+    for B, skip in ((1, False), (2048, True)):
+        ct, pb, _, zk = bench[B]
+        w = (_round_weights(ct, pb, False) if skip
+             else np.asarray(w_stock, np.float32))
+        k12 = lambda: tpr.score_batch(                      # noqa: E731
+            ct, pb, weights=w, zone_key_id=zk, skip_zero_weight=skip,
+            need_per=False)
+        twin = lambda: tpr.score_batch_plain(               # noqa: E731
+            ct, pb, weights=w, zone_key_id=zk, skip_zero_weight=skip,
+            need_per=False)
+        check(_bits_equal(k12()[0], twin()[0]),
+              f"K12: the bench fleet's [{B}, {ct.n_nodes}] batch differs "
+              f"from the twin")
+        spread = bool(w[tpr.PRIO_INDEX["SelectorSpreadPriority"]] != 0.0)
+        shapes[f"b{B}"] = {
+            "B": B, "N": ct.n_nodes, "launches": 2 if spread else 1,
+            "weights": ("stock, SelectorSpread on" if spread else
+                        "the round's, SelectorSpread zeroed"),
+            "ms": k1_bench.time_ms(k12, cold=True),
+            "ms_warm": k1_bench.time_ms(k12, cold=False),
+            "plain_ms": k1_bench.time_ms(twin, reps=10),
+            **_k12_bound(ct, pb, w, False, False, zk)}
+    main = shapes["b2048"]
+    out = {**{k: main[k] for k in ("ms", "ms_warm", "plain_ms", "bound_ms",
+                                   "bound_by")},
+           "empty_launch_ms": empty, "max_abs_err": 0.0, "cases": len(names),
+           "full_width": full,
+           "shape": {k: main[k] for k in ("B", "N")}, "shapes": shapes}
+    print(f"[K12] bit-identical to the twin on {len(names)} cases (total "
+          f"and rows, need_per on and off) and the bench fleet's "
+          f"{', '.join(full)} batches (stock weights with need_per on and "
+          f"off, the round's, static_pass's) | " + " | ".join(
+              f"[{d['B']}, {d['N']}] {d['weights']} ({d['launches']} "
+              f"launches): "
+              f"cold_ms {d['ms']:.4f} warm_ms {d['ms_warm']:.4f} plain_ms "
+              f"(twin on the card) {d['plain_ms']:.4f} bound_ms "
+              f"{d['bound_ms']:.6f} ({d['bound_by']}; bytes_ms "
+              f"{d['bytes_ms']:.6f} ops_ms {d['ops_ms']:.6f}: int32 "
+              f"{d['int_ops']:.0f} f32 {d['f32_ops']:.0f}, "
+              f"{d['ops_per_pair']:.2f} a pair)" for d in shapes.values())
+          + f" | empty_launch_ms {empty:.4f}", flush=True)
+    return out
+
+
+def _passes_launched(label: str, launches: dict) -> None:
+    """K11 and K12 launched in a cell that filters and scores, and K7
+    once for every K11 stack (stack mode: the sidecar's B9, the
+    preemption candidates)."""
+    check(launches["filter_pass"] > 0,
+          f"{label}: the main path launched K11 no time")
+    check(launches["score_pass"] > 0,
+          f"{label}: the main path launched K12 no time")
+    check(launches["fold_predicates"] == launches["filter_pass_stack"],
+          f"{label}: K7 launched {launches['fold_predicates']} times for "
+          f"{launches['filter_pass_stack']} K11 stacks")
+
+
 EXT_RUNNING = 1000     # running pods synced into the phase 18 sidecar
 EXT_PODS = 512         # pending pods through /filter, /prioritize, /bind
 EXT_PREEMPT = 16       # /preempt requests against the preemption fleet
@@ -1747,6 +2390,12 @@ def phase_extender(label: str = "18 extender sidecar") -> dict:
     check(launches["select_hosts"] == 2 * EXT_PODS,
           f"{label}: K1 launched {launches['select_hosts']} times, not two "
           f"a pod")
+    check(launches["filter_pass"] == launches["filter_pass_stack"]
+          == launches["score_pass"] == 2 * EXT_PODS,
+          f"{label}: K11 launched {launches['filter_pass']} times "
+          f"({launches['filter_pass_stack']} stacks), K12 "
+          f"{launches['score_pass']}, for {EXT_PODS} pods, not two a pod")
+    _passes_launched(label, launches)
     for verb in ("filter", "prioritize", "bind"):
         got = res["digests"][verb]
         want = [bytes(r) for r in data[verb]]
@@ -1784,6 +2433,16 @@ def phase_extender(label: str = "18 extender sidecar") -> dict:
     check(pre_launches["preempt_one"] >= EXT_PREEMPT,
           f"{label}: K2 launched {pre_launches['preempt_one']} times for "
           f"{EXT_PREEMPT} /preempt requests")
+    check(pre_launches["filter_pass_stack"] > 0
+          and pre_launches["fold_predicates"]
+          == pre_launches["filter_pass_stack"],
+          f"{label}: the /preempt candidates' stacks: K11 "
+          f"{pre_launches['filter_pass_stack']}, K7 "
+          f"{pre_launches['fold_predicates']}")
+    ops = _child_stream_ops(_FILTER_OPS_CHILD, label, "cuda")
+    n_ops = sum(ops.values())
+    check(n_ops <= 30, f"{label}: one /filter ran {n_ops} device "
+          f"operations, above 30: {ops}")
     lat = {v: res["latency"][v] for v in ("filter", "prioritize", "bind")}
     lat["preempt"] = pre["latency"]["preempt"]
     verbs = {v: {"p50_ms": _pct_ms(x, 50), "p99_ms": _pct_ms(x, 99),
@@ -1792,6 +2451,7 @@ def phase_extender(label: str = "18 extender sidecar") -> dict:
     n_f = max(srv.filter_requests, 1)
     split = {k: srv.filter_seconds[k] / n_f * 1e3 for k in FILTER_PARTS}
     out = {"verbs": verbs, "filter_split_ms": split, "launches": launches,
+           "filter_device_ops": n_ops, "filter_ops": ops,
            "preempt_launches": pre_launches,
            "sync_seconds": res["sync_seconds"],
            "preempt_sync_seconds": pre["sync_seconds"],
@@ -1807,6 +2467,8 @@ def phase_extender(label: str = "18 extender sidecar") -> dict:
               for v, d in verbs.items())
           + " | filter split ms a request: "
           + " ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f" | one /filter's device operations {n_ops}: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(ops.items()))
           + f" | sync seconds: bench fleet {res['sync_seconds']:.2f} "
           f"({NODES} nodes, {EXT_RUNNING} pods), preemption fleet "
           f"{pre['sync_seconds']:.2f} ({NODES} nodes, "
@@ -2000,8 +2662,6 @@ def phase_preemption(label: str) -> dict:
 
 # ------------------------------------------ capacity and replicas (A10a)
 
-INT32_OPS_PER_S = F32_OPS_PER_S / 2   # an SM has 64 INT32 lanes beside its
-#                                       128 FP32 ones (Hopper white paper)
 WHAT_IF_BINS = 2048    # bench.py --autoscale-bins, BASELINE's what-if
 CAPACITY_SHAPES = 64   # the live capacity cell's catalog: phase 20's first
 STORM_QUOTA = {"cpu": "50"}   # the flooding tenant's quota in phase 22
@@ -2456,7 +3116,9 @@ def main() -> None:
     phase_profile(nodes, tight, plain_pods, anti_pods)
 
     live = phase_live("11 live", nodes)
+    _passes_launched("11 live", live["launches"])
     live12 = phase_live("12 live nominated", nodes, NOMINATED)
+    _passes_launched("12 live nominated", live12["launches"])
     # the scatter at the live cycle's shapes: the median dirty-row count of
     # the two cells' scatters, else the N/4 cap (every cycle above it
     # uploaded its row fields whole), into requested's [N, R] and
@@ -2476,29 +3138,41 @@ def main() -> None:
         + f" | total seconds {time.monotonic() - t_start:.1f}", flush=True)
 
     live13 = phase_preemption("13 live preemption")
+    _passes_launched("13 live preemption", live13["launches"])
     print(f"[13 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
     k3 = phase_k3(main_n)
     k4 = phase_k4()
     live14 = phase_quality(nodes, live)
+    _passes_launched("14 live quality", live14["launches"])
     print(f"[14 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
     k5 = phase_k5()
     live15 = phase_live_default(nodes, live)
+    _passes_launched("15 live default", live15["launches"])
     print(f"[15 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
     k6 = phase_k6()
     mega = phase_megacycle(nodes, live)
+    _passes_launched("16 megacycle", mega["launches"])
     print(f"[16 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
-    phase_wide_columns()
+    wide17 = phase_wide_columns()
+    _passes_launched("17 R=32 quality", wide17["launches"])
     print(f"[17 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
     k7 = phase_k7()
+    bench = _bench_batches()
+    k11 = phase_k11(bench)
+    k12 = phase_k12(bench)
+    del bench
+    print(f"[K12 done] total seconds {time.monotonic() - t_start:.1f}",
+          flush=True)
     ext = phase_extender()
     print(f"[18 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
     live19 = phase_live_extender()
+    _passes_launched("19 live extender", live19["launches"])
     print(f"[19 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
     t_new = time.monotonic()
@@ -2511,9 +3185,11 @@ def main() -> None:
     print(f"[20 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
     live21 = phase_live_capacity()
+    _passes_launched("21 live capacity", live21["launches"])
     print(f"[21 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
     rep22 = phase_replicas()
+    _passes_launched("22 replicas", rep22["launches"])
     print(f"[22 done] total seconds {time.monotonic() - t_start:.1f}, "
           f"phases K8-K10 and 20-22 {time.monotonic() - t_new:.1f}",
           flush=True)
@@ -2695,6 +3371,42 @@ def main() -> None:
                                "bound_by", "library_ms", "ms_warm",
                                "empty_launch_ms", "cases", "shape")},
     }]}
+    # K11 and K12 launches by cell (one a speculative round, one a
+    # sequential batch's static pass, two a sidecar request)
+    cells = {"plain": launches, "node-affinity": launches4,
+             "redo": launches5, "pod-anti-affinity": launches8,
+             "pod-affinity": launches9, "affinity-redo": launches10,
+             "live": live["launches"], "live-nominated": live12["launches"],
+             "live-preemption": live13["launches"],
+             "live-quality": live14["launches"],
+             "live-default": live15["launches"],
+             "megacycle": mega["launches"], "R=32": wide17["launches"],
+             "extender": ext["launches"],
+             "extender-preempt": ext["preempt_launches"],
+             "live-extender": live19["launches"],
+             "live-capacity": live21["launches"],
+             "replicas": rep22["launches"]}
+    for name, source, replaces, k, res in (
+            ("filter_pass", "filter_pass.cu",
+             "kubernetes_tpu/ops/predicates.py:409", "filter_pass", k11),
+            ("score_pass", "score_pass.cu",
+             "kubernetes_tpu/ops/priorities.py:370", "score_pass", k12)):
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "kubernetes_tpu_torch/kernels/" + source,
+            "replaces": replaces,
+            "launches": launches[k],
+            **{f: res[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")},
+            "library_ms": None,
+            **{f: res[f] for f in ("ms_warm", "empty_launch_ms", "cases",
+                                   "shape", "shapes")},
+            "launches_by_cell": {c: d[k] for c, d in cells.items()},
+        })
+    record["kernels"][-2]["stack_launches_by_cell"] = {
+        c: d["filter_pass_stack"] for c, d in cells.items()}
+    record["kernels"][-2]["filter_device_ops"] = ext["filter_device_ops"]
     print(f"total seconds {time.monotonic() - t_start:.1f}", flush=True)
     print(smi)
     print(json.dumps(record))

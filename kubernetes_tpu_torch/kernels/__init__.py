@@ -52,6 +52,16 @@ the JAX package's runtime/reconciler.py ConflictReconciler._kernel: the
 replicas' sequenced commit check.  Its plain twin is runtime/reconciler.py
 `admit_scan_plain`; runtime/reconciler.py `admit_scan` dispatches.
 
+K11 `filter_pass` (filter_pass.cu) replaces the JAX package's
+ops/predicates.py filter_batch: the 23 predicates over the pods x nodes
+grid, as the folded mask or as the stack K7 folds.  K12 `score_pass`
+(score_pass.cu) replaces ops/priorities.py score_batch: the 12
+priorities, normalized per pod, and their weighted total.  Their plain
+twins are ops/predicates.py `filter_batch_plain` / `predicate_stack_plain`
+and ops/priorities.py `score_batch_plain`; `filter_batch`,
+`predicate_stack` and `score_batch` there dispatch.  Each takes its
+arguments as one struct by value (`FilterPassArgs`, `ScorePassArgs`).
+
 Each wrapper counts its launches in `LAUNCHES` (one each time it launches
 its kernels, nowhere else), so a run can show that its main path went
 through the kernels; `select_hosts_b1` also counts K1's one-row launches (the
@@ -62,20 +72,28 @@ stream's ticket.  K3, K4, K6 and K7 put one kernel launch each on the
 stream; K5 one up to K5_ONE_LAUNCH_ROWS snapshot rows and, above, a
 sequence of launches (cluster_analytics.cu launch_wide), counted once a
 call.  K8 and K10 put one kernel launch each on the stream, K9 one per
-K9_MAX_LANES lanes (counted once a call).
+K9_MAX_LANES lanes (counted once a call).  K11 puts one launch on the
+stream (`filter_pass_stack` also counts those in stack mode); K12 two when
+SelectorSpread's row is on (the zone index, then the pass), else one,
+counted once a call.
 The kernels are built from source at the first launch
 (kernels/_build.py); importing this module needs neither nvcc nor a card.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
 LAUNCHES = {"select_hosts": 0, "select_hosts_b1": 0, "preempt_one": 0,
             "select_topk": 0, "select_topk_b1": 0, "binpack_ffd": 0,
             "cluster_analytics": 0, "commit_group_counts": 0,
             "fold_predicates": 0, "ffd_order": 0, "binpack_counts": 0,
-            "reconcile_admit": 0}
+            "reconcile_admit": 0, "filter_pass": 0, "filter_pass_stack": 0,
+            "score_pass": 0}
 
 # K1's variants, by the code select_hosts_launch takes: a block of 8 warps
 # to a row, one warp to a row (8 rows to a block), or a block to a row that
@@ -729,3 +747,409 @@ def reconcile_admit(u_node: torch.Tensor, u_ns: torch.Tensor,
             admit.data_ptr(), quota_ok.data_ptr(), stream))
     LAUNCHES["reconcile_admit"] += 1
     return admit, quota_ok
+
+
+# ------------------------------------------------- K11 and K12: B1 and B2
+
+
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+
+# (struct field, "c" cluster / "p" pods, dataclass field, dtype, dims)
+_K11_ARGS = (
+    ("allocatable", "c", "allocatable", _F32, "N R"),
+    ("requested", "c", "requested", _F32, "N R"),
+    ("valid", "c", "valid", _BOOL, "N"),
+    ("unschedulable", "c", "unschedulable", _BOOL, "N"),
+    ("not_ready", "c", "not_ready", _BOOL, "N"),
+    ("mem_pressure", "c", "mem_pressure", _BOOL, "N"),
+    ("disk_pressure", "c", "disk_pressure", _BOOL, "N"),
+    ("pid_pressure", "c", "pid_pressure", _BOOL, "N"),
+    ("node_name_id", "c", "node_name_id", _I32, "N"),
+    ("label_keys", "c", "label_keys", _I32, "N L"),
+    ("label_vals", "c", "label_vals", _I32, "N L"),
+    ("label_nums", "c", "label_nums", _F32, "N L"),
+    ("taint_key", "c", "taint_key", _I32, "N T"),
+    ("taint_val", "c", "taint_val", _I32, "N T"),
+    ("taint_effect", "c", "taint_effect", _I32, "N T"),
+    ("node_port_pp", "c", "port_pp", _I32, "N P"),
+    ("node_port_ip", "c", "port_ip", _I32, "N P"),
+    ("node_port_used", "c", "port_used", _BOOL, "N P"),
+    ("vol_counts", "c", "vol_counts", _F32, "N VT"),
+    ("vol_limits", "c", "vol_limits", _F32, "N VT"),
+    ("node_disk_ids", "c", "disk_vol_ids", _I32, "N DVN"),
+    ("pod_valid", "p", "valid", _BOOL, "B"),
+    ("req", "p", "req", _F32, "B R"),
+    ("best_effort", "p", "best_effort", _BOOL, "B"),
+    ("node_name_req", "p", "node_name_req", _I32, "B"),
+    ("port_pp", "p", "port_pp", _I32, "B Q"),
+    ("port_ip", "p", "port_ip", _I32, "B Q"),
+    ("port_valid", "p", "port_valid", _BOOL, "B Q"),
+    ("tol_key", "p", "tol_key", _I32, "B TT"),
+    ("tol_op", "p", "tol_op", _I32, "B TT"),
+    ("tol_val", "p", "tol_val", _I32, "B TT"),
+    ("tol_effect", "p", "tol_effect", _I32, "B TT"),
+    ("tol_valid", "p", "tol_valid", _BOOL, "B TT"),
+    ("ns_keys", "p", "ns_keys", _I32, "B NS"),
+    ("ns_vals", "p", "ns_vals", _I32, "B NS"),
+    ("ns_valid", "p", "ns_valid", _BOOL, "B NS"),
+    ("has_req_affinity", "p", "has_req_affinity", _BOOL, "B"),
+    ("term_valid", "p", "term_valid", _BOOL, "B S"),
+    ("expr_key", "p", "expr_key", _I32, "B S E"),
+    ("expr_op", "p", "expr_op", _I32, "B S E"),
+    ("expr_vals", "p", "expr_vals", _I32, "B S E V"),
+    ("expr_nval", "p", "expr_nval", _I32, "B S E"),
+    ("expr_num", "p", "expr_num", _F32, "B S E"),
+    ("expr_valid", "p", "expr_valid", _BOOL, "B S E"),
+    ("new_vol_counts", "p", "new_vol_counts", _F32, "B VT"),
+    ("vol_overlap", "p", "vol_overlap", _F32, "B VT NO"),
+    ("disk_ids", "p", "disk_vol_ids", _I32, "B DV"),
+    ("vol_fail_all", "p", "vol_fail_all", _BOOL, "B"),
+    ("svc_aff_fixed", "p", "svc_aff_fixed", _I32, "B SA"),
+    ("svc_aff_d0", "p", "svc_aff_d0", _I32, "B"),
+    ("svc_aff_d1", "p", "svc_aff_d1", _I32, "B"),
+    ("aff_term_pairs", "p", "aff_term_pairs", _BOOL, "B PT TPA"),
+    ("aff_term_valid", "p", "aff_term_valid", _BOOL, "B PT"),
+    ("aff_term_self", "p", "aff_term_self", _BOOL, "B PT"),
+    ("anti_term_valid", "p", "anti_term_valid", _BOOL, "B AT"),
+    ("vol_zone_valid", "p", "vol_zone_valid", _BOOL, "B VZ"),
+    ("vol_bind_valid", "p", "vol_bind_valid", _BOOL, "B VB"),
+)
+
+_K12_ARGS = (
+    ("allocatable", "c", "allocatable", _F32, "N R"),
+    ("node_nonzero", "c", "nonzero_req", _F32, "N 2"),
+    ("valid", "c", "valid", _BOOL, "N"),
+    ("label_keys", "c", "label_keys", _I32, "N L"),
+    ("label_vals", "c", "label_vals", _I32, "N L"),
+    ("label_nums", "c", "label_nums", _F32, "N L"),
+    ("node_name_id", "c", "node_name_id", _I32, "N"),
+    ("taint_key", "c", "taint_key", _I32, "N T"),
+    ("taint_val", "c", "taint_val", _I32, "N T"),
+    ("taint_effect", "c", "taint_effect", _I32, "N T"),
+    ("image_id", "c", "image_id", _I32, "N I"),
+    ("image_size", "c", "image_size", _F32, "N I"),
+    ("avoid_owner", "c", "avoid_owner", _I32, "N A"),
+    ("group_counts", "c", "group_counts", _F32, "N G"),
+    ("pod_nonzero", "p", "nonzero_req", _F32, "B 2"),
+    ("limits2", "p", "limits2", _F32, "B 2"),
+    ("owner_uid", "p", "owner_uid", _I32, "B"),
+    ("tol_key", "p", "tol_key", _I32, "B TT"),
+    ("tol_op", "p", "tol_op", _I32, "B TT"),
+    ("tol_val", "p", "tol_val", _I32, "B TT"),
+    ("tol_effect", "p", "tol_effect", _I32, "B TT"),
+    ("tol_valid", "p", "tol_valid", _BOOL, "B TT"),
+    ("pref_weight", "p", "pref_weight", _F32, "B PS"),
+    ("pref_term_valid", "p", "pref_term_valid", _BOOL, "B PS"),
+    ("pref_expr_key", "p", "pref_expr_key", _I32, "B PS E"),
+    ("pref_expr_op", "p", "pref_expr_op", _I32, "B PS E"),
+    ("pref_expr_vals", "p", "pref_expr_vals", _I32, "B PS E V"),
+    ("pref_expr_nval", "p", "pref_expr_nval", _I32, "B PS E"),
+    ("pref_expr_num", "p", "pref_expr_num", _F32, "B PS E"),
+    ("pref_expr_valid", "p", "pref_expr_valid", _BOOL, "B PS E"),
+    ("group_ids", "p", "group_ids", _I32, "B GP"),
+    ("group_valid", "p", "group_valid", _BOOL, "B GP"),
+    ("spread_counts", "p", "spread_counts", _F32, "B NS"),
+    ("image_ids", "p", "image_ids", _I32, "B C"),
+)
+
+
+class FilterPassArgs(ctypes.Structure):
+    """filter_pass.cu's FilterPassArgs, field for field: a device pointer
+    for each row of _K11_ARGS, then the other pointers, then sizes and
+    flags (int32)."""
+
+    _fields_ = ([(spec[0], ctypes.c_void_p) for spec in _K11_ARGS]
+                + [(name, ctypes.c_void_p) for name in (
+                    "hits", "max_vols", "presence_keys", "svc_labels", "out")]
+                + [(name, ctypes.c_int) for name in (
+                    "b", "n", "r", "l", "t", "p", "q", "tt", "ns", "s", "e",
+                    "v", "vt", "dv", "dvn", "sa", "at", "pt", "vz", "vb",
+                    "tp", "x_rows", "off_forb", "off_anti", "off_aff",
+                    "off_key", "off_vz", "off_vb", "n_presence",
+                    "presence_present", "n_svc", "unsched_key", "enabled",
+                    "stack_mode", "vec")])
+
+
+class ScorePassArgs(ctypes.Structure):
+    """score_pass.cu's ScorePassArgs, field for field: a device pointer for
+    each row of _K12_ARGS, then the other pointers, the weights, then sizes
+    and flags (int32)."""
+
+    _fields_ = ([(spec[0], ctypes.c_void_p) for spec in _K12_ARGS]
+                + [(name, ctypes.c_void_p) for name in (
+                    "zone_of_node", "ipa_sums", "prefs_key",
+                    "prefs_presence", "prefs_weight", "rtc_xs", "rtc_ys",
+                    "work", "total", "per")]
+                + [("w", ctypes.c_float * 12)]
+                + [(name, ctypes.c_int) for name in (
+                    "b", "n", "r", "l", "t", "tt", "i", "c", "a", "g", "gp",
+                    "ps", "e", "v", "tp", "n_prefs", "n_rtc", "rows",
+                    "smem_mode", "region", "na_off", "zs_off")])
+
+
+def _bind_rows(name: str, specs, cluster, pods, args) -> dict:
+    """Check every (struct field, owner, dataclass field, dtype, dims) of
+    a launch against the cluster's and the pods' tensors (CUDA, one
+    device, the dtype, sizes that agree by name) and set each field's
+    pointer in args.  Returns the sizes by name, "device", and "keep":
+    the contiguous tensors the pointers point into (hold them until the
+    launch is queued)."""
+    dims: dict = {}
+    keep = []
+    device = cluster.valid.device
+    for field, owner, attr, dtype, shape in specs:
+        t = getattr(cluster if owner == "c" else pods, attr)
+        label = f"{'cluster' if owner == 'c' else 'pods'}.{attr}"
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"{name} launches on CUDA tensors only "
+                             f"({label})")
+        if t.device != device:
+            raise ValueError(f"{name}: {label} lies on {t.device}, "
+                             f"cluster.valid on {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} wants {label} as {dtype}, got "
+                            f"{t.dtype}")
+        names = shape.split()
+        if t.dim() != len(names):
+            raise ValueError(f"{name} wants {label} of {len(names)} dims "
+                             f"({shape}), got {tuple(t.shape)}")
+        for d, size in zip(names, t.shape):
+            if d.isdigit():
+                if size != int(d):
+                    raise ValueError(f"{name}: {label} has {size} columns, "
+                                     f"not {d}")
+            elif dims.setdefault(d, size) != size:
+                raise ValueError(f"{name}: {label} has {d}={size}, other "
+                                 f"inputs {dims[d]}")
+        t = t.contiguous()
+        keep.append(t)
+        setattr(args, field, t.data_ptr())
+    dims["device"] = device
+    dims["keep"] = keep
+    return dims
+
+
+@functools.lru_cache(maxsize=None)
+def _device_const(values: tuple, dtype, device) -> torch.Tensor:
+    """A small constant table on the device (profile and policy
+    arguments), copied there once a process."""
+    return torch.tensor(values, dtype=dtype).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _filter_config(cfg, vt: int) -> tuple:
+    """(enabled bitmask, max_vols per column, presence keys, service
+    affinity labels) of a FilterConfig for VT attach-count columns; the
+    columns past the base types take the CSI default, as
+    ops/predicates.py max_volume_counts does."""
+    from kubernetes_tpu_torch.codec.schema import (NUM_PREDICATES,
+                                                   PRED_INDEX, VOL_CSI)
+
+    if cfg.enabled is None:
+        enabled = (1 << NUM_PREDICATES) - 1
+    else:
+        enabled = sum(1 << PRED_INDEX[k] for k in set(cfg.enabled)
+                      if k in PRED_INDEX)
+    base = list(cfg.max_vols)
+    if vt > len(base):
+        base = base + [float(cfg.max_vols[VOL_CSI])] * (vt - len(base))
+    return (enabled, tuple(base[:vt]),
+            tuple(int(k) for k in cfg.label_presence_keys),
+            tuple(int(k) for k in cfg.service_affinity_labels))
+
+
+def filter_pass(cluster, pods, cfg, unsched_taint_key: int, hits, offsets,
+                stack: bool) -> torch.Tensor:
+    """K11: every predicate of one filter pass over the pods x nodes grid,
+    on the snapshot's CUDA device.  cluster / pods: the schema dataclasses
+    of tensors; cfg: the FilterConfig; hits: None or f32[B, X, N], the
+    topology-pair incidence products of ops/predicates.py pair_hits, with
+    offsets {"forb", "anti", "aff", "key", "vz", "vb"} -> first row (a
+    missing key: lean).  stack False -> mask bool[B, N] (valid, pod_valid
+    and every predicate folded); True -> the stack bool[B, 23, N].  See
+    ops/predicates.py filter_batch_plain / predicate_stack_plain.  Raises
+    on anything the kernel does not take and on a refused launch."""
+    from kubernetes_tpu_torch.codec.schema import NUM_PREDICATES
+
+    args = FilterPassArgs()
+    overlap = pods.vol_overlap
+    lean_overlap = (isinstance(overlap, torch.Tensor) and overlap.dim() == 3
+                    and overlap.shape[2] != cluster.valid.shape[0])
+    specs = tuple(s for s in _K11_ARGS
+                  if not (lean_overlap and s[0] == "vol_overlap"))
+    dims = _bind_rows("filter_pass", specs, cluster, pods, args)
+    dev, B, N = dims["device"], dims["B"], dims["N"]
+    if lean_overlap:
+        args.vol_overlap = None
+    elif dims["NO"] != N:
+        raise ValueError(f"filter_pass: pods.vol_overlap has {dims['NO']} "
+                         f"node columns, the snapshot {N}")
+    if dims["VT"] < 5:
+        raise ValueError(f"filter_pass wants at least 5 attach-count "
+                         f"columns, got {dims['VT']}")
+    if not (0 < N < (1 << 31) and 0 < B < (1 << 31)
+            and B * NUM_PREDICATES * N < (1 << 62)):
+        raise ValueError(f"filter_pass: sizes B={B} N={N} out of range")
+    enabled, max_vols, presence, svc = _filter_config(cfg, dims["VT"])
+    if svc and dims["SA"] < len(svc):
+        raise ValueError(f"filter_pass: {len(svc)} service affinity labels "
+                         f"and {dims['SA']} svc_aff_fixed columns")
+    consts = [_device_const(max_vols, torch.float32, dev)]
+    args.max_vols = consts[0].data_ptr()
+    for field, vals in (("presence_keys", presence), ("svc_labels", svc)):
+        if vals:
+            consts.append(_device_const(vals, torch.int32, dev))
+            setattr(args, field, consts[-1].data_ptr())
+    offs = {k: offsets.get(k, -1) for k in
+            ("forb", "anti", "aff", "key", "vz", "vb")}
+    if hits is not None:
+        if (hits.device != dev or hits.dtype != torch.float32
+                or hits.dim() != 3 or hits.shape[0] != B
+                or hits.shape[2] != N):
+            raise ValueError(f"filter_pass wants hits f32[{B}, X, {N}], got "
+                             f"{hits.dtype} {tuple(hits.shape)}")
+        hits = hits.contiguous()
+        args.hits = hits.data_ptr()
+        args.x_rows = hits.shape[1]
+    elif any(v >= 0 for v in offs.values()):
+        raise ValueError("filter_pass: pair offsets without hits")
+    if offs["aff"] >= 0 and dims["TPA"] != cluster.topo_pairs.shape[1]:
+        raise ValueError("filter_pass: affinity rows for a lean batch")
+    for k, v in offs.items():
+        setattr(args, "off_" + k, int(v))
+    for k in ("B", "N", "R", "L", "T", "P", "Q", "TT", "NS", "S", "E", "V",
+              "VT", "DV", "DVN", "SA", "AT", "PT", "VZ", "VB"):
+        setattr(args, k.lower(), int(dims[k]))
+    args.tp = int(dims["TPA"])
+    args.n_presence = len(presence)
+    args.presence_present = int(bool(cfg.label_presence_present))
+    args.n_svc = len(svc)
+    args.unsched_key = int(unsched_taint_key)
+    args.enabled = enabled
+    args.stack_mode = int(stack)
+    shape = (B, NUM_PREDICATES, N) if stack else (B, N)
+    out = torch.empty(shape, dtype=torch.bool, device=dev)
+    args.out = out.data_ptr()
+    args.vec = int(N % 4 == 0 and out.data_ptr() % 4 == 0)
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch_error(lib, "filter_pass", lib.filter_pass_launch(args,
+                                                                 stream))
+    LAUNCHES["filter_pass"] += 1
+    if stack:
+        LAUNCHES["filter_pass_stack"] += 1
+    return out
+
+
+def score_pass(cluster, pods, weights, all_rows: bool, need_per: bool,
+               score_cfg, zone_key_id: int, ipa_sums):
+    """K12: the priorities of one score pass over the pods x nodes grid,
+    on the snapshot's CUDA device.  weights: 12 f32 in PRIORITY_ORDER;
+    all_rows: compute every priority (else only the nonzero weights');
+    score_cfg: the ScoreConfig (NodeLabel and RTC arguments);
+    ipa_sums: None (affinity-lean) or f32[B, N], the pods' preferred pair
+    weights times the topology pairs.  Returns (total f32[B, N], per
+    f32[B, 12, N] with the rows off at 0, or None without need_per); see
+    ops/priorities.py score_batch_plain.  Two kernel launches when
+    SelectorSpread's row is on (the zone index first), else one.  Raises
+    on anything the kernel does not take and on a refused launch."""
+    from kubernetes_tpu_torch.codec.schema import NUM_PRIORITIES
+
+    args = ScorePassArgs()
+    lean_spread = (pods.spread_counts.dim() == 2
+                   and pods.spread_counts.shape[1]
+                   != cluster.valid.shape[0])
+    specs = tuple(s for s in _K12_ARGS
+                  if not (lean_spread and s[0] == "spread_counts"))
+    dims = _bind_rows("score_pass", specs, cluster, pods, args)
+    dev, B, N = dims["device"], dims["B"], dims["N"]
+    if lean_spread:
+        args.spread_counts = None
+    elif dims["NS"] != N:
+        raise ValueError(f"score_pass: spread_counts has {dims['NS']} "
+                         f"columns, the snapshot {N}")
+    if not (0 < N < (1 << 31) and 0 < B < (1 << 31)
+            and B * NUM_PRIORITIES * N < (1 << 62)):
+        raise ValueError(f"score_pass: sizes B={B} N={N} out of range")
+    w = [float(x) for x in np.asarray(weights, np.float32).reshape(-1)]
+    if len(w) != NUM_PRIORITIES:
+        raise ValueError(f"score_pass wants {NUM_PRIORITIES} weights, got "
+                         f"{len(w)}")
+    rows = ((1 << NUM_PRIORITIES) - 1 if all_rows
+            else sum(1 << i for i, x in enumerate(w) if x != 0.0))
+    topo, ptk = cluster.topo_pairs, cluster.pair_topo_key
+    TP = int(topo.shape[1]) if topo.dim() == 2 else -1
+    if (topo.dtype != torch.bool or topo.shape != (N, TP) or TP <= 0
+            or ptk.dtype != torch.int32 or ptk.shape != (TP,)
+            or topo.device != dev or ptk.device != dev):
+        raise ValueError(f"score_pass wants topo_pairs bool[{N}, TP] and "
+                         f"pair_topo_key i32[TP] on {dev}, got "
+                         f"{topo.dtype} {tuple(topo.shape)} and "
+                         f"{ptk.dtype} {tuple(ptk.shape)}")
+    topo, ptk = topo.contiguous(), ptk.contiguous()
+    keep = [topo, ptk]
+    zone_of_node = torch.empty(N, dtype=torch.int32, device=dev)
+    args.zone_of_node = zone_of_node.data_ptr()
+    if ipa_sums is not None:
+        if (ipa_sums.device != dev or ipa_sums.dtype != torch.float32
+                or ipa_sums.shape != (B, N)):
+            raise ValueError(f"score_pass wants ipa_sums f32[{B}, {N}], got "
+                             f"{ipa_sums.dtype} {tuple(ipa_sums.shape)}")
+        ipa_sums = ipa_sums.contiguous()
+        keep.append(ipa_sums)
+        args.ipa_sums = ipa_sums.data_ptr()
+    prefs = tuple(score_cfg.label_prefs)
+    if prefs and (rows >> 9) & 1:
+        for field, vals, dtype in (
+                ("prefs_key", tuple(int(p[0]) for p in prefs), torch.int32),
+                ("prefs_presence", tuple(int(bool(p[1])) for p in prefs),
+                 torch.int32),
+                ("prefs_weight", tuple(float(p[2]) for p in prefs),
+                 torch.float32)):
+            keep.append(_device_const(vals, dtype, dev))
+            setattr(args, field, keep[-1].data_ptr())
+    args.n_prefs = len(prefs)
+    shape = tuple(score_cfg.rtc_shape)
+    if (rows >> 10) & 1:
+        if not shape:
+            raise ValueError("score_pass: RequestedToCapacityRatio needs a "
+                             "curve of at least one point")
+        xs = _device_const(tuple(float(p[0]) for p in shape), torch.float32,
+                           dev)
+        ys = _device_const(tuple(float(p[1]) for p in shape), torch.float32,
+                           dev)
+        keep += [xs, ys]
+        args.rtc_xs, args.rtc_ys = xs.data_ptr(), ys.data_ptr()
+    args.n_rtc = len(shape)
+    for k in ("B", "N", "R", "L", "T", "TT", "I", "C", "A", "G", "GP", "PS",
+              "E", "V"):
+        setattr(args, k.lower(), int(dims[k]))
+    args.tp = TP
+    args.w = (ctypes.c_float * NUM_PRIORITIES)(*w)
+    args.rows = rows
+    na = N if (rows >> 5) & 1 and dims["PS"] > 0 else 0
+    zs = TP if rows & 1 else 0
+    args.region, args.na_off, args.zs_off = na + zs, 0, na
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    args.smem_mode = int((na + zs) * 4 <= lib.score_pass_smem_max())
+    work = None
+    if not args.smem_mode:
+        work = torch.empty(B * (na + zs), dtype=torch.float32, device=dev)
+        args.work = work.data_ptr()
+    total = torch.empty((B, N), dtype=torch.float32, device=dev)
+    per = (torch.empty((B, NUM_PRIORITIES, N), dtype=torch.float32,
+                       device=dev) if need_per else None)
+    args.total = total.data_ptr()
+    args.per = per.data_ptr() if per is not None else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch_error(lib, "score_pass", lib.score_pass_launch(
+            args, topo.data_ptr(), ptk.data_ptr(), int(zone_key_id),
+            stream))
+    LAUNCHES["score_pass"] += 1
+    return total, per

@@ -99,6 +99,14 @@ def library() -> ctypes.CDLL:
     lib.reconcile_admit_launch.restype = ctypes.c_int
     lib.reconcile_admit_workspace_floats.argtypes = [i, i]
     lib.reconcile_admit_workspace_floats.restype = ctypes.c_longlong
+    from kubernetes_tpu_torch.kernels import FilterPassArgs, ScorePassArgs
+
+    lib.filter_pass_launch.argtypes = [FilterPassArgs, p]
+    lib.filter_pass_launch.restype = ctypes.c_int
+    lib.score_pass_launch.argtypes = [ScorePassArgs, p, p, i, p]
+    lib.score_pass_launch.restype = ctypes.c_int
+    lib.score_pass_smem_max.argtypes = []
+    lib.score_pass_smem_max.restype = ctypes.c_int
     lib.select_hosts_error_string.argtypes = [ctypes.c_int]
     lib.select_hosts_error_string.restype = ctypes.c_char_p
     return lib

@@ -44,7 +44,7 @@ from kubernetes_tpu_torch.codec.schema import (
     ClusterTensors,
     DEFAULT_PRIORITY_WEIGHTS,
     FilterConfig,
-    PRED_INDEX,
+    PREDICATE_ORDER,
     PRIO_INDEX,
     PodBatch,
     ScoreConfig,
@@ -54,21 +54,15 @@ from kubernetes_tpu_torch.ops.predicates import filter_batch
 from kubernetes_tpu_torch.ops.priorities import (
     MAX_PRIORITY,
     balanced_allocation_score,
-    image_locality,
-    inter_pod_affinity_score,
     least_requested_score,
     most_requested_score,
-    node_affinity,
     node_capacity2,
-    node_label_priority,
-    node_prefer_avoid_pods,
     pod_spread_match,
-    resource_limits,
     rtc_score,
     rtc_tables,
+    score_batch,
     spread_counts,
     spread_score_from_counts,
-    taint_toleration,
     zone_layout,
 )
 from kubernetes_tpu_torch.ops.select import (
@@ -452,6 +446,33 @@ def _weighted(w, index_name):
     return float(w[PRIO_INDEX[index_name]])
 
 
+# the priorities static_pass scores once a batch (the steps recompute the
+# state-dependent ones: spread, least, balanced, most, RTC)
+_STATIC_PRIORITIES = (
+    "InterPodAffinityPriority", "NodePreferAvoidPodsPriority",
+    "NodeAffinityPriority", "TaintTolerationPriority",
+    "ImageLocalityPriority", "NodeLabelPriority", "ResourceLimitsPriority")
+
+
+def static_profile(cfg: FilterConfig, w, in_batch_affinity=False):
+    """(FilterConfig, f32[12] weights) of static_pass's one filter pass and
+    one score pass: the profile without the resource fit (and, with
+    in_batch_affinity, without MatchInterPodAffinity), and the weights of
+    the state-independent priorities alone (others zeroed; the IPA weight
+    too with in_batch_affinity)."""
+    drop = {"PodFitsResources", "GeneralPredicates"}
+    if in_batch_affinity:
+        drop.add("MatchInterPodAffinity")
+    names = cfg.enabled if cfg.enabled is not None else PREDICATE_ORDER
+    static_cfg = dataclasses.replace(
+        cfg, enabled=tuple(n for n in names if n not in drop))
+    w_static = np.zeros(len(PRIO_INDEX), np.float32)
+    for name in _STATIC_PRIORITIES:
+        if not (in_batch_affinity and name == "InterPodAffinityPriority"):
+            w_static[PRIO_INDEX[name]] = _weighted(w, name)
+    return static_cfg, w_static
+
+
 def static_pass(cluster: ClusterTensors, pods: PodBatch, cfg: FilterConfig,
                 unsched_taint_key: int, w, score_cfg, extra_mask=None,
                 extra_score=None, in_batch_affinity=False):
@@ -459,38 +480,21 @@ def static_pass(cluster: ClusterTensors, pods: PodBatch, cfg: FilterConfig,
     except the resource fit (recomputed per step), and the
     state-independent priorities, in one batched pass.  With
     in_batch_affinity, MatchInterPodAffinity and the IPA score are left
-    out too: the steps evaluate them against the in-batch pair state."""
-    _, per_pred = filter_batch(cluster, pods, cfg, unsched_taint_key)
-    keep = torch.ones(per_pred.shape[1], dtype=torch.bool,
-                      device=per_pred.device)
-    keep[PRED_INDEX["PodFitsResources"]] = False
-    keep[PRED_INDEX["GeneralPredicates"]] = False
-    if in_batch_affinity:
-        keep[PRED_INDEX["MatchInterPodAffinity"]] = False
-    static_mask = (
-        torch.all(per_pred | ~keep[None, :, None], dim=1)
-        & cluster.valid[None]
-        & pods.valid[:, None]
-    )
+    out too: the steps evaluate them against the in-batch pair state.
+
+    The mask is one filter pass in mask mode with those predicates taken
+    out of the profile (a disabled predicate reads all true), the score one
+    score pass with every other priority's weight zeroed (static_profile):
+    on CUDA tensors one K11 and one K12 launch.  The weighted rows add in
+    PRIORITY_ORDER from 0, the order this sum has always taken, so the
+    total is the same bit for bit."""
+    static_cfg, w_static = static_profile(cfg, w, in_batch_affinity)
+    static_mask, _ = filter_batch(cluster, pods, static_cfg,
+                                  unsched_taint_key, need_per=False)
     if extra_mask is not None:
         static_mask = static_mask & extra_mask
-    ipa = (torch.zeros((), dtype=torch.float32, device=cluster.valid.device)
-           if in_batch_affinity else inter_pod_affinity_score(cluster, pods))
-    static_score = (
-        _weighted(w, "InterPodAffinityPriority") * ipa
-        + _weighted(w, "NodePreferAvoidPodsPriority")
-        * node_prefer_avoid_pods(cluster, pods)
-        + _weighted(w, "NodeAffinityPriority") * node_affinity(cluster, pods)
-        + _weighted(w, "TaintTolerationPriority")
-        * taint_toleration(cluster, pods)
-        + _weighted(w, "ImageLocalityPriority") * image_locality(cluster, pods)
-    )
-    if _weighted(w, "NodeLabelPriority"):
-        static_score = static_score + _weighted(w, "NodeLabelPriority") * (
-            node_label_priority(cluster, pods, score_cfg))
-    if _weighted(w, "ResourceLimitsPriority"):
-        static_score = static_score + _weighted(w, "ResourceLimitsPriority") * (
-            resource_limits(cluster, pods))
+    static_score, _ = score_batch(cluster, pods, weights=w_static,
+                                  score_cfg=score_cfg, need_per=False)
     if extra_score is not None:
         static_score = static_score + extra_score
     return static_mask, static_score

@@ -6,11 +6,11 @@ once *without* inter-pod commit effects: every pod sees the same snapshot.
 This is the semantics a stock kube-scheduler gets from the extender seam
 (one pod per HTTP call, extender/server.py).
 
-The predicate stack (B1, ops/predicates.py) and the priorities (B2,
-ops/priorities.py) stay the eager ops the engines have run since the first
-slice; writing them by hand is queue B's work (ROADMAP §B).  The fold of
-the stack into the mask and the FitError attribution is kernel K7 on CUDA
-tensors (ops/predicates.py fold_predicates), the selection K1.
+On CUDA tensors every step is a hand-written kernel: the predicate stack
+(B1) is K11 in stack mode (ops/predicates.py predicate_stack), the fold of
+the stack into the mask and the FitError attribution K7
+(ops/predicates.py fold_predicates), the priorities (B2) K12
+(ops/priorities.py score_batch) and the selection K1.
 """
 
 from __future__ import annotations

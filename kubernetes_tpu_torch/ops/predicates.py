@@ -8,11 +8,17 @@ pods x nodes grid, `(ClusterTensors, PodBatch) -> bool[B, N]`, and
 (predicates.go:142-151) so the first failing predicate per (pod, node) can
 be attributed.
 
-Everything is integer/bool/f32 tensor math on the tensors' own device.  Where
-the JAX version broadcasts a small pod-side axis (ports, tolerations) into a
-4-D grid, this version loops over that axis and ORs the [B, N, *] slices, so
-eager PyTorch never materializes the [B, Q, N, P] grid at full width; the
-verdicts are the same.
+On CUDA tensors the stack and the mask are kernel K11
+(kernels/filter_pass.cu, `filter_batch` and `predicate_stack` dispatch to
+it; it launches or raises) and the fold of a stack kernel K7; the
+topology-pair incidence products stay exact f32 matrix products
+(`pair_hits`), as the reference leaves them to XLA.  On CPU tensors they
+are the plain twins below (`filter_batch_plain`, `predicate_stack_plain`),
+integer/bool/f32 tensor math.  Where the JAX version broadcasts a small
+pod-side axis (ports, tolerations) into a 4-D grid, the twins loop over
+that axis and OR the [B, N, *] slices, so eager PyTorch never
+materializes the [B, Q, N, P] grid at full width; the verdicts are the
+same.
 """
 
 from __future__ import annotations
@@ -467,22 +473,25 @@ def _predicate_rows(cluster: ClusterTensors, pods: PodBatch,
             else per[name]()
 
 
-def predicate_stack(cluster: ClusterTensors, pods: PodBatch,
-                    cfg: FilterConfig, unsched_taint_key: int = 0):
-    """bool[B, K, N]: every predicate's verdict, rows in PREDICATE_ORDER."""
+def predicate_stack_plain(cluster: ClusterTensors, pods: PodBatch,
+                          cfg: FilterConfig, unsched_taint_key: int = 0):
+    """K11's plain twin in stack mode: bool[B, K, N], every predicate's
+    verdict, rows in PREDICATE_ORDER."""
     return torch.stack(
         list(_predicate_rows(cluster, pods, cfg, unsched_taint_key)), dim=1)
 
 
-def filter_batch(cluster: ClusterTensors, pods: PodBatch, cfg: FilterConfig,
-                 unsched_taint_key: int = 0, need_per: bool = True):
-    """Run every predicate; returns (mask bool[B, N], per_pred bool[B, K, N]).
+def filter_batch_plain(cluster: ClusterTensors, pods: PodBatch,
+                       cfg: FilterConfig, unsched_taint_key: int = 0,
+                       need_per: bool = True):
+    """K11's plain twin: every predicate; returns (mask bool[B, N],
+    per_pred bool[B, K, N]).
 
     per_pred rows follow PREDICATE_ORDER.  With need_per=False, per_pred is
     None and the stack is never materialized (the engines' hot path)."""
     alive = cluster.valid[None] & pods.valid[:, None]
     if need_per:
-        stack = predicate_stack(cluster, pods, cfg, unsched_taint_key)
+        stack = predicate_stack_plain(cluster, pods, cfg, unsched_taint_key)
         return torch.all(stack, dim=1) & alive, stack
     # hot path: fold the AND pairwise instead of materializing the
     # [B, K, N] stack
@@ -490,6 +499,74 @@ def filter_batch(cluster: ClusterTensors, pods: PodBatch, cfg: FilterConfig,
     for row in _predicate_rows(cluster, pods, cfg, unsched_taint_key):
         mask = mask & row
     return mask, None
+
+
+def pair_hits(cluster: ClusterTensors, pods: PodBatch):
+    """The topology-pair incidence products K11 reads, as one exact f32
+    product (hits f32[B, X, N], offsets): row offsets["forb"] is the
+    existing pods' forbidden pairs, then the pod's anti-affinity terms
+    ("anti"), its required affinity terms ("aff") and their topology keys'
+    pairs ("key"), the volume zone ("vz") and binding ("vb") terms; a
+    family the batch is lean in has no rows and no key.  (None, {}) when
+    the batch is lean in all of them."""
+    parts, offsets, x = [], {}, 0
+    topo = cluster.topo_pairs
+
+    def add(name, t):
+        nonlocal x
+        offsets[name] = x
+        parts.append(t)
+        x += t.shape[1]
+
+    if not _is_lean(pods.aff_term_pairs, cluster):
+        add("forb", pods.forbidden_pairs[:, None])
+        add("anti", pods.anti_term_pairs)
+        add("aff", pods.aff_term_pairs)
+        add("key", pods.aff_term_topo_key[:, :, None]
+            == cluster.pair_topo_key[None, None])
+    if not _is_lean(pods.vol_zone_pairs, cluster):
+        add("vz", pods.vol_zone_pairs)
+    if not _is_lean(pods.vol_bind_pairs, cluster):
+        add("vb", pods.vol_bind_pairs)
+    if not parts:
+        return None, offsets
+    pairs = torch.cat(parts, dim=1).to(torch.float32)        # [B, X, TP]
+    return torch.matmul(pairs, topo.T.to(torch.float32)), offsets
+
+
+def _filter_pass(cluster, pods, cfg, unsched_taint_key, stack):
+    from kubernetes_tpu_torch import kernels
+
+    hits, offsets = pair_hits(cluster, pods)
+    return kernels.filter_pass(cluster, pods, cfg, unsched_taint_key, hits,
+                               offsets, stack)
+
+
+def predicate_stack(cluster: ClusterTensors, pods: PodBatch,
+                    cfg: FilterConfig, unsched_taint_key: int = 0):
+    """bool[B, K, N]: every predicate's verdict, rows in PREDICATE_ORDER.
+    K11 in stack mode on CUDA tensors (it launches or raises), its plain
+    twin on CPU tensors."""
+    if cluster.valid.is_cuda:
+        return _filter_pass(cluster, pods, cfg, unsched_taint_key, True)
+    return predicate_stack_plain(cluster, pods, cfg, unsched_taint_key)
+
+
+def filter_batch(cluster: ClusterTensors, pods: PodBatch, cfg: FilterConfig,
+                 unsched_taint_key: int = 0, need_per: bool = True):
+    """Run every predicate; returns (mask bool[B, N], per_pred bool[B, K, N]
+    or None without need_per), see filter_batch_plain.  On CUDA tensors:
+    K11 in mask mode, or with need_per K11 in stack mode folded by K7 (each
+    launches or raises); on CPU tensors the plain twin."""
+    if not cluster.valid.is_cuda:
+        return filter_batch_plain(cluster, pods, cfg, unsched_taint_key,
+                                  need_per)
+    if not need_per:
+        return _filter_pass(cluster, pods, cfg, unsched_taint_key,
+                            False), None
+    stack = _filter_pass(cluster, pods, cfg, unsched_taint_key, True)
+    mask, _ = fold_predicates(stack, cluster.valid, pods.valid)
+    return mask, stack
 
 
 def first_failure(per_pred):

@@ -21,6 +21,12 @@ does on the CPU, not merely the way its source reads:
 
 Everything stays f32: f64 would move the port towards the numpy cpuref and
 away from the JAX reference.
+
+On CUDA tensors `score_batch` is kernel K12 (kernels/score_pass.cu; it
+launches or raises), which repeats these roundings with `_rn` intrinsics
+and the one fused multiply-add; on CPU tensors it is the plain twin
+`score_batch_plain`.  The scoring cores stay shared with the sequential
+engine's per-step scores.
 """
 
 from __future__ import annotations
@@ -463,10 +469,11 @@ def resource_limits(cluster: ClusterTensors, pods: PodBatch):
 # ------------------------------------------------------------------ combined
 
 
-def score_batch(cluster: ClusterTensors, pods: PodBatch, weights=None,
-                score_cfg=None, zone_key_id: int = 5,
-                skip_zero_weight: bool = False, need_per: bool = True):
-    """All priorities + weighted sum -> (total f32[B, N], per f32[B, P, N]).
+def score_batch_plain(cluster: ClusterTensors, pods: PodBatch, weights=None,
+                      score_cfg=None, zone_key_id: int = 5,
+                      skip_zero_weight: bool = False, need_per: bool = True):
+    """K12's plain twin: all priorities + weighted sum -> (total f32[B, N],
+    per f32[B, P, N]).
 
     weights follows PRIORITY_ORDER; defaults to the stock weights.  With
     need_per=False (the engines' hot path) only the weighted total of the
@@ -519,3 +526,31 @@ def score_batch(cluster: ClusterTensors, pods: PodBatch, weights=None,
     total = torch.einsum("bpn,p->bn", stack, w)
     return total, stack
 
+
+
+def score_batch(cluster: ClusterTensors, pods: PodBatch, weights=None,
+                score_cfg=None, zone_key_id: int = 5,
+                skip_zero_weight: bool = False, need_per: bool = True):
+    """All priorities + weighted sum -> (total f32[B, N], per f32[B, P, N]
+    or None without need_per), see score_batch_plain.  K12 on CUDA tensors
+    (it launches or raises), the plain twin on CPU tensors.  The kernel
+    adds the weighted rows in PRIORITY_ORDER; every row is an integer, so
+    the twin's need_per einsum gives the same total."""
+    if not cluster.valid.is_cuda:
+        return score_batch_plain(cluster, pods, weights, score_cfg,
+                                 zone_key_id, skip_zero_weight, need_per)
+    from kubernetes_tpu_torch import kernels
+
+    if score_cfg is None:
+        score_cfg = ScoreConfig()
+    if weights is None:
+        weights = DEFAULT_PRIORITY_WEIGHTS
+    w = np.asarray(weights, np.float32)
+    all_rows = need_per and not skip_zero_weight
+    ipa_sums = None
+    if (all_rows or w[PRIO_INDEX["InterPodAffinityPriority"]] != 0.0) and \
+            pods.pref_pair_weights.shape[-1] == cluster.topo_pairs.shape[-1]:
+        ipa_sums = pods.pref_pair_weights @ \
+            cluster.topo_pairs.to(torch.float32).T
+    return kernels.score_pass(cluster, pods, w, all_rows, need_per,
+                              score_cfg, zone_key_id, ipa_sums)

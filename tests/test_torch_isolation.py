@@ -109,6 +109,20 @@ def test_walk_covers_the_capacity_slice():
             "kubernetes_tpu_torch.runtime.replicas"} <= names
 
 
+def test_walk_covers_the_filter_and_score_slice():
+    """The import walk reaches the case lists of K11 and K12, and the ops
+    that dispatch to them hold their twins."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("kernels/k11_cases.py", "kernels/k12_cases.py",
+                "ops/predicates.py", "ops/priorities.py"):
+        assert f"kubernetes_tpu_torch/{mod}" in rel, mod
+    from kubernetes_tpu_torch.ops import predicates, priorities
+
+    assert callable(predicates.filter_batch_plain)
+    assert callable(predicates.predicate_stack_plain)
+    assert callable(priorities.score_batch_plain)
+
+
 def test_forbidden_name_rule():
     assert _forbidden("kubernetes_tpu.codec")
     assert _forbidden("jax.numpy")
@@ -150,7 +164,9 @@ def test_kernel_sources_and_build_settings():
                                                    "fold_predicates.cu",
                                                    "binpack_counts.cu",
                                                    "ffd_order.cu",
-                                                   "reconcile_admit.cu"}
+                                                   "reconcile_admit.cu",
+                                                   "filter_pass.cu",
+                                                   "score_pass.cu"}
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.CUDA_FLAGS
     assert "--use_fast_math" not in _build.CUDA_FLAGS
     assert os.path.basename(_build.BUILD_DIR) == ".torch_ext_build"
