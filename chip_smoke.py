@@ -7,6 +7,8 @@ the port's kernels from source (nvcc, sm_90a) at first use.  Phases, each
 printing one line of numbers; any failure exits non-zero with no result:
 
   1. device: torch / CUDA versions and the card's name and power limit;
+     the kernel library's build, the driver's and runtime's CUDA versions
+     and a toy CUDA graph whose WHILE node must count down five passes;
   2. K1 (select_hosts) against its plain twin on the card, bit for bit, on
      every shape, special row and rotation counter of
      kubernetes_tpu_torch/kernels/k1_cases.py (B in 1, 7, 33, 2048; N from
@@ -22,16 +24,46 @@ printing one line of numbers; any failure exits non-zero with no result:
      recount;
   4. the same for the node-affinity workload (every pod on a tier=a node);
   5. the redo path: a 5,000-node fleet with 2 pod slots per node, where the
-     hybrid check must send batches through the sequential engine;
+     hybrid check must send batches through the sequential engine: K1
+     launched once a round and K13 once a redone batch, inside each
+     batch's CUDA graph;
   6. the phase-3 winners against tests/data/torch_port_golden_plain.npz,
      the JAX speculative engine's winners for the same workload;
-  7. torch.profiler over one warm speculative round of the plain cell and
-     the mean sequential step of the redo cell: the top device ops, K1's,
-     K11's and K12's share of the round (one K11 and at least one K12
-     launch in it, or the phase fails), the kernel launches in one step;
-     then one warm round of the pod-anti-affinity cell (the share of the
-     affinity einsums and matmuls) and one sequential step with the
+  7. torch.profiler over one warm speculative call of the plain cell (one
+     round, as one CUDA graph: its round body's kernels, K11, K12, K15,
+     K1 and K14's two launches, and its two condition kernels, counted
+     apart from the batch's setup operations; one K11, at least one K12,
+     one K15 and two K14 launches, or the phase fails), then the same call
+     under torch.cuda.set_sync_debug_mode("error"), which fails the phase
+     on any host sync; the redo's step as K13's microseconds a step
+     (phase K13); one warm round of the pod-anti-affinity cell (the share
+     of the affinity einsums and matmuls) and one sequential step with the
      affinity carry;
+ K13. the sequential scan (seq_scan.cu) against its twin: the sequential
+     engine through K13 and through the step loop (models/batched.py
+     scan_plain) on the card, bit for bit, on every case of
+     kubernetes_tpu_torch/kernels/k13_cases.py (a 2-slot fleet, nominated
+     claims with dead slots, in-batch host ports, quality top-3 and a
+     width past N, sampling at 50% and adaptive from a counter that wraps
+     int32, R = 32, per-pod spread counts, NaN and tied totals, every
+     state-dependent priority); then full-width batches of 2,048 pods
+     (the 2-slot fleet, 256 nominated claims, host ports with top-3 at
+     R = 32): the kernel against scan_plain on the same inputs, its times
+     (L2 cold and warm), its microseconds a step, beside its bound (the
+     larger of its bytes over HBM and the block-wide dependent stages one
+     step of the function needs times the card's stage floor; the
+     barriers the kernel passes a step are printed beside) and the twin's
+     seconds;
+ K14 K15. the speculative round's kernels (round_commit.cu,
+     round_fold.cu) against their twins: the speculative engine through
+     the graph and through the twins on the card, bit for bit, rounds and
+     redo flags included, on every case of kernels/k14_cases.py; then one
+     full-width round (bench fleet, with and without top-3, the 2-slot
+     fleet, and a 1-slot fleet whose pods prefer a third of the nodes, so
+     the round bounces pods: accepted-only recheck, emask ban, inv): K15
+     against round_fold_plain and K14 against
+     round_commit_plain on the same inputs, their times beside their
+     bytes bounds and an empty launch;
   8. scheduler_perf's pod-anti-affinity workload at full width with 1,000
      running pods: winners equal to
      tests/data/torch_port_golden_pod_anti_affinity.npz, and a numpy
@@ -253,8 +285,12 @@ run launched K11 and K12, and K7 once for every K11 stack (stack mode:
 the sidecar's requests, the preemption candidates); phase 7's round
 profile reports K11's and K12's device ms and share.
 
-Then the card's name and power limit, the kernels' JSON record (K1-K12;
-K1's, K11's and K12's launches in each cell among their keys) and the
+Phases K13 and K14 K15 run after 10 and before 7.  Every launch count is
+read through kernels.settle_launches(): a CUDA graph's body kernels count
+once a round, from the card's round count, after the graph ran.
+
+Then the card's name and power limit, the kernels' JSON record (K1-K15;
+K1's, K11's to K15's launches in each cell among their keys) and the
 device line.
 """
 
@@ -303,9 +339,21 @@ def phase_device() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    from kubernetes_tpu_torch import kernels
+
+    t = time.monotonic()
+    drv, rt = kernels.graph_versions()      # builds the kernel library
+    built = time.monotonic() - t
+    # the speculative engine's plain batches run as a CUDA graph with
+    # conditional nodes (CUDA 12.4+): a toy WHILE node must count down
+    passes = kernels.graph_probe(5)
+    check(passes == 5, f"1 device: the probe graph's WHILE node ran "
+          f"{passes} passes, not 5")
     print(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count "
-          f"{torch.cuda.device_count()} | nvidia-smi: {smi}", flush=True)
+          f"{torch.cuda.device_count()} | nvidia-smi: {smi} | driver "
+          f"{drv} runtime {rt}: a WHILE graph node ran {passes} passes | "
+          f"kernel library built in {built:.1f} s", flush=True)
     return smi
 
 
@@ -610,7 +658,7 @@ def _run_pair(label: str, nodes, pods, require_all: bool, existing=0):
     kernels.reset_launch_counts()
     res = run_raw(nodes, pods, BATCH, device="cuda", select_impl="kernel",
                   existing=existing)
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.settle_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     check(launches["select_hosts"] > 0,
           f"{label}: the main path launched K1 no time")
@@ -707,6 +755,22 @@ def _is_k12(name: str) -> bool:
     return "k12_score_pass" in name or "k12_zone_index" in name
 
 
+def _is_k14(name: str) -> bool:
+    return "k14_accept" in name or "k14_apply" in name
+
+
+def _is_k15(name: str) -> bool:
+    return "k15_round_fold" in name
+
+
+def _is_round_kernel(name: str) -> bool:
+    """A kernel of the plain round's graph body (K11, K12, K15, K1, K3,
+    K14) or of its condition nodes."""
+    return (_is_k1(name) or _is_k11(name) or _is_k12(name)
+            or _is_k14(name) or _is_k15(name) or "k3_select_topk" in name
+            or "graph_init_kernel" in name or "graph_flag_kernel" in name)
+
+
 def _split(dev):
     """(kernel launches, copies and sets, device ms, K1 launches, K1 ms)."""
     copies = [ms for n, _, ms in dev if n.startswith(("Memcpy", "Memset"))]
@@ -762,11 +826,14 @@ def _engine(make, fleet, pods, B, existing=0, device="cuda"):
     return run, fn
 
 
-def _round_line(label, run, fn, out: dict) -> str:
-    """One profiled warm speculative call whose batch takes one round."""
+def _round_line(label, run, fn, out: dict, graph: bool = False) -> str:
+    """One profiled warm speculative call whose batch takes one round; with
+    graph, the plain batch's CUDA graph: its round body (K11, K12, K15,
+    K1, K14's two launches) and condition kernels counted apart from the
+    batch's setup operations."""
     prof, wall, dev = _profiled(run)
-    check(fn.last_rounds == 1 and not fn.last_redo,
-          f"7 profile: the {label} batch took {fn.last_rounds} rounds")
+    check(int(fn.last_rounds) == 1 and not bool(fn.last_redo),
+          f"7 profile: the {label} batch took {int(fn.last_rounds)} rounds")
     if not dev:
         return f"{label} round: not measured (no CUDA activity in the profile)"
     kern, copies, dev_ms, k1_n, k1_ms = _split(dev)
@@ -777,15 +844,28 @@ def _round_line(label, run, fn, out: dict) -> str:
     check(len(k11) == 1 and k12,
           f"7 profile: the {label} round launched K11 {len(k11)} times and "
           f"K12 {len(k12)}")
+    rk = [ms for n, _, ms in dev if _is_round_kernel(n)]
+    k14 = [ms for n, _, ms in dev if _is_k14(n)]
+    k15 = [ms for n, _, ms in dev if _is_k15(n)]
+    if graph:
+        check(len(k14) == 2 and len(k15) == 1,
+              f"7 profile: the {label} graph launched K14 {len(k14)} times "
+              f"and K15 {len(k15)}")
     out[label] = {"wall_ms": wall * 1e3, "device_ms": dev_ms,
                   "kernels": kern, "k1_ms": k1_ms, "einsum_ms": ein,
                   "matmul_ms": mm, "k11_launches": len(k11),
                   "k11_ms": sum(k11), "k12_launches": len(k12),
-                  "k12_ms": sum(k12)}
+                  "k12_ms": sum(k12), "round_kernels": len(rk),
+                  "round_kernels_ms": sum(rk), "k14_ms": sum(k14),
+                  "k15_ms": sum(k15), "setup_ops": len(dev) - len(rk)}
+    where = (f"graph kernels (round body and conditions) {len(rk)} "
+             f"round_device_ms {sum(rk):.4f} K15_ms {sum(k15):.4f} K14 "
+             f"launches {len(k14)} K14_ms {sum(k14):.4f} setup ops "
+             f"{len(dev) - len(rk)} " if graph else "")
     return (f"{label} round (B={BATCH}, 1 round): wall_ms {wall * 1e3:.3f} "
             f"device_ms {dev_ms:.3f} idle_share "
             f"{1 - dev_ms / (wall * 1e3):.3f} kernels {kern} copies "
-            f"{copies} K1 launches {k1_n} K1_ms {k1_ms:.4f} K1_share "
+            f"{copies} {where}K1 launches {k1_n} K1_ms {k1_ms:.4f} K1_share "
             f"{k1_ms / dev_ms:.4f} K11 launches {len(k11)} K11_ms "
             f"{sum(k11):.4f} K11_share {sum(k11) / dev_ms:.4f} K12 "
             f"launches (zone index and pass) {len(k12)} K12_ms "
@@ -823,13 +903,31 @@ def _timed(run) -> float:
     return time.monotonic() - t
 
 
-def phase_profile(nodes, tight, pods, anti_pods, device="cuda") -> dict:
+def _no_sync(run, label: str) -> None:
+    """run() under torch.cuda.set_sync_debug_mode("error"): any torch
+    operation that syncs the host with the card fails the phase."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    except RuntimeError as e:
+        fail(f"{label}: a host sync inside the engine call: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def phase_profile(nodes, tight, pods, anti_pods, k13: dict,
+                  device="cuda") -> dict:
     """Where the device time goes: one warm speculative call of the plain
-    cell and of the pod-anti-affinity cell (each batch takes one round),
-    and the sequential steps of the redo cells.  A plain step's wall time
-    is a 96-pod batch's less a 32-pod batch's, over 64 steps; an affinity
-    step's is a 2,048-pod batch's over its steps (the carry's width is the
-    batch's), both unprofiled."""
+    cell (its CUDA graph: the round body, the condition kernels and the
+    batch's setup counted apart; then the same call once more under
+    set_sync_debug_mode("error"), which must pass) and of the
+    pod-anti-affinity cell (each batch takes one round); the plain redo's
+    step is K13's microseconds a step (phase K13: there is no launch a step
+    to cut at), the affinity redo's the sequential steps of a 2,048-pod
+    batch over its steps (the carry's width is the batch's),
+    unprofiled."""
     from kubernetes_tpu_torch.models.batched import make_sequential_scheduler
     from kubernetes_tpu_torch.models.speculative import (
         make_speculative_scheduler,
@@ -837,16 +935,32 @@ def phase_profile(nodes, tight, pods, anti_pods, device="cuda") -> dict:
 
     spec, seq = make_speculative_scheduler, make_sequential_scheduler
     out: dict = {}
-    lines = [_round_line("plain", *_engine(spec, nodes, pods, BATCH,
-                                            device=device), out)]
+    from kubernetes_tpu_torch import kernels
+
+    run, fn = _engine(spec, nodes, pods, BATCH, device=device)
+    lines = [_round_line("plain", run, fn, out, graph=True)]
+    _no_sync(run, "7 sync")
+    g0 = dict(kernels.GRAPH_STATS)
+    walls = sorted(_timed(run) * 1e3 for _ in range(10))
+    g = {k: v - g0[k] for k, v in kernels.GRAPH_STATS.items()}
+    n = max(g["builds"], 1)
+    out["plain_wall_ms"] = walls[len(walls) // 2]
+    out["graph_build_ms"] = {k: v / n * 1e3 for k, v in g.items()
+                             if k != "builds"}
+    b = out["graph_build_ms"]
+    lines.append(f"plain graph call under set_sync_debug_mode('error'): no "
+                 f"host sync | unprofiled, the median of 10 warm calls: "
+                 f"wall_ms {out['plain_wall_ms']:.3f} (min {walls[0]:.3f}), "
+                 f"of which the graph's build a call {b['seconds']:.3f} ms "
+                 f"on the host: prepare {b['prepare']:.3f}, capture "
+                 f"{b['capture']:.3f}, end and instantiate "
+                 f"{b['instantiate']:.3f}")
     lines.append(_round_line("pod-anti-affinity", *_engine(
         spec, nodes, anti_pods, BATCH, EXISTING_ANTI, device), out))
-    walls = {}
-    for B in (32, 96):
-        run, _ = _engine(seq, tight, pods, B, device=device)
-        walls[B] = _timed(run)
-    lines.append(_step_line("redo", run, (walls[96] - walls[32]) / 64 * 1e3,
-                            96, out))
+    out["redo"] = {"us_a_step": k13["us_a_step"], "ms": k13["ms"]}
+    lines.append(f"redo sequential step: K13 {k13['us_a_step']:.3f} us a "
+                 f"step (one launch of {BATCH} steps, {k13['ms']:.3f} ms "
+                 f"cold; phase K13)")
     run, _ = _engine(seq, tight, anti_pods, BATCH, device=device)
     wall = _timed(run) / BATCH * 1e3
     run, _ = _engine(seq, tight, anti_pods, 256, device=device)
@@ -938,7 +1052,7 @@ def phase_live(label: str, nodes, nominated: int = 0) -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     res = run_live(nodes, PODS, BATCH, device="cuda", nominations=noms)
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.settle_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     check(launches["select_hosts"] > 0,
           f"{label}: the live cycle launched K1 no time")
@@ -984,7 +1098,9 @@ def phase_live(label: str, nodes, nominated: int = 0) -> dict:
           f"{h2d / cycles:.0f} (whole-field uploads {snap_up / cycles:.0f}) "
           f"against a full snapshot {res['snapshot_bytes']} | by seam "
           f"{xf} | K1 launches {launches['select_hosts']} (B=1 "
-          f"{launches['select_hosts_b1']}) | peak_device_GiB {peak_gb:.2f} "
+          f"{launches['select_hosts_b1']}) K13 {launches['seq_scan']} K14 "
+          f"{launches['round_commit']} K15 {launches['round_fold']} graphs "
+          f"{launches['round_graph']} | peak_device_GiB {peak_gb:.2f} "
           f"| bindings and order equal to the JAX Scheduler's "
           f"({res['hosts'].size})", flush=True)
     return out
@@ -1211,7 +1327,7 @@ def phase_quality(nodes, live: dict) -> dict:
     kernels.reset_launch_counts()
     res = run_live(nodes, PODS, BATCH, device="cuda", quality_top_k=3,
                    quality_interval_cycles=1)
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.settle_launches()
     label = "14 live quality"
     q = res["quality"]
     check(launches["select_topk"] > 0, f"{label}: K3 launched no time")
@@ -1237,7 +1353,7 @@ def phase_quality(nodes, live: dict) -> dict:
           f"{len(got['regret_cycle'])} regret samples")
     kernels.reset_launch_counts()
     res32 = run_live(nodes, PODS, BATCH, device="cuda", quality_top_k=3)
-    launches32 = dict(kernels.LAUNCHES)
+    launches32 = kernels.settle_launches()
     q32 = res32["quality"]
     check(q32["regret_dropped"] == 0,
           f"14 live quality/32: {q32['regret_dropped']} regret samples "
@@ -1414,7 +1530,7 @@ def phase_live_default(nodes, live: dict) -> dict:
     kernels.reset_launch_counts()
     res = run_live(nodes, PODS, BATCH, device="cuda", quality_top_k=3,
                    telemetry=True, timeline=True)
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.settle_launches()
     sched = res["scheduler"]
     tel = res["telemetry"]
     data = np.load(golden("live_default"))
@@ -1662,7 +1778,7 @@ def phase_wide_columns(label: str = "17 R=32 quality") -> dict:
         res = run_live(bench_nodes(NODES, extended=13), PODS, BATCH,
                        device="cuda", quality_top_k=3,
                        quality_interval_cycles=1)
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.settle_launches()
     finally:
         quality_mod._ffd_counterfactual = orig
     R = res["scheduler"].cache.encoder.dims.R
@@ -2381,7 +2497,7 @@ def phase_extender(label: str = "18 extender sidecar") -> dict:
         kernels.reset_launch_counts()
         res = loop.drive_extender(srv.address, nodes, running, pods)
         torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.settle_launches()
     finally:
         srv.stop()
     check(launches["fold_predicates"] == 2 * EXT_PODS,
@@ -2417,7 +2533,7 @@ def phase_extender(label: str = "18 extender sidecar") -> dict:
             pre_srv.address, fleet, pre_running,
             preemptors=loop.preemptors(EXT_PREEMPT))
         torch.cuda.synchronize()
-        pre_launches = dict(kernels.LAUNCHES)
+        pre_launches = kernels.settle_launches()
     finally:
         pre_srv.stop()
     replies = [json.dumps(r, sort_keys=True, separators=(",", ":"))
@@ -2494,7 +2610,7 @@ def phase_live_extender(label: str = "19 live extender") -> dict:
                             device="cuda", pipeline=False,
                             warmup=LIVE_EXT_WARMUP, sidecar=srv)
         torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.settle_launches()
     n_all = LIVE_EXT_PODS + LIVE_EXT_WARMUP
     check(np.array_equal(res["hosts"], data["hosts"]),
           f"{label}: bound rows differ from the JAX Scheduler's (port "
@@ -2574,7 +2690,7 @@ def phase_preemption(label: str) -> dict:
     kernels.reset_launch_counts()
     res = run_preemption(nodes, running, pending[:PREEMPTORS], BATCH,
                          device="cuda")
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.settle_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     attempts = res["attempts"]
     check(attempts > 0 and launches["preempt_one"] >= attempts,
@@ -2647,7 +2763,8 @@ def phase_preemption(label: str) -> dict:
           f"in the window {res['gc_full']['collections']} "
           f"({res['gc_full']['seconds']:.4f} s) | K1 launches "
           f"{launches['select_hosts']} (B=1 {launches['select_hosts_b1']}) "
-          f"K2 launches {launches['preempt_one']} | bytes per attempt "
+          f"K13 {launches['seq_scan']} K2 launches {launches['preempt_one']}"
+          f" | bytes per attempt "
           f"{per_attempt} H2D bytes per cycle (the attempts' left out) "
           f"{h2d / cycles:.0f} | dirty "
           f"rows scattered per update (rows: updates) {scat} | one "
@@ -2874,7 +2991,7 @@ def phase_what_if(sweep, k8: dict, label: str = "20 what-if",
     t0 = time.monotonic()
     fits = what_if(reqs, shapes_np, max_bins=WHAT_IF_BINS, device=device)
     solve_s = time.monotonic() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.settle_launches()
     check(launches["ffd_order"] == 1 and launches["binpack_counts"] == 1,
           f"{label}: launches {launches}, not one K9 and one K8")
     S = shapes.shape[0]
@@ -3039,6 +3156,391 @@ def phase_replicas(label: str = "22 replicas", device="cuda") -> dict:
     return out
 
 
+# ------------------------------------------------ K13, K14, K15: B5 and B4
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_outputs(got, want, what: str) -> None:
+    """An engine's outputs (hosts, new cluster[, TopKQuality]) bit for bit."""
+    check(torch.equal(got[0], want[0]), f"{what}: hosts differ")
+    for f in ("requested", "nonzero_req"):
+        check(torch.equal(_bits(getattr(got[1], f)),
+                          _bits(getattr(want[1], f))), f"{what}: {f} differ")
+    check(len(got) == len(want), f"{what}: outputs differ")
+    for k, (a, b) in enumerate(zip(got[2], want[2]) if len(got) == 3
+                               else ()):
+        check(torch.equal(_bits(a), _bits(b)), f"{what}: top-k leaf {k}")
+
+
+def _port_pod(i: int):
+    """A plain pending pod asking for one of four host ports."""
+    from kubernetes_tpu_torch.api.factory import make_pod
+
+    d = i % 20
+    return make_pod(f"pod-{i}", cpu="100m", mem="256Mi",
+                    labels={"app": f"dep-{d}"},
+                    ports=[{"hostPort": 8080 + i % 4, "protocol": "TCP"}],
+                    owner=("ReplicaSet", f"rs-{d}"))
+
+
+def _scan_batch(fleet, pods, nominations=(), tk=0) -> dict:
+    """The first BATCH pods' K13 inputs on the card, as the sequential
+    engine makes them (the stock profile and weights): "args" and "kw"
+    for kernels.seq_scan, "twin" for models/batched.py scan_plain (its
+    static pass folded), and the sizes."""
+    from kubernetes_tpu_torch.codec import transfer
+    from kubernetes_tpu_torch.codec.schema import (
+        DEFAULT_PRIORITY_WEIGHTS, FilterConfig, PRIO_INDEX, ScoreConfig)
+    from kubernetes_tpu_torch.loop import build_encoder
+    from kubernetes_tpu_torch.models.batched import (
+        encode_batch_ports, encode_nominated, encode_nominated_block,
+        static_pass)
+    from kubernetes_tpu_torch.ops.priorities import pod_spread_match
+
+    enc = build_encoder(fleet)
+    batch = list(pods[:BATCH])
+    pb, ports = enc.encode_pods(batch), encode_batch_ports(enc, batch)
+    ct = transfer.upload_cluster(enc.snapshot(), "cuda")
+    block = (encode_nominated_block(enc, nominations, batch, pb.n_pods,
+                                    ct.n_nodes) if nominations else None)
+    # the block marks the nodes pass one refuses: the engine's extra mask
+    # is its complement (runtime/scheduler.py folds it so)
+    pbt, portst, emask, _ = transfer.upload_batch(
+        pb, ports, "cuda", None if block is None else ~block)
+    nom = transfer.upload_nominated(
+        encode_nominated(enc, nominations) if nominations else None, "cuda")
+    key = enc.interner.intern("node.kubernetes.io/unschedulable")
+    w = DEFAULT_PRIORITY_WEIGHTS
+    smask, sscore = static_pass(ct, pbt, FilterConfig(), key, w,
+                                ScoreConfig())
+    match = pod_spread_match(pbt, ct.group_counts.shape[1])
+    w5 = tuple(float(w[PRIO_INDEX[k]]) for k in (
+        "LeastRequestedPriority", "MostRequestedPriority",
+        "BalancedResourceAllocation", "SelectorSpreadPriority",
+        "RequestedToCapacityRatioPriority"))
+    tk = min(tk, ct.n_nodes)
+    args = (ct, pbt, portst, smask, sscore, match, nom, None, None, w5,
+            enc.getzone_key, 0, tk)
+    folded = smask & emask if emask is not None else smask
+    return {"args": args, "kw": {"extra_mask": emask},
+            "twin": (ct, pbt, portst, folded) + args[4:], "w_spread": w5[3],
+            "B": pb.n_pods, "N": ct.n_nodes, "R": ct.requested.shape[1],
+            "PV": portst.pod_ports.shape[1], "tk": tk,
+            "emask": emask is not None}
+
+
+def _k13_stages(spread: bool, limited: bool, tk: int) -> int:
+    """The block-wide dependent stages one step of B5's function needs,
+    whatever a kernel does: one reduction for the row's best total and its
+    tie count (the feasible count rides along), one for the pick of the
+    (last index mod ties)-th tie, and with the options one for the spread
+    maxima (node and zone together), one prefix for the sampling's rotated
+    order, one k-wide merge for the top-k."""
+    return 2 + bool(spread) + bool(limited) + bool(tk)
+
+
+def _k13_bytes(inp: dict) -> int:
+    """K13's bytes: each input read once (the static rows, the batch's and
+    the snapshot's rows, the spread match), each output written once."""
+    B, N, R, PV, tk = (inp[k] for k in ("B", "N", "R", "PV", "tk"))
+    ins = (B * N * (5 + inp["emask"]) + B * (R * 4 + 8 + 4 + PV)
+           + B * B * 4 + N * (R * 4 * 2 + 8))
+    outs = B * 4 + N * (R * 4 + 8) + B * tk * 8 + (B * 4 if tk else 0)
+    return ins + outs
+
+
+def phase_k13() -> dict:
+    """K13 against its twin: the sequential engine through K13 and through
+    the step loop on the card, bit for bit, on every
+    kernels/k13_cases.py case; then at full width on three batches (a
+    2-slot fleet, 256 nominated claims, host ports with quality top-3 at
+    R = 32) the kernel against scan_plain on the same inputs, its times
+    (5 launches; L2 cold and warm) beside its bound: the larger of its
+    bytes over HBM and the stages one step of the function needs
+    (_k13_stages) times the card's stage floor (K4's block, one reduction
+    and barrier a step); the barriers K13 passes a step are printed
+    beside."""
+    from kubernetes_tpu_torch import kernels, loop
+    from kubernetes_tpu_torch.kernels import k1_bench, k13_cases
+    from kubernetes_tpu_torch.models.batched import scan_plain
+
+    cases = k13_cases.cases()
+    for name, case in cases:
+        got, _ = k13_cases.run_case(case, "sequential", "cuda", "kernel")
+        want, _ = k13_cases.run_case(case, "sequential", "cuda", "plain")
+        _same_outputs(got, want, f"K13 case {name}")
+    floor_steps = 2048
+    floor_ms = k1_bench.time_ms(
+        lambda: kernels.barrier_floor_launch(floor_steps), reps=10,
+        cold=False)
+    stage_ms = floor_ms / floor_steps
+    shapes = {}
+    for label, fleet, pods, noms, tk in (
+            ("2-slot", loop.bench_nodes(NODES, pods_per_node=2),
+             [loop.pending_pod(i) for i in range(BATCH)], (), 0),
+            ("nominated", loop.bench_nodes(NODES),
+             [loop.pending_pod(i) for i in range(BATCH)],
+             loop.nominated_preemptors(NODES, NOMINATED), 0),
+            ("ports-top3-r32", loop.bench_nodes(NODES, extended=13),
+             [_port_pod(i) for i in range(BATCH)], (), 3)):
+        inp = _scan_batch(fleet, pods, noms, tk)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = scan_plain(*inp["twin"])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        got = kernels.seq_scan(*inp["args"], **inp["kw"])
+        for k, (a, b) in enumerate(zip(got, want)):
+            if k == 3 and a is None:
+                check(b is None, f"K13 {label}: top-k missing")
+                continue
+            for x, y in (zip(a, b) if k == 3 else ((a, b),)):
+                check(torch.equal(_bits(x), _bits(y)),
+                      f"K13 {label}: output {k} differs from the twin")
+        run = lambda: kernels.seq_scan(*inp["args"], **inp["kw"])  # noqa
+        ms = k1_bench.time_ms(run, reps=5)
+        warm = k1_bench.time_ms(run, reps=5, cold=False)
+        stages = _k13_stages(inp["w_spread"] != 0, False, inp["tk"])
+        barriers = kernels.seq_scan_barriers(inp["w_spread"] != 0, False,
+                                             inp["tk"])
+        bytes_ms = _k13_bytes(inp) / k1_bench.HBM_BYTES_PER_S * 1e3
+        stages_ms = stages * inp["B"] * stage_ms
+        shapes[label] = {
+            "B": inp["B"], "N": inp["N"], "R": inp["R"], "PV": inp["PV"],
+            "tk": inp["tk"], "ms": ms, "ms_warm": warm, "plain_ms": plain_ms,
+            "us_a_step": ms / inp["B"] * 1e3, "bytes_ms": bytes_ms,
+            "stages_ms": stages_ms, "stages_a_step": stages,
+            "kernel_barriers_a_step": barriers,
+            "bound_ms": max(bytes_ms, stages_ms),
+            # the operations are the dependent stages
+            "bound_by": "bytes" if bytes_ms >= stages_ms else "operations",
+            "placed": int((got[0] >= 0).sum())}
+    main = shapes["2-slot"]
+    print(f"[K13] bit-identical to the twin on {len(cases)} cases "
+          f"(the sequential engine) and 3 full-width batches | stage floor "
+          f"{stage_ms * 1e3:.4f} us a block-wide stage ({floor_steps} steps "
+          f"{floor_ms:.4f} ms) | " + " | ".join(
+              f"{k} [B {d['B']}, N {d['N']}, R {d['R']}, PV {d['PV']}, "
+              f"tk {d['tk']}]: cold_ms {d['ms']:.4f} warm_ms "
+              f"{d['ms_warm']:.4f} us_a_step {d['us_a_step']:.3f} "
+              f"plain_ms (the step loop on the card) {d['plain_ms']:.1f} "
+              f"bound_ms {d['bound_ms']:.4f} ({d['bound_by']}: bytes "
+              f"{d['bytes_ms']:.5f}, {d['stages_a_step']} stages a step "
+              f"{d['stages_ms']:.4f}; the kernel passes "
+              f"{d['kernel_barriers_a_step']} barriers a step) over_bound "
+              f"{d['ms'] / d['bound_ms']:.1f}x placed {d['placed']}"
+              for k, d in shapes.items()), flush=True)
+    return {"cases": len(cases), "max_abs_err": 0.0, "ms": main["ms"],
+            "ms_warm": main["ms_warm"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "us_a_step": main["us_a_step"], "stage_us": stage_ms * 1e3,
+            "shapes": shapes}
+
+
+def _round_state(fleet, pods, tk: int) -> dict:
+    """One plain round's inputs on the card, for the first BATCH pods of
+    `pods` on a fresh encoder of `fleet` (the stock profile): the filter
+    and score passes against the snapshot, the kernels' carry and the
+    twins', the zone layout."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.codec import transfer
+    from kubernetes_tpu_torch.codec.schema import (
+        DEFAULT_PRIORITY_WEIGHTS, FilterConfig, PRIO_INDEX)
+    from kubernetes_tpu_torch.loop import build_encoder
+    from kubernetes_tpu_torch.models.batched import encode_batch_ports
+    from kubernetes_tpu_torch.models.speculative import plain_carry
+    from kubernetes_tpu_torch.ops.predicates import filter_batch
+    from kubernetes_tpu_torch.ops.priorities import score_batch, zone_layout
+
+    enc = build_encoder(fleet)
+    batch = list(pods[:BATCH])
+    pb, ports = enc.encode_pods(batch), encode_batch_ports(enc, batch)
+    ct = transfer.upload_cluster(enc.snapshot(), "cuda")
+    pbt, portst, _, _ = transfer.upload_batch(pb, ports, "cuda")
+    key = enc.interner.intern("node.kubernetes.io/unschedulable")
+    w = np.array(DEFAULT_PRIORITY_WEIGHTS, np.float32)
+    w_spread = float(w[PRIO_INDEX["SelectorSpreadPriority"]])
+    w[PRIO_INDEX["SelectorSpreadPriority"]] = 0.0       # a lean batch's
+    mask, _ = filter_batch(ct, pbt, FilterConfig(), key, need_per=False)
+    total, _ = score_batch(ct, pbt, weights=w, zone_key_id=enc.getzone_key,
+                           skip_zero_weight=True, need_per=False)
+    B, N = pbt.n_pods, ct.n_nodes
+    tk = min(tk, N)
+    emask = torch.ones((B, N), dtype=torch.bool, device="cuda")
+    zones = zone_layout(ct, enc.getzone_key)
+    twin = plain_carry(ct, pbt, portst.pod_ports, 0, emask, tk, False)
+    kern = plain_carry(ct, pbt, portst.pod_ports, 0, emask, tk, True)
+    return {"ct": ct, "pb": pbt, "ports": portst, "mask": mask,
+            "total": total, "zones": zones, "zone_key": enc.getzone_key,
+            "zone_of_node": torch.where(zones[0], zones[1], -1).to(
+                torch.int32),
+            "w_spread": w_spread, "twin": twin, "kern": kern, "tk": tk,
+            "scratch": kernels.round_commit_scratch(
+                B, ct.requested.shape[1], portst.pod_ports.shape[1],
+                "cuda")}
+
+
+def _tier_b_pod(i: int):
+    """A plain pending pod that prefers the tier-b nodes (a third of the
+    fleet): on a fleet of one pod slot a node, the batch's proposals
+    outnumber those nodes, so a round bounces pods."""
+    from kubernetes_tpu_torch.api.factory import make_pod
+
+    d = i % 20
+    return make_pod(
+        f"pod-{i}", cpu="100m", mem="256Mi", labels={"app": f"dep-{d}"},
+        affinity={"nodeAffinity": {
+            "preferredDuringSchedulingIgnoredDuringExecution": [
+                {"weight": 10, "preference": {"matchExpressions": [
+                    {"key": "tier", "operator": "In", "values": ["b"]}]}}]}},
+        owner=("ReplicaSet", f"rs-{d}"))
+
+
+def _best_wall_ms(fn, runs: int = 3):
+    """(the least wall milliseconds of `runs` calls of fn, each ending in a
+    synchronize, the last call's result): a twin's eager ops on the card."""
+    best = float("inf")
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t) * 1e3)
+    return best, out
+
+
+def phase_rounds() -> dict:
+    """K14 and K15 against their twins: the speculative engine through the
+    graph (K11, K12, K15, K1, [K3], K14 a round; the static pass and K13
+    when it redoes) and through the twins on the card, bit for bit, its
+    rounds and redo flag included, on every kernels/k14_cases.py case;
+    then one full-width round (the bench fleet and the 2-slot fleet, B
+    2,048, with and without quality top-3, and a 1-slot fleet whose pods
+    prefer a third of the nodes, where the round bounces pods and bans
+    their nodes in emask, or the phase fails): K15 against round_fold_plain
+    and K14 against round_commit_plain on the same inputs, their times (50
+    launches; K14's carry put back outside the events) beside their bytes
+    bounds, an empty launch and the twins' (the best of three calls)."""
+    from kubernetes_tpu_torch import kernels, loop
+    from kubernetes_tpu_torch.kernels import k1_bench, k14_cases
+    from kubernetes_tpu_torch.models.speculative import (
+        round_commit_plain, round_fold_plain)
+    from kubernetes_tpu_torch.ops.select import select_topk_batch
+
+    cases = k14_cases.cases()
+    redos = 0
+    for name, case in cases:
+        got, kfn = k14_cases.run_case(case, "speculative", "cuda", "kernel")
+        want, pfn = k14_cases.run_case(case, "speculative", "cuda", "plain")
+        _same_outputs(got, want, f"K14/K15 case {name}")
+        check(int(kfn.last_rounds) == int(pfn.last_rounds)
+              and bool(kfn.last_redo) == bool(pfn.last_redo),
+              f"K14/K15 case {name}: rounds {int(kfn.last_rounds)} redo "
+              f"{bool(kfn.last_redo)}, the twins' {pfn.last_rounds} "
+              f"{pfn.last_redo}")
+        redos += bool(pfn.last_redo)
+    empty = k1_bench.time_ms(kernels.noop_launch, cold=False)
+    rows = {}
+    plain = [loop.pending_pod(i) for i in range(BATCH)]
+    for label, fleet, pods, tk in (
+            ("bench", loop.bench_nodes(NODES), plain, 0),
+            ("bench-top3", loop.bench_nodes(NODES), plain, 3),
+            ("2-slot", loop.bench_nodes(NODES, pods_per_node=2), plain, 0),
+            ("1-slot-contended", loop.bench_nodes(NODES, pods_per_node=1),
+             [_tier_b_pod(i) for i in range(BATCH)], 0)):
+        st = _round_state(fleet, pods, tk)
+        ct, pb, c, ck = st["ct"], st["pb"], st["twin"], st["kern"]
+        B, N = pb.n_pods, ct.n_nodes
+        fold = lambda: kernels.round_fold(                # noqa: E731
+            st["total"], st["mask"], ck, pb, st["zone_of_node"],
+            ct.topo_pairs.shape[1], None, None, st["w_spread"])
+        tot, msk = fold()
+        fold_plain_ms, (wtot, wmsk) = _best_wall_ms(lambda: round_fold_plain(
+            st["total"], st["mask"], c, pb, ct, st["zone_key"], st["zones"],
+            None, 0, None, st["w_spread"]))
+        check(torch.equal(_bits(tot), _bits(wtot)) and torch.equal(msk, wmsk),
+              f"K15 {label}: the fold differs from the twin")
+        hosts, feasible = kernels.select_hosts(tot, msk, 0)
+        top = (select_topk_batch(tot, msk, hosts, feasible, st["tk"])
+               if st["tk"] else None)
+        saved = {k: v.clone() for k, v in ck.items()
+                 if isinstance(v, torch.Tensor)}
+        tril = torch.tril(torch.ones((B, B), device="cuda"), diagonal=-1)
+        commit_plain_ms, wc = _best_wall_ms(lambda: round_commit_plain(
+            c, hosts, feasible, top, pb, st["ports"], ct, None, None, tril))
+        commit = lambda: kernels.round_commit(            # noqa: E731
+            ck, hosts, feasible, top, pb, st["ports"], ct, None, None,
+            st["scratch"])
+        commit()
+        for k in ("hosts", "req", "nz", "spread", "claimed", "emask",
+                  "active", "inv") + (("topn", "tops", "feas") if st["tk"]
+                                      else ()):
+            check(torch.equal(_bits(ck[k]), _bits(wc[k])),
+                  f"K14 {label}: carry {k} differs from the twin")
+        check(int(ck["li_dev"]) == wc["li"] and int(ck["rounds"]) == 1
+              and bool(ck["any"]) == bool(wc["active"].any()),
+              f"K14 {label}: counters differ")
+        accepted = int((wc["hosts"] >= 0).sum())
+        # proposers left active: bounced (a real bounce writes its emask)
+        bounced = int((c["active"] & feasible & wc["active"]).sum())
+        check(label != "1-slot-contended" or (bounced > 0 and accepted > 0),
+              f"K14 {label}: accepted {accepted} bounced {bounced}: the "
+              f"row must hold the recheck and the ban under contention")
+
+        def put_back():
+            for k, v in saved.items():
+                ck[k].copy_(v)
+        fold_ms = k1_bench.time_ms(fold)
+        fold_warm = k1_bench.time_ms(fold, cold=False)
+        commit_ms = k1_bench.time_ms(commit, before=put_back)
+        commit_warm = k1_bench.time_ms(commit, cold=False, before=put_back)
+        put_back()
+        R, PV = ct.requested.shape[1], st["ports"].pod_ports.shape[1]
+        G = ct.group_counts.shape[1]
+        fold_bytes = B * N * 11 + B * 2 + G * N * 4 + N * 4
+        props = int(feasible.sum())
+        nodes = int(torch.unique(hosts[feasible]).numel())
+        commit_bytes = (props * (4 + 1 + R * 4 + 8 + 4 + PV + 2 * 5)
+                        + nodes * (R * 4 * 3 + 8 * 2 + PV * 2 + G * 4)
+                        + B * (1 + 1 + 4) + bounced
+                        + accepted * st["tk"] * 8 * 2)
+        rows[label] = {
+            "B": B, "N": N, "tk": st["tk"], "accepted": accepted,
+            "bounced": bounced, "proposed_nodes": nodes,
+            "k15_ms": fold_ms, "k15_ms_warm": fold_warm,
+            "k15_plain_ms": fold_plain_ms,
+            "k15_bound_ms": fold_bytes / k1_bench.HBM_BYTES_PER_S * 1e3,
+            "k14_ms": commit_ms, "k14_ms_warm": commit_warm,
+            "k14_plain_ms": commit_plain_ms,
+            "k14_bound_ms": commit_bytes / k1_bench.HBM_BYTES_PER_S * 1e3}
+    main = rows["bench"]
+    print(f"[K14 K15] the speculative engine through the graph "
+          f"bit-identical to the twins on {len(cases)} cases ({redos} "
+          f"redone), rounds and redo flags equal | empty_launch_ms "
+          f"{empty:.4f} | " + " | ".join(
+              f"{k} round [B {d['B']}, N {d['N']}, tk {d['tk']}; accepted "
+              f"{d['accepted']} bounced {d['bounced']}]: K15 cold_ms "
+              f"{d['k15_ms']:.4f} warm_ms {d['k15_ms_warm']:.4f} plain_ms "
+              f"{d['k15_plain_ms']:.3f} bound_ms {d['k15_bound_ms']:.5f} "
+              f"(bytes) | K14 cold_ms {d['k14_ms']:.4f} warm_ms "
+              f"{d['k14_ms_warm']:.4f} plain_ms {d['k14_plain_ms']:.3f} "
+              f"bound_ms {d['k14_bound_ms']:.6f} (bytes; 2 launches, floor "
+              f"{2 * empty:.4f})" for k, d in rows.items()), flush=True)
+    return {"cases": len(cases), "empty_launch_ms": empty, "shapes": rows,
+            "k15": {"max_abs_err": 0.0, "ms": main["k15_ms"],
+                    "ms_warm": main["k15_ms_warm"],
+                    "plain_ms": main["k15_plain_ms"],
+                    "bound_ms": main["k15_bound_ms"], "bound_by": "bytes"},
+            "k14": {"max_abs_err": 0.0, "ms": main["k14_ms"],
+                    "ms_warm": main["k14_ms_warm"],
+                    "plain_ms": main["k14_plain_ms"],
+                    "bound_ms": main["k14_bound_ms"], "bound_by": "bytes",
+                    "launch_floor_ms": 2 * empty}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3064,10 +3566,12 @@ def main() -> None:
     tight = bench_nodes(NODES, pods_per_node=2)
     res5, launches5 = _run_pair("5 redo", tight, plain_pods, False)
     check(res5["redos"] > 0, "5 redo: the hybrid check never fired")
-    check(launches5["select_hosts"] - launches5["select_hosts_b1"]
-          == sum(res5["rounds"]),
-          f"5 redo: {launches5} K1 launches, not one a round at B={BATCH} "
-          f"({sum(res5['rounds'])} rounds) plus the B=1 steps")
+    check(launches5["select_hosts"] == sum(res5["rounds"])
+          and launches5["select_hosts_b1"] == 0
+          and launches5["seq_scan"] == res5["redos"],
+          f"5 redo: {launches5} launches, not K1 once a round at "
+          f"B={BATCH} ({sum(res5['rounds'])} rounds) and K13 once a redone "
+          f"batch ({res5['redos']})")
 
     n = _check_golden("6", "plain", res3, nodes, plain_pods)
     print(f"[6 golden] {n} winners bit-identical to the JAX speculative "
@@ -3113,7 +3617,11 @@ def main() -> None:
           f"{launches10['select_hosts_b1']} sequential steps | total seconds "
           f"{time.monotonic() - t_start:.1f}", flush=True)
 
-    phase_profile(nodes, tight, plain_pods, anti_pods)
+    k13 = phase_k13()
+    rounds = phase_rounds()
+    print(f"[K13-K15 done] total seconds {time.monotonic() - t_start:.1f}",
+          flush=True)
+    phase_profile(nodes, tight, plain_pods, anti_pods, k13)
 
     live = phase_live("11 live", nodes)
     _passes_launched("11 live", live["launches"])
@@ -3407,6 +3915,36 @@ def main() -> None:
     record["kernels"][-2]["stack_launches_by_cell"] = {
         c: d["filter_pass_stack"] for c, d in cells.items()}
     record["kernels"][-2]["filter_device_ops"] = ext["filter_device_ops"]
+    # K13 once a redone plain batch (the redo cell's, the live cells'),
+    # K15 and K14 once a plain round (the plain cell's)
+    for name, source, replaces, k, res, cell in (
+            ("seq_scan", "seq_scan.cu", "kubernetes_tpu/models/batched.py:581",
+             "seq_scan", k13, launches5),
+            ("round_fold", "round_fold.cu",
+             "kubernetes_tpu/models/speculative.py:196", "round_fold",
+             rounds["k15"], launches),
+            ("round_commit", "round_commit.cu",
+             "kubernetes_tpu/models/speculative.py:196", "round_commit",
+             rounds["k14"], launches)):
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "kubernetes_tpu_torch/kernels/" + source,
+            "replaces": replaces,
+            "launches": cell[k],
+            **{f: res[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")},
+            "library_ms": None,
+            "ms_warm": res["ms_warm"],
+            "launches_by_cell": {c: d[k] for c, d in cells.items()},
+        })
+    record["kernels"][-3].update(us_a_step=k13["us_a_step"],
+                                 stage_floor_us=k13["stage_us"],
+                                 cases=k13["cases"], shapes=k13["shapes"])
+    record["kernels"][-1].update(launch_floor_ms=rounds["k14"][
+        "launch_floor_ms"], cases=rounds["cases"], shapes=rounds["shapes"])
+    record["kernels"][-2].update(empty_launch_ms=rounds["empty_launch_ms"],
+                                 cases=rounds["cases"])
     print(f"total seconds {time.monotonic() - t_start:.1f}", flush=True)
     print(smi)
     print(json.dumps(record))

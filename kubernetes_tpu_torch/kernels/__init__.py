@@ -62,6 +62,19 @@ and ops/priorities.py `score_batch_plain`; `filter_batch`,
 `predicate_stack` and `score_batch` there dispatch.  Each takes its
 arguments as one struct by value (`FilterPassArgs`, `ScorePassArgs`).
 
+K13 `seq_scan` (seq_scan.cu) replaces the JAX package's models/batched.py
+schedule_impl: the sequential engine's whole scan of a batch with no
+in-batch pod affinity, in one launch; its twin is models/batched.py
+`scan_plain`.  K15 `round_fold` (round_fold.cu) and K14 `round_commit`
+(round_commit.cu, two launches) replace the parts of models/speculative.py
+_round around the selector for such a batch; their twins are
+models/speculative.py `round_fold_plain` and `round_commit_plain`.
+round_graph.cu holds the CUDA graph API the speculative engine builds a
+plain batch's graph with (a WHILE node over the rounds, an IF node over
+the redo) and its two condition kernels.  K13's, K14's and K15's
+arguments are one struct by value each (`SeqScanArgs`, `RoundCommitArgs`,
+`RoundFoldArgs`).
+
 Each wrapper counts its launches in `LAUNCHES` (one each time it launches
 its kernels, nowhere else), so a run can show that its main path went
 through the kernels; `select_hosts_b1` also counts K1's one-row launches (the
@@ -75,7 +88,13 @@ call.  K8 and K10 put one kernel launch each on the stream, K9 one per
 K9_MAX_LANES lanes (counted once a call).  K11 puts one launch on the
 stream (`filter_pass_stack` also counts those in stack mode); K12 two when
 SelectorSpread's row is on (the zone index, then the pass), else one,
-counted once a call.
+counted once a call; K13 and K15 one launch, K14 two, counted once a
+round.  Inside a CUDA graph's capture a launch queues a node and counts
+nothing: the capture records the names each wrapper counts, by section
+(`capturing`), the graph's launch is recorded (`graph_launched`) with
+them and its device round count and redo flag, and `settle_launches()`
+adds them (once a round for the WHILE body, once if it redid for the IF
+body); read LAUNCHES through settle_launches().
 The kernels are built from source at the first launch
 (kernels/_build.py); importing this module needs neither nvcc nor a card.
 """
@@ -84,6 +103,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -93,7 +113,8 @@ LAUNCHES = {"select_hosts": 0, "select_hosts_b1": 0, "preempt_one": 0,
             "cluster_analytics": 0, "commit_group_counts": 0,
             "fold_predicates": 0, "ffd_order": 0, "binpack_counts": 0,
             "reconcile_admit": 0, "filter_pass": 0, "filter_pass_stack": 0,
-            "score_pass": 0}
+            "score_pass": 0, "seq_scan": 0, "round_fold": 0,
+            "round_commit": 0, "round_graph": 0}
 
 # K1's variants, by the code select_hosts_launch takes: a block of 8 warps
 # to a row, one warp to a row (8 rows to a block), or a block to a row that
@@ -115,7 +136,24 @@ K9_MAX_LANES = 65535      # lanes of one K9 launch (its grid's y extent)
 _K2_TICKETS: dict = {}
 
 
+# Set while this thread captures a CUDA graph (a capturing context): its
+# launches queue graph nodes, recorded by the capture and counted when the
+# graph's launches settle (settle_launches).
+_CAPTURE = threading.local()
+
+
+def _count(name: str) -> None:
+    """One launch of `name`'s kernels; while this thread is capturing, one
+    launch recorded by the capture instead."""
+    cap = getattr(_CAPTURE, "on", None)
+    if cap is None:
+        LAUNCHES[name] += 1
+    else:
+        cap.record(name)
+
+
 def reset_launch_counts() -> None:
+    _GRAPH_PENDING.clear()
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
@@ -152,17 +190,26 @@ def _check_rows(name: str, scores: torch.Tensor, mask: torch.Tensor) -> None:
         raise ValueError("scores and mask lie on different devices")
 
 
-def select_hosts(scores: torch.Tensor, mask: torch.Tensor,
-                 last_index0: int):
-    """K1: (scores f32[B, N], mask bool[B, N], last_index0 int) ->
-    (hosts i32[B], feasible bool[B]) on the tensors' CUDA device; row b
-    rotates its tie-break by last_index0 + b.  The variant follows from
-    (B, N, alignment), see k1_variant.  Raises on anything the kernel does
-    not take and on a refused launch."""
+def select_hosts_prepare(scores: torch.Tensor, mask: torch.Tensor,
+                         last_index):
+    """K1 prepared: (launch, (hosts i32[B], feasible bool[B])) on the
+    tensors' CUDA device for (scores f32[B, N], mask bool[B, N]); row b
+    rotates its tie-break by last_index + b, where last_index is a host int
+    or an i32[] on the scores' device that the kernel reads (a CUDA graph's
+    counter).  launch() queues the kernel on the current stream and
+    allocates nothing.  The variant follows from (B, N, alignment), see
+    k1_variant.  Raises on anything the kernel does not take; launch()
+    raises on a refused launch."""
     _check_rows("select_hosts", scores, mask)
     B, N = scores.shape
     if N == 0 or N >= (1 << 31):
         raise ValueError(f"select_hosts wants 0 < N < 2^31, got {N}")
+    on_device = isinstance(last_index, torch.Tensor)
+    if on_device and (last_index.dtype != torch.int32
+                      or last_index.shape != ()
+                      or last_index.device != scores.device):
+        raise ValueError("select_hosts wants a device last_index as an "
+                         "i32[] on the scores' device")
     from kubernetes_tpu_torch.kernels._build import library
 
     lib = library()
@@ -171,19 +218,35 @@ def select_hosts(scores: torch.Tensor, mask: torch.Tensor,
     hosts = torch.empty(B, dtype=torch.int32, device=scores.device)
     feasible = torch.empty(B, dtype=torch.bool, device=scores.device)
     variant = k1_variant(B, N, scores.data_ptr(), mask.data_ptr())
-    with torch.cuda.device(scores.device):
+    li = last_index if on_device else wrap_i32(last_index)
+
+    def launch():
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.select_hosts_launch(
-            scores.data_ptr(), mask.data_ptr(), B, N, wrap_i32(last_index0),
-            hosts.data_ptr(), feasible.data_ptr(), variant, stream)
-    if err != 0:
-        raise RuntimeError("select_hosts launch failed: "
-                           + lib.select_hosts_error_string(err).decode())
-    if B:
-        LAUNCHES["select_hosts"] += 1
-        if B == 1:
-            LAUNCHES["select_hosts_b1"] += 1
-    return hosts, feasible
+        if on_device:
+            err = lib.select_hosts_launch_dev(
+                scores.data_ptr(), mask.data_ptr(), B, N, li.data_ptr(),
+                hosts.data_ptr(), feasible.data_ptr(), variant, stream)
+        else:
+            err = lib.select_hosts_launch(
+                scores.data_ptr(), mask.data_ptr(), B, N, li,
+                hosts.data_ptr(), feasible.data_ptr(), variant, stream)
+        _launch_error(lib, "select_hosts", err)
+        if B:
+            _count("select_hosts")
+            if B == 1:
+                _count("select_hosts_b1")
+
+    return launch, (hosts, feasible)
+
+
+def select_hosts(scores: torch.Tensor, mask: torch.Tensor, last_index0):
+    """K1: (scores f32[B, N], mask bool[B, N], last_index0) -> (hosts
+    i32[B], feasible bool[B]), launched at once on the tensors' CUDA
+    device; see select_hosts_prepare."""
+    launch, out = select_hosts_prepare(scores, mask, last_index0)
+    with torch.cuda.device(scores.device):
+        launch()
+    return out
 
 
 def noop_launch() -> None:
@@ -292,14 +355,16 @@ def preempt_one(*tensors):
     return node, victim_mask, n_victims, n_viol
 
 
-def select_topk(scores: torch.Tensor, mask: torch.Tensor,
-                hosts: torch.Tensor, feasible: torch.Tensor, k: int):
-    """K3: (scores f32[B, N], mask bool[B, N], hosts i32[B], feasible
-    bool[B], k) -> (top_nodes i32[B, K], top_scores f32[B, K],
-    feasible_count i32[B]) with K = min(k, N), on the tensors' CUDA
-    device; hosts and feasible are the selector's verdict on the same
-    rows (see ops/select.py select_topk_batch_plain).  Raises on anything
-    the kernel does not take and on a refused launch."""
+def select_topk_prepare(scores: torch.Tensor, mask: torch.Tensor,
+                        hosts: torch.Tensor, feasible: torch.Tensor, k: int):
+    """K3 prepared: (launch, (top_nodes i32[B, K], top_scores f32[B, K],
+    feasible_count i32[B])) with K = min(k, N), on the tensors' CUDA device,
+    for (scores f32[B, N], mask bool[B, N], hosts i32[B], feasible
+    bool[B]); hosts and feasible are the selector's verdict on the same
+    rows (see ops/select.py select_topk_batch_plain).  launch() queues the
+    kernel on the current stream (nothing at B = 0) and allocates nothing.
+    Raises on anything the kernel does not take; launch() raises on a
+    refused launch."""
     _check_rows("select_topk", scores, mask)
     B, N = scores.shape
     if hosts.shape != (B,) or feasible.shape != (B,):
@@ -318,27 +383,37 @@ def select_topk(scores: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"select_topk wants k >= 1, got {k}")
     K = min(int(k), N)
     dev = scores.device
-    top_nodes = torch.empty((B, K), dtype=torch.int32, device=dev)
-    top_scores = torch.empty((B, K), dtype=torch.float32, device=dev)
-    count = torch.empty(B, dtype=torch.int32, device=dev)
+    out = (torch.empty((B, K), dtype=torch.int32, device=dev),
+           torch.empty((B, K), dtype=torch.float32, device=dev),
+           torch.empty(B, dtype=torch.int32, device=dev))
     if B == 0:
-        return top_nodes, top_scores, count
+        return (lambda: None), out
     from kubernetes_tpu_torch.kernels._build import library
 
     lib = library()
     ts = [t.contiguous() for t in (scores, mask, hosts, feasible)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.select_topk_launch(
-            *(t.data_ptr() for t in ts), B, N, K, top_nodes.data_ptr(),
-            top_scores.data_ptr(), count.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("select_topk launch failed: "
-                           + lib.select_hosts_error_string(err).decode())
-    LAUNCHES["select_topk"] += 1
-    if B == 1:
-        LAUNCHES["select_topk_b1"] += 1
-    return top_nodes, top_scores, count
+
+    def launch():
+        _launch_error(lib, "select_topk", lib.select_topk_launch(
+            *(t.data_ptr() for t in ts), B, N, K,
+            *(t.data_ptr() for t in out),
+            torch.cuda.current_stream().cuda_stream))
+        _count("select_topk")
+        if B == 1:
+            _count("select_topk_b1")
+
+    return launch, out
+
+
+def select_topk(scores: torch.Tensor, mask: torch.Tensor,
+                hosts: torch.Tensor, feasible: torch.Tensor, k: int):
+    """K3: (top_nodes i32[B, K], top_scores f32[B, K], feasible_count
+    i32[B]), launched at once on the tensors' CUDA device; see
+    select_topk_prepare."""
+    launch, out = select_topk_prepare(scores, mask, hosts, feasible, k)
+    with torch.cuda.device(scores.device):
+        launch()
+    return out
 
 
 def binpack_ffd(pod_reqs: torch.Tensor, capacity: torch.Tensor,
@@ -958,17 +1033,12 @@ def _filter_config(cfg, vt: int) -> tuple:
             tuple(int(k) for k in cfg.service_affinity_labels))
 
 
-def filter_pass(cluster, pods, cfg, unsched_taint_key: int, hits, offsets,
-                stack: bool) -> torch.Tensor:
-    """K11: every predicate of one filter pass over the pods x nodes grid,
-    on the snapshot's CUDA device.  cluster / pods: the schema dataclasses
-    of tensors; cfg: the FilterConfig; hits: None or f32[B, X, N], the
-    topology-pair incidence products of ops/predicates.py pair_hits, with
-    offsets {"forb", "anti", "aff", "key", "vz", "vb"} -> first row (a
-    missing key: lean).  stack False -> mask bool[B, N] (valid, pod_valid
-    and every predicate folded); True -> the stack bool[B, 23, N].  See
-    ops/predicates.py filter_batch_plain / predicate_stack_plain.  Raises
-    on anything the kernel does not take and on a refused launch."""
+def filter_pass_prepare(cluster, pods, cfg, unsched_taint_key: int, hits,
+                        offsets, stack: bool):
+    """The arguments of one K11 launch (see filter_pass) with its output
+    allocated: (FilterPassArgs, the tensors they point into, out).  The
+    launch itself (filter_pass_launch) allocates nothing, so a CUDA graph
+    can capture it."""
     from kubernetes_tpu_torch.codec.schema import NUM_PREDICATES
 
     args = FilterPassArgs()
@@ -1031,31 +1101,49 @@ def filter_pass(cluster, pods, cfg, unsched_taint_key: int, hits, offsets,
     out = torch.empty(shape, dtype=torch.bool, device=dev)
     args.out = out.data_ptr()
     args.vec = int(N % 4 == 0 and out.data_ptr() % 4 == 0)
+    return args, dims["keep"] + consts + [hits, out], out
+
+
+def filter_pass_launch(args) -> None:
+    """Queue one prepared K11 launch on the current stream; raises on a
+    refused launch."""
     from kubernetes_tpu_torch.kernels._build import library
 
     lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch_error(lib, "filter_pass", lib.filter_pass_launch(args,
-                                                                 stream))
-    LAUNCHES["filter_pass"] += 1
-    if stack:
-        LAUNCHES["filter_pass_stack"] += 1
+    _launch_error(lib, "filter_pass", lib.filter_pass_launch(
+        args, torch.cuda.current_stream().cuda_stream))
+    _count("filter_pass")
+    if args.stack_mode:
+        _count("filter_pass_stack")
+
+
+def filter_pass(cluster, pods, cfg, unsched_taint_key: int, hits, offsets,
+                stack: bool) -> torch.Tensor:
+    """K11: every predicate of one filter pass over the pods x nodes grid,
+    on the snapshot's CUDA device.  cluster / pods: the schema dataclasses
+    of tensors; cfg: the FilterConfig; hits: None or f32[B, X, N], the
+    topology-pair incidence products of ops/predicates.py pair_hits, with
+    offsets {"forb", "anti", "aff", "key", "vz", "vb"} -> first row (a
+    missing key: lean).  stack False -> mask bool[B, N] (valid, pod_valid
+    and every predicate folded); True -> the stack bool[B, 23, N].  See
+    ops/predicates.py filter_batch_plain / predicate_stack_plain.  Raises
+    on anything the kernel does not take and on a refused launch."""
+    args, keep, out = filter_pass_prepare(cluster, pods, cfg,
+                                          unsched_taint_key, hits, offsets,
+                                          stack)
+    with torch.cuda.device(out.device):
+        filter_pass_launch(args)
     return out
 
 
-def score_pass(cluster, pods, weights, all_rows: bool, need_per: bool,
-               score_cfg, zone_key_id: int, ipa_sums):
-    """K12: the priorities of one score pass over the pods x nodes grid,
-    on the snapshot's CUDA device.  weights: 12 f32 in PRIORITY_ORDER;
-    all_rows: compute every priority (else only the nonzero weights');
-    score_cfg: the ScoreConfig (NodeLabel and RTC arguments);
-    ipa_sums: None (affinity-lean) or f32[B, N], the pods' preferred pair
-    weights times the topology pairs.  Returns (total f32[B, N], per
-    f32[B, 12, N] with the rows off at 0, or None without need_per); see
-    ops/priorities.py score_batch_plain.  Two kernel launches when
-    SelectorSpread's row is on (the zone index first), else one.  Raises
-    on anything the kernel does not take and on a refused launch."""
+def score_pass_prepare(cluster, pods, weights, all_rows: bool,
+                       need_per: bool, score_cfg, zone_key_id: int,
+                       ipa_sums):
+    """The arguments of one K12 call (see score_pass) with its outputs
+    allocated: (ScorePassArgs, the launch's other arguments, the tensors
+    they point into, (total, per)).  The launch itself
+    (score_pass_launch) allocates nothing, so a CUDA graph can capture
+    it."""
     from kubernetes_tpu_torch.codec.schema import NUM_PRIORITIES
 
     args = ScorePassArgs()
@@ -1146,10 +1234,603 @@ def score_pass(cluster, pods, weights, all_rows: bool, need_per: bool,
                        device=dev) if need_per else None)
     args.total = total.data_ptr()
     args.per = per.data_ptr() if per is not None else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch_error(lib, "score_pass", lib.score_pass_launch(
-            args, topo.data_ptr(), ptk.data_ptr(), int(zone_key_id),
-            stream))
-    LAUNCHES["score_pass"] += 1
-    return total, per
+    keep = dims["keep"] + keep + [zone_of_node, work, total, per]
+    return (args, (topo.data_ptr(), ptk.data_ptr(), int(zone_key_id)), keep,
+            (total, per))
+
+
+def score_pass_launch(args, extra) -> None:
+    """Queue one prepared K12 call (its one or two launches) on the current
+    stream; raises on a refused launch."""
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    _launch_error(lib, "score_pass", lib.score_pass_launch(
+        args, *extra, torch.cuda.current_stream().cuda_stream))
+    _count("score_pass")
+
+
+def score_pass(cluster, pods, weights, all_rows: bool, need_per: bool,
+               score_cfg, zone_key_id: int, ipa_sums):
+    """K12: the priorities of one score pass over the pods x nodes grid,
+    on the snapshot's CUDA device.  weights: 12 f32 in PRIORITY_ORDER;
+    all_rows: compute every priority (else only the nonzero weights');
+    score_cfg: the ScoreConfig (NodeLabel and RTC arguments);
+    ipa_sums: None (affinity-lean) or f32[B, N], the pods' preferred pair
+    weights times the topology pairs.  Returns (total f32[B, N], per
+    f32[B, 12, N] with the rows off at 0, or None without need_per); see
+    ops/priorities.py score_batch_plain.  Two kernel launches when
+    SelectorSpread's row is on (the zone index first), else one.  Raises
+    on anything the kernel does not take and on a refused launch."""
+    args, extra, keep, out = score_pass_prepare(
+        cluster, pods, weights, all_rows, need_per, score_cfg, zone_key_id,
+        ipa_sums)
+    with torch.cuda.device(out[0].device):
+        score_pass_launch(args, extra)
+    return out
+
+
+# ------------------------------------------------ K13, K14, K15: B5 and B4
+
+
+class SeqScanArgs(ctypes.Structure):
+    """seq_scan.cu's SeqScanArgs, field for field: the pointers, the five
+    state-dependent weights, then sizes (int32)."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "allocatable", "requested", "nonzero", "group_counts", "topo",
+        "pair_key", "req", "pod_nonzero", "priority", "group_ids",
+        "group_valid", "spread_counts", "spread_match", "pod_ports",
+        "conflict", "static_mask", "static_score", "extra_mask",
+        "extra_score", "nom_prio", "nom_req",
+        "nom_order", "nom_start", "rtc_xs", "rtc_ys", "feas_limit", "hosts",
+        "requested_out", "nonzero_out", "top_nodes", "top_scores",
+        "top_feas", "work")]
+        + [(name, ctypes.c_float) for name in (
+            "w_least", "w_most", "w_bal", "w_spread", "w_rtc")]
+        + [(name, ctypes.c_int) for name in (
+            "b", "n", "r", "g", "gp", "pv", "tp", "tk", "n_rtc", "zone_key",
+            "last_index0")])
+
+
+def _bind(name: str, args, rows) -> tuple:
+    """Check (field, tensor or None, dtype, dims) rows of one launch: CUDA
+    tensors on one device, the dtype, sizes that agree by name (a digit
+    is a fixed size), and set each field's pointer (None stays null).
+    Returns (sizes by name, the device, the contiguous tensors to hold
+    until the launch is queued)."""
+    dims: dict = {}
+    keep = []
+    dev = None
+    for field, t, dtype, shape in rows:
+        if t is None:
+            setattr(args, field, None)
+            continue
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"{name} launches on CUDA tensors only "
+                             f"({field})")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: {field} lies on {t.device}, the "
+                             f"first argument on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} wants {field} as {dtype}, got "
+                            f"{t.dtype}")
+        names = shape.split()
+        if t.dim() != len(names):
+            raise ValueError(f"{name} wants {field} of {len(names)} dims "
+                             f"({shape}), got {tuple(t.shape)}")
+        for d, size in zip(names, t.shape):
+            want = int(d) if d.isdigit() else dims.setdefault(d, size)
+            if size != want:
+                raise ValueError(f"{name}: {field} has {d}={size}, other "
+                                 f"inputs {want}")
+        t = t.contiguous()
+        keep.append(t)
+        setattr(args, field, t.data_ptr())
+    return dims, dev, keep
+
+
+def nominated_lists(node: torch.Tensor, n_nodes: int):
+    """Each node's nominated claims as one list: (order i32[K], the claim
+    indices sorted by node, stably; start i32[N + 1], node n's claims are
+    order[start[n]:start[n + 1]]).  Claims off the node axis (-1) sort
+    last and belong to no node.  Device ops only, no host sync."""
+    key = torch.where((node >= 0) & (node < n_nodes), node.to(torch.int64),
+                      n_nodes)
+    sorted_key, order = torch.sort(key, stable=True)
+    start = torch.searchsorted(
+        sorted_key, torch.arange(n_nodes + 1, device=node.device))
+    return order.to(torch.int32), start.to(torch.int32)
+
+
+def seq_scan_barriers(spread: bool, limited: bool, tk: int) -> int:
+    """The block-wide barriers one K13 step passes (seq_scan.cu), by
+    option.  The function needs fewer dependent stages a step than the
+    kernel passes barriers (chip_smoke.py _k13_stages prices those)."""
+    return (9 + 4 * bool(spread) + 5 * bool(limited)
+            + (2 * tk if tk > 0 else 0))
+
+
+def seq_scan_prepare(cluster, pods, ports, static_mask, static_score,
+                     extra_mask, extra_score, spread_match, nom, feas_limit,
+                     rtc, weights, zone_key: int, last_index0: int, tk: int,
+                     out=None):
+    """The arguments of one K13 launch (see seq_scan) with its outputs
+    and workspace allocated, or the outputs `out` (hosts, requested,
+    nonzero, top or None) written in place: (SeqScanArgs, the tensors
+    they point into, the outputs).  The launch itself (seq_scan_launch)
+    allocates nothing, so a CUDA graph can capture it."""
+    args = SeqScanArgs()
+    lean = pods.spread_counts.shape[-1] != cluster.valid.shape[0]
+    xs, ys = rtc if rtc is not None else (None, None)
+    rows = [
+        ("allocatable", cluster.allocatable, _F32, "N R"),
+        ("requested", cluster.requested, _F32, "N R"),
+        ("nonzero", cluster.nonzero_req, _F32, "N 2"),
+        ("group_counts", cluster.group_counts, _F32, "N G"),
+        ("topo", cluster.topo_pairs, _BOOL, "N TP"),
+        ("pair_key", cluster.pair_topo_key, _I32, "TP"),
+        ("req", pods.req, _F32, "B R"),
+        ("pod_nonzero", pods.nonzero_req, _F32, "B 2"),
+        ("priority", pods.priority, _I32, "B"),
+        ("group_ids", pods.group_ids, _I32, "B GP"),
+        ("group_valid", pods.group_valid, _BOOL, "B GP"),
+        ("spread_counts", None if lean else pods.spread_counts, _F32,
+         "B N"),
+        ("spread_match", spread_match, _F32, "B B"),
+        ("pod_ports", ports.pod_ports, _BOOL, "B PV"),
+        ("conflict", ports.conflict, _BOOL, "PV PV"),
+        ("static_mask", static_mask, _BOOL, "B N"),
+        ("static_score", static_score, _F32, "B N"),
+        ("extra_mask", extra_mask, _BOOL, "B N"),
+        ("extra_score", extra_score, _F32, "B N"),
+        ("rtc_xs", xs, _F32, "M"),
+        ("rtc_ys", ys, _F32, "M"),
+        ("feas_limit", feas_limit, _I32, ""),
+    ]
+    if nom is not None:
+        order, start = nominated_lists(nom.node, cluster.valid.shape[0])
+        rows += [("nom_prio", nom.prio, _I32, "K"),
+                 ("nom_req", nom.req, _F32, "K R"),
+                 ("nom_order", order, _I32, "K"),
+                 ("nom_start", start, _I32, "N1")]
+    if out is not None:
+        top = out[3] if out[3] is not None else (None, None, None)
+        rows += [("hosts", out[0], _I32, "B"),
+                 ("requested_out", out[1], _F32, "N R"),
+                 ("nonzero_out", out[2], _F32, "N 2"),
+                 ("top_nodes", top[0], _I32, "B TK"),
+                 ("top_scores", top[1], _F32, "B TK"),
+                 ("top_feas", top[2], _I32, "B")]
+    dims, dev, keep = _bind("seq_scan", args, rows)
+    B, N, R, PV, TP = (dims[k] for k in ("B", "N", "R", "PV", "TP"))
+    if nom is not None and dims["N1"] != N + 1:
+        raise ValueError("seq_scan: the nominated lists do not fit N")
+    if not (0 < B < (1 << 31) and 0 < N and B * N < (1 << 62) and R >= 2
+            and TP > 0 and PV > 0 and 0 <= tk <= N
+            and dims.get("TK", tk) == tk):
+        raise ValueError(f"seq_scan: sizes B={B} N={N} R={R} TP={TP} "
+                         f"PV={PV} tk={tk} out of range")
+    if out is None:
+        top = None
+        if tk:
+            top = (torch.empty((B, tk), dtype=torch.int32, device=dev),
+                   torch.empty((B, tk), dtype=torch.float32, device=dev),
+                   torch.empty(B, dtype=torch.int32, device=dev))
+            args.top_nodes, args.top_scores, args.top_feas = (
+                t.data_ptr() for t in top)
+        out = (torch.empty(B, dtype=torch.int32, device=dev),
+               torch.empty((N, R), dtype=torch.float32, device=dev),
+               torch.empty((N, 2), dtype=torch.float32, device=dev), top)
+        args.hosts, args.requested_out, args.nonzero_out = (
+            t.data_ptr() for t in out[:3])
+    elif any(not t.is_contiguous() for t in out[:3]):
+        raise ValueError("seq_scan writes its outputs in place: they must "
+                         "be contiguous")
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    work = torch.empty(lib.seq_scan_workspace_bytes(N, PV, TP),
+                       dtype=torch.uint8, device=dev)
+    args.work = work.data_ptr()
+    (args.w_least, args.w_most, args.w_bal, args.w_spread,
+     args.w_rtc) = (float(x) for x in weights)
+    args.b, args.n, args.r, args.pv, args.tp, args.tk = B, N, R, PV, TP, tk
+    args.g, args.gp = dims["G"], dims["GP"]
+    args.n_rtc = dims.get("M", 0)
+    if args.w_rtc and not args.n_rtc:
+        raise ValueError("seq_scan: RequestedToCapacityRatio needs a curve")
+    args.zone_key = int(zone_key)
+    args.last_index0 = wrap_i32(last_index0)
+    return args, keep + [work, out], out
+
+
+def seq_scan_launch(args) -> None:
+    """Queue one prepared K13 launch on the current stream; raises on a
+    refused launch."""
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    _launch_error(lib, "seq_scan", lib.seq_scan_launch(
+        args, torch.cuda.current_stream().cuda_stream))
+    _count("seq_scan")
+
+
+def seq_scan(cluster, pods, ports, static_mask, static_score, spread_match,
+             nom, feas_limit, rtc, weights, zone_key: int, last_index0: int,
+             tk: int, extra_mask=None, extra_score=None):
+    """K13: the sequential engine's whole scan of one batch with no
+    in-batch pod affinity, in one launch on the snapshot's CUDA device.
+    cluster / pods / ports: the schema's tensors and the batch's
+    BatchPortState; static_mask bool[B, N] / static_score f32[B, N]: the
+    static pass, with extra_mask / extra_score (or None) folded in by the
+    kernel; spread_match f32[B, B] (ops/priorities.py pod_spread_match);
+    nom: the NominatedState on the device or None; feas_limit: i32[] (the
+    sampling limit) or None; rtc: (xs, ys) f32 curve tensors or None;
+    weights: (least, most, balanced, spread, rtc) as floats; tk: the top-k
+    width (0 = off).  Returns (hosts i32[B], requested f32[N, R],
+    nonzero_req f32[N, 2], (top_nodes, top_scores, top_feas) or None); see
+    models/batched.py scan_plain, its twin.  Raises on anything the kernel
+    does not take and on a refused launch."""
+    args, keep, out = seq_scan_prepare(
+        cluster, pods, ports, static_mask, static_score, extra_mask,
+        extra_score, spread_match, nom, feas_limit, rtc, weights, zone_key,
+        last_index0, tk)
+    with torch.cuda.device(out[0].device):
+        seq_scan_launch(args)
+    return out
+
+
+class RoundFoldArgs(ctypes.Structure):
+    """round_fold.cu's RoundFoldArgs, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "total_in", "mask_in", "active", "emask", "pod_valid", "escore",
+        "spread_g", "group_ids", "group_valid", "zone_of_node", "feas_limit",
+        "li", "total_out", "mask_out", "work")]
+        + [("w_spread", ctypes.c_float)]
+        + [(name, ctypes.c_int) for name in ("b", "n", "g", "gp", "tp")])
+
+
+class RoundCommitArgs(ctypes.Structure):
+    """round_commit.cu's RoundCommitArgs, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "hosts", "feasible", "top_nodes", "top_scores", "top_feas", "req",
+        "pod_nonzero", "priority", "pod_ports", "conflict", "group_ids",
+        "group_valid", "spread_match", "allocatable", "nom_prio", "nom_req",
+        "nom_order", "nom_start", "c_hosts", "c_req", "c_nz", "c_spread",
+        "c_claimed", "c_emask", "c_active", "c_li", "c_inv", "c_rounds",
+        "c_any", "c_topn", "c_tops", "c_feas", "prop", "accept", "node_req",
+        "claimed_h", "prior", "ticket")]
+        + [("cond", ctypes.c_ulonglong)]
+        + [(name, ctypes.c_int) for name in (
+            "b", "n", "r", "g", "gp", "pv", "tk")])
+
+
+def round_fold_prepare(total, mask, c, pods, zone_of_node, tp: int,
+                       escore, feas_limit, w_spread: float):
+    """The arguments of one K15 launch and the tensors they point into:
+    (RoundFoldArgs, keep, (total_out f32[B, N], mask_out bool[B, N])).
+    total / mask: the round's score and filter passes; c: the round
+    carry (its "active", "emask", "spread" and device counter "li_dev");
+    zone_of_node i32[N] over the snapshot's tp topology pairs; escore f32[B, N] or None; feas_limit i32[] or
+    None.  Everything is allocated here, so the launch itself
+    (round_fold_launch) allocates nothing."""
+    args = RoundFoldArgs()
+    N = mask.shape[1]
+    lean = pods.spread_counts.shape[-1] != N
+    rows = [("total_in", total, _F32, "B N"),
+            ("mask_in", mask, _BOOL, "B N"),
+            ("active", c["active"], _BOOL, "B"),
+            ("emask", c["emask"], _BOOL, "B N"),
+            ("pod_valid", pods.valid, _BOOL, "B"),
+            ("escore", escore, _F32, "B N"),
+            ("spread_g", c["spread"] if lean else None, _F32, "G N"),
+            ("group_ids", pods.group_ids, _I32, "B GP"),
+            ("group_valid", pods.group_valid, _BOOL, "B GP"),
+            ("zone_of_node", zone_of_node, _I32, "N"),
+            ("feas_limit", feas_limit, _I32, ""),
+            ("li", c["li_dev"], _I32, "")]
+    dims, dev, keep = _bind("round_fold", args, rows)
+    B = dims["B"]
+    TP = int(tp)
+    if not (0 < B < (1 << 31) and 0 < N and B * N < (1 << 62) and TP > 0):
+        raise ValueError(f"round_fold: sizes B={B} N={N} TP={TP} out of "
+                         f"range")
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    work = torch.empty(lib.round_fold_workspace_bytes(
+        B, N, TP, int(feas_limit is not None)), dtype=torch.uint8,
+        device=dev)
+    total_out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    mask_out = torch.empty((B, N), dtype=torch.bool, device=dev)
+    args.total_out, args.mask_out = total_out.data_ptr(), mask_out.data_ptr()
+    args.work = work.data_ptr()
+    args.w_spread = float(w_spread)
+    args.b, args.n, args.tp = B, N, TP
+    args.g, args.gp = dims.get("G", 0), dims["GP"]
+    keep += [work, total_out, mask_out]
+    return args, keep, (total_out, mask_out)
+
+
+def round_fold_launch(args) -> None:
+    """Queue one prepared K15 launch (round_fold_prepare) on the current
+    stream; raises on a refused launch."""
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    _launch_error(lib, "round_fold", lib.round_fold_launch(
+        args, torch.cuda.current_stream().cuda_stream))
+    _count("round_fold")
+
+
+def round_fold(total, mask, c, pods, zone_of_node, tp: int, escore,
+               feas_limit, w_spread: float):
+    """K15: the speculative round's fold of one plain batch between the
+    score pass and the selector, on the tensors' CUDA device; returns
+    (total f32[B, N], mask bool[B, N]).  See models/speculative.py
+    round_fold_plain, its twin, and round_fold_prepare for the
+    arguments.  Raises on anything the kernel does not take and on a
+    refused launch."""
+    args, keep, out = round_fold_prepare(total, mask, c, pods, zone_of_node,
+                                         tp, escore, feas_limit, w_spread)
+    with torch.cuda.device(out[0].device):
+        round_fold_launch(args)
+    return out
+
+
+def round_commit_prepare(c, hosts, feasible, top, pods, ports, cluster,
+                         nom_lists, spread_match, scratch, cond: int = 0):
+    """The arguments of one K14 round (RoundCommitArgs) and the tensors
+    they point into.  c: the round carry, updated in place by the launch
+    (hosts, req, nz, spread, claimed, emask, active, li_dev, inv,
+    rounds, any and with top-k topn, tops, feas); hosts / feasible: K1's
+    picks; top: K3's (top_nodes, top_scores, feasible count) or None;
+    nom_lists: (nominated NominatedState, order, start) or None;
+    spread_match: f32[B, B] for a batch with per-pod spread counts, None
+    for a spread-lean one; scratch: round_commit_scratch's dict; cond:
+    the WHILE node's conditional handle, or 0."""
+    args = RoundCommitArgs()
+    lean = spread_match is None
+    tops = top if top is not None else (None, None, None)
+    rows = [("hosts", hosts, _I32, "B"),
+            ("feasible", feasible, _BOOL, "B"),
+            ("top_nodes", tops[0], _I32, "B TK"),
+            ("top_scores", tops[1], _F32, "B TK"),
+            ("top_feas", tops[2], _I32, "B"),
+            ("req", pods.req, _F32, "B R"),
+            ("pod_nonzero", pods.nonzero_req, _F32, "B 2"),
+            ("priority", pods.priority, _I32, "B"),
+            ("pod_ports", ports.pod_ports, _BOOL, "B PV"),
+            ("conflict", ports.conflict, _BOOL, "PV PV"),
+            ("group_ids", pods.group_ids, _I32, "B GP"),
+            ("group_valid", pods.group_valid, _BOOL, "B GP"),
+            ("spread_match", spread_match, _F32, "B B"),
+            ("allocatable", cluster.allocatable, _F32, "N R"),
+            ("c_hosts", c["hosts"], _I32, "B"),
+            ("c_req", c["req"], _F32, "N R"),
+            ("c_nz", c["nz"], _F32, "N 2"),
+            ("c_spread", c["spread"], _F32, "G N" if lean else "B N"),
+            ("c_claimed", c["claimed"], _BOOL, "N PV"),
+            ("c_emask", c["emask"], _BOOL, "B N"),
+            ("c_active", c["active"], _BOOL, "B"),
+            ("c_li", c["li_dev"], _I32, ""),
+            ("c_inv", c["inv"], _BOOL, ""),
+            ("c_rounds", c["rounds"], _I32, ""),
+            ("c_any", c["any"], _BOOL, ""),
+            ("c_topn", c.get("topn"), _I32, "B TK"),
+            ("c_tops", c.get("tops"), _F32, "B TK"),
+            ("c_feas", c.get("feas"), _I32, "B"),
+            ("prop", scratch["prop"], _BOOL, "B"),
+            ("accept", scratch["accept"], _BOOL, "B"),
+            ("node_req", scratch["node_req"], _F32, "B R"),
+            ("claimed_h", scratch["claimed_h"], _BOOL, "B PV"),
+            ("prior", scratch["prior"], _I32, "B B"),
+            ("ticket", scratch["ticket"], _I32, "")]
+    if nom_lists is not None:
+        nom, order, start = nom_lists
+        rows += [("nom_prio", nom.prio, _I32, "K"),
+                 ("nom_req", nom.req, _F32, "K R"),
+                 ("nom_order", order, _I32, "K"),
+                 ("nom_start", start, _I32, "N1")]
+    dims, dev, keep = _bind("round_commit", args, rows)
+    B, N, R, PV = (dims[k] for k in ("B", "N", "R", "PV"))
+    if nom_lists is not None and dims["N1"] != N + 1:
+        raise ValueError("round_commit: the nominated lists do not fit N")
+    for name, t in c.items():
+        if isinstance(t, torch.Tensor) and not t.is_contiguous():
+            raise ValueError(f"round_commit updates the carry in place: "
+                             f"{name} must be contiguous")
+    if not (0 < B < (1 << 31) and 0 < N and B * max(B, N) < (1 << 62)):
+        raise ValueError(f"round_commit: sizes B={B} N={N} out of range")
+    args.b, args.n, args.r, args.pv = B, N, R, PV
+    args.g = dims.get("G", 0)
+    args.gp, args.tk = dims["GP"], dims.get("TK", 0)
+    args.cond = int(cond)
+    return args, keep
+
+
+def round_commit_scratch(B: int, R: int, PV: int, device) -> dict:
+    """The scratch K14's two launches share, allocated once a batch (the
+    ticket zeroed; each round's last block sets it back)."""
+    return {"prop": torch.empty(B, dtype=torch.bool, device=device),
+            "accept": torch.empty(B, dtype=torch.bool, device=device),
+            "node_req": torch.empty((B, R), dtype=torch.float32,
+                                    device=device),
+            "claimed_h": torch.empty((B, PV), dtype=torch.bool,
+                                     device=device),
+            "prior": torch.empty((B, B), dtype=torch.int32, device=device),
+            "ticket": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def round_commit_launch(args) -> None:
+    """Queue one prepared K14 round (round_commit_prepare) on the current
+    stream: two kernel launches, counted once.  Raises on a refused
+    launch."""
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    _launch_error(lib, "round_commit", lib.round_commit_launch(
+        args, torch.cuda.current_stream().cuda_stream))
+    _count("round_commit")
+
+
+def round_commit(c, hosts, feasible, top, pods, ports, cluster, nom_lists,
+                 spread_match, scratch) -> None:
+    """K14: the acceptance and the carry update of one round of a plain
+    batch, in place on the carry c, on its CUDA device.  See
+    models/speculative.py round_commit_plain, its twin, and
+    round_commit_prepare for the arguments.  Raises on anything the
+    kernels do not take and on a refused launch."""
+    args, keep = round_commit_prepare(c, hosts, feasible, top, pods, ports,
+                                      cluster, nom_lists, spread_match,
+                                      scratch)
+    with torch.cuda.device(hosts.device):
+        round_commit_launch(args)
+
+
+def graph_versions() -> tuple:
+    """(driver, runtime) CUDA versions as cudaDriverGetVersion and
+    cudaRuntimeGetVersion give them (12040 = 12.4)."""
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    drv, rt = ctypes.c_int(0), ctypes.c_int(0)
+    _launch_error(lib, "graph_versions",
+                  lib.graph_versions(ctypes.byref(drv), ctypes.byref(rt)))
+    return drv.value, rt.value
+
+
+def graph_probe(count: int = 5) -> int:
+    """Build and run a toy CUDA graph on the current stream: a WHILE node
+    whose body counts a device counter down from `count`.  Returns the
+    passes the body made (count, when the driver and runtime build
+    conditional nodes); raises when they refuse."""
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    counter = torch.full((), int(count), dtype=torch.int32, device=dev)
+    steps = torch.zeros((), dtype=torch.int32, device=dev)
+    cap, body = graph_streams(dev)
+    cap.wait_stream(torch.cuda.current_stream(dev))
+    _launch_error(lib, "graph_probe", lib.graph_probe(
+        counter.data_ptr(), steps.data_ptr(), cap.cuda_stream,
+        body.cuda_stream))
+    return int(steps)
+
+
+@functools.lru_cache(maxsize=None)
+def graph_streams(device) -> tuple:
+    """Two streams of `device` for capturing a CUDA graph: the graph's own
+    (the legacy default stream cannot capture) and its conditional
+    bodies'.  Made once a process."""
+    return torch.cuda.Stream(device), torch.cuda.Stream(device)
+
+
+# Graph launches whose body kernels' counts wait on the card: (event after
+# the launch, pinned host copy of [rounds, redo], the launches its capture
+# recorded by section).  settle_launches() adds them; reset_launch_counts()
+# drops them.
+_GRAPH_PENDING: list = []
+_PENDING_CAP = 256      # past this, graph_launched settles what has run
+
+
+def graph_launched(rounds: torch.Tensor, redo: torch.Tensor,
+                   launched: dict) -> None:
+    """Record a graph launch just queued on the current stream, with the
+    launches its capture recorded (capturing.launched): the "while"
+    section's run `rounds` times (i32[]), the "if" section's once if `redo`
+    (i32[]), the "once" section's once; only the card knows rounds and
+    redo.  Both are copied to pinned host memory behind the launch (no
+    host sync)."""
+    host = torch.empty(2, dtype=torch.int32, pin_memory=True)
+    host[0:1].copy_(rounds.view(1), non_blocking=True)
+    host[1:2].copy_(redo.view(1), non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    _GRAPH_PENDING.append((done, host, launched))
+    if len(_GRAPH_PENDING) > _PENDING_CAP:
+        _settle(wait=False)
+
+
+def _settle(wait: bool) -> None:
+    keep = []
+    for entry in _GRAPH_PENDING:
+        done, host, launched = entry
+        if not wait and not done.query():
+            keep.append(entry)
+            continue
+        done.synchronize()
+        times = {"once": 1, "while": int(host[0]), "if": int(host[1] != 0)}
+        for section, names in launched.items():
+            for name, n in names.items():
+                LAUNCHES[name] += times[section] * n
+    _GRAPH_PENDING[:] = keep
+
+
+def settle_launches() -> dict:
+    """Add the launches of the recorded graph launches to LAUNCHES
+    (waiting for those still running) and return a copy of LAUNCHES."""
+    _settle(wait=True)
+    return dict(LAUNCHES)
+
+
+# graphs built by the speculative engine in this process, and the host
+# seconds their build took: in all, and by part (the launches' preparation,
+# the capture, the end of the capture with the instantiation)
+GRAPH_STATS = {"builds": 0, "seconds": 0.0, "prepare": 0.0, "capture": 0.0,
+               "instantiate": 0.0}
+# one capture at a time in a process: the capture streams are shared
+GRAPH_LOCK = threading.Lock()
+
+
+class capturing:
+    """Context: this thread's launches queue graph nodes and count
+    nothing; the names the wrappers count are recorded instead, in
+    `launched` by the section into() last named ("once" until then):
+    "while" for a WHILE node's body, "if" for an IF node's."""
+
+    def __init__(self):
+        self.launched = {"once": {}, "while": {}, "if": {}}
+        self.section = "once"
+
+    def into(self, section: str) -> None:
+        if section not in self.launched:
+            raise ValueError(f"no capture section {section!r}")
+        self.section = section
+
+    def record(self, name: str) -> None:
+        names = self.launched[self.section]
+        names[name] = names.get(name, 0) + 1
+
+    def __enter__(self):
+        _CAPTURE.on = self
+        return self
+
+    def __exit__(self, *exc):
+        _CAPTURE.on = None
+
+
+def library():
+    """The kernel library (kernels/_build.py), built at the first call."""
+    from kubernetes_tpu_torch.kernels._build import library as build
+
+    return build()
+
+
+def check_graph(lib, err: int) -> None:
+    """Raise on a graph API error code."""
+    _launch_error(lib, "graph", err)
+
+
+def graph_handle(lib, stream) -> int:
+    """A conditional handle of the graph capturing on `stream` (a torch
+    stream)."""
+    h = ctypes.c_uint64(0)
+    check_graph(lib, lib.graph_handle(stream.cuda_stream, ctypes.byref(h)))
+    return h.value

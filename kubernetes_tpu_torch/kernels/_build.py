@@ -107,6 +107,33 @@ def library() -> ctypes.CDLL:
     lib.score_pass_launch.restype = ctypes.c_int
     lib.score_pass_smem_max.argtypes = []
     lib.score_pass_smem_max.restype = ctypes.c_int
+    from kubernetes_tpu_torch.kernels import SeqScanArgs
+
+    lib.seq_scan_launch.argtypes = [SeqScanArgs, p]
+    lib.seq_scan_launch.restype = ctypes.c_int
+    lib.seq_scan_workspace_bytes.argtypes = [i, i, i]
+    lib.seq_scan_workspace_bytes.restype = ctypes.c_longlong
+    from kubernetes_tpu_torch.kernels import RoundCommitArgs, RoundFoldArgs
+
+    lib.round_fold_launch.argtypes = [RoundFoldArgs, p]
+    lib.round_fold_launch.restype = ctypes.c_int
+    lib.round_fold_workspace_bytes.argtypes = [i, i, i, i]
+    lib.round_fold_workspace_bytes.restype = ctypes.c_longlong
+    lib.round_commit_launch.argtypes = [RoundCommitArgs, p]
+    lib.round_commit_launch.restype = ctypes.c_int
+    lib.select_hosts_launch_dev.argtypes = [p, p, i, i, p, p, p, i, p]
+    lib.select_hosts_launch_dev.restype = ctypes.c_int
+    u64 = ctypes.c_uint64
+    for name, args in (
+            ("graph_versions", [p, p]), ("graph_begin", [p]),
+            ("graph_handle", [p, p]), ("graph_init_launch", [u64, p, i, p]),
+            ("graph_flag_launch", [u64, p, p, p, i, p, p]),
+            ("graph_cond_begin", [p, p, u64, i]), ("graph_cond_end", [p]),
+            ("graph_end", [p, p]), ("graph_launch", [p, p]),
+            ("graph_destroy", [p]), ("graph_probe", [p, p, p, p]),
+            ("graph_abort", [p, p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = ctypes.c_int
     lib.select_hosts_error_string.argtypes = [ctypes.c_int]
     lib.select_hosts_error_string.restype = ctypes.c_char_p
     return lib

@@ -69,16 +69,22 @@ def stream_ops(fn) -> dict:
     return ops
 
 
-def time_ms(fn, reps: int = 50, cold: bool = True) -> float:
+def time_ms(fn, reps: int = 50, cold: bool = True, before=None) -> float:
     """Median device milliseconds of fn() between two CUDA events.  Cold:
-    FLUSH_BYTES are written before each launch, outside the events."""
+    FLUSH_BYTES are written before each launch, outside the events.
+    before(), if given, runs before each launch (and its flush), outside
+    the events: it puts back what fn() writes in place."""
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    if before is not None:
+        before()
     fn()                                   # warm-up: builds, first launch
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(SPIN_CYCLES)
     for a, b in events:
+        if before is not None:
+            before()
         if cold:
             flush.fill_(1)
         a.record()

@@ -50,25 +50,21 @@
 #include <stdint.h>
 
 #include "label_select.cuh"
+#include "priority_math.cuh"
 
 namespace {
 
 using label_select::kPad;
+using prio_math::fdiv_floor;
+using prio_math::kMaxPriority;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPrios = 12;          // NUM_PRIORITIES
 constexpr int kSmemMax = 96 * 1024; // a block's arrays above this: workspace
-constexpr float kMaxPriority = 10.f;
-constexpr float kTiny = 1e-30f;     // the twin's clamp_min(b, 1e-30)
 constexpr float kBig = 3.4e38f;     // InterPodAffinity's masked extremes
 constexpr float kImgMin = 23.f * 1024 * 1024;
 constexpr float kImgMax = 1000.f * 1024 * 1024;
-constexpr float kRtcEps = 1.4210854715202004e-14f; // 2^-46: interp's dx == 0 test
-// SelectorSpread's weights as the twin holds them: f32(2/3) and
-// f32(1 - 2/3), each rounded once from the double
-constexpr float kZoneWeight = (float)(2.0 / 3.0);
-constexpr float kNodeWeight = (float)(1.0 - 2.0 / 3.0);
 
 // PRIORITY_ORDER
 enum {
@@ -140,11 +136,6 @@ __device__ __forceinline__ bool row_on(const ScorePassArgs& a, int k) {
   return (a.rows >> k) & 1;
 }
 
-// floor(x / max(d, 1e-30)): _fdiv_floor
-__device__ __forceinline__ float fdiv_floor(float x, float d) {
-  return floorf(__fdiv_rn(x, fmaxf(d, kTiny)));
-}
-
 // NodeAffinity's sum of the weights of the preferred terms the node
 // matches
 __device__ float node_affinity_sum(const ScorePassArgs& a, int b, int n) {
@@ -199,28 +190,6 @@ __device__ __forceinline__ float spread_count(const ScorePassArgs& a, int b,
       c = __fadd_rn(c, __ldg(a.group_counts + (size_t)n * a.g + g));
   }
   return c;
-}
-
-// jnp.interp with constant extrapolation, as ops/priorities.py interp
-__device__ float interp(const ScorePassArgs& a, float x) {
-  const int m = a.n_rtc;
-  int i = 0;
-  if (isnan(x)) {
-    i = m;                         // searchsorted puts NaN last
-  } else {
-    for (int k = 0; k < m; ++k) i += __ldg(a.rtc_xs + k) <= x;
-  }
-  i = min(max(i, 1), m - 1);
-  const int j = i - 1 < 0 ? i - 1 + m : i - 1;   // Python's negative index
-  const float x0 = __ldg(a.rtc_xs + j), y0 = __ldg(a.rtc_ys + j);
-  const float df = __fsub_rn(__ldg(a.rtc_ys + i), y0);
-  const float dx = __fsub_rn(__ldg(a.rtc_xs + i), x0);
-  const float delta = __fsub_rn(x, x0);
-  const bool dx0 = fabsf(dx) <= kRtcEps;
-  float f = dx0 ? y0 : __fmaf_rn(__fdiv_rn(delta, dx), df, y0);
-  if (x < __ldg(a.rtc_xs)) f = __ldg(a.rtc_ys);
-  if (x > __ldg(a.rtc_xs + m - 1)) f = __ldg(a.rtc_ys + m - 1);
-  return f;
 }
 
 struct Reduced {
@@ -315,25 +284,10 @@ __global__ void __launch_bounds__(kThreads) k12_score_pass(
 #pragma unroll
     for (int k = 0; k < kPrios; ++k) sc[k] = 0.f;
     if (on_spread) {
-      const float c = spread_count(a, b, n);
-      const float ns =
-          r.mx_spread > 0.f
-              ? __fdiv_rn(__fmul_rn(kMaxPriority, __fsub_rn(r.mx_spread, c)),
-                          fmaxf(r.mx_spread, 1.f))
-              : kMaxPriority;
       const int z = __ldg(a.zone_of_node + n);
-      float blended = ns;
-      if (r.have_zones && z >= 0) {
-        const float zsc =
-            r.mx_zone > 0.f
-                ? __fdiv_rn(__fmul_rn(kMaxPriority,
-                                      __fsub_rn(r.mx_zone, zs[z])),
-                            fmaxf(r.mx_zone, 1.f))
-                : kMaxPriority;
-        // fma(1/3, node, round(2/3 * zone)), the compiled reference's
-        blended = __fmaf_rn(kNodeWeight, ns, __fmul_rn(kZoneWeight, zsc));
-      }
-      sc[kSpread] = floorf(blended);
+      sc[kSpread] = prio_math::spread(r.mx_spread, spread_count(a, b, n),
+                                      r.have_zones && z >= 0, r.mx_zone,
+                                      z >= 0 ? zs[z] : 0.f);
     }
     if (on_ipa && __ldg(a.valid + n)) {
       const float s = __ldg(a.ipa_sums + (size_t)b * a.n + n);
@@ -344,29 +298,12 @@ __global__ void __launch_bounds__(kThreads) k12_score_pass(
               : 0.f;
     }
     if (row_on(a, kLeast) || row_on(a, kMost)) {
-      float least = 0.f, most = 0.f;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const bool off = cap[k] == 0.f || rq[k] > cap[k];
-        least += off ? 0.f
-                     : fdiv_floor(__fmul_rn(__fsub_rn(cap[k], rq[k]),
-                                            kMaxPriority), cap[k]);
-        most += off ? 0.f
-                    : fdiv_floor(__fmul_rn(rq[k], kMaxPriority), cap[k]);
-      }
-      sc[kLeast] = row_on(a, kLeast) ? floorf(__fdiv_rn(least, 2.f)) : 0.f;
-      sc[kMost] = row_on(a, kMost) ? floorf(__fdiv_rn(most, 2.f)) : 0.f;
+      float least, most;
+      prio_math::least_most_sums(cap, rq, least, most);
+      sc[kLeast] = row_on(a, kLeast) ? prio_math::half_floor(least) : 0.f;
+      sc[kMost] = row_on(a, kMost) ? prio_math::half_floor(most) : 0.f;
     }
-    if (row_on(a, kBalanced)) {
-      const float f0 = __fdiv_rn(rq[0], fmaxf(cap[0], kTiny));
-      const float f1 = __fdiv_rn(rq[1], fmaxf(cap[1], kTiny));
-      const bool over =
-          f0 >= 1.f || cap[0] == 0.f || f1 >= 1.f || cap[1] == 0.f;
-      sc[kBalanced] =
-          over ? 0.f
-               : floorf(__fmul_rn(__fsub_rn(1.f, fabsf(__fsub_rn(f0, f1))),
-                                  kMaxPriority));
-    }
+    if (row_on(a, kBalanced)) sc[kBalanced] = prio_math::balanced(cap, rq);
     if (row_on(a, kAvoid)) {
       bool avoid = false;
       for (int k = 0; k < a.a; ++k)
@@ -414,18 +351,8 @@ __global__ void __launch_bounds__(kThreads) k12_score_pass(
       }
       sc[kNodeLabel] = s;
     }
-    if (row_on(a, kRtc)) {
-      float f = 0.f;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const float util =
-            cap[k] > 0.f
-                ? __fdiv_rn(__fmul_rn(rq[k], 100.f), fmaxf(cap[k], kTiny))
-                : 100.f;
-        f = k == 0 ? interp(a, util) : __fadd_rn(f, interp(a, util));
-      }
-      sc[kRtc] = floorf(__fdiv_rn(f, 2.f));
-    }
+    if (row_on(a, kRtc))
+      sc[kRtc] = prio_math::rtc(a.rtc_xs, a.rtc_ys, a.n_rtc, cap, rq);
     if (row_on(a, kLimits)) {
       const bool ok = (lim0 == 0.f || cap[0] >= lim0) &&
                       (lim1 == 0.f || cap[1] >= lim1);

@@ -46,32 +46,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "select_row.cuh"
+
 namespace {
+
+using select_row::floor_mod;
+using select_row::fold;
+using select_row::kNeg;
+using select_row::nan_max;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlots = 32;  // values a thread holds
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kNeg = -3.4e38f;  // the masked-out filler
-
-// max that propagates NaN (fmaxf would drop it)
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (b > a || b != b) ? b : a;
-}
-
-// Folds a max s that has t ties into the running max m with c ties.  NaN
-// sticks, and once m is NaN, c means nothing.  -0.0 == 0.0, so the two
-// count as one value.
-__device__ __forceinline__ void fold(float& m, int& c, float s, int t) {
-  if (s > m) {
-    m = s;
-    c = t;
-  } else if (s == m) {
-    c += t;
-  } else if (s != s) {
-    m = s;
-  }
-}
 
 // Inclusive sum over the warp's lanes.
 __device__ __forceinline__ int warp_scan(int v, int lane) {
@@ -88,11 +75,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = nan_max(v, __shfl_xor_sync(kFull, v, off));
   return v;
-}
-
-__device__ __forceinline__ int floor_mod(int li, int total) {
-  int k = li % total;
-  return k < 0 ? k + total : k;  // a wrapped negative counter
 }
 
 // Loads of data read once: the non-coherent path, no L1 allocation, and an
@@ -395,8 +377,10 @@ template <int VEC, int WPR>
 __global__ void __launch_bounds__(kThreads, VEC == 4 ? 4 : 2)
 select_hosts_kernel(const float* __restrict__ scores,
                     const uint8_t* __restrict__ mask, int rows, int n,
-                    int li0, int32_t* __restrict__ hosts,
+                    int li0, const int* __restrict__ li_dev,
+                    int32_t* __restrict__ hosts,
                     uint8_t* __restrict__ feasible) {
+  if (li_dev) li0 = __ldg(li_dev);
   const int warp = threadIdx.x >> 5;
   const int row = WPR == 1 ? blockIdx.x * kWarps + warp : blockIdx.x;
   if (WPR == 1 && row >= rows) return;  // whole warps: no barrier below
@@ -416,8 +400,10 @@ template <int VEC>
 __global__ void __launch_bounds__(kThreads, 2)
 select_hosts_long_kernel(const float* __restrict__ scores,
                          const uint8_t* __restrict__ mask, int rows, int n,
-                         int li0, int32_t* __restrict__ hosts,
+                         int li0, const int* __restrict__ li_dev,
+                         int32_t* __restrict__ hosts,
                          uint8_t* __restrict__ feasible) {
+  if (li_dev) li0 = __ldg(li_dev);
   using L = Layout<VEC, kWarps>;
   __shared__ float s_max[kWarps];
   __shared__ int s_count[kWarps];
@@ -526,10 +512,9 @@ __global__ void noop_kernel() {}
 //          4 a block per long row, float4; 5 a block per long row, scalar.
 // The float4 variants need n % 4 == 0, 16-byte aligned scores and a 4-byte
 // aligned mask; 0 and 1 take n <= 8192, 2 and 3 n <= 1024.
-extern "C" int select_hosts_launch(const float* scores, const uint8_t* mask,
-                                   int rows, int n, int li0, int32_t* hosts,
-                                   uint8_t* feasible, int variant,
-                                   cudaStream_t stream) {
+static int launch(const float* scores, const uint8_t* mask, int rows, int n,
+                  int li0, const int* li_dev, int32_t* hosts,
+                  uint8_t* feasible, int variant, cudaStream_t stream) {
   if (rows <= 0) return 0;
   if (n <= 0 || variant < 0 || variant > 5) return (int)cudaErrorInvalidValue;
   const bool vec4 = variant % 2 == 0;
@@ -543,30 +528,51 @@ extern "C" int select_hosts_launch(const float* scores, const uint8_t* mask,
   switch (variant) {
     case 0:
       select_hosts_kernel<4, kWarps><<<rows, kThreads, 0, stream>>>(
-          scores, mask, rows, n, li0, hosts, feasible);
+          scores, mask, rows, n, li0, li_dev, hosts, feasible);
       break;
     case 1:
       select_hosts_kernel<1, kWarps><<<rows, kThreads, 0, stream>>>(
-          scores, mask, rows, n, li0, hosts, feasible);
+          scores, mask, rows, n, li0, li_dev, hosts, feasible);
       break;
     case 2:
       select_hosts_kernel<4, 1><<<warp_blocks, kThreads, 0, stream>>>(
-          scores, mask, rows, n, li0, hosts, feasible);
+          scores, mask, rows, n, li0, li_dev, hosts, feasible);
       break;
     case 3:
       select_hosts_kernel<1, 1><<<warp_blocks, kThreads, 0, stream>>>(
-          scores, mask, rows, n, li0, hosts, feasible);
+          scores, mask, rows, n, li0, li_dev, hosts, feasible);
       break;
     case 4:
       select_hosts_long_kernel<4><<<rows, kThreads, 0, stream>>>(
-          scores, mask, rows, n, li0, hosts, feasible);
+          scores, mask, rows, n, li0, li_dev, hosts, feasible);
       break;
     default:
       select_hosts_long_kernel<1><<<rows, kThreads, 0, stream>>>(
-          scores, mask, rows, n, li0, hosts, feasible);
+          scores, mask, rows, n, li0, li_dev, hosts, feasible);
       break;
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int select_hosts_launch(const float* scores, const uint8_t* mask,
+                                   int rows, int n, int li0, int32_t* hosts,
+                                   uint8_t* feasible, int variant,
+                                   cudaStream_t stream) {
+  return launch(scores, mask, rows, n, li0, nullptr, hosts, feasible, variant,
+                stream);
+}
+
+// The same with the rotation counter read from device memory at the launch
+// (li_dev, an int on the card): the form a CUDA graph captures, whose
+// rounds move the counter on the card.
+extern "C" int select_hosts_launch_dev(const float* scores,
+                                       const uint8_t* mask, int rows, int n,
+                                       const int* li_dev, int32_t* hosts,
+                                       uint8_t* feasible, int variant,
+                                       cudaStream_t stream) {
+  if (!li_dev) return (int)cudaErrorInvalidValue;
+  return launch(scores, mask, rows, n, 0, li_dev, hosts, feasible, variant,
+                stream);
 }
 
 extern "C" int select_hosts_noop_launch(cudaStream_t stream) {

@@ -39,27 +39,20 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "select_row.cuh"
+
 namespace {
+
+using select_row::kIdxMask;
+using select_row::key_value;
+using select_row::kNeg;
+using select_row::order_key;
+using select_row::pack;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kNeg = -3.4e38f;  // the masked-out filler
 constexpr int kSmemMaxN = 40960;  // rows kept in shared memory
-constexpr long long kIdxMask = (1LL << 31) - 1;
-
-__device__ __forceinline__ int order_key(float v) {
-  const int b = __float_as_int(v);
-  return b < 0 ? (b ^ 0x7fffffff) : b;
-}
-
-__device__ __forceinline__ float key_value(int k) {
-  return __int_as_float(k < 0 ? (k ^ 0x7fffffff) : k);
-}
-
-__device__ __forceinline__ long long pack(int key, int n) {
-  return (long long)key * (1LL << 31) + (kIdxMask - n);
-}
 
 // max over the block; every thread gets it.  red holds kWarps + 1 values.
 __device__ __forceinline__ long long block_max(long long v, long long* red) {

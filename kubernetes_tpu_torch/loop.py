@@ -190,9 +190,11 @@ def run_raw(nodes: Sequence[Node], pods: Sequence[Pod], batch: int,
     "node_names": row -> node name, "pods_per_s", "seconds", "phases":
     {"encode", "launch", "fetch", "commit"} seconds, "rounds": per batch
     (speculative engine), "redos": batches redone through the sequential
-    engine, "scheduled", "unschedulable"}.  "launch" includes the device
-    rounds, since the speculative engine checks for active pods on the
-    host once per round."""
+    engine, "scheduled", "unschedulable"}.  "launch" is the host's
+    enqueue: a plain batch runs on the card as one CUDA graph with no host
+    sync, while an affinity batch's rounds check for active pods on the
+    host once a round.  The rounds and redo flags are read after the
+    clock stops."""
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r} not in {ENGINES}")
     device = torch.device(device)
@@ -209,8 +211,10 @@ def run_raw(nodes: Sequence[Node], pods: Sequence[Pod], batch: int,
     n_pods = len(pods)
     out = np.full(n_pods, -1, np.int32)
     phases = {"encode": 0.0, "launch": 0.0, "fetch": 0.0, "commit": 0.0}
-    rounds: List[int] = []
-    redos = 0
+    # the engine's rounds and redo flags, read after the clock stops (on
+    # the graph path they stay on the card)
+    rounds: list = []
+    redo_flags: list = []
 
     def commit(start, batch_pods, hosts_dev):
         tf = time.monotonic()
@@ -260,7 +264,7 @@ def run_raw(nodes: Sequence[Node], pods: Sequence[Pod], batch: int,
         phases["launch"] += time.monotonic() - tp
         if engine == "speculative":
             rounds.append(fn.last_rounds)
-            redos += int(fn.last_redo)
+            redo_flags.append(fn.last_redo)
         last += n
         if in_flight is not None:
             commit(*in_flight)
@@ -277,8 +281,8 @@ def run_raw(nodes: Sequence[Node], pods: Sequence[Pod], batch: int,
         "pods_per_s": scheduled / dt if dt > 0 else 0.0,
         "seconds": dt,
         "phases": phases,
-        "rounds": rounds,
-        "redos": redos,
+        "rounds": [int(r) for r in rounds],
+        "redos": sum(int(bool(r)) for r in redo_flags),
         "scheduled": scheduled,
         "unschedulable": n_pods - scheduled,
     }
@@ -683,7 +687,7 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
     cap_s0 = m.CAPACITY_SECONDS.value
     cap_d0 = (sched.capacity.dispatches_total
               if sched.capacity is not None else 0)
-    launches0 = dict(kernels.LAUNCHES)
+    launches0 = kernels.settle_launches()
     ext_s0 = sched.extender_seconds
     if sidecar is not None:
         filter0 = dict(sidecar.filter_seconds)
@@ -697,7 +701,8 @@ def run_live(nodes: Sequence[Node], n_pods: int, batch: int,
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.monotonic() - t0
-    launches = {k: v - launches0[k] for k, v in kernels.LAUNCHES.items()}
+    launches = {k: v - launches0[k]
+                for k, v in kernels.settle_launches().items()}
     q_s = m.QUALITY_SECONDS.value - q_s0
     tel_s = m.TELEMETRY_SECONDS.value - tel_s0
     tl_s = m.TIMELINE_SECONDS.value - tl_s0
@@ -1304,7 +1309,7 @@ def run_replicas(nodes: Sequence[Node], n_pods: int, batch: int,
         for s in rs.schedulers:
             s.results.clear()
         gc.collect()
-        l0 = dict(kernels.LAUNCHES)
+        l0 = kernels.settle_launches()
         st0 = dict(rs.reconciler.stats())
         t0 = time.monotonic()
         for p in pods:
@@ -1312,7 +1317,7 @@ def run_replicas(nodes: Sequence[Node], n_pods: int, batch: int,
         placed = rs.run_until_drained(budget_s=budget_s)
         dt = time.monotonic() - t0
         rs.stop()
-        for k, v in kernels.LAUNCHES.items():
+        for k, v in kernels.settle_launches().items():
             launches[k] += v - l0[k]
         if rs.reconciler.recorded is not None:
             scans.extend(rs.reconciler.recorded)

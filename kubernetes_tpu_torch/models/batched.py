@@ -7,9 +7,13 @@ K1 on the card) and committing it, so pod i+1 sees pod i's resources, ports
 and spreading counts exactly as if the reference had scheduled them one by
 one (scheduler.go:438 scheduleOne).
 
-The JAX version runs the steps under `lax.scan`; here they are a Python loop
-over B with all state on the device.  Nothing in the loop reads a device
-value back (no .item(), no bool()), so the host only enqueues work.
+The JAX version runs the steps under `lax.scan`.  On the card, a batch with
+no in-batch pod affinity runs its whole scan in one launch of kernel K13
+(kernels/seq_scan.cu) after the static pass (one K11 and one K12 launch);
+its plain twin, and the path of affinity batches and of the CPU, is
+`scan_plain`, a Python loop over B with all state on the device.  Nothing
+in either reads a device value back (no .item(), no bool()), so the host
+only enqueues work.
 
 Dynamic state across steps (everything else is precomputed once per batch):
   requested[N, R], nonzero[N, 2]  — PodFitsResources + resource scores
@@ -24,8 +28,8 @@ Nominated pods (preemptors awaiting their victims) join each step's
 resource fit on their nominated node (podFitsOnNode's pass one) when
 `nominated` is given; their port and anti-affinity claims arrive as the
 host mask of encode_nominated_block, folded into extra_mask by the caller.
-Attribution and quality top-k are later slices of the port: the entry point
-raises NotImplementedError for them.
+Attribution is a later slice of the port: the entry point raises
+NotImplementedError for it.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import Any, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from kubernetes_tpu_torch import kernels
 from kubernetes_tpu_torch.api import labels as klabels
 from kubernetes_tpu_torch.api.nodeaffinity import _term_matches_pod
 from kubernetes_tpu_torch.codec import transfer
@@ -520,6 +525,185 @@ def ipa_normalize(raw, valid):
     return torch.where(valid, ipa, 0.0)
 
 
+def scan_plain(cluster: ClusterTensors, pods: PodBatch, ports, static_mask,
+               static_score, spread_match, nom, feas_limit, rtc, weights,
+               zone_key_id: int, last_index0: int, tk: int,
+               select_impl: str = "kernel", aff=None, ipa=(0.0, 0.0)):
+    """The sequential engine's steps over one batch, pod by pod in batch
+    order: kernel K13's plain twin (kernels.seq_scan takes the same
+    arguments but select_impl, aff and ipa) and, with aff (a dense
+    BatchAffinityState), the in-batch affinity steps.  weights: (least,
+    most, balanced, spread, rtc) as floats; ipa: (InterPodAffinity's
+    weight, the hard pod affinity weight), read with aff.  Returns (hosts
+    i32[B], requested, nonzero_req, (top_nodes, top_scores, top_feas) or
+    None)."""
+    w_least, w_most, w_bal, w_spread, w_rtc = weights
+    w_ipa, hard_w = ipa
+    f32 = torch.float32
+    B, N = pods.n_pods, cluster.n_nodes
+    dev = cluster.valid.device
+    rtc_xs, rtc_ys = rtc if rtc is not None else (None, None)
+    if tk:
+        top_nodes = torch.full((B, tk), -1, dtype=torch.int32, device=dev)
+        top_scores = torch.zeros((B, tk), dtype=f32, device=dev)
+        top_feas = torch.zeros(B, dtype=torch.int32, device=dev)
+    spread_base = spread_counts(cluster, pods)            # [B, N]
+    zones = zone_layout(cluster, zone_key_id)
+    conflict_f = ports.conflict.to(torch.float32)
+    node_ids = torch.arange(N, device=dev)
+    requested = cluster.requested
+    nonzero2 = cluster.nonzero_req
+    port_used = torch.zeros((N, ports.pod_ports.shape[1]),
+                            dtype=torch.bool, device=dev)
+    hosts = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    if nom is not None:
+        onehot_nom = (nom.node[:, None] == node_ids[None, :]).to(f32)
+        nom_live = nom.node >= 0                                # [K]
+    if aff is not None:
+        topo_t = cluster.topo_pairs.to(f32).T                 # [TP, N]
+        TP = topo_t.shape[0]
+        PT = pods.aff_term_pairs.shape[1]
+        AT = pods.anti_term_pairs.shape[1]
+        aff_kp = topology_key_pairs(pods.aff_term_topo_key, cluster)
+        anti_kp = topology_key_pairs(pods.anti_term_topo_key, cluster)
+        pref_kp = topology_key_pairs(aff.pref_topo_key, cluster)
+        # the pairs of the pods committed so far, per later pod
+        extra_aff = torch.zeros((B, PT, TP), dtype=torch.bool, device=dev)
+        extra_anti = torch.zeros((B, AT, TP), dtype=torch.bool, device=dev)
+        extra_forb = torch.zeros((B, TP), dtype=torch.bool, device=dev)
+        extra_pref = torch.zeros((B, TP), dtype=f32, device=dev)
+    for b in range(B):
+        req = pods.req[b]
+        nz2 = pods.nonzero_req[b]
+        pport = ports.pod_ports[b]
+        # dynamic resource fit (PodFitsResources on current state)
+        fit = ~torch.any(
+            (req[None, :] > 0)
+            & (requested + req[None, :] > cluster.allocatable),
+            dim=-1,
+        )
+        if nom is not None:
+            # two-pass nominated evaluation (podFitsOnNode,
+            # generic_scheduler.go:598-664): pass one adds nominated
+            # pods with priority >= this pod's to their nominated node;
+            # the no-nominated pass is `fit` itself (resource fit is
+            # monotone, so pass one implies pass two here).  The claim
+            # sums whole request columns: exact in f32
+            w_nom = ((nom.prio >= pods.priority[b]) & nom_live).to(f32)
+            extra_nom = torch.einsum("k,kn,kr->nr", w_nom, onehot_nom,
+                                     nom.req)                   # [N, R]
+            fit_nom = ~torch.any(
+                (req[None, :] > 0)
+                & (requested + extra_nom + req[None, :]
+                   > cluster.allocatable),
+                dim=-1,
+            )
+            fit = fit & fit_nom
+        # in-batch port conflicts: used claims x conflict matrix
+        claimed_conflict = (port_used.to(torch.float32) @ conflict_f) > 0
+        port_bad = torch.any(pport[None, :] & claimed_conflict, dim=-1)
+        mask = static_mask[b] & fit & ~port_bad
+        if aff is not None:
+            # MatchInterPodAffinity against (pre-batch | in-batch)
+            # pairs, and the IPA score's raw sums: the node hits of
+            # every term row, of the rows' topology keys and of the
+            # weights in one product with the topology (integer
+            # counts and sums: exact)
+            aff_pairs = pods.aff_term_pairs[b] | extra_aff[b]   # [PT, TP]
+            anti_pairs = pods.anti_term_pairs[b] | extra_anti[b]
+            forb = pods.forbidden_pairs[b] | extra_forb[b]      # [TP]
+            prefw = pods.pref_pair_weights[b] + extra_pref[b]
+            rows = torch.cat([
+                aff_pairs.to(f32), aff_kp[b].to(f32),
+                anti_pairs.to(f32), forb.to(f32)[None],
+                prefw[None]])
+            hit = rows @ topo_t                                 # [K, N]
+            aff_hit = hit[:PT] > 0
+            node_has_key = hit[PT:2 * PT] > 0
+            anti_hit = hit[2 * PT:2 * PT + AT] > 0
+            viol1 = hit[2 * PT + AT] > 0
+            raw = hit[2 * PT + AT + 1]
+            any_match = torch.any(aff_pairs, dim=-1)            # [PT]
+            bootstrap = (~any_match[:, None]
+                         & pods.aff_term_self[b][:, None] & node_has_key)
+            term_ok = (aff_hit | bootstrap
+                       | ~pods.aff_term_valid[b][:, None])
+            aff_ok = torch.all(term_ok, dim=0)                  # [N]
+            viol2 = torch.any(
+                anti_hit & pods.anti_term_valid[b][:, None], dim=0)
+            mask = mask & aff_ok & ~viol1 & ~viol2
+        # spread counts: pre-batch base + earlier in-batch commits whose
+        # pod covers this pod's selector set (integer sums: exact)
+        placed = hosts >= 0
+        extra = torch.zeros(N, dtype=torch.float32, device=dev)
+        extra.index_add_(0, torch.clamp_min(hosts, 0),
+                         spread_match[b] * placed)
+        least, most, balanced, spread, rtc = _dynamic_scores(
+            cluster, nz2, nonzero2, zone_key_id, spread_base[b] + extra,
+            rtc_xs, rtc_ys, need_most=bool(w_most), zones=zones)
+        # integer-valued addends: the weighted sum is exact in any
+        # order, and a zero-weight term adds exactly 0
+        total = static_score[b] + w_least * least
+        if w_most:
+            total = total + w_most * most
+        total = total + w_bal * balanced + w_spread * spread
+        if w_rtc:
+            total = total + w_rtc * rtc
+        if aff is not None:
+            # the IPA score over (pre-batch | in-batch) raw pair
+            # weights, renormalized per step
+            total = total + w_ipa * ipa_normalize(raw, cluster.valid)
+        last_idx = last_index0 + b
+        if feas_limit is not None:
+            # adaptive node sampling with the rotating start offset
+            mask = limit_feasible(mask, feas_limit, last_idx)
+        host, feasible = select_host(total, mask, last_idx, select_impl)
+        if tk:
+            # the winner-pinned ranking and feasible count off the
+            # exact (mask, total, host) the selection used, the
+            # sampling cut included
+            q = select_topk(total, mask, host, feasible, tk)
+            top_nodes[b] = q.top_nodes
+            top_scores[b] = q.top_scores
+            top_feas[b] = q.feasible
+        # commit
+        onehot = (node_ids == host) & feasible                # [N]
+        requested = requested + onehot[:, None] * req[None, :]
+        nonzero2 = nonzero2 + onehot[:, None] * nz2[None, :]
+        port_used = port_used | (onehot[:, None] & pport[None, :])
+        hosts[b] = torch.where(feasible, host.to(torch.int64), -1)
+        if aff is not None:
+            # predicateMetadata.AddPod analogue: the committed pod's
+            # topology pairs flow into later pods' affinity state
+            node_pairs = cluster.topo_pairs.index_select(
+                0, host.reshape(1).to(torch.int64))[0] & feasible  # [TP]
+            extra_aff = extra_aff | (
+                aff.aff_match[b][:, :, None] & aff_kp & node_pairs)
+            extra_anti = extra_anti | (
+                aff.anti_match[b][:, :, None] & anti_kp & node_pairs)
+            # its anti terms forbid their domains to matching pods
+            keyed_anti = (anti_kp[b] & node_pairs).to(f32)    # [AT, TP]
+            extra_forb = extra_forb | (
+                aff.anti_own[b].T.to(f32) @ keyed_anti > 0)
+            # hard-affinity symmetry: its required affinity terms add
+            # hard_w per matching later pod per pair
+            keyed_aff = (aff_kp[b] & node_pairs).to(f32)      # [PT, TP]
+            extra_pref = extra_pref + hard_w * (
+                aff.aff_own[b].T.to(f32) @ keyed_aff)
+            # preferred terms, both directions: later pods' own terms
+            # that it matches, then its terms that match later pods
+            kp = (pref_kp & node_pairs).to(f32)               # [B, PP, TP]
+            extra_pref = extra_pref + torch.einsum(
+                "it,itp->ip",
+                aff.pref_match[b].to(f32) * aff.pref_weight, kp)
+            keyed_pref = (pref_kp[b] & node_pairs).to(f32)    # [PP, TP]
+            extra_pref = extra_pref + torch.einsum(
+                "ti,t,tp->ip", aff.pref_own[b].to(f32),
+                aff.pref_weight[b], keyed_pref)
+    top = (top_nodes, top_scores, top_feas) if tk else None
+    return hosts.to(torch.int32), requested, nonzero2, top
+
+
 def make_sequential_scheduler(
     cfg: FilterConfig = FilterConfig(),
     weights=None,
@@ -549,7 +733,8 @@ def make_sequential_scheduler(
     call also returns an ops/select.TopKQuality as its last output: per
     pod, the winner-pinned top min(K, N) node rows, their scores and the
     feasible count, off each step's exact (total, mask, host, feasible)
-    (kernel K3 at B=1 on the card)."""
+    (inside K13 on the card; kernel K3 at B=1 in an affinity batch's
+    steps)."""
     reject_later_slices(attribution=attribution)
     if select_impl not in SELECT_IMPLS:
         raise ValueError(f"select_impl {select_impl!r} not in {SELECT_IMPLS}")
@@ -566,24 +751,23 @@ def make_sequential_scheduler(
     w_rtc = _weighted(w, "RequestedToCapacityRatioPriority")
     w_ipa = _weighted(w, "InterPodAffinityPriority")
     hard_w = float(cfg.hard_pod_affinity_weight)
-    f32 = torch.float32
 
     def schedule(cluster, pods, ports, last_index0: int, nom=None,
                  extra_mask=None, extra_score=None,
                  aff: Optional[BatchAffinityState] = None):
-        B, N = pods.n_pods, cluster.n_nodes
+        N = cluster.n_nodes
         dev = cluster.valid.device
         # quality top-k width, clamped to the arena (a 2-node cluster
         # cannot rank 3 rows)
         tkq = min(quality_topk, N) if quality_topk else 0
-        if tkq:
-            top_nodes = torch.full((B, tkq), -1, dtype=torch.int32,
-                                   device=dev)
-            top_scores = torch.zeros((B, tkq), dtype=f32, device=dev)
-            top_feas = torch.zeros(B, dtype=torch.int32, device=dev)
+        on_k13 = (aff is None and dev.type == "cuda"
+                  and select_impl == "kernel")
+        # K13 folds the extra mask and score itself
         static_mask, static_score = static_pass(
             cluster, pods, cfg, unsched_taint_key, w, score_cfg,
-            extra_mask, extra_score, in_batch_affinity=aff is not None)
+            None if on_k13 else extra_mask,
+            None if on_k13 else extra_score,
+            in_batch_affinity=aff is not None)
         feas_limit = (
             num_feasible_nodes_device(
                 torch.sum(cluster.valid, dtype=torch.int32),
@@ -591,171 +775,27 @@ def make_sequential_scheduler(
             if percentage_of_nodes_to_score < 100  # 0 = adaptive
             else None
         )
-        rtc_xs, rtc_ys = (rtc_tables(score_cfg, dev) if w_rtc
-                          else (None, None))
+        rtc = rtc_tables(score_cfg, dev) if w_rtc else None
         # in-batch spread cross-matches (countMatchingPods AND semantics),
         # the same helper the speculative engine uses
         spread_match = pod_spread_match(pods, cluster.group_counts.shape[1])
-        spread_base = spread_counts(cluster, pods)            # [B, N]
-        zones = zone_layout(cluster, zone_key_id)
-        conflict_f = ports.conflict.to(torch.float32)
-        node_ids = torch.arange(N, device=dev)
-        requested = cluster.requested
-        nonzero2 = cluster.nonzero_req
-        port_used = torch.zeros((N, ports.pod_ports.shape[1]),
-                                dtype=torch.bool, device=dev)
-        hosts = torch.full((B,), -1, dtype=torch.int64, device=dev)
-        if nom is not None:
-            onehot_nom = (nom.node[:, None] == node_ids[None, :]).to(f32)
-            nom_live = nom.node >= 0                                # [K]
-        if aff is not None:
-            topo_t = cluster.topo_pairs.to(f32).T                 # [TP, N]
-            TP = topo_t.shape[0]
-            PT = pods.aff_term_pairs.shape[1]
-            AT = pods.anti_term_pairs.shape[1]
-            aff_kp = topology_key_pairs(pods.aff_term_topo_key, cluster)
-            anti_kp = topology_key_pairs(pods.anti_term_topo_key, cluster)
-            pref_kp = topology_key_pairs(aff.pref_topo_key, cluster)
-            # the pairs of the pods committed so far, per later pod
-            extra_aff = torch.zeros((B, PT, TP), dtype=torch.bool, device=dev)
-            extra_anti = torch.zeros((B, AT, TP), dtype=torch.bool,
-                                     device=dev)
-            extra_forb = torch.zeros((B, TP), dtype=torch.bool, device=dev)
-            extra_pref = torch.zeros((B, TP), dtype=f32, device=dev)
-        for b in range(B):
-            req = pods.req[b]
-            nz2 = pods.nonzero_req[b]
-            pport = ports.pod_ports[b]
-            # dynamic resource fit (PodFitsResources on current state)
-            fit = ~torch.any(
-                (req[None, :] > 0)
-                & (requested + req[None, :] > cluster.allocatable),
-                dim=-1,
-            )
-            if nom is not None:
-                # two-pass nominated evaluation (podFitsOnNode,
-                # generic_scheduler.go:598-664): pass one adds nominated
-                # pods with priority >= this pod's to their nominated node;
-                # the no-nominated pass is `fit` itself (resource fit is
-                # monotone, so pass one implies pass two here).  The claim
-                # sums whole request columns: exact in f32
-                w_nom = ((nom.prio >= pods.priority[b]) & nom_live).to(f32)
-                extra_nom = torch.einsum("k,kn,kr->nr", w_nom, onehot_nom,
-                                         nom.req)                   # [N, R]
-                fit_nom = ~torch.any(
-                    (req[None, :] > 0)
-                    & (requested + extra_nom + req[None, :]
-                       > cluster.allocatable),
-                    dim=-1,
-                )
-                fit = fit & fit_nom
-            # in-batch port conflicts: used claims x conflict matrix
-            claimed_conflict = (port_used.to(torch.float32) @ conflict_f) > 0
-            port_bad = torch.any(pport[None, :] & claimed_conflict, dim=-1)
-            mask = static_mask[b] & fit & ~port_bad
-            if aff is not None:
-                # MatchInterPodAffinity against (pre-batch | in-batch)
-                # pairs, and the IPA score's raw sums: the node hits of
-                # every term row, of the rows' topology keys and of the
-                # weights in one product with the topology (integer
-                # counts and sums: exact)
-                aff_pairs = pods.aff_term_pairs[b] | extra_aff[b]   # [PT, TP]
-                anti_pairs = pods.anti_term_pairs[b] | extra_anti[b]
-                forb = pods.forbidden_pairs[b] | extra_forb[b]      # [TP]
-                prefw = pods.pref_pair_weights[b] + extra_pref[b]
-                rows = torch.cat([
-                    aff_pairs.to(f32), aff_kp[b].to(f32),
-                    anti_pairs.to(f32), forb.to(f32)[None],
-                    prefw[None]])
-                hit = rows @ topo_t                                 # [K, N]
-                aff_hit = hit[:PT] > 0
-                node_has_key = hit[PT:2 * PT] > 0
-                anti_hit = hit[2 * PT:2 * PT + AT] > 0
-                viol1 = hit[2 * PT + AT] > 0
-                raw = hit[2 * PT + AT + 1]
-                any_match = torch.any(aff_pairs, dim=-1)            # [PT]
-                bootstrap = (~any_match[:, None]
-                             & pods.aff_term_self[b][:, None] & node_has_key)
-                term_ok = (aff_hit | bootstrap
-                           | ~pods.aff_term_valid[b][:, None])
-                aff_ok = torch.all(term_ok, dim=0)                  # [N]
-                viol2 = torch.any(
-                    anti_hit & pods.anti_term_valid[b][:, None], dim=0)
-                mask = mask & aff_ok & ~viol1 & ~viol2
-            # spread counts: pre-batch base + earlier in-batch commits whose
-            # pod covers this pod's selector set (integer sums: exact)
-            placed = hosts >= 0
-            extra = torch.zeros(N, dtype=torch.float32, device=dev)
-            extra.index_add_(0, torch.clamp_min(hosts, 0),
-                             spread_match[b] * placed)
-            least, most, balanced, spread, rtc = _dynamic_scores(
-                cluster, nz2, nonzero2, zone_key_id, spread_base[b] + extra,
-                rtc_xs, rtc_ys, need_most=bool(w_most), zones=zones)
-            # integer-valued addends: the weighted sum is exact in any
-            # order, and a zero-weight term adds exactly 0
-            total = static_score[b] + w_least * least
-            if w_most:
-                total = total + w_most * most
-            total = total + w_bal * balanced + w_spread * spread
-            if w_rtc:
-                total = total + w_rtc * rtc
-            if aff is not None:
-                # the IPA score over (pre-batch | in-batch) raw pair
-                # weights, renormalized per step
-                total = total + w_ipa * ipa_normalize(raw, cluster.valid)
-            last_idx = last_index0 + b
-            if feas_limit is not None:
-                # adaptive node sampling with the rotating start offset
-                mask = limit_feasible(mask, feas_limit, last_idx)
-            host, feasible = select_host(total, mask, last_idx, select_impl)
-            if tkq:
-                # the winner-pinned ranking and feasible count off the
-                # exact (mask, total, host) the selection used, the
-                # sampling cut included
-                q = select_topk(total, mask, host, feasible, tkq)
-                top_nodes[b] = q.top_nodes
-                top_scores[b] = q.top_scores
-                top_feas[b] = q.feasible
-            # commit
-            onehot = (node_ids == host) & feasible                # [N]
-            requested = requested + onehot[:, None] * req[None, :]
-            nonzero2 = nonzero2 + onehot[:, None] * nz2[None, :]
-            port_used = port_used | (onehot[:, None] & pport[None, :])
-            hosts[b] = torch.where(feasible, host.to(torch.int64), -1)
-            if aff is not None:
-                # predicateMetadata.AddPod analogue: the committed pod's
-                # topology pairs flow into later pods' affinity state
-                node_pairs = cluster.topo_pairs.index_select(
-                    0, host.reshape(1).to(torch.int64))[0] & feasible  # [TP]
-                extra_aff = extra_aff | (
-                    aff.aff_match[b][:, :, None] & aff_kp & node_pairs)
-                extra_anti = extra_anti | (
-                    aff.anti_match[b][:, :, None] & anti_kp & node_pairs)
-                # its anti terms forbid their domains to matching pods
-                keyed_anti = (anti_kp[b] & node_pairs).to(f32)    # [AT, TP]
-                extra_forb = extra_forb | (
-                    aff.anti_own[b].T.to(f32) @ keyed_anti > 0)
-                # hard-affinity symmetry: its required affinity terms add
-                # hard_w per matching later pod per pair
-                keyed_aff = (aff_kp[b] & node_pairs).to(f32)      # [PT, TP]
-                extra_pref = extra_pref + hard_w * (
-                    aff.aff_own[b].T.to(f32) @ keyed_aff)
-                # preferred terms, both directions: later pods' own terms
-                # that it matches, then its terms that match later pods
-                kp = (pref_kp & node_pairs).to(f32)               # [B, PP, TP]
-                extra_pref = extra_pref + torch.einsum(
-                    "it,itp->ip",
-                    aff.pref_match[b].to(f32) * aff.pref_weight, kp)
-                keyed_pref = (pref_kp[b] & node_pairs).to(f32)    # [PP, TP]
-                extra_pref = extra_pref + torch.einsum(
-                    "ti,t,tp->ip", aff.pref_own[b].to(f32),
-                    aff.pref_weight[b], keyed_pref)
+        weights5 = (w_least, w_most, w_bal, w_spread, w_rtc)
+        if on_k13:
+            # the whole scan in one launch of K13
+            hosts, requested, nonzero2, top = kernels.seq_scan(
+                cluster, pods, ports, static_mask, static_score,
+                spread_match, nom, feas_limit, rtc, weights5, zone_key_id,
+                last_index0, tkq, extra_mask, extra_score)
+        else:
+            hosts, requested, nonzero2, top = scan_plain(
+                cluster, pods, ports, static_mask, static_score,
+                spread_match, nom, feas_limit, rtc, weights5, zone_key_id,
+                last_index0, tkq, select_impl, aff, (w_ipa, hard_w))
         new_cluster = dataclasses.replace(
             cluster, requested=requested, nonzero_req=nonzero2)
         if tkq:
-            return (hosts.to(torch.int32), new_cluster,
-                    TopKQuality(top_nodes, top_scores, top_feas))
-        return hosts.to(torch.int32), new_cluster
+            return hosts, new_cluster, TopKQuality(*top)
+        return hosts, new_cluster
 
     def schedule_entry(cluster, pods, ports, last_index0, nominated=None,
                        extra_mask=None, extra_score=None, aff_state=None):

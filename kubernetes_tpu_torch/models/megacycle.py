@@ -30,10 +30,9 @@ Each window runs the port's single-cycle engine as it is
 (models/speculative.py or models/batched.py), so a megacycle of K windows
 places exactly as K chained single cycles by construction.  Where the JAX
 reference scans the windows inside one jitted program, the port's windows
-are a host loop over eager device work: between windows nothing is
-fetched and nothing is copied to the host, but the speculative engine
-keeps its own host sync once a round (`while c["active"].any()`) and its
-host-checked contention redo, as in the single cycle.  The carry never
+are a host loop over device work: between windows nothing is fetched and
+nothing is copied to the host (a plain window of the speculative engine is
+one CUDA graph, its rounds and redo decided on the card).  The carry never
 aliases a tensor that is written in place: the engines return new
 requested/nonzero tensors and K6 writes a fresh group_counts, so the live
 scheduler's resident snapshot (refreshed in place by the dirty-row

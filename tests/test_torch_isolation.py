@@ -166,7 +166,29 @@ def test_kernel_sources_and_build_settings():
                                                    "ffd_order.cu",
                                                    "reconcile_admit.cu",
                                                    "filter_pass.cu",
-                                                   "score_pass.cu"}
+                                                   "score_pass.cu",
+                                                   "seq_scan.cu",
+                                                   "round_fold.cu",
+                                                   "round_commit.cu",
+                                                   "round_graph.cu"}
+    # the headers the kernels share sit beside them (load() compiles the
+    # .cu files only; each includes its headers by name)
+    here = os.path.join(PKG, "kernels")
+    for header, users in (
+            ("priority_math.cuh", ("score_pass.cu", "seq_scan.cu",
+                                   "round_fold.cu")),
+            ("select_row.cuh", ("select_hosts.cu", "select_topk.cu",
+                                "seq_scan.cu")),
+            ("label_select.cuh", ("filter_pass.cu", "score_pass.cu"))):
+        assert os.path.exists(os.path.join(here, header)), header
+        for src in users:
+            with open(os.path.join(here, src)) as f:
+                assert f'#include "{header}"' in f.read(), (src, header)
+    # the new case modules are numpy only, like the others
+    for mod in ("k13_cases.py", "k14_cases.py"):
+        with open(os.path.join(here, mod)) as f:
+            text = f.read()
+        assert "import jax" not in text and "kubernetes_tpu." not in text
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.CUDA_FLAGS
     assert "--use_fast_math" not in _build.CUDA_FLAGS
     assert os.path.basename(_build.BUILD_DIR) == ".torch_ext_build"
