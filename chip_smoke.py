@@ -29,16 +29,18 @@ printing one line of numbers; any failure exits non-zero with no result:
      batch's CUDA graph;
   6. the phase-3 winners against tests/data/torch_port_golden_plain.npz,
      the JAX speculative engine's winners for the same workload;
-  7. torch.profiler over one warm speculative call of the plain cell (one
-     round, as one CUDA graph: its round body's kernels, K11, K12, K15,
-     K1 and K14's two launches, and its two condition kernels, counted
-     apart from the batch's setup operations; one K11, at least one K12,
-     one K15 and two K14 launches, or the phase fails), then the same call
-     under torch.cuda.set_sync_debug_mode("error"), which fails the phase
-     on any host sync; the redo's step as K13's microseconds a step
-     (phase K13); one warm round of the pod-anti-affinity cell (the share
-     of the affinity einsums and matmuls) and one sequential step with the
-     affinity carry;
+  7. torch.profiler over one warm speculative call of the plain cell and
+     one of the pod-anti-affinity cell (one round each, as one CUDA graph:
+     its round body's kernels, K11, K12, K15, K1 and K14's two launches,
+     and for the affinity batch K16 once before the loop and once in the
+     round, and its two condition kernels, counted apart from the batch's
+     setup operations; one K11, at least one K12, one K15 and two K14
+     launches, or the phase fails; the einsums' and matmuls' share), then
+     each call under torch.cuda.set_sync_debug_mode("error"), which fails
+     the phase on any host sync; the redo's steps as K13's microseconds a
+     step (phases K13 and K13 affinity); then both engines run an
+     affinity batch at full width with every twin and pair product
+     (`pair_hits`, the round's and the scan's twins) made to raise;
  K13. the sequential scan (seq_scan.cu) against its twin: the sequential
      engine through K13 and through the step loop (models/batched.py
      scan_plain) on the card, bit for bit, on every case of
@@ -54,28 +56,47 @@ printing one line of numbers; any failure exits non-zero with no result:
      step of the function needs times the card's stage floor; the
      barriers the kernel passes a step are printed beside) and the twin's
      seconds;
+ K13 affinity. K13's affinity mode (the in-batch pair state carried
+     through the scan, the IPA score) against its twin: the sequential
+     engine through K13 and through scan_plain on every affinity case of
+     kernels/k14_cases.py; then the affinity redo's batch at full width
+     (2,048 pod-anti-affinity pods on the 2-slot fleet): the kernel
+     against scan_plain on the same inputs, its times and microseconds a
+     step beside its bound and the twin's seconds;
  K14 K15. the speculative round's kernels (round_commit.cu,
-     round_fold.cu) against their twins: the speculative engine through
-     the graph and through the twins on the card, bit for bit, rounds and
-     redo flags included, on every case of kernels/k14_cases.py; then one
-     full-width round (bench fleet, with and without top-3, the 2-slot
-     fleet, and a 1-slot fleet whose pods prefer a third of the nodes, so
-     the round bounces pods: accepted-only recheck, emask ban, inv): K15
-     against round_fold_plain and K14 against
-     round_commit_plain on the same inputs, their times beside their
-     bytes bounds and an empty launch;
+     round_fold.cu, and round_pairs.cu for an affinity batch) against
+     their twins: the speculative engine through the graph and through
+     the twins on the card, bit for bit, rounds and redo flags included,
+     on every case of kernels/k14_cases.py, its affinity cases included
+     (K16 once a round and once a batch); then one full-width round
+     (bench fleet, with and without top-3, the 2-slot fleet, a 1-slot
+     fleet whose pods prefer a third of the nodes, so the round bounces
+     pods: accepted-only recheck, emask ban, inv; and the
+     pod-anti-affinity cell's first round through the affinity modes):
+     K15 against round_fold_plain and K14 against round_commit_plain on
+     the same inputs, their times beside their bytes bounds and an empty
+     launch;
+ K16. the pair commit and bootstrap gate (round_pairs.cu) against its twin
+     round_pairs_plain on every case of kernels/k16_cases.py (the commit
+     with the gate, the gate alone), then at full width on the
+     pod-anti-affinity cell's first round (every valid pod accepted), its
+     times beside its bytes bound;
   8. scheduler_perf's pod-anti-affinity workload at full width with 1,000
-     running pods: winners equal to
-     tests/data/torch_port_golden_pod_anti_affinity.npz, and a numpy
-     recount finds no two pods of one app on a node;
+     running pods, each batch one CUDA graph (K11, K12, K15, K1, K14 and
+     K16 a round; K1 once a round, K16 once a round and once a batch):
+     winners equal to tests/data/torch_port_golden_pod_anti_affinity.npz,
+     and a numpy recount finds no two pods of one app on a node;
   9. the pod-affinity workload: winners equal to
      tests/data/torch_port_golden_pod_affinity.npz, the golden's rounds
      (the group founders bootstrap in round 1 of the first batch), and
      every pod's zone holds another pod of its app;
  10. the affinity redo: pod-anti-affinity on the 2-slot fleet, where the
      hybrid check redoes batches through the sequential engine with the
-     affinity carry: K1 launched once a round at B=2,048 plus once a
-     sequential step at B=1, and the anti-affinity recount;
+     affinity carry: winners equal to
+     tests/data/torch_port_golden_affinity_redo.npz (the JAX speculative
+     engine's), its rounds, one CUDA graph a batch, K1 launched once a
+     round, K16 once a round and once a batch, K13 once a redone batch,
+     and the anti-affinity recount;
  11. the live cycle: loop.run_live (the port of bench.py run_live) through
      the port's Scheduler at full width, speculative engine, batched and
      pipelined commit: its 12,048 bindings (warmup included) and their
@@ -184,18 +205,24 @@ printing one line of numbers; any failure exits non-zero with no result:
      labels, wildcard tolerations and PAD effects, wildcard host IPs, CSI
      per-driver columns, profile subsets, label presence and service
      affinity, padding rows, N not a multiple of 4, non-lean affinity and
-     volume terms): the stack, the mask, and filter_batch's need_per mask
-     (the stack folded by K7); then its times on the bench fleet at [1,
-     6,144] in stack mode (the sidecar's) and [2,048, 6,144] in mask mode
-     (the engines') with L2 cold and warm, beside its bound (bytes and
-     operations from the shapes), an empty launch and its twin's;
+     volume terms) and on the encoder-made affinity batches of
+     k14_cases.py (the pair terms gathered over each node's pairs): the
+     stack, the mask, and filter_batch's need_per mask (the stack folded
+     by K7); the node-pair table's kernel (node_pair_build) against its
+     twin at full width, and its time; then its times on the bench fleet
+     at [1, 6,144] in stack mode (the sidecar's), [2,048, 6,144] in mask
+     mode (the engines') and on the pod-anti-affinity batch in mask mode,
+     with L2 cold and warm, beside its bound (bytes and operations from
+     the shapes), an empty launch and its twin's;
  K12. the score pass (score_pass.cu) against its plain twin, bit for bit,
      on every case of kernels/k12_cases.py (stock, every-priority and a
      Policy's weights, skip_zero_weight, shipped and group-column spread
      counts, no zones, zero maxima, InterPodAffinity with and without
      spread, ImageLocality's clamps, RTC's ends, a snapshot past one
-     block's shared memory), the total and every row with need_per and the
-     total without; then its times at [1, 6,144] and [2,048, 6,144];
+     block's shared memory) and on the encoder-made affinity batches, the
+     total and every row with need_per and the total without; then its
+     times at [1, 6,144], [2,048, 6,144] and on the pod-anti-affinity
+     batch at the stock weights (its IPA sums gathered);
  18. the extender sidecar: the port's ExtenderServer on the card driven
      over HTTP on 127.0.0.1 by loop.drive_extender as a stock
      kube-scheduler with NodeCacheCapable: true drives it (the bench
@@ -285,13 +312,14 @@ run launched K11 and K12, and K7 once for every K11 stack (stack mode:
 the sidecar's requests, the preemption candidates); phase 7's round
 profile reports K11's and K12's device ms and share.
 
-Phases K13 and K14 K15 run after 10 and before 7.  Every launch count is
-read through kernels.settle_launches(): a CUDA graph's body kernels count
-once a round, from the card's round count, after the graph ran.
+Phases K13, K13 affinity, K14 K15 and K16 run after 10 and before 7.
+Every launch count is read through kernels.settle_launches(): a CUDA
+graph's body kernels count once a round, from the card's round count,
+after the graph ran.
 
-Then the card's name and power limit, the kernels' JSON record (K1-K15;
-K1's, K11's to K15's launches in each cell among their keys) and the
-device line.
+Then the card's name and power limit, the kernels' JSON record (K1-K16
+and the node-pair table's kernel; K1's, K11's to K16's launches in each
+cell among their keys) and the device line.
 """
 
 from __future__ import annotations
@@ -763,11 +791,17 @@ def _is_k15(name: str) -> bool:
     return "k15_round_fold" in name
 
 
+def _is_k16(name: str) -> bool:
+    return "k16_round_pairs" in name
+
+
 def _is_round_kernel(name: str) -> bool:
-    """A kernel of the plain round's graph body (K11, K12, K15, K1, K3,
-    K14) or of its condition nodes."""
+    """A kernel of a round's graph body (K11, K12, K15, K1, K3, K14, and
+    K16 for an affinity batch, with its launch before the loop) or of its
+    condition nodes."""
     return (_is_k1(name) or _is_k11(name) or _is_k12(name)
-            or _is_k14(name) or _is_k15(name) or "k3_select_topk" in name
+            or _is_k14(name) or _is_k15(name) or _is_k16(name)
+            or "k3_select_topk" in name
             or "graph_init_kernel" in name or "graph_flag_kernel" in name)
 
 
@@ -822,15 +856,19 @@ def _engine(make, fleet, pods, B, existing=0, device="cuda"):
     pb, ports = enc.encode_pods(batch), encode_batch_ports(enc, batch)
     state = transfer.upload_cluster(enc.snapshot(), device)
     run = lambda: fn(state, pb, ports, 0, aff_state=aff)   # noqa: E731
+    # the same call on another snapshot, and a fresh upload of the fleet
+    run.on = lambda st: fn(st, pb, ports, 0, aff_state=aff)
+    run.snapshot = lambda: transfer.upload_cluster(
+        build_encoder(fleet, existing).snapshot(), device)
     run()                                                   # warm
     return run, fn
 
 
 def _round_line(label, run, fn, out: dict, graph: bool = False) -> str:
-    """One profiled warm speculative call whose batch takes one round; with
-    graph, the plain batch's CUDA graph: its round body (K11, K12, K15,
-    K1, K14's two launches) and condition kernels counted apart from the
-    batch's setup operations."""
+    """One profiled warm speculative call whose batch takes one round, as
+    its CUDA graph: its round body (K11, K12, K15, K1, K14's two launches,
+    and for an affinity batch K16, with its launch before the loop) and
+    condition kernels counted apart from the batch's setup operations."""
     prof, wall, dev = _profiled(run)
     check(int(fn.last_rounds) == 1 and not bool(fn.last_redo),
           f"7 profile: the {label} batch took {int(fn.last_rounds)} rounds")
@@ -847,6 +885,7 @@ def _round_line(label, run, fn, out: dict, graph: bool = False) -> str:
     rk = [ms for n, _, ms in dev if _is_round_kernel(n)]
     k14 = [ms for n, _, ms in dev if _is_k14(n)]
     k15 = [ms for n, _, ms in dev if _is_k15(n)]
+    k16 = [ms for n, _, ms in dev if _is_k16(n)]
     if graph:
         check(len(k14) == 2 and len(k15) == 1,
               f"7 profile: the {label} graph launched K14 {len(k14)} times "
@@ -857,11 +896,23 @@ def _round_line(label, run, fn, out: dict, graph: bool = False) -> str:
                   "k11_ms": sum(k11), "k12_launches": len(k12),
                   "k12_ms": sum(k12), "round_kernels": len(rk),
                   "round_kernels_ms": sum(rk), "k14_ms": sum(k14),
-                  "k15_ms": sum(k15), "setup_ops": len(dev) - len(rk)}
+                  "k15_ms": sum(k15), "k16_launches": len(k16),
+                  "k16_ms": sum(k16), "setup_ops": len(dev) - len(rk),
+                  "setup_ms": dev_ms - sum(rk)}
+    # the setup's copies by direction: the batch's upload (host to
+    # device) and the carry's copies on the card
+    h2d = sum(ms for n, _, ms in dev if n.startswith("Memcpy HtoD"))
+    d2d = sum(ms for n, _, ms in dev if n.startswith("Memcpy DtoD"))
+    copy_k = sum(ms for n, _, ms in dev if "copy" in n.lower()
+                 and not n.startswith("Memcpy"))
+    out[label].update(h2d_ms=h2d, d2d_ms=d2d, copy_kernels_ms=copy_k)
     where = (f"graph kernels (round body and conditions) {len(rk)} "
              f"round_device_ms {sum(rk):.4f} K15_ms {sum(k15):.4f} K14 "
-             f"launches {len(k14)} K14_ms {sum(k14):.4f} setup ops "
-             f"{len(dev) - len(rk)} " if graph else "")
+             f"launches {len(k14)} K14_ms {sum(k14):.4f} K16 launches "
+             f"{len(k16)} K16_ms {sum(k16):.4f} setup ops "
+             f"{len(dev) - len(rk)} setup_ms {dev_ms - sum(rk):.4f} (H2D "
+             f"copies {h2d:.4f}, D2D copies {d2d:.4f}, copy kernels "
+             f"{copy_k:.4f}) " if graph else "")
     return (f"{label} round (B={BATCH}, 1 round): wall_ms {wall * 1e3:.3f} "
             f"device_ms {dev_ms:.3f} idle_share "
             f"{1 - dev_ms / (wall * 1e3):.3f} kernels {kern} copies "
@@ -875,24 +926,44 @@ def _round_line(label, run, fn, out: dict, graph: bool = False) -> str:
             f"{mm / dev_ms:.4f} | top: {_top_ops(prof, dev)}")
 
 
-def _step_line(label, run, step_wall_ms, B, out: dict) -> str:
-    """The sequential steps of one profiled call: a step is what runs from
-    one K1 launch to the next (the median over the batch's steps)."""
-    prof, _, dev = _profiled(run)
-    at = [i for i, d in enumerate(dev) if _is_k1(d[0])]
-    if len(at) < 3:
-        return (f"{label} step: not measured ({len(at)} K1 launches in the "
-                f"profile)")
-    steps = [_split(dev[i:j]) for i, j in zip(at, at[1:])]
-    kern, copies, dev_ms, k1_n, k1_ms = (
-        float(np.median([s[c] for s in steps])) for c in range(5))
-    out[label] = {"wall_ms": step_wall_ms, "device_ms": dev_ms,
-                  "kernels": kern, "k1_launches": k1_n}
-    return (f"{label} sequential step (median of {len(steps)}, B={B}): "
-            f"wall_ms {step_wall_ms:.4f} device_ms {dev_ms:.4f} idle_share "
-            f"{1 - dev_ms / step_wall_ms:.3f} kernels {kern:.0f} copies "
-            f"{copies:.0f} K1 launches {k1_n:.0f} K1_ms {k1_ms:.4f} | "
-            f"top ({B}-pod batch): {_top_ops(prof, dev)}")
+# the twins and pair products no path of the port may reach on the card
+TWINS = (("ops.predicates", "pair_hits"), ("ops.predicates",
+                                           "exact_bool_matmul"),
+         ("ops.predicates", "node_pair_table_plain"),
+         ("ops.predicates", "filter_batch_plain"),
+         ("ops.predicates", "predicate_stack_plain"),
+         ("ops.priorities", "score_batch_plain"),
+         ("models.batched", "scan_plain"), ("models.batched",
+                                            "ipa_normalize"),
+         ("models.speculative", "round_fold_plain"),
+         ("models.speculative", "round_commit_plain"),
+         ("models.speculative", "round_pairs_plain"))
+
+
+def _no_twin(runs, label: str) -> None:
+    """Each run() with every twin of TWINS made to raise (put back after):
+    an engine call that reaches a pair product or a twin on the card
+    fails the phase."""
+    import importlib
+
+    def refuse(*a, **k):
+        raise AssertionError("a twin ran on the card")
+
+    held = []
+    for mod, name in TWINS:
+        m = importlib.import_module("kubernetes_tpu_torch." + mod)
+        held.append((m, name, getattr(m, name)))
+        setattr(m, name, refuse)
+    try:
+        for what, run in runs:
+            try:
+                run()
+                torch.cuda.synchronize()
+            except AssertionError as e:
+                fail(f"{label}: {what} reached a twin on the card: {e}")
+    finally:
+        for m, name, f in held:
+            setattr(m, name, f)
 
 
 def _timed(run) -> float:
@@ -917,23 +988,27 @@ def _no_sync(run, label: str) -> None:
     torch.cuda.synchronize()
 
 
-def phase_profile(nodes, tight, pods, anti_pods, k13: dict,
+def phase_profile(nodes, tight, pods, anti_pods, k13: dict, k13a: dict,
                   device="cuda") -> dict:
     """Where the device time goes: one warm speculative call of the plain
-    cell (its CUDA graph: the round body, the condition kernels and the
-    batch's setup counted apart; then the same call once more under
-    set_sync_debug_mode("error"), which must pass) and of the
-    pod-anti-affinity cell (each batch takes one round); the plain redo's
-    step is K13's microseconds a step (phase K13: there is no launch a step
-    to cut at), the affinity redo's the sequential steps of a 2,048-pod
-    batch over its steps (the carry's width is the batch's),
-    unprofiled."""
+    cell and one of the pod-anti-affinity cell (each batch takes one
+    round), each as its CUDA graph: the round body, the condition kernels
+    and the batch's setup counted apart; then each call once more under
+    set_sync_debug_mode("error"), which must pass, and the
+    pod-anti-affinity call on a snapshot it has not seen (its upload made
+    the node-pair table; the call must launch no node_pair_build).  The
+    redo's step is
+    K13's microseconds a step (phases K13 and K13 affinity: there is no
+    launch a step to cut at).  Then both engines run an affinity batch at
+    full width (the pod-anti-affinity batch through the speculative one,
+    the 2-slot fleet's through the sequential one) with every twin and
+    pair product made to raise (_no_twin)."""
     from kubernetes_tpu_torch.models.batched import make_sequential_scheduler
     from kubernetes_tpu_torch.models.speculative import (
         make_speculative_scheduler,
     )
 
-    spec, seq = make_speculative_scheduler, make_sequential_scheduler
+    spec = make_speculative_scheduler
     out: dict = {}
     from kubernetes_tpu_torch import kernels
 
@@ -955,19 +1030,58 @@ def phase_profile(nodes, tight, pods, anti_pods, k13: dict,
                  f"on the host: prepare {b['prepare']:.3f}, capture "
                  f"{b['capture']:.3f}, end and instantiate "
                  f"{b['instantiate']:.3f}")
-    lines.append(_round_line("pod-anti-affinity", *_engine(
-        spec, nodes, anti_pods, BATCH, EXISTING_ANTI, device), out))
+    run, fn = _engine(spec, nodes, anti_pods, BATCH, EXISTING_ANTI, device)
+    lines.append(_round_line("pod-anti-affinity", run, fn, out, graph=True))
+    _no_sync(run, "7 sync (pod-anti-affinity)")
+    # a snapshot the engine has not seen: its upload made the node-pair
+    # table, the engine call only reads it
+    cold = run.snapshot()
+    torch.cuda.synchronize()
+    built = kernels.settle_launches()["node_pair_build"]
+    _no_sync(lambda: run.on(cold), "7 sync (pod-anti-affinity, a cold "
+             "snapshot)")
+    check(kernels.settle_launches()["node_pair_build"] == built,
+          "7 sync: the engine call built the node-pair table")
+    # both engines on an affinity batch at full width, the twins refused:
+    # the speculative one here, the sequential one on the affinity redo's
+    # 2-slot fleet (K13's affinity mode)
+    seq_run, _ = _engine(make_sequential_scheduler, tight, anti_pods, BATCH,
+                         device=device)
+    _no_twin((("the speculative engine", run),
+              ("the sequential engine", seq_run)), "7 no twin")
+    walls = sorted(_timed(run) * 1e3 for _ in range(10))
+    out["anti_wall_ms"] = walls[len(walls) // 2]
+    lines.append(f"pod-anti-affinity graph call under "
+                 f"set_sync_debug_mode('error'), warm and on a cold "
+                 f"snapshot: no host sync; both engines "
+                 f"on an affinity batch with the twins refused | "
+                 f"unprofiled, the median of 10 warm calls: wall_ms "
+                 f"{out['anti_wall_ms']:.3f} (min {walls[0]:.3f})")
     out["redo"] = {"us_a_step": k13["us_a_step"], "ms": k13["ms"]}
+    out["affinity_redo"] = {"us_a_step": k13a["us_a_step"],
+                            "ms": k13a["ms"]}
     lines.append(f"redo sequential step: K13 {k13['us_a_step']:.3f} us a "
                  f"step (one launch of {BATCH} steps, {k13['ms']:.3f} ms "
-                 f"cold; phase K13)")
-    run, _ = _engine(seq, tight, anti_pods, BATCH, device=device)
-    wall = _timed(run) / BATCH * 1e3
-    run, _ = _engine(seq, tight, anti_pods, 256, device=device)
-    lines.append(_step_line("affinity redo", run, wall, 256, out)
-                 + f" (wall_ms at B={BATCH})")
+                 f"cold; phase K13) | affinity redo step: K13's affinity "
+                 f"mode {k13a['us_a_step']:.3f} us a step ({k13a['ms']:.3f} "
+                 f"ms cold; phase K13 affinity)")
     print("[7 profile] " + " || ".join(lines), flush=True)
     return out
+
+
+def _affinity_launched(label: str, res: dict, launches: dict) -> None:
+    """An affinity cell's launches: each batch one CUDA graph, K1 once a
+    round (no step at B = 1), K16 once a round and once a batch (the first
+    round's gate), K13 once a redone batch."""
+    rounds, batches = sum(res["rounds"]), len(res["rounds"])
+    check(launches["round_graph"] == batches
+          and launches["select_hosts"] == rounds
+          and launches["select_hosts_b1"] == 0
+          and launches["round_pairs"] == rounds + batches
+          and launches["seq_scan"] == res["redos"],
+          f"{label}: {launches} launches, not one graph a batch ({batches}),"
+          f" K1 once a round ({rounds}), K16 once a round and once a batch "
+          f"and K13 once a redone batch ({res['redos']})")
 
 
 def _check_golden(label, workload, res, nodes=None, pods=None):
@@ -1957,6 +2071,23 @@ def _charge(cost, alive: torch.Tensor) -> float:
     return total
 
 
+def _used_pairs(ct) -> int:
+    """The distinct topology pairs the snapshot's valid nodes lie in (the
+    node-pair table's entries): the entries of a pair row that a gather
+    over the valid nodes reads."""
+    from kubernetes_tpu_torch.ops.predicates import node_pair_table
+
+    t = node_pair_table(ct).table[ct.valid]
+    return int(torch.unique(t[t >= 0]).numel())
+
+
+def _table_bytes(ct) -> int:
+    """The node-pair table's rows of the valid nodes, 4 bytes a slot."""
+    from kubernetes_tpu_torch.ops.predicates import node_pair_table
+
+    return int(ct.valid.sum()) * node_pair_table(ct).table.shape[1] * 4
+
+
 # K11's walk over the predicates (filter_pass.cu eval_node), by
 # PREDICATE_ORDER index: the node-only flags, the resource and volume
 # rows, ports, disks, taints, the label rows, the selector, the
@@ -1973,14 +2104,18 @@ def _k11_costs(ct, pb, cfg, offsets) -> dict:
     against the node's label slots in use, its valid ports against the
     node's used ports, its disk ids against the node's, its valid
     tolerations against the node's NoSchedule / NoExecute taints, its
-    nonzero requests and volume counts, its valid pair terms (one hit
-    compare each); one operation for a predicate's verdict.  The
-    GeneralPredicates parts (host, resources, ports, selector) are charged
-    where they are computed, once."""
+    nonzero requests and volume counts, its valid pair terms (a gather
+    over the node's KT topology key slots each: a slot read and its test,
+    a row byte read and its test, 4 int32 operations a slot; the
+    bootstrap's key check 2); one operation for a predicate's verdict.
+    The GeneralPredicates parts (host, resources, ports, selector) are
+    charged where they are computed, once."""
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.codec.schema import PAD
+    from kubernetes_tpu_torch.ops.predicates import node_pair_table
 
     B, N = pb.n_pods, ct.n_nodes
+    gather = (4.0 * node_pair_table(ct).table.shape[1] if offsets else 0.0)
     P = _pairs
     labels_n = _count(ct.label_keys)
     enabled, _, presence, svc = kernels._filter_config(
@@ -2007,7 +2142,7 @@ def _k11_costs(ct, pb, cfg, offsets) -> dict:
     for k, name, valid in ((17, "vb", pb.vol_bind_valid),
                            (18, "vz", pb.vol_zone_valid)):
         hits = _count(valid) if offsets.get(name, -1) >= 0 else 0.0
-        costs[k] = (P(pod=2.0 if k == 17 else 1.0), P(pod=hits))
+        costs[k] = (P(pod=(2.0 if k == 17 else 1.0) + gather * hits), zero)
     costs[4] = (P(pod=1.0, pod_x=5.0 * _count(pb.port_valid),
                   node_x=_count(ct.port_used)), zero)
     costs[7] = (P(pod=1.0, pod_x=_count(pb.disk_vol_ids),
@@ -2033,8 +2168,9 @@ def _k11_costs(ct, pb, cfg, offsets) -> dict:
     costs[5] = (P(pod=1.0 + vals, pod_x=lookups, node_x=labels_n), zero)
     costs[2] = (P(pod=4.0), zero)
     if offsets.get("aff", -1) >= 0:
-        costs[22] = (P(pod=1.0), P(pod=1.0 + _count(pb.anti_term_valid)
-                                   + 2.0 * _count(pb.aff_term_valid)))
+        terms = 1.0 + _count(pb.anti_term_valid) + _count(pb.aff_term_valid)
+        costs[22] = (P(pod=1.0 + gather * terms
+                       + 2.0 * _count(pb.aff_term_valid)), zero)
     else:
         costs[22] = (P(pod=1.0), zero)
     if not on(8) and on(9):
@@ -2047,9 +2183,10 @@ def _k11_costs(ct, pb, cfg, offsets) -> dict:
 
 
 def _k11_bound(ct, pb, cfg, stack: bool, stack_rows=None) -> dict:
-    """K11's least time on these inputs: the fields it binds and the hits
-    rows read once, the output written once (1 byte a pair, 23 with the
-    stack), over the memory rate; against its operations (_k11_costs),
+    """K11's least time on these inputs: the fields it binds, the pair rows
+    it gathers from and the node-pair table read once, the output written
+    once (1 byte a pair, 23 with the stack), over the memory rate; against
+    its operations (_k11_costs),
     the int32 compares over the int32 rate and the f32 ones over the f32
     rate, the two pipes side by side.  Stack mode evaluates every pair;
     mask mode skips a pair whose node or pod is padding and stops a
@@ -2057,10 +2194,10 @@ def _k11_bound(ct, pb, cfg, stack: bool, stack_rows=None) -> dict:
     twin's stack of these inputs)."""
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.kernels import k1_bench
-    from kubernetes_tpu_torch.ops.predicates import pair_hits
+    from kubernetes_tpu_torch.ops.predicates import pair_rows
 
     B, N = pb.n_pods, ct.n_nodes
-    hits, offsets = pair_hits(ct, pb)
+    rows, offsets = pair_rows(ct, pb)
     costs = _k11_costs(ct, pb, cfg, offsets)
     alive = (torch.ones((B, N), dtype=torch.bool, device=ct.valid.device)
              if stack else pb.valid[:, None] & ct.valid[None])
@@ -2076,8 +2213,26 @@ def _k11_bound(ct, pb, cfg, stack: bool, stack_rows=None) -> dict:
     skip = () if pb.vol_overlap.shape[-1] == N else ("vol_overlap",)
     keep = {s[0] for s in kernels._K11_ARGS} - set(skip)
     in_bytes = _arg_bytes(kernels._K11_ARGS, ct, pb, keep)
-    if hits is not None:
-        in_bytes += hits.numel() * 4
+    if rows:
+        # each valid term's row (one forbidden row a pod) at the pairs the
+        # valid nodes lie in, what the gather reads; each valid affinity
+        # term's row up to its first pair for the block's "matches any
+        # pair" flag, the whole row when it has none; the table's valid
+        # rows; the affinity terms' key slots (4 bytes a term) in place of
+        # the key rows.  Mask mode reads the valid pods' rows only.
+        pods = (torch.ones_like(pb.valid) if stack else pb.valid)[:, None]
+        valid = {"forb": pods, "anti": pb.anti_term_valid,
+                 "aff": pb.aff_term_valid, "vz": pb.vol_zone_valid,
+                 "vb": pb.vol_bind_valid}
+        terms = sum(int((valid[n] & pods).sum()) for n in offsets
+                    if n != "key")
+        in_bytes += terms * _used_pairs(ct) + _table_bytes(ct)
+        if "aff" in offsets:
+            a = pb.aff_term_pairs
+            upto = torch.where(a.any(-1), a.int().argmax(-1) + 1,
+                               a.shape[-1])
+            in_bytes += int(upto[pb.aff_term_valid & pods].sum())
+            in_bytes += pb.aff_term_topo_key.numel() * 4
     out = B * N * (23 if stack else 1)
     bytes_ms = (in_bytes + out) / k1_bench.HBM_BYTES_PER_S * 1e3
     ops_ms = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
@@ -2109,7 +2264,8 @@ def _k12_bound(ct, pb, weights, all_rows: bool, need_per: bool, zone_key,
                score_cfg=None) -> dict:
     """K12's least time on these inputs for the rows this call computes
     (every row with all_rows, else the nonzero weights'): the fields those
-    rows read, the IPA sums when the batch has them, the zone index's reads
+    rows read, the pods' preferred pair weights and the node-pair table
+    when the IPA row gathers over them, the zone index's reads
     (the pair keys, and each node's zone-pair columns up to its zone pair)
     and the total (with need_per the 12 rows too) written once, over the
     memory rate; against its operations, counting only the entries that hold something (the pod's
@@ -2136,7 +2292,13 @@ def _k12_bound(ct, pb, weights, all_rows: bool, need_per: bool, zone_key,
         ints.append(P(pod=2.0 * groups if lean_spread else 0.0))
         f32s.append(P(pod=groups + 14.0))
     if ipa:
-        f32s.append(P(node=7.0 * ct.valid.double()))
+        from kubernetes_tpu_torch.ops.predicates import node_pair_table
+
+        kt = float(node_pair_table(ct).table.shape[1])
+        # the raw sum twice (the extremes, then the score): per slot a
+        # table read, its test, a weight read (int32) and an add (f32)
+        ints.append(P(node=6.0 * kt * ct.valid.double()))
+        f32s.append(P(node=(7.0 + 2.0 * kt) * ct.valid.double()))
     if 2 in rows or 8 in rows:
         f32s.append(P(pod=4.0 + 12.0 * (2 in rows) + 10.0 * (8 in rows)))
     if 3 in rows:
@@ -2176,7 +2338,9 @@ def _k12_bound(ct, pb, weights, all_rows: bool, need_per: bool, zone_key,
         keep.discard("spread_counts")
     in_bytes = _arg_bytes(kernels._K12_ARGS, ct, pb, keep)
     if ipa:
-        in_bytes += B * N * 4
+        # each pod's weights at the pairs the valid nodes lie in (what the
+        # gather reads) and the table's valid rows
+        in_bytes += B * _used_pairs(ct) * 4 + _table_bytes(ct)
     if 0 in rows:
         # the zone index: the zone pairs' columns, found once from the pair
         # keys, of each node's pair row up to its zone pair; the index
@@ -2206,6 +2370,56 @@ def _case_tensors(case, device="cuda"):
     pb = ts.PodBatch(**{k: torch.from_numpy(np.array(v))
                         for k, v in case["pods"].items()})
     return ts.cluster_to_torch(ct, device), ts.pods_to_torch(pb, device)
+
+
+def _encoded_affinity_cases():
+    """The encoder-made affinity batches of kernels/k14_cases.py (its
+    random worlds are k11_cases' already)."""
+    from kubernetes_tpu_torch.kernels import k14_cases
+
+    return [(n, c) for n, c in k14_cases.affinity_cases()
+            if not n.startswith("aff-")]
+
+
+def _node_pair_build_timing(ct) -> dict:
+    """The node-pair table's kernel (filter_pass.cu node_pair_build)
+    against its twin on one snapshot, writing over a table filled with
+    garbage, and the table the upload made (cluster_to_torch) against the
+    twin; then the launch's times alone (into a table allocated before,
+    no read-back) with L2 cold and warm, beside its bytes bound (the
+    topology rows and the pair keys read once, the table written once)
+    and its twin's; and the host's share of the upload (the keys, the
+    slots and the check on the host arrays, host clock, best of 3)."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k1_bench
+    from kubernetes_tpu_torch.ops import predicates as tp
+
+    topo, ptk = ct.topo_pairs.cpu().numpy(), ct.pair_topo_key.cpu().numpy()
+    host = []
+    for _ in range(3):
+        t = time.perf_counter()
+        keys, slot = tp.pair_key_slots(ptk)
+        tp.check_node_pairs(topo, slot, keys.size)
+        host.append((time.perf_counter() - t) * 1e3)
+    kt, N, TP = max(keys.size, 1), topo.shape[0], topo.shape[1]
+    slot_dev = torch.from_numpy(slot).cuda()
+    table = torch.full((N, kt), 7, dtype=torch.int32, device="cuda")
+    run = lambda: kernels.node_pair_build(                   # noqa: E731
+        ct.topo_pairs, slot_dev, keys.size, out=table)
+    run()
+    want = tp.node_pair_table_plain(ct.topo_pairs, ct.pair_topo_key)
+    check(torch.equal(table, want.table),
+          "K11: the node-pair table differs from its twin")
+    check(torch.equal(tp.node_pair_table(ct).table, want.table),
+          "K11: the upload's node-pair table differs from its twin")
+    return {"N": N, "TP": TP, "KT": kt,
+            "ms": k1_bench.time_ms(run, reps=20),
+            "ms_warm": k1_bench.time_ms(run, reps=20, cold=False),
+            "plain_ms": k1_bench.time_ms(lambda: tp.node_pair_table_plain(
+                ct.topo_pairs, ct.pair_topo_key), reps=5),
+            "host_check_ms": min(host),
+            "bound_ms": (N * TP + TP * 4 + N * kt * 4)
+            / k1_bench.HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
 def _k11_against_twin(label, ct, pb, cfg, key, modes=("stack", "mask",
@@ -2263,10 +2477,17 @@ def phase_k11(bench: dict) -> dict:
     batches (pair hits present), each in the default profile and in
     static_pass's (the resource fit out, and MatchInterPodAffinity with
     in-batch affinity); the stack (stack mode), the mask (mask mode) and
-    filter_batch's need_per mask (the stack folded by K7).  Then its times
-    on the plain batch at [1, 6,144] (stack mode, the sidecar's route) and
-    [2,048, 6,144] (mask mode, the engines' route) with L2 cold and warm,
-    beside its bound, an empty launch and its twin's time."""
+    filter_batch's need_per mask (the stack folded by K7); the same on the
+    encoder-made affinity batches of kernels/k14_cases.py.  The node-pair
+    table's kernel against its twin at full width.  Then its times on the
+    plain batch at [1, 6,144] (stack mode, the sidecar's route) and
+    [2,048, 6,144] (mask mode, the engines' route) and on the
+    pod-anti-affinity batch at [2,048, 6,144] (mask mode, its pair terms
+    gathered, and again with its pair families made lean: the pair terms'
+    share) with L2 cold and warm, beside its bound, an empty launch and
+    its twin's time, and the table kernel's time beside its bytes."""
+    import dataclasses
+
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.codec.schema import FilterConfig
     from kubernetes_tpu_torch.kernels import k1_bench, k11_cases
@@ -2275,7 +2496,7 @@ def phase_k11(bench: dict) -> dict:
     from kubernetes_tpu_torch.ops.priorities import DEFAULT_PRIORITY_WEIGHTS
 
     names = []
-    for name, case in k11_cases.cases():
+    for name, case in k11_cases.cases() + _encoded_affinity_cases():
         ct, pb = _case_tensors(case)
         _k11_against_twin(f"case {name}", ct, pb, FilterConfig(**case["cfg"]),
                           case["unsched_key"])
@@ -2285,8 +2506,8 @@ def phase_k11(bench: dict) -> dict:
     for batch in (2048,) + AFFINITY_WORKLOADS:
         ct, pb, key, _ = bench[batch]
         if batch in AFFINITY_WORKLOADS:
-            check(tp.pair_hits(ct, pb)[0] is not None,
-                  f"K11: the {batch} batch is lean in the pair products")
+            check(bool(tp.pair_rows(ct, pb)[0]),
+                  f"K11: the {batch} batch is lean in the pair terms")
         for prof, c in (
                 ("default", cfg),
                 ("static", static_profile(cfg, DEFAULT_PRIORITY_WEIGHTS)[0]),
@@ -2296,8 +2517,9 @@ def phase_k11(bench: dict) -> dict:
                               f"profile", ct, pb, c, key)
             full.append(f"{batch} {prof}")
     empty = k1_bench.time_ms(kernels.noop_launch, cold=False)
+    table = _node_pair_build_timing(bench["pod-anti-affinity"][0])
     shapes = {}
-    for B, stack in ((1, True), (2048, False)):
+    for B, stack in ((1, True), (2048, False), ("pod-anti-affinity", False)):
         ct, pb, key, _ = bench[B]
         if stack:
             k11 = lambda: tp.predicate_stack(ct, pb, cfg, key)  # noqa: E731
@@ -2309,29 +2531,56 @@ def phase_k11(bench: dict) -> dict:
             twin = lambda: tp.filter_batch_plain(          # noqa: E731
                 ct, pb, cfg, key, need_per=False)[0]
         rows = tp.predicate_stack_plain(ct, pb, cfg, key)
-        shapes[f"b{B}"] = {
-            "B": B, "N": ct.n_nodes, "mode": "stack" if stack else "mask",
+        shapes[f"b{B}" if isinstance(B, int) else B] = {
+            "B": pb.n_pods, "N": ct.n_nodes,
+            "mode": "stack" if stack else "mask",
+            "batch": "plain" if isinstance(B, int) else B,
             "ms": k1_bench.time_ms(k11, cold=True),
             "ms_warm": k1_bench.time_ms(k11, cold=False),
             "plain_ms": k1_bench.time_ms(twin, reps=10),
             **_k11_bound(ct, pb, cfg, stack, rows)}
         del rows
+    # the anti batch with its pair families made lean (K11 then reads no
+    # pair row, no table): what the pair terms cost it (a timing probe,
+    # its mask is not the batch's)
+    ct, pb, key, _ = bench["pod-anti-affinity"]
+    lean = dataclasses.replace(pb, **{
+        f: getattr(pb, f)[..., :1].contiguous() for f in (
+            "aff_term_pairs", "anti_term_pairs", "forbidden_pairs",
+            "vol_zone_pairs", "vol_bind_pairs")})
+    check(not tp.pair_rows(ct, lean)[0],
+          "K11: the anti batch's lean copy still has pair rows")
+    off = lambda: tp.filter_batch(                         # noqa: E731
+        ct, lean, cfg, key, need_per=False)[0]
+    anti = shapes["pod-anti-affinity"]
+    anti.update(pairs_off_ms=k1_bench.time_ms(off, cold=True),
+                pairs_off_ms_warm=k1_bench.time_ms(off, cold=False))
+    anti["pair_share"] = 1.0 - anti["pairs_off_ms"] / anti["ms"]
     main = shapes["b2048"]
     out = {**{k: main[k] for k in ("ms", "ms_warm", "plain_ms", "bound_ms",
                                    "bound_by")},
            "empty_launch_ms": empty, "max_abs_err": 0.0, "cases": len(names),
            "full_width": full,
            "shape": {k: main[k] for k in ("B", "N", "mode")},
-           "shapes": shapes}
+           "shapes": shapes, "node_pair_build": table}
     print(f"[K11] bit-identical to the twin on {len(names)} cases and "
           f"{len(full)} full-width batches ({', '.join(full)}), stack, mask "
-          f"and need_per mask | " + " | ".join(
-              f"[{d['B']}, {d['N']}] {d['mode']}: cold_ms {d['ms']:.4f} "
+          f"and need_per mask | the node-pair table [{table['N']}, "
+          f"{table['KT']}] equal to its twin: cold_ms {table['ms']:.4f} "
+          f"warm_ms {table['ms_warm']:.4f} plain_ms {table['plain_ms']:.4f} "
+          f"bound_ms {table['bound_ms']:.6f} (bytes), the upload's host "
+          f"check {table['host_check_ms']:.3f} ms (host clock) | "
+          + " | ".join(
+              f"{d['batch']} [{d['B']}, {d['N']}] {d['mode']}: cold_ms "
+              f"{d['ms']:.4f} "
               f"warm_ms {d['ms_warm']:.4f} plain_ms (twin on the card) "
               f"{d['plain_ms']:.4f} bound_ms {d['bound_ms']:.6f} "
               f"({d['bound_by']}; bytes_ms {d['bytes_ms']:.6f} ops_ms "
               f"{d['ops_ms']:.6f}: int32 {d['int_ops']:.0f} f32 "
               f"{d['f32_ops']:.0f}, {d['ops_per_pair']:.2f} a pair)"
+              + (f"; its pair families off: cold_ms {d['pairs_off_ms']:.4f} "
+                 f"warm_ms {d['pairs_off_ms_warm']:.4f}, the pair terms' "
+                 f"share {d['pair_share']:.4f}" if "pair_share" in d else "")
               for d in shapes.values())
           + f" | empty_launch_ms {empty:.4f}", flush=True)
     return out
@@ -2364,7 +2613,10 @@ def phase_k12(bench: dict) -> dict:
     6,144] (the round's: SelectorSpread zeroed for the spread-lean batch,
     skip_zero_weight, one launch), total only, with L2 cold and warm,
     beside the bound of each configuration, an empty launch and its
-    twin's time."""
+    twin's time; and on the pod-anti-affinity batch at [2,048, 6,144]
+    with the stock weights, its InterPodAffinity sums gathered over each
+    node's pairs.  The cases include the encoder-made affinity batches
+    of kernels/k14_cases.py."""
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.codec.schema import FilterConfig, ScoreConfig
     from kubernetes_tpu_torch.kernels import k1_bench, k12_cases
@@ -2372,7 +2624,9 @@ def phase_k12(bench: dict) -> dict:
     from kubernetes_tpu_torch.ops import priorities as tpr
 
     names = []
-    for name, case in k12_cases.cases():
+    for name, case in k12_cases.cases() + [
+            (n, dict(c, skip_zero_weight=False))
+            for n, c in _encoded_affinity_cases()]:
         ct, pb = _case_tensors(case)
         _k12_against_twin(f"case {name}", ct, pb, weights=case["weights"],
                           zone_key_id=case["zone_key"],
@@ -2402,7 +2656,7 @@ def phase_k12(bench: dict) -> dict:
         full.append(str(batch))
     empty = k1_bench.time_ms(kernels.noop_launch, cold=False)
     shapes = {}
-    for B, skip in ((1, False), (2048, True)):
+    for B, skip in ((1, False), (2048, True), ("pod-anti-affinity", False)):
         ct, pb, _, zk = bench[B]
         w = (_round_weights(ct, pb, False) if skip
              else np.asarray(w_stock, np.float32))
@@ -2416,10 +2670,12 @@ def phase_k12(bench: dict) -> dict:
               f"K12: the bench fleet's [{B}, {ct.n_nodes}] batch differs "
               f"from the twin")
         spread = bool(w[tpr.PRIO_INDEX["SelectorSpreadPriority"]] != 0.0)
-        shapes[f"b{B}"] = {
-            "B": B, "N": ct.n_nodes, "launches": 2 if spread else 1,
+        shapes[f"b{B}" if isinstance(B, int) else B] = {
+            "B": pb.n_pods, "N": ct.n_nodes, "launches": 2 if spread else 1,
             "weights": ("stock, SelectorSpread on" if spread else
-                        "the round's, SelectorSpread zeroed"),
+                        "the round's, SelectorSpread zeroed")
+            + ("" if isinstance(B, int) else
+               f", the {B} batch's IPA sums gathered"),
             "ms": k1_bench.time_ms(k12, cold=True),
             "ms_warm": k1_bench.time_ms(k12, cold=False),
             "plain_ms": k1_bench.time_ms(twin, reps=10),
@@ -3414,16 +3670,20 @@ def _best_wall_ms(fn, runs: int = 3):
 
 def phase_rounds() -> dict:
     """K14 and K15 against their twins: the speculative engine through the
-    graph (K11, K12, K15, K1, [K3], K14 a round; the static pass and K13
-    when it redoes) and through the twins on the card, bit for bit, its
-    rounds and redo flag included, on every kernels/k14_cases.py case;
+    graph (K11, K12, K15, K1, [K3], K14 a round, K16 for an affinity
+    batch; the static pass and K13 when it redoes) and through the twins
+    on the card, bit for bit, its rounds and redo flag included, on every
+    kernels/k14_cases.py case, its affinity cases included (K16 launched
+    once a round and once a batch);
     then one full-width round (the bench fleet and the 2-slot fleet, B
     2,048, with and without quality top-3, and a 1-slot fleet whose pods
     prefer a third of the nodes, where the round bounces pods and bans
-    their nodes in emask, or the phase fails): K15 against round_fold_plain
-    and K14 against round_commit_plain on the same inputs, their times (50
-    launches; K14's carry put back outside the events) beside their bytes
-    bounds, an empty launch and the twins' (the best of three calls)."""
+    their nodes in emask, or the phase fails), and the pod-anti-affinity
+    cell's first round through the affinity modes (_aff_round): K15
+    against round_fold_plain and K14 against round_commit_plain on the
+    same inputs, their times (50 launches; K14's carry put back outside
+    the events) beside their bytes bounds, an empty launch and the twins'
+    (the best of three calls)."""
     from kubernetes_tpu_torch import kernels, loop
     from kubernetes_tpu_torch.kernels import k1_bench, k14_cases
     from kubernetes_tpu_torch.models.speculative import (
@@ -3441,6 +3701,23 @@ def phase_rounds() -> dict:
               f"K14/K15 case {name}: rounds {int(kfn.last_rounds)} redo "
               f"{bool(kfn.last_redo)}, the twins' {pfn.last_rounds} "
               f"{pfn.last_redo}")
+        redos += bool(pfn.last_redo)
+    aff_cases = k14_cases.affinity_cases()
+    for name, case in aff_cases:
+        before = kernels.settle_launches()
+        got, kfn = k14_cases.run_case(case, "speculative", "cuda", "kernel")
+        after = kernels.settle_launches()
+        k16 = after["round_pairs"] - before["round_pairs"]
+        check(k16 == int(kfn.last_rounds) + 1,
+              f"K16 affinity case {name}: {k16} launches for "
+              f"{int(kfn.last_rounds)} rounds")
+        want, pfn = k14_cases.run_case(case, "speculative", "cuda", "plain")
+        _same_outputs(got, want, f"K14/K15/K16 affinity case {name}")
+        check(int(kfn.last_rounds) == int(pfn.last_rounds)
+              and bool(kfn.last_redo) == bool(pfn.last_redo),
+              f"K14/K15/K16 affinity case {name}: rounds "
+              f"{int(kfn.last_rounds)} redo {bool(kfn.last_redo)}, the "
+              f"twins' {pfn.last_rounds} {pfn.last_redo}")
         redos += bool(pfn.last_redo)
     empty = k1_bench.time_ms(kernels.noop_launch, cold=False)
     rows = {}
@@ -3516,10 +3793,16 @@ def phase_rounds() -> dict:
             "k14_ms": commit_ms, "k14_ms_warm": commit_warm,
             "k14_plain_ms": commit_plain_ms,
             "k14_bound_ms": commit_bytes / k1_bench.HBM_BYTES_PER_S * 1e3}
-    main = rows["bench"]
+    rows["pod-anti-affinity"] = _aff_round(_aff_batch(
+        loop.bench_nodes(NODES), [loop.pending_pod(i, "pod-anti-affinity")
+                                  for i in range(BATCH)], EXISTING_ANTI))
+    main, anti = rows["bench"], rows["pod-anti-affinity"]
     print(f"[K14 K15] the speculative engine through the graph "
-          f"bit-identical to the twins on {len(cases)} cases ({redos} "
-          f"redone), rounds and redo flags equal | empty_launch_ms "
+          f"bit-identical to the twins on {len(cases)} plain cases and "
+          f"{len(aff_cases)} affinity cases (K16 once a round and once a "
+          f"batch; {redos} redone), rounds and redo flags equal; the "
+          f"pod-anti-affinity row through the affinity modes | "
+          f"empty_launch_ms "
           f"{empty:.4f} | " + " | ".join(
               f"{k} round [B {d['B']}, N {d['N']}, tk {d['tk']}; accepted "
               f"{d['accepted']} bounced {d['bounced']}]: K15 cold_ms "
@@ -3538,7 +3821,358 @@ def phase_rounds() -> dict:
                     "ms_warm": main["k14_ms_warm"],
                     "plain_ms": main["k14_plain_ms"],
                     "bound_ms": main["k14_bound_ms"], "bound_by": "bytes",
-                    "launch_floor_ms": 2 * empty}}
+                    "launch_floor_ms": 2 * empty},
+            "affinity": {k: anti[k] for k in (
+                "k15_ms", "k15_ms_warm", "k15_plain_ms", "k15_bound_ms",
+                "k14_ms", "k14_ms_warm", "k14_plain_ms", "k14_bound_ms",
+                "accepted", "bounced")},
+            "affinity_cases": len(aff_cases)}
+
+
+def _aff_batch(fleet, pods, existing=0) -> dict:
+    """The first BATCH pods of an affinity workload on the card, as the
+    engines get them: the snapshot with `existing` running pods, the
+    batch, its ports and its dense in-batch affinity state; the unsched
+    and zone keys."""
+    from kubernetes_tpu_torch.codec import transfer
+    from kubernetes_tpu_torch.loop import build_encoder
+    from kubernetes_tpu_torch.models.batched import (
+        encode_batch_affinity, encode_batch_ports)
+
+    enc = build_encoder(fleet, existing)
+    batch = list(pods[:BATCH])
+    lean = encode_batch_affinity(enc, batch)
+    pb, ports = enc.encode_pods(batch), encode_batch_ports(enc, batch)
+    ct = transfer.upload_cluster(enc.snapshot(), "cuda")
+    pbt, portst, _, _ = transfer.upload_batch(pb, ports, "cuda")
+    return {"ct": ct, "pb": pbt, "ports": portst,
+            "aff": transfer.upload_affinity(lean, "cuda"),
+            "key": enc.interner.intern("node.kubernetes.io/unschedulable"),
+            "zone_key": enc.getzone_key}
+
+
+def _aff_bytes(ct, pb, aff) -> int:
+    """The affinity state's bytes, each read once: the pods' pair rows and
+    preferred weights at the pairs the valid nodes lie in (what the
+    gather reads), the node-pair table's valid rows, the cross matches,
+    the terms' keys and flags."""
+    B, PT = pb.aff_term_valid.shape
+    AT = pb.anti_term_valid.shape[1]
+    n = B * (PT + AT + 1 + 4) * _used_pairs(ct) + _table_bytes(ct)
+    for f in ("aff_match", "anti_match", "anti_own", "aff_own",
+              "pref_match", "pref_own"):
+        n += getattr(aff, f).numel()
+    return n + aff.pref_weight.numel() * 8 + pb.aff_term_valid.numel() * 10
+
+
+def phase_k13_affinity(k13: dict) -> dict:
+    """K13's affinity mode against its twin: the sequential engine through
+    K13 and through the step loop (models/batched.py scan_plain with the
+    in-batch affinity state) on the card, bit for bit, on every affinity
+    case of kernels/k14_cases.py (random pair terms and cross matches with
+    PT = AT = 2, the hard affinity weight, preferred terms of both signs,
+    bootstrapped terms, a 2-slot fleet, volume terms, sampling, top-3;
+    hostname anti-affinity with existing pods, zone affinity from
+    nothing, the IPA floor-boundary cell, random required and preferred
+    terms); then the affinity redo's batch at full width (2,048
+    pod-anti-affinity pods on the 2-slot fleet): the kernel against
+    scan_plain on the same inputs, its times (5 launches, L2 cold and
+    warm; the pair rows it updates put back outside the events), its microseconds a step beside phase K13's plain scan, and its
+    bound: the larger of its bytes over HBM and the block-wide dependent
+    stages one step needs (the plain scan's and the IPA sums' extremes)
+    times the card's stage floor."""
+    from kubernetes_tpu_torch import kernels, loop
+    from kubernetes_tpu_torch.codec.schema import (
+        DEFAULT_PRIORITY_WEIGHTS, FilterConfig, PRIO_INDEX, ScoreConfig)
+    from kubernetes_tpu_torch.kernels import k1_bench, k13_cases, k14_cases
+    from kubernetes_tpu_torch.models.batched import scan_plain, static_pass
+    from kubernetes_tpu_torch.ops.predicates import batch_pairs, union_rows
+    from kubernetes_tpu_torch.ops.priorities import pod_spread_match
+
+    cases = k14_cases.affinity_cases()
+    for name, case in cases:
+        got, _ = k13_cases.run_case(case, "sequential", "cuda", "kernel")
+        want, _ = k13_cases.run_case(case, "sequential", "cuda", "plain")
+        _same_outputs(got, want, f"K13 affinity case {name}")
+    st = _aff_batch(loop.bench_nodes(NODES, pods_per_node=2),
+                    [loop.pending_pod(i, "pod-anti-affinity")
+                     for i in range(BATCH)])
+    ct, pb, ports, aff = st["ct"], st["pb"], st["ports"], st["aff"]
+    w = DEFAULT_PRIORITY_WEIGHTS
+    smask, sscore = static_pass(ct, pb, FilterConfig(), st["key"], w,
+                                ScoreConfig(), in_batch_affinity=True)
+    w5 = tuple(float(w[PRIO_INDEX[k]]) for k in (
+        "LeastRequestedPriority", "MostRequestedPriority",
+        "BalancedResourceAllocation", "SelectorSpreadPriority",
+        "RequestedToCapacityRatioPriority"))
+    ipa = (float(w[PRIO_INDEX["InterPodAffinityPriority"]]),
+           float(FilterConfig().hard_pod_affinity_weight))
+    args = (ct, pb, ports, smask, sscore,
+            pod_spread_match(pb, ct.group_counts.shape[1]), None, None,
+            None, w5, st["zone_key"], 0, 0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = scan_plain(*args, "plain", aff, ipa)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    pairs = batch_pairs(ct, pb, aff.pref_topo_key)
+    rows = union_rows(pb, ct.topo_pairs.shape[1])
+    unions = {k: v.clone() for k, v in rows.items()}
+
+    def put_back():
+        for k, v in rows.items():
+            unions[k].copy_(v)
+    run = lambda: kernels.seq_scan(                           # noqa: E731
+        *args, aff=aff, pairs=pairs, unions=unions, ipa=ipa)
+    got = run()
+    for k in range(3):
+        check(torch.equal(_bits(got[k]), _bits(want[k])),
+              f"K13 affinity redo batch: output {k} differs from the twin")
+    ms = k1_bench.time_ms(run, reps=5, before=put_back)
+    warm = k1_bench.time_ms(run, reps=5, cold=False, before=put_back)
+    B, N = pb.n_pods, ct.n_nodes
+    stages = _k13_stages(w5[3] != 0, False, 0) + 1
+    inp = {"B": B, "N": N, "R": ct.requested.shape[1],
+           "PV": ports.pod_ports.shape[1], "tk": 0, "emask": False}
+    bytes_ms = ((_k13_bytes(inp) + _aff_bytes(ct, pb, aff))
+                / k1_bench.HBM_BYTES_PER_S * 1e3)
+    stages_ms = stages * B * k13["stage_us"] * 1e-3
+    out = {"B": B, "N": N, "TP": ct.topo_pairs.shape[1],
+           "ms": ms, "ms_warm": warm, "plain_ms": plain_ms,
+           "us_a_step": ms / B * 1e3, "bytes_ms": bytes_ms,
+           "stages_ms": stages_ms, "stages_a_step": stages,
+           "kernel_barriers_a_step": kernels.seq_scan_barriers(
+               w5[3] != 0, False, 0, True),
+           "bound_ms": max(bytes_ms, stages_ms),
+           "bound_by": "bytes" if bytes_ms >= stages_ms else "operations",
+           "placed": int((got[0] >= 0).sum()), "cases": len(cases)}
+    print(f"[K13 affinity] bit-identical to the twin on {len(cases)} "
+          f"affinity cases (the sequential engine) and the affinity redo's "
+          f"batch [B {B}, N {N}, TP {out['TP']}]: cold_ms {ms:.4f} warm_ms "
+          f"{warm:.4f} us_a_step {out['us_a_step']:.3f} (the plain scan "
+          f"{k13['us_a_step']:.3f}) plain_ms (the step loop on the card) "
+          f"{plain_ms:.1f} bound_ms {out['bound_ms']:.4f} "
+          f"({out['bound_by']}: bytes {bytes_ms:.5f}, {stages} stages a "
+          f"step {stages_ms:.4f}; the kernel passes "
+          f"{out['kernel_barriers_a_step']} barriers a step) over_bound "
+          f"{ms / out['bound_ms']:.1f}x placed {out['placed']}", flush=True)
+    return out
+
+
+def phase_k16() -> dict:
+    """K16 (round_pairs) against its twin (models/speculative.py
+    round_pairs_plain) on the card, bit for bit, on every case of
+    kernels/k16_cases.py, the pair commit with the gate and the gate
+    alone; then at full width the first round of the pod-anti-affinity
+    cell's batch (2,048 pods, 1,000 running pods): every valid pod
+    accepted on its own node, the unions and the gate against the twin,
+    its times (50 launches, the carry put back outside the events) beside
+    its bytes bound (the cross matches and the accepted pods' rows read
+    once, the union entries it changes written once), an empty launch and
+    the twin's."""
+    from kubernetes_tpu_torch import kernels, loop
+    from kubernetes_tpu_torch.codec.schema import FilterConfig
+    from kubernetes_tpu_torch.kernels import k1_bench, k16_cases
+    from kubernetes_tpu_torch.models.speculative import (
+        affinity_carry, round_pairs_plain)
+    from kubernetes_tpu_torch.ops.predicates import batch_pairs
+
+    cases = k16_cases.cases()
+    for name, case in cases:
+        for commit in (True, False):
+            ct, pb, aff, c, hosts, accept, hard_w = k16_cases.round_state(
+                case, "cuda")
+            if not commit:
+                hosts = accept = None
+            want = round_pairs_plain(c, hosts, accept, pb, aff, ct, hard_w)
+            kernels.round_pairs(c, hosts, accept, pb, aff,
+                                batch_pairs(ct, pb, aff.pref_topo_key),
+                                hard_w)
+            for k, w in want.items():
+                check(torch.equal(_bits(c[k]), _bits(w)),
+                      f"K16 case {name} (commit {commit}): {k} differs from "
+                      f"the twin")
+    st = _aff_batch(loop.bench_nodes(NODES),
+                    [loop.pending_pod(i, "pod-anti-affinity")
+                     for i in range(BATCH)], EXISTING_ANTI)
+    ct, pb, aff = st["ct"], st["pb"], st["aff"]
+    B, N = pb.n_pods, ct.n_nodes
+    hard_w = float(FilterConfig().hard_pod_affinity_weight)
+    c = affinity_carry({"active": torch.zeros(B, dtype=torch.bool,
+                                              device="cuda")},
+                       pb, ct.topo_pairs.shape[1])
+    hosts = (torch.arange(B, device="cuda") % NODES).to(torch.int32)
+    accept = pb.valid.clone()
+    plain_ms, want = _best_wall_ms(lambda: round_pairs_plain(
+        c, hosts, accept, pb, aff, ct, hard_w))
+    ck = {k: v.clone() for k, v in c.items()}
+    saved = {k: v.clone() for k, v in c.items()}
+    bp = batch_pairs(ct, pb, aff.pref_topo_key)
+    KT = bp.node_pair.shape[1]
+    run = lambda: kernels.round_pairs(                        # noqa: E731
+        ck, hosts, accept, pb, aff, bp, hard_w)
+    run()
+    for k, w in want.items():
+        check(torch.equal(_bits(ck[k]), _bits(w)),
+              f"K16 pod-anti-affinity round: {k} differs from the twin")
+
+    def put_back():
+        for k, v in saved.items():
+            ck[k].copy_(v)
+    ms = k1_bench.time_ms(run, before=put_back)
+    warm = k1_bench.time_ms(run, cold=False, before=put_back)
+    empty = k1_bench.time_ms(kernels.noop_launch, cold=False)
+    changed = sum(int((want[k] != c[k]).sum()) * (4 if k == "upref" else 1)
+                  for k in ("uaff", "uanti", "uforb", "upref"))
+    n_acc = int(accept.sum())
+    PT, AT = pb.aff_term_valid.shape[1], pb.anti_term_valid.shape[1]
+    PP = aff.pref_weight.shape[1]
+    # the gate: for each of a pod's self-matching terms, the matches of
+    # the active pods before it, up to the first (none here: every pod
+    # was accepted, so none is active)
+    act = c["active"]
+    before = torch.cumsum(act.long(), 0) - act.long()
+    earlier = torch.tril(torch.ones((B, B), dtype=torch.bool,
+                                    device="cuda"), diagonal=-1).T
+    hit = (aff.aff_match & (act[:, None] & earlier)[:, :, None]).any(0)
+    gate = int(torch.where(hit, 1, before[:, None])[pb.aff_term_self].sum())
+    bytes_ = (n_acc * B * (2 * PT + 2 * AT + 2 * PP) + gate
+              + B * (1 + 1 + 4 + PT * 2) + n_acc * KT * 4 + changed)
+    out = {"B": B, "N": N, "TP": ct.topo_pairs.shape[1],
+           "accepted": n_acc, "changed_bytes": changed, "ms": ms,
+           "ms_warm": warm, "plain_ms": plain_ms,
+           "bound_ms": bytes_ / k1_bench.HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "empty_launch_ms": empty,
+           "max_abs_err": 0.0, "cases": len(cases)}
+    print(f"[K16] bit-identical to the twin on {len(cases)} cases (the "
+          f"commit and the gate, the gate alone) and the pod-anti-affinity "
+          f"cell's first round [B {B}, N {N}, TP {out['TP']}; {n_acc} "
+          f"accepted, {changed} union bytes changed]: cold_ms {ms:.4f} "
+          f"warm_ms {warm:.4f} plain_ms (twin on the card) {plain_ms:.3f} "
+          f"bound_ms {out['bound_ms']:.6f} (bytes) | empty_launch_ms "
+          f"{empty:.4f}", flush=True)
+    return out
+
+
+def _aff_round(st: dict) -> dict:
+    """One full-width round of an affinity batch (_aff_batch's) on the
+    card, through the kernels and through the twins on the same inputs:
+    the first round's gate (K16 alone), the filter and score passes
+    against the unions (K11, K12 without the IPA score), K15's affinity
+    mode against round_fold_plain, K1, and K14's affinity mode against
+    round_commit_plain, both carries compared; and the times of K15 and
+    K14 (50 launches; K14's carry put back outside the events) beside
+    their bytes bounds and the twins'."""
+    import dataclasses
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.codec.schema import (
+        DEFAULT_PRIORITY_WEIGHTS, FilterConfig, PRIO_INDEX)
+    from kubernetes_tpu_torch.kernels import k1_bench
+    from kubernetes_tpu_torch.models.speculative import (
+        affinity_carry, plain_carry, related_pods, round_commit_plain,
+        round_fold_plain, round_pairs_plain)
+    from kubernetes_tpu_torch.ops.predicates import batch_pairs, filter_batch
+    from kubernetes_tpu_torch.ops.priorities import (
+        pod_spread_match, score_batch, zone_layout)
+
+    ct, pb, ports, aff = st["ct"], st["pb"], st["ports"], st["aff"]
+    B, N, TP = pb.n_pods, ct.n_nodes, ct.topo_pairs.shape[1]
+    w = _round_weights(ct, pb, True)
+    w_ipa = float(DEFAULT_PRIORITY_WEIGHTS[
+        PRIO_INDEX["InterPodAffinityPriority"]])
+    lean = pb.spread_counts.shape[-1] != N
+    w_spread = (float(DEFAULT_PRIORITY_WEIGHTS[
+        PRIO_INDEX["SelectorSpreadPriority"]]) if lean else 0.0)
+    match = None if lean else pod_spread_match(pb, ct.group_counts.shape[1])
+    hard_w = float(FilterConfig().hard_pod_affinity_weight)
+    emask = torch.ones((B, N), dtype=torch.bool, device="cuda")
+    zones = zone_layout(ct, st["zone_key"])
+    zone_of_node = torch.where(zones[0], zones[1], -1).to(torch.int32)
+    bp = batch_pairs(ct, pb, aff.pref_topo_key)
+    twin = affinity_carry(plain_carry(ct, pb, ports.pod_ports, 0, emask, 0,
+                                      False), pb, TP)
+    twin.update(round_pairs_plain(twin, None, None, pb, aff, ct, hard_w))
+    ck = affinity_carry(plain_carry(ct, pb, ports.pod_ports, 0, emask, 0,
+                                    True), pb, TP)
+    kernels.round_pairs(ck, None, None, pb, aff, bp, hard_w)
+    check(torch.equal(ck["self"], twin["self"]),
+          "K16: the first round's gate differs from the twin")
+    pods_eval = dataclasses.replace(
+        pb, aff_term_pairs=ck["uaff"], anti_term_pairs=ck["uanti"],
+        forbidden_pairs=ck["uforb"], aff_term_self=ck["self"])
+    mask, _ = filter_batch(ct, pods_eval, FilterConfig(), st["key"],
+                           need_per=False)
+    total, _ = score_batch(
+        ct, pods_eval if lean else dataclasses.replace(
+            pods_eval, spread_counts=ck["spread"]),
+        weights=w, zone_key_id=st["zone_key"], skip_zero_weight=True,
+        need_per=False)
+    fold = lambda: kernels.round_fold(                        # noqa: E731
+        total, mask, ck, pb, zone_of_node, TP, None, None, w_spread,
+        (bp.node_pair, ct.valid, w_ipa))
+    tot, msk = fold()
+    fold_plain_ms, (wtot, wmsk) = _best_wall_ms(lambda: round_fold_plain(
+        total, mask, twin, pb, ct, st["zone_key"], zones, None, 0, None,
+        w_spread, w_ipa))
+    check(torch.equal(_bits(tot), _bits(wtot)) and torch.equal(msk, wmsk),
+          "K15 affinity round: the fold differs from the twin")
+    hosts, feasible = kernels.select_hosts(tot, msk, 0)
+    rel = related_pods(aff)
+    tril = torch.tril(torch.ones((B, B), device="cuda"), diagonal=-1)
+    commit_plain_ms, wc = _best_wall_ms(lambda: round_commit_plain(
+        twin, hosts, feasible, None, pb, ports, ct, None, match, tril,
+        {"aff": aff, "mask": msk, "rel": rel}))
+    scratch = kernels.round_commit_scratch(B, ct.requested.shape[1],
+                                           ports.pod_ports.shape[1], "cuda")
+    kaff = {"mask": msk, "rel": rel, "node_pair": bp.node_pair,
+            "anti_slot": bp.anti_slot, "anti_match": aff.anti_match,
+            "anti_own": aff.anti_own}
+    saved = {k: v.clone() for k, v in ck.items()
+             if isinstance(v, torch.Tensor)}
+    commit = lambda: kernels.round_commit(                    # noqa: E731
+        ck, hosts, feasible, None, pb, ports, ct, None, match, scratch, kaff)
+    commit()
+    for k in ("hosts", "req", "nz", "spread", "claimed", "emask", "active",
+              "inv"):
+        check(torch.equal(_bits(ck[k]), _bits(wc[k])),
+              f"K14 affinity round: carry {k} differs from the twin")
+    check(torch.equal(scratch["accept"], wc["accept"]),
+          "K14 affinity round: the acceptance differs from the twin")
+
+    def put_back():
+        for k, v in saved.items():
+            ck[k].copy_(v)
+    fold_ms = k1_bench.time_ms(fold)
+    fold_warm = k1_bench.time_ms(fold, cold=False)
+    commit_ms = k1_bench.time_ms(commit, before=put_back)
+    commit_warm = k1_bench.time_ms(commit, cold=False, before=put_back)
+    put_back()
+    R, PV = ct.requested.shape[1], ports.pod_ports.shape[1]
+    G, KT = ct.group_counts.shape[1], bp.node_pair.shape[1]
+    accepted = int(wc["accept"].sum())
+    props = int(feasible.sum())
+    bounced = int((twin["active"] & feasible & wc["active"]).sum())
+    nodes = int(torch.unique(hosts[feasible]).numel())
+    AT = pb.anti_term_valid.shape[1]
+    # K15: the plain fold's bytes, the pods' pair weights and the table
+    fold_bytes = (B * N * 11 + B * 2 + G * N * 4 + N * 4
+                  + B * _used_pairs(ct) * 4 + _table_bytes(ct) + N)
+    # K14: the plain commit's bytes, the anti cross matches of the
+    # proposers and the relation rows of the passed-over pods
+    commit_bytes = (props * (4 + 1 + R * 4 + 8 + 4 + PV + 2 * 5)
+                    + nodes * (R * 4 * 3 + 8 * 2 + PV * 2 + G * 4)
+                    + B * (1 + 1 + 4) + bounced
+                    + props * props // 2 * 2 * AT + props * KT * 4
+                    + (B - accepted) * B * 2)
+    return {"B": B, "N": N, "tk": 0, "accepted": accepted,
+            "bounced": bounced, "proposed_nodes": nodes,
+            "k15_ms": fold_ms, "k15_ms_warm": fold_warm,
+            "k15_plain_ms": fold_plain_ms,
+            "k15_bound_ms": fold_bytes / k1_bench.HBM_BYTES_PER_S * 1e3,
+            "k14_ms": commit_ms, "k14_ms_warm": commit_warm,
+            "k14_plain_ms": commit_plain_ms,
+            "k14_bound_ms": commit_bytes / k1_bench.HBM_BYTES_PER_S * 1e3}
 
 
 def main() -> None:
@@ -3583,9 +4217,7 @@ def main() -> None:
                                 True, EXISTING_ANTI)
     _anti_recount(nodes, anti_pods, res8, "8 pod-anti-affinity",
                   EXISTING_ANTI)
-    check(launches8["select_hosts"] == sum(res8["rounds"]),
-          f"8 pod-anti-affinity: {launches8} K1 launches for "
-          f"{sum(res8['rounds'])} rounds")
+    _affinity_launched("8 pod-anti-affinity", res8, launches8)
     n = _check_golden("8", "pod-anti-affinity", res8)
     print(f"[8 golden] {n} winners bit-identical to the JAX speculative "
           f"engine, no two pods of one app on a node", flush=True)
@@ -3593,9 +4225,7 @@ def main() -> None:
     paff_pods = [pending_pod(i, "pod-affinity") for i in range(PODS)]
     res9, launches9 = _run_pair("9 pod-affinity", nodes, paff_pods, True)
     _aff_recount(nodes, paff_pods, res9, "9 pod-affinity")
-    check(launches9["select_hosts"] == sum(res9["rounds"]),
-          f"9 pod-affinity: {launches9} K1 launches for "
-          f"{sum(res9['rounds'])} rounds")
+    _affinity_launched("9 pod-affinity", res9, launches9)
     n = _check_golden("9", "pod-affinity", res9)
     print(f"[9 golden] {n} winners bit-identical to the JAX speculative "
           f"engine, rounds {res9['rounds']}, every pod's zone holds a pod "
@@ -3606,22 +4236,22 @@ def main() -> None:
                                   False)
     _anti_recount(tight, redo_pods, res10, "10 affinity redo")
     check(res10["redos"] > 0, "10 affinity redo: the hybrid check never fired")
-    check(launches10["select_hosts"] - launches10["select_hosts_b1"]
-          == sum(res10["rounds"])
-          and launches10["select_hosts_b1"] == res10["redos"] * BATCH,
-          f"10 affinity redo: {launches10} K1 launches, not one a round at "
-          f"B={BATCH} ({sum(res10['rounds'])} rounds) plus one a step at "
-          f"B=1 ({res10['redos']} redone batches of {BATCH})")
-    print(f"[10 affinity redo] redos {res10['redos']}, K1 launches "
-          f"{launches10['select_hosts']} = {sum(res10['rounds'])} rounds + "
-          f"{launches10['select_hosts_b1']} sequential steps | total seconds "
+    _affinity_launched("10 affinity redo", res10, launches10)
+    n = _check_golden("10", "affinity-redo", res10)
+    print(f"[10 affinity redo] {n} winners bit-identical to the JAX "
+          f"speculative engine | redos {res10['redos']}, K13 launches "
+          f"{launches10['seq_scan']} (one a redone batch), K1 launches "
+          f"{launches10['select_hosts']} = {sum(res10['rounds'])} rounds, "
+          f"K16 {launches10['round_pairs']} | total seconds "
           f"{time.monotonic() - t_start:.1f}", flush=True)
 
     k13 = phase_k13()
+    k13a = phase_k13_affinity(k13)
     rounds = phase_rounds()
-    print(f"[K13-K15 done] total seconds {time.monotonic() - t_start:.1f}",
+    k16 = phase_k16()
+    print(f"[K13-K16 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
-    phase_profile(nodes, tight, plain_pods, anti_pods, k13)
+    phase_profile(nodes, tight, plain_pods, anti_pods, k13, k13a)
 
     live = phase_live("11 live", nodes)
     _passes_launched("11 live", live["launches"])
@@ -3940,11 +4570,49 @@ def main() -> None:
         })
     record["kernels"][-3].update(us_a_step=k13["us_a_step"],
                                  stage_floor_us=k13["stage_us"],
-                                 cases=k13["cases"], shapes=k13["shapes"])
-    record["kernels"][-1].update(launch_floor_ms=rounds["k14"][
-        "launch_floor_ms"], cases=rounds["cases"], shapes=rounds["shapes"])
-    record["kernels"][-2].update(empty_launch_ms=rounds["empty_launch_ms"],
-                                 cases=rounds["cases"])
+                                 cases=k13["cases"], shapes=k13["shapes"],
+                                 affinity=k13a)
+    aff_row = rounds["affinity"]
+    record["kernels"][-1].update(
+        launch_floor_ms=rounds["k14"]["launch_floor_ms"],
+        cases=rounds["cases"], affinity_cases=rounds["affinity_cases"],
+        shapes=rounds["shapes"],
+        affinity={k[4:]: v for k, v in aff_row.items()
+                  if k.startswith("k14_")})
+    record["kernels"][-2].update(
+        empty_launch_ms=rounds["empty_launch_ms"], cases=rounds["cases"],
+        affinity={k[4:]: v for k, v in aff_row.items()
+                  if k.startswith("k15_")})
+    # K16 once a round of an affinity batch and once a batch (the first
+    # round's gate); the node-pair table once a snapshot whose batches
+    # gather pair terms
+    table = k11["node_pair_build"]
+    for name, source, replaces, k, res, cell in (
+            ("round_pairs", "round_pairs.cu",
+             "kubernetes_tpu/models/speculative.py:196", "round_pairs", k16,
+             launches8),
+            ("node_pair_build", "filter_pass.cu",
+             "kubernetes_tpu/ops/predicates.py:393", "node_pair_build",
+             {**table, "max_abs_err": 0.0}, launches8)):
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "kubernetes_tpu_torch/kernels/" + source,
+            "replaces": replaces,
+            "launches": cell[k],
+            **{f: res[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")},
+            "library_ms": None,
+            "ms_warm": res["ms_warm"],
+            "launches_by_cell": {c: d[k] for c, d in cells.items()},
+        })
+    record["kernels"][-2].update(cases=k16["cases"],
+                                 empty_launch_ms=k16["empty_launch_ms"],
+                                 shape={f: k16[f] for f in (
+                                     "B", "N", "TP", "accepted",
+                                     "changed_bytes")})
+    record["kernels"][-1].update(shape={f: table[f] for f in (
+        "N", "TP", "KT")})
     print(f"total seconds {time.monotonic() - t_start:.1f}", flush=True)
     print(smi)
     print(json.dumps(record))

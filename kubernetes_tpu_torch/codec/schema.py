@@ -470,8 +470,26 @@ def _convert(src, cls, fn):
 
 def cluster_to_torch(ct, device="cuda") -> ClusterTensors:
     """A ClusterTensors of numpy (or JAX) arrays -> the port's
-    ClusterTensors of tensors on `device`, field for field."""
-    return _convert(ct, ClusterTensors, lambda a: _to_tensor(a, device))
+    ClusterTensors of tensors on `device`, field for field, with the
+    snapshot's node-pair table made from the host arrays
+    (ops/predicates.py build_node_pairs) unless the pair tensors already
+    carry it."""
+    from kubernetes_tpu_torch.ops.predicates import (
+        build_node_pairs,
+        has_node_pairs,
+    )
+
+    def host(a):
+        if not isinstance(a, torch.Tensor):
+            return np.asarray(a)
+        return a.numpy() if a.device.type == "cpu" else None
+
+    out = _convert(ct, ClusterTensors, lambda a: _to_tensor(a, device))
+    if not has_node_pairs(out):
+        arrays = (host(ct.topo_pairs), host(ct.pair_topo_key))
+        build_node_pairs(out, None if any(a is None for a in arrays)
+                         else arrays)
+    return out
 
 
 def pods_to_torch(pb, device="cuda") -> PodBatch:

@@ -349,7 +349,18 @@ class DeviceSnapshotCache:
             self._dev.update(zip(staged, _h2d_packed(list(staged.values()),
                                                      device)))
             self._host.update(staged)
-        return ClusterTensors(**self._dev)
+        from kubernetes_tpu_torch.ops.predicates import (
+            build_node_pairs,
+            has_node_pairs,
+        )
+
+        out = ClusterTensors(**self._dev)
+        # the node-pair table, made again when the pair tensors change
+        pairs = ("topo_pairs", "pair_topo_key")
+        if (not has_node_pairs(out) or any(n in staged for n in pairs)
+                or any(n in pairs for n, _, _ in scatter)):
+            build_node_pairs(out, tuple(self._host[n] for n in pairs))
+        return out
 
 
 # ---------------------------------------------------------------- D2H fences

@@ -54,47 +54,55 @@ replicas' sequenced commit check.  Its plain twin is runtime/reconciler.py
 
 K11 `filter_pass` (filter_pass.cu) replaces the JAX package's
 ops/predicates.py filter_batch: the 23 predicates over the pods x nodes
-grid, as the folded mask or as the stack K7 folds.  K12 `score_pass`
+grid, as the folded mask or as the stack K7 folds, the topology-pair
+terms gathered over each node's pairs (pair_gather.cuh, the node-pair
+table `node_pair_build` makes once a snapshot upload).  K12 `score_pass`
 (score_pass.cu) replaces ops/priorities.py score_batch: the 12
-priorities, normalized per pod, and their weighted total.  Their plain
-twins are ops/predicates.py `filter_batch_plain` / `predicate_stack_plain`
-and ops/priorities.py `score_batch_plain`; `filter_batch`,
-`predicate_stack` and `score_batch` there dispatch.  Each takes its
-arguments as one struct by value (`FilterPassArgs`, `ScorePassArgs`).
+priorities, normalized per pod, and their weighted total, the IPA raw
+sums gathered the same way.  Their plain twins are ops/predicates.py
+`filter_batch_plain` / `predicate_stack_plain` and ops/priorities.py
+`score_batch_plain`; `filter_batch`, `predicate_stack` and `score_batch`
+there dispatch.  Each takes its arguments as one struct by value
+(`FilterPassArgs`, `ScorePassArgs`).
 
 K13 `seq_scan` (seq_scan.cu) replaces the JAX package's models/batched.py
-schedule_impl: the sequential engine's whole scan of a batch with no
-in-batch pod affinity, in one launch; its twin is models/batched.py
-`scan_plain`.  K15 `round_fold` (round_fold.cu) and K14 `round_commit`
-(round_commit.cu, two launches) replace the parts of models/speculative.py
-_round around the selector for such a batch; their twins are
-models/speculative.py `round_fold_plain` and `round_commit_plain`.
+schedule_impl: the sequential engine's whole scan of a batch in one
+launch, with an affinity mode that carries the in-batch pair state; its
+twin is models/batched.py `scan_plain`.  K15 `round_fold`
+(round_fold.cu), K14 `round_commit` (round_commit.cu, two launches) and
+K16 `round_pairs` (round_pairs.cu) replace the parts of
+models/speculative.py _round around the selector: K15 and K14 each with
+an affinity mode (the IPA score; the same round's anti order, the
+inversion sentinel and the deferred retirement), K16 the affinity state's
+pair commit and bootstrap gate; their twins are models/speculative.py
+`round_fold_plain`, `round_commit_plain` and `round_pairs_plain`.
 round_graph.cu holds the CUDA graph API the speculative engine builds a
-plain batch's graph with (a WHILE node over the rounds, an IF node over
-the redo) and its two condition kernels.  K13's, K14's and K15's
+batch's graph with (a WHILE node over the rounds, an IF node over the
+redo) and its two condition kernels.  K13's, K14's, K15's and K16's
 arguments are one struct by value each (`SeqScanArgs`, `RoundCommitArgs`,
-`RoundFoldArgs`).
+`RoundFoldArgs`, `RoundPairsArgs`).
 
 Each wrapper counts its launches in `LAUNCHES` (one each time it launches
 its kernels, nowhere else), so a run can show that its main path went
-through the kernels; `select_hosts_b1` also counts K1's one-row launches (the
-sequential engine's steps) on their own.  A preempt_one call puts one
-kernel launch on the stream, no memset and no copy (chip_smoke.py counts
-them under torch.profiler); the first call on a stream also zeroes that
-stream's ticket.  K3, K4, K6 and K7 put one kernel launch each on the
-stream; K5 one up to K5_ONE_LAUNCH_ROWS snapshot rows and, above, a
+through the kernels; `select_hosts_b1` also counts K1's one-row launches
+(the sequential engine's steps) on their own.  A preempt_one call puts
+one kernel launch on the stream, no memset and no copy (chip_smoke.py
+counts them under torch.profiler); the first call on a stream also zeroes
+that stream's ticket.  K3, K4, K6 and K7 put one kernel launch each on
+the stream; K5 one up to K5_ONE_LAUNCH_ROWS snapshot rows and, above, a
 sequence of launches (cluster_analytics.cu launch_wide), counted once a
 call.  K8 and K10 put one kernel launch each on the stream, K9 one per
 K9_MAX_LANES lanes (counted once a call).  K11 puts one launch on the
-stream (`filter_pass_stack` also counts those in stack mode); K12 two when
-SelectorSpread's row is on (the zone index, then the pass), else one,
-counted once a call; K13 and K15 one launch, K14 two, counted once a
-round.  Inside a CUDA graph's capture a launch queues a node and counts
-nothing: the capture records the names each wrapper counts, by section
-(`capturing`), the graph's launch is recorded (`graph_launched`) with
-them and its device round count and redo flag, and `settle_launches()`
-adds them (once a round for the WHILE body, once if it redid for the IF
-body); read LAUNCHES through settle_launches().
+stream (`filter_pass_stack` also counts those in stack mode); K12 two
+when SelectorSpread's row is on (the zone index, then the pass), else
+one, counted once a call; K13, K15 and K16 one launch, K14 two, counted
+once a round; node_pair_build one launch, once a snapshot upload.  Inside a CUDA
+graph's capture a launch queues a node and counts nothing: the capture
+records the names each wrapper counts, by section (`capturing`), the
+graph's launch is recorded (`graph_launched`) with them and its device
+round count and redo flag, and `settle_launches()` adds them (once a
+round for the WHILE body, once if it redid for the IF body); read
+LAUNCHES through settle_launches().
 The kernels are built from source at the first launch
 (kernels/_build.py); importing this module needs neither nvcc nor a card.
 """
@@ -114,7 +122,8 @@ LAUNCHES = {"select_hosts": 0, "select_hosts_b1": 0, "preempt_one": 0,
             "fold_predicates": 0, "ffd_order": 0, "binpack_counts": 0,
             "reconcile_admit": 0, "filter_pass": 0, "filter_pass_stack": 0,
             "score_pass": 0, "seq_scan": 0, "round_fold": 0,
-            "round_commit": 0, "round_graph": 0}
+            "round_commit": 0, "round_graph": 0, "round_pairs": 0,
+            "node_pair_build": 0}
 
 # K1's variants, by the code select_hosts_launch takes: a block of 8 warps
 # to a row, one warp to a row (8 rows to a block), or a block to a row that
@@ -935,12 +944,13 @@ class FilterPassArgs(ctypes.Structure):
 
     _fields_ = ([(spec[0], ctypes.c_void_p) for spec in _K11_ARGS]
                 + [(name, ctypes.c_void_p) for name in (
-                    "hits", "max_vols", "presence_keys", "svc_labels", "out")]
+                    "forbidden_pairs", "anti_term_pairs", "vol_zone_pairs",
+                    "vol_bind_pairs", "node_pair", "aff_slot", "max_vols",
+                    "presence_keys", "svc_labels", "out")]
                 + [(name, ctypes.c_int) for name in (
                     "b", "n", "r", "l", "t", "p", "q", "tt", "ns", "s", "e",
                     "v", "vt", "dv", "dvn", "sa", "at", "pt", "vz", "vb",
-                    "tp", "x_rows", "off_forb", "off_anti", "off_aff",
-                    "off_key", "off_vz", "off_vb", "n_presence",
+                    "tp", "kt", "aff_on", "vz_on", "vb_on", "n_presence",
                     "presence_present", "n_svc", "unsched_key", "enabled",
                     "stack_mode", "vec")])
 
@@ -952,13 +962,13 @@ class ScorePassArgs(ctypes.Structure):
 
     _fields_ = ([(spec[0], ctypes.c_void_p) for spec in _K12_ARGS]
                 + [(name, ctypes.c_void_p) for name in (
-                    "zone_of_node", "ipa_sums", "prefs_key",
+                    "zone_of_node", "ipa_w", "node_pair", "prefs_key",
                     "prefs_presence", "prefs_weight", "rtc_xs", "rtc_ys",
                     "work", "total", "per")]
                 + [("w", ctypes.c_float * 12)]
                 + [(name, ctypes.c_int) for name in (
                     "b", "n", "r", "l", "t", "tt", "i", "c", "a", "g", "gp",
-                    "ps", "e", "v", "tp", "n_prefs", "n_rtc", "rows",
+                    "ps", "e", "v", "tp", "kt", "n_prefs", "n_rtc", "rows",
                     "smem_mode", "region", "na_off", "zs_off")])
 
 
@@ -1033,8 +1043,8 @@ def _filter_config(cfg, vt: int) -> tuple:
             tuple(int(k) for k in cfg.service_affinity_labels))
 
 
-def filter_pass_prepare(cluster, pods, cfg, unsched_taint_key: int, hits,
-                        offsets, stack: bool):
+def filter_pass_prepare(cluster, pods, cfg, unsched_taint_key: int,
+                        node_pair, aff_slot, stack: bool):
     """The arguments of one K11 launch (see filter_pass) with its output
     allocated: (FilterPassArgs, the tensors they point into, out).  The
     launch itself (filter_pass_launch) allocates nothing, so a CUDA graph
@@ -1070,27 +1080,40 @@ def filter_pass_prepare(cluster, pods, cfg, unsched_taint_key: int, hits,
         if vals:
             consts.append(_device_const(vals, torch.int32, dev))
             setattr(args, field, consts[-1].data_ptr())
-    offs = {k: offsets.get(k, -1) for k in
-            ("forb", "anti", "aff", "key", "vz", "vb")}
-    if hits is not None:
-        if (hits.device != dev or hits.dtype != torch.float32
-                or hits.dim() != 3 or hits.shape[0] != B
-                or hits.shape[2] != N):
-            raise ValueError(f"filter_pass wants hits f32[{B}, X, {N}], got "
-                             f"{hits.dtype} {tuple(hits.shape)}")
-        hits = hits.contiguous()
-        args.hits = hits.data_ptr()
-        args.x_rows = hits.shape[1]
-    elif any(v >= 0 for v in offs.values()):
-        raise ValueError("filter_pass: pair offsets without hits")
-    if offs["aff"] >= 0 and dims["TPA"] != cluster.topo_pairs.shape[1]:
-        raise ValueError("filter_pass: affinity rows for a lean batch")
-    for k, v in offs.items():
-        setattr(args, "off_" + k, int(v))
+    # the pair families the batch is not lean in, read by the gather
+    TP = cluster.topo_pairs.shape[1]
+    on = {"aff": dims["TPA"] == TP, "vz": pods.vol_zone_pairs.shape[-1] == TP,
+          "vb": pods.vol_bind_pairs.shape[-1] == TP}
+    rows = []
+    if any(on.values()):
+        if node_pair is None:
+            raise ValueError("filter_pass: pair terms without node_pair")
+        rows.append(("node_pair", node_pair, _I32, f"{N} KT"))
+    if on["aff"]:
+        rows += [("forbidden_pairs", pods.forbidden_pairs, _BOOL,
+                  f"{B} {TP}"),
+                 ("anti_term_pairs", pods.anti_term_pairs, _BOOL,
+                  f"{B} {dims['AT']} {TP}"),
+                 ("aff_slot", aff_slot, _I32, f"{B} {dims['PT']}")]
+        if aff_slot is None:
+            raise ValueError("filter_pass: affinity terms without aff_slot")
+    if on["vz"]:
+        rows.append(("vol_zone_pairs", pods.vol_zone_pairs, _BOOL,
+                     f"{B} {dims['VZ']} {TP}"))
+    if on["vb"]:
+        rows.append(("vol_bind_pairs", pods.vol_bind_pairs, _BOOL,
+                     f"{B} {dims['VB']} {TP}"))
+    pdims, pdev, pkeep = _bind("filter_pass", args, rows)
+    if pdev is not None and pdev != dev:
+        raise ValueError(f"filter_pass: the pair rows lie on {pdev}, the "
+                         f"snapshot on {dev}")
     for k in ("B", "N", "R", "L", "T", "P", "Q", "TT", "NS", "S", "E", "V",
               "VT", "DV", "DVN", "SA", "AT", "PT", "VZ", "VB"):
         setattr(args, k.lower(), int(dims[k]))
     args.tp = int(dims["TPA"])
+    args.kt = int(pdims.get("KT", 0))
+    args.aff_on, args.vz_on, args.vb_on = (int(on[k]) for k in
+                                           ("aff", "vz", "vb"))
     args.n_presence = len(presence)
     args.presence_present = int(bool(cfg.label_presence_present))
     args.n_svc = len(svc)
@@ -1101,7 +1124,47 @@ def filter_pass_prepare(cluster, pods, cfg, unsched_taint_key: int, hits,
     out = torch.empty(shape, dtype=torch.bool, device=dev)
     args.out = out.data_ptr()
     args.vec = int(N % 4 == 0 and out.data_ptr() % 4 == 0)
-    return args, dims["keep"] + consts + [hits, out], out
+    return args, dims["keep"] + consts + pkeep + [out], out
+
+
+def node_pair_build(topo: torch.Tensor, slot: torch.Tensor, kt: int,
+                    out=None) -> torch.Tensor:
+    """The node-pair table of one snapshot (ops/predicates.py
+    build_node_pairs; twin node_pair_table_plain) on topo's CUDA device:
+    topo bool[N, TP], slot i32[TP] each pair's topology key slot (-1: no
+    key), kt the slots -> i32[N, max(kt, 1)], each node's pair of each
+    slot or -1, written whole into `out` when given (nothing allocated).
+    The caller has checked that no node lies in two pairs of one key or
+    in a pair with no key (ops/predicates.py check_node_pairs).  One
+    kernel launch (filter_pass.cu node_pair_build), no host sync."""
+    if not (isinstance(topo, torch.Tensor) and topo.is_cuda
+            and isinstance(slot, torch.Tensor) and slot.is_cuda):
+        raise ValueError("node_pair_build launches on CUDA tensors only")
+    if (topo.dtype != torch.bool or slot.dtype != torch.int32
+            or topo.dim() != 2 or slot.shape != (topo.shape[1],)
+            or slot.device != topo.device):
+        raise ValueError(f"node_pair_build wants topo bool[N, TP] and slot "
+                         f"i32[TP] on one device, got {topo.dtype} "
+                         f"{tuple(topo.shape)} and {slot.dtype} "
+                         f"{tuple(slot.shape)}")
+    (N, TP), dev = topo.shape, topo.device
+    topo, slot = topo.contiguous(), slot.contiguous()
+    kt = max(int(kt), 1)
+    if out is None:
+        out = torch.empty((N, kt), dtype=torch.int32, device=dev)
+    elif (out.dtype != torch.int32 or out.shape != (N, kt)
+          or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"node_pair_build writes i32[{N}, {kt}] in place, "
+                         f"got {out.dtype} {tuple(out.shape)}")
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    with torch.cuda.device(dev):
+        _launch_error(lib, "node_pair_build", lib.node_pair_build_launch(
+            topo.data_ptr(), slot.data_ptr(), N, TP, kt, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream))
+    _count("node_pair_build")
+    return out
 
 
 def filter_pass_launch(args) -> None:
@@ -1117,20 +1180,23 @@ def filter_pass_launch(args) -> None:
         _count("filter_pass_stack")
 
 
-def filter_pass(cluster, pods, cfg, unsched_taint_key: int, hits, offsets,
-                stack: bool) -> torch.Tensor:
+def filter_pass(cluster, pods, cfg, unsched_taint_key: int, node_pair,
+                aff_slot, stack: bool) -> torch.Tensor:
     """K11: every predicate of one filter pass over the pods x nodes grid,
     on the snapshot's CUDA device.  cluster / pods: the schema dataclasses
-    of tensors; cfg: the FilterConfig; hits: None or f32[B, X, N], the
-    topology-pair incidence products of ops/predicates.py pair_hits, with
-    offsets {"forb", "anti", "aff", "key", "vz", "vb"} -> first row (a
-    missing key: lean).  stack False -> mask bool[B, N] (valid, pod_valid
-    and every predicate folded); True -> the stack bool[B, 23, N].  See
-    ops/predicates.py filter_batch_plain / predicate_stack_plain.  Raises
-    on anything the kernel does not take and on a refused launch."""
+    of tensors; cfg: the FilterConfig; node_pair: None (the batch is lean
+    in every pair family) or i32[N, KT], ops/predicates.py
+    node_pair_table's, the pair rows (the pods' forbidden, anti-affinity,
+    affinity, volume zone and binding pairs) are gathered at; aff_slot:
+    i32[B, PT] each affinity term's key slot (ops/predicates.py
+    key_slots), or None for an affinity-lean batch.  stack False -> mask
+    bool[B, N] (valid, pod_valid and every predicate folded); True -> the
+    stack bool[B, 23, N].  See ops/predicates.py filter_batch_plain /
+    predicate_stack_plain.  Raises on anything the kernel does not take
+    and on a refused launch."""
     args, keep, out = filter_pass_prepare(cluster, pods, cfg,
-                                          unsched_taint_key, hits, offsets,
-                                          stack)
+                                          unsched_taint_key, node_pair,
+                                          aff_slot, stack)
     with torch.cuda.device(out.device):
         filter_pass_launch(args)
     return out
@@ -1138,7 +1204,7 @@ def filter_pass(cluster, pods, cfg, unsched_taint_key: int, hits, offsets,
 
 def score_pass_prepare(cluster, pods, weights, all_rows: bool,
                        need_per: bool, score_cfg, zone_key_id: int,
-                       ipa_sums):
+                       node_pair):
     """The arguments of one K12 call (see score_pass) with its outputs
     allocated: (ScorePassArgs, the launch's other arguments, the tensors
     they point into, (total, per)).  The launch itself
@@ -1181,14 +1247,14 @@ def score_pass_prepare(cluster, pods, weights, all_rows: bool,
     keep = [topo, ptk]
     zone_of_node = torch.empty(N, dtype=torch.int32, device=dev)
     args.zone_of_node = zone_of_node.data_ptr()
-    if ipa_sums is not None:
-        if (ipa_sums.device != dev or ipa_sums.dtype != torch.float32
-                or ipa_sums.shape != (B, N)):
-            raise ValueError(f"score_pass wants ipa_sums f32[{B}, {N}], got "
-                             f"{ipa_sums.dtype} {tuple(ipa_sums.shape)}")
-        ipa_sums = ipa_sums.contiguous()
-        keep.append(ipa_sums)
-        args.ipa_sums = ipa_sums.data_ptr()
+    if node_pair is not None:
+        # the IPA raw sums: the pods' preferred pair weights gathered over
+        # each node's pairs
+        pdims, _, pkeep = _bind("score_pass", args, [
+            ("ipa_w", pods.pref_pair_weights, _F32, f"{B} {TP}"),
+            ("node_pair", node_pair, _I32, f"{N} KT")])
+        keep += pkeep
+        args.kt = pdims["KT"]
     prefs = tuple(score_cfg.label_prefs)
     if prefs and (rows >> 9) & 1:
         for field, vals, dtype in (
@@ -1251,26 +1317,36 @@ def score_pass_launch(args, extra) -> None:
 
 
 def score_pass(cluster, pods, weights, all_rows: bool, need_per: bool,
-               score_cfg, zone_key_id: int, ipa_sums):
+               score_cfg, zone_key_id: int, node_pair):
     """K12: the priorities of one score pass over the pods x nodes grid,
     on the snapshot's CUDA device.  weights: 12 f32 in PRIORITY_ORDER;
     all_rows: compute every priority (else only the nonzero weights');
     score_cfg: the ScoreConfig (NodeLabel and RTC arguments);
-    ipa_sums: None (affinity-lean) or f32[B, N], the pods' preferred pair
-    weights times the topology pairs.  Returns (total f32[B, N], per
+    node_pair: None (affinity-lean, or the InterPodAffinity row off) or
+    i32[N, KT] (ops/predicates.py node_pair_table): the row's raw sums
+    are the pods' preferred pair weights gathered over each node's
+    pairs.  Returns (total f32[B, N], per
     f32[B, 12, N] with the rows off at 0, or None without need_per); see
     ops/priorities.py score_batch_plain.  Two kernel launches when
     SelectorSpread's row is on (the zone index first), else one.  Raises
     on anything the kernel does not take and on a refused launch."""
     args, extra, keep, out = score_pass_prepare(
         cluster, pods, weights, all_rows, need_per, score_cfg, zone_key_id,
-        ipa_sums)
+        node_pair)
     with torch.cuda.device(out[0].device):
         score_pass_launch(args, extra)
     return out
 
 
 # ------------------------------------------------ K13, K14, K15: B5 and B4
+
+
+# K13's affinity-mode pointers (seq_scan.cu SeqScanArgs, after `work`)
+_K13_AFF_FIELDS = (
+    "node_pair", "node_valid", "aff_slot", "anti_slot", "pref_slot",
+    "aff_valid", "aff_self", "anti_valid", "aff_match", "anti_match",
+    "anti_own", "aff_own", "pref_match", "pref_own", "pref_weight", "u_aff",
+    "u_anti", "u_forb", "u_pref", "any_aff")
 
 
 class SeqScanArgs(ctypes.Structure):
@@ -1285,12 +1361,13 @@ class SeqScanArgs(ctypes.Structure):
         "extra_score", "nom_prio", "nom_req",
         "nom_order", "nom_start", "rtc_xs", "rtc_ys", "feas_limit", "hosts",
         "requested_out", "nonzero_out", "top_nodes", "top_scores",
-        "top_feas", "work")]
+        "top_feas", "work") + _K13_AFF_FIELDS]
         + [(name, ctypes.c_float) for name in (
-            "w_least", "w_most", "w_bal", "w_spread", "w_rtc")]
+            "w_least", "w_most", "w_bal", "w_spread", "w_rtc", "w_ipa",
+            "hard_w")]
         + [(name, ctypes.c_int) for name in (
             "b", "n", "r", "g", "gp", "pv", "tp", "tk", "n_rtc", "zone_key",
-            "last_index0")])
+            "last_index0", "kt", "pt", "at", "pp")])
 
 
 def _bind(name: str, args, rows) -> tuple:
@@ -1345,23 +1422,27 @@ def nominated_lists(node: torch.Tensor, n_nodes: int):
     return order.to(torch.int32), start.to(torch.int32)
 
 
-def seq_scan_barriers(spread: bool, limited: bool, tk: int) -> int:
+def seq_scan_barriers(spread: bool, limited: bool, tk: int,
+                      aff: bool = False) -> int:
     """The block-wide barriers one K13 step passes (seq_scan.cu), by
     option.  The function needs fewer dependent stages a step than the
     kernel passes barriers (chip_smoke.py _k13_stages prices those)."""
     return (9 + 4 * bool(spread) + 5 * bool(limited)
-            + (2 * tk if tk > 0 else 0))
+            + (2 * tk if tk > 0 else 0) + 2 * bool(aff))
 
 
 def seq_scan_prepare(cluster, pods, ports, static_mask, static_score,
                      extra_mask, extra_score, spread_match, nom, feas_limit,
                      rtc, weights, zone_key: int, last_index0: int, tk: int,
-                     out=None):
+                     out=None, aff=None, pairs=None, unions=None,
+                     ipa=(0.0, 0.0)):
     """The arguments of one K13 launch (see seq_scan) with its outputs
     and workspace allocated, or the outputs `out` (hosts, requested,
     nonzero, top or None) written in place: (SeqScanArgs, the tensors
-    they point into, the outputs).  The launch itself (seq_scan_launch)
-    allocates nothing, so a CUDA graph can capture it."""
+    they point into, the outputs).  With aff (a dense BatchAffinityState)
+    the affinity mode, which reads pairs and updates unions.  The launch
+    itself (seq_scan_launch) allocates nothing, so a CUDA graph can
+    capture it."""
     args = SeqScanArgs()
     lean = pods.spread_counts.shape[-1] != cluster.valid.shape[0]
     xs, ys = rtc if rtc is not None else (None, None)
@@ -1396,6 +1477,8 @@ def seq_scan_prepare(cluster, pods, ports, static_mask, static_score,
                  ("nom_req", nom.req, _F32, "K R"),
                  ("nom_order", order, _I32, "K"),
                  ("nom_start", start, _I32, "N1")]
+    if aff is not None:
+        rows += _k13_affinity_rows(cluster, pods, aff, pairs, unions)
     if out is not None:
         top = out[3] if out[3] is not None else (None, None, None)
         rows += [("hosts", out[0], _I32, "B"),
@@ -1437,7 +1520,10 @@ def seq_scan_prepare(cluster, pods, ports, static_mask, static_score,
     args.work = work.data_ptr()
     (args.w_least, args.w_most, args.w_bal, args.w_spread,
      args.w_rtc) = (float(x) for x in weights)
+    args.w_ipa, args.hard_w = (float(x) for x in ipa)
     args.b, args.n, args.r, args.pv, args.tp, args.tk = B, N, R, PV, TP, tk
+    args.kt, args.pt, args.at, args.pp = (dims.get(k, 0) for k in
+                                          ("KT", "PT", "AT", "PP"))
     args.g, args.gp = dims["G"], dims["GP"]
     args.n_rtc = dims.get("M", 0)
     if args.w_rtc and not args.n_rtc:
@@ -1445,6 +1531,37 @@ def seq_scan_prepare(cluster, pods, ports, static_mask, static_score,
     args.zone_key = int(zone_key)
     args.last_index0 = wrap_i32(last_index0)
     return args, keep + [work, out], out
+
+
+def _k13_affinity_rows(cluster, pods, aff, pairs, unions) -> list:
+    """K13's affinity-mode rows: the batch's BatchPairs (the node-pair
+    table and each term's key slot), the cross matches, and the pair rows
+    the scan updates in place (unions: fresh TP-wide copies of the pods'
+    own, ops/predicates.py union_rows)."""
+    if pairs is None or unions is None:
+        raise ValueError("seq_scan's affinity mode wants the batch's pairs "
+                         "and unions")
+    return [
+        ("node_pair", pairs.node_pair, _I32, "N KT"),
+        ("node_valid", cluster.valid, _BOOL, "N"),
+        ("aff_slot", pairs.aff_slot, _I32, "B PT"),
+        ("anti_slot", pairs.anti_slot, _I32, "B AT"),
+        ("pref_slot", pairs.pref_slot, _I32, "B PP"),
+        ("aff_valid", pods.aff_term_valid, _BOOL, "B PT"),
+        ("aff_self", pods.aff_term_self, _BOOL, "B PT"),
+        ("anti_valid", pods.anti_term_valid, _BOOL, "B AT"),
+        ("aff_match", aff.aff_match, _BOOL, "B B PT"),
+        ("anti_match", aff.anti_match, _BOOL, "B B AT"),
+        ("anti_own", aff.anti_own, _BOOL, "B AT B"),
+        ("aff_own", aff.aff_own, _BOOL, "B PT B"),
+        ("pref_match", aff.pref_match, _BOOL, "B B PP"),
+        ("pref_own", aff.pref_own, _BOOL, "B PP B"),
+        ("pref_weight", aff.pref_weight, _F32, "B PP"),
+        ("u_aff", unions["uaff"], _BOOL, "B PT TP"),
+        ("u_anti", unions["uanti"], _BOOL, "B AT TP"),
+        ("u_forb", unions["uforb"], _BOOL, "B TP"),
+        ("u_pref", unions["upref"], _F32, "B TP"),
+        ("any_aff", torch.any(pods.aff_term_pairs, dim=-1), _BOOL, "B PT")]
 
 
 def seq_scan_launch(args) -> None:
@@ -1460,24 +1577,30 @@ def seq_scan_launch(args) -> None:
 
 def seq_scan(cluster, pods, ports, static_mask, static_score, spread_match,
              nom, feas_limit, rtc, weights, zone_key: int, last_index0: int,
-             tk: int, extra_mask=None, extra_score=None):
-    """K13: the sequential engine's whole scan of one batch with no
-    in-batch pod affinity, in one launch on the snapshot's CUDA device.
-    cluster / pods / ports: the schema's tensors and the batch's
-    BatchPortState; static_mask bool[B, N] / static_score f32[B, N]: the
-    static pass, with extra_mask / extra_score (or None) folded in by the
-    kernel; spread_match f32[B, B] (ops/priorities.py pod_spread_match);
-    nom: the NominatedState on the device or None; feas_limit: i32[] (the
-    sampling limit) or None; rtc: (xs, ys) f32 curve tensors or None;
-    weights: (least, most, balanced, spread, rtc) as floats; tk: the top-k
-    width (0 = off).  Returns (hosts i32[B], requested f32[N, R],
-    nonzero_req f32[N, 2], (top_nodes, top_scores, top_feas) or None); see
+             tk: int, extra_mask=None, extra_score=None, aff=None,
+             pairs=None, unions=None, ipa=(0.0, 0.0)):
+    """K13: the sequential engine's whole scan of one batch, in one launch
+    on the snapshot's CUDA device.  cluster / pods / ports: the schema's
+    tensors and the batch's BatchPortState; static_mask bool[B, N] /
+    static_score f32[B, N]: the static pass, with extra_mask / extra_score
+    (or None) folded in by the kernel; spread_match f32[B, B]
+    (ops/priorities.py pod_spread_match); nom: the NominatedState on the
+    device or None; feas_limit: i32[] (the sampling limit) or None; rtc:
+    (xs, ys) f32 curve tensors or None; weights: (least, most, balanced,
+    spread, rtc) as floats; tk: the top-k width (0 = off); aff: the dense
+    BatchAffinityState of a batch with in-batch pod affinity (the static
+    pass then without MatchInterPodAffinity and the IPA score) or None;
+    with aff, pairs: the batch's ops/predicates.py BatchPairs, unions: the
+    pods' pair rows the scan updates in place (ops/predicates.py
+    union_rows), ipa: (InterPodAffinity's weight, the hard pod affinity
+    weight).  Returns (hosts i32[B], requested f32[N, R], nonzero_req
+    f32[N, 2], (top_nodes, top_scores, top_feas) or None); see
     models/batched.py scan_plain, its twin.  Raises on anything the kernel
     does not take and on a refused launch."""
     args, keep, out = seq_scan_prepare(
         cluster, pods, ports, static_mask, static_score, extra_mask,
         extra_score, spread_match, nom, feas_limit, rtc, weights, zone_key,
-        last_index0, tk)
+        last_index0, tk, aff=aff, pairs=pairs, unions=unions, ipa=ipa)
     with torch.cuda.device(out[0].device):
         seq_scan_launch(args)
     return out
@@ -1489,9 +1612,11 @@ class RoundFoldArgs(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "total_in", "mask_in", "active", "emask", "pod_valid", "escore",
         "spread_g", "group_ids", "group_valid", "zone_of_node", "feas_limit",
-        "li", "total_out", "mask_out", "work")]
-        + [("w_spread", ctypes.c_float)]
-        + [(name, ctypes.c_int) for name in ("b", "n", "g", "gp", "tp")])
+        "li", "total_out", "mask_out", "work", "u_pref", "node_pair",
+        "node_valid")]
+        + [(name, ctypes.c_float) for name in ("w_spread", "w_ipa")]
+        + [(name, ctypes.c_int) for name in ("b", "n", "g", "gp", "tp",
+                                             "kt")])
 
 
 class RoundCommitArgs(ctypes.Structure):
@@ -1504,21 +1629,26 @@ class RoundCommitArgs(ctypes.Structure):
         "nom_order", "nom_start", "c_hosts", "c_req", "c_nz", "c_spread",
         "c_claimed", "c_emask", "c_active", "c_li", "c_inv", "c_rounds",
         "c_any", "c_topn", "c_tops", "c_feas", "prop", "accept", "node_req",
-        "claimed_h", "prior", "ticket")]
+        "claimed_h", "prior", "ticket", "round_mask", "rel", "node_pair",
+        "anti_slot", "anti_match", "anti_own", "any_acc", "first_inf")]
         + [("cond", ctypes.c_ulonglong)]
         + [(name, ctypes.c_int) for name in (
-            "b", "n", "r", "g", "gp", "pv", "tk")])
+            "b", "n", "r", "g", "gp", "pv", "tk", "kt", "at")])
 
 
 def round_fold_prepare(total, mask, c, pods, zone_of_node, tp: int,
-                       escore, feas_limit, w_spread: float):
+                       escore, feas_limit, w_spread: float, ipa=None):
     """The arguments of one K15 launch and the tensors they point into:
     (RoundFoldArgs, keep, (total_out f32[B, N], mask_out bool[B, N])).
     total / mask: the round's score and filter passes; c: the round
-    carry (its "active", "emask", "spread" and device counter "li_dev");
-    zone_of_node i32[N] over the snapshot's tp topology pairs; escore f32[B, N] or None; feas_limit i32[] or
-    None.  Everything is allocated here, so the launch itself
-    (round_fold_launch) allocates nothing."""
+    carry (its "active", "emask", "spread" and device counter "li_dev",
+    and with ipa its "upref"); zone_of_node i32[N] over the snapshot's tp
+    topology pairs; escore f32[B, N] or None; feas_limit i32[] or None;
+    ipa: None, or (node_pair i32[N, KT], node valid bool[N], the
+    InterPodAffinity weight) for a batch with in-batch pod affinity (the
+    affinity mode: the IPA score over c["upref"]).  Everything is
+    allocated here, so the launch itself (round_fold_launch) allocates
+    nothing."""
     args = RoundFoldArgs()
     N = mask.shape[1]
     lean = pods.spread_counts.shape[-1] != N
@@ -1534,6 +1664,11 @@ def round_fold_prepare(total, mask, c, pods, zone_of_node, tp: int,
             ("zone_of_node", zone_of_node, _I32, "N"),
             ("feas_limit", feas_limit, _I32, ""),
             ("li", c["li_dev"], _I32, "")]
+    if ipa is not None:
+        rows += [("u_pref", c["upref"], _F32, f"B {int(tp)}"),
+                 ("node_pair", ipa[0], _I32, "N KT"),
+                 ("node_valid", ipa[1], _BOOL, "N")]
+        args.w_ipa = float(ipa[2])
     dims, dev, keep = _bind("round_fold", args, rows)
     B = dims["B"]
     TP = int(tp)
@@ -1553,6 +1688,7 @@ def round_fold_prepare(total, mask, c, pods, zone_of_node, tp: int,
     args.w_spread = float(w_spread)
     args.b, args.n, args.tp = B, N, TP
     args.g, args.gp = dims.get("G", 0), dims["GP"]
+    args.kt = dims.get("KT", 0)
     keep += [work, total_out, mask_out]
     return args, keep, (total_out, mask_out)
 
@@ -1569,22 +1705,23 @@ def round_fold_launch(args) -> None:
 
 
 def round_fold(total, mask, c, pods, zone_of_node, tp: int, escore,
-               feas_limit, w_spread: float):
-    """K15: the speculative round's fold of one plain batch between the
-    score pass and the selector, on the tensors' CUDA device; returns
-    (total f32[B, N], mask bool[B, N]).  See models/speculative.py
-    round_fold_plain, its twin, and round_fold_prepare for the
-    arguments.  Raises on anything the kernel does not take and on a
-    refused launch."""
+               feas_limit, w_spread: float, ipa=None):
+    """K15: the speculative round's fold between the score pass and the
+    selector, on the tensors' CUDA device; returns (total f32[B, N], mask
+    bool[B, N]).  See models/speculative.py round_fold_plain, its twin,
+    and round_fold_prepare for the arguments.  Raises on anything the
+    kernel does not take and on a refused launch."""
     args, keep, out = round_fold_prepare(total, mask, c, pods, zone_of_node,
-                                         tp, escore, feas_limit, w_spread)
+                                         tp, escore, feas_limit, w_spread,
+                                         ipa)
     with torch.cuda.device(out[0].device):
         round_fold_launch(args)
     return out
 
 
 def round_commit_prepare(c, hosts, feasible, top, pods, ports, cluster,
-                         nom_lists, spread_match, scratch, cond: int = 0):
+                         nom_lists, spread_match, scratch, cond: int = 0,
+                         aff=None):
     """The arguments of one K14 round (RoundCommitArgs) and the tensors
     they point into.  c: the round carry, updated in place by the launch
     (hosts, req, nz, spread, claimed, emask, active, li_dev, inv,
@@ -1593,7 +1730,11 @@ def round_commit_prepare(c, hosts, feasible, top, pods, ports, cluster,
     nom_lists: (nominated NominatedState, order, start) or None;
     spread_match: f32[B, B] for a batch with per-pod spread counts, None
     for a spread-lean one; scratch: round_commit_scratch's dict; cond:
-    the WHILE node's conditional handle, or 0."""
+    the WHILE node's conditional handle, or 0; aff: None, or for a batch
+    with in-batch pod affinity (the affinity mode) a dict of the round's
+    mask bool[B, N] "mask", "rel" bool[B, B] (pods related through
+    required terms), "node_pair" i32[N, KT], "anti_slot" i32[B, AT] and
+    the BatchAffinityState's "anti_match" and "anti_own"."""
     args = RoundCommitArgs()
     lean = spread_match is None
     tops = top if top is not None else (None, None, None)
@@ -1637,6 +1778,15 @@ def round_commit_prepare(c, hosts, feasible, top, pods, ports, cluster,
                  ("nom_req", nom.req, _F32, "K R"),
                  ("nom_order", order, _I32, "K"),
                  ("nom_start", start, _I32, "N1")]
+    if aff is not None:
+        rows += [("round_mask", aff["mask"], _BOOL, "B N"),
+                 ("rel", aff["rel"], _BOOL, "B B"),
+                 ("node_pair", aff["node_pair"], _I32, "N KT"),
+                 ("anti_slot", aff["anti_slot"], _I32, "B AT"),
+                 ("anti_match", aff["anti_match"], _BOOL, "B B AT"),
+                 ("anti_own", aff["anti_own"], _BOOL, "B AT B"),
+                 ("any_acc", scratch["any_acc"], _I32, ""),
+                 ("first_inf", scratch["first_inf"], _I32, "")]
     dims, dev, keep = _bind("round_commit", args, rows)
     B, N, R, PV = (dims[k] for k in ("B", "N", "R", "PV"))
     if nom_lists is not None and dims["N1"] != N + 1:
@@ -1650,13 +1800,16 @@ def round_commit_prepare(c, hosts, feasible, top, pods, ports, cluster,
     args.b, args.n, args.r, args.pv = B, N, R, PV
     args.g = dims.get("G", 0)
     args.gp, args.tk = dims["GP"], dims.get("TK", 0)
+    args.kt, args.at = dims.get("KT", 0), dims.get("AT", 0)
     args.cond = int(cond)
     return args, keep
 
 
 def round_commit_scratch(B: int, R: int, PV: int, device) -> dict:
     """The scratch K14's two launches share, allocated once a batch (the
-    ticket zeroed; each round's last block sets it back)."""
+    ticket and the affinity mode's "any accepted" flag zeroed, its first
+    infeasible pod at INT32_MAX; each round's last block sets them
+    back)."""
     return {"prop": torch.empty(B, dtype=torch.bool, device=device),
             "accept": torch.empty(B, dtype=torch.bool, device=device),
             "node_req": torch.empty((B, R), dtype=torch.float32,
@@ -1664,7 +1817,10 @@ def round_commit_scratch(B: int, R: int, PV: int, device) -> dict:
             "claimed_h": torch.empty((B, PV), dtype=torch.bool,
                                      device=device),
             "prior": torch.empty((B, B), dtype=torch.int32, device=device),
-            "ticket": torch.zeros((), dtype=torch.int32, device=device)}
+            "ticket": torch.zeros((), dtype=torch.int32, device=device),
+            "any_acc": torch.zeros((), dtype=torch.int32, device=device),
+            "first_inf": torch.full((), (1 << 31) - 1, dtype=torch.int32,
+                                    device=device)}
 
 
 def round_commit_launch(args) -> None:
@@ -1680,17 +1836,102 @@ def round_commit_launch(args) -> None:
 
 
 def round_commit(c, hosts, feasible, top, pods, ports, cluster, nom_lists,
-                 spread_match, scratch) -> None:
-    """K14: the acceptance and the carry update of one round of a plain
-    batch, in place on the carry c, on its CUDA device.  See
-    models/speculative.py round_commit_plain, its twin, and
-    round_commit_prepare for the arguments.  Raises on anything the
-    kernels do not take and on a refused launch."""
+                 spread_match, scratch, aff=None) -> None:
+    """K14: the acceptance and the carry update of one round, in place on
+    the carry c, on its CUDA device.  See models/speculative.py
+    round_commit_plain, its twin, and round_commit_prepare for the
+    arguments.  Raises on anything the kernels do not take and on a
+    refused launch."""
     args, keep = round_commit_prepare(c, hosts, feasible, top, pods, ports,
                                       cluster, nom_lists, spread_match,
-                                      scratch)
+                                      scratch, aff=aff)
     with torch.cuda.device(hosts.device):
         round_commit_launch(args)
+
+
+class RoundPairsArgs(ctypes.Structure):
+    """round_pairs.cu's RoundPairsArgs, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "hosts", "accept", "active", "node_pair", "aff_slot", "anti_slot",
+        "pref_slot", "aff_self", "aff_match", "anti_match", "anti_own",
+        "aff_own", "pref_match", "pref_own", "pref_weight", "u_aff",
+        "u_anti", "u_forb", "u_pref", "self_eff")]
+        + [("hard_w", ctypes.c_float)]
+        + [(name, ctypes.c_int) for name in ("b", "tp", "kt", "pt", "at",
+                                             "pp")])
+
+
+def round_pairs_prepare(c, hosts, accept, pods, aff, pairs,
+                        hard_w: float):
+    """The arguments of one K16 launch and the tensors they point into:
+    (RoundPairsArgs, keep).  c: the round carry of a batch with in-batch
+    pod affinity, updated in place (its unions "uaff", "uanti", "uforb",
+    "upref" and the gated "self"; "active" read); hosts / accept: K1's
+    picks and K14's acceptance, or None for the gate alone (the first
+    round's); aff: the dense BatchAffinityState; pairs: the batch's
+    ops/predicates.py BatchPairs; hard_w: the hard pod affinity weight."""
+    args = RoundPairsArgs()
+    rows = [("hosts", hosts, _I32, "B"),
+            ("accept", accept, _BOOL, "B"),
+            ("active", c["active"], _BOOL, "B"),
+            ("node_pair", pairs.node_pair, _I32, "N KT"),
+            ("aff_slot", pairs.aff_slot, _I32, "B PT"),
+            ("anti_slot", pairs.anti_slot, _I32, "B AT"),
+            ("pref_slot", pairs.pref_slot, _I32, "B PP"),
+            ("aff_self", pods.aff_term_self, _BOOL, "B PT"),
+            ("aff_match", aff.aff_match, _BOOL, "B B PT"),
+            ("anti_match", aff.anti_match, _BOOL, "B B AT"),
+            ("anti_own", aff.anti_own, _BOOL, "B AT B"),
+            ("aff_own", aff.aff_own, _BOOL, "B PT B"),
+            ("pref_match", aff.pref_match, _BOOL, "B B PP"),
+            ("pref_own", aff.pref_own, _BOOL, "B PP B"),
+            ("pref_weight", aff.pref_weight, _F32, "B PP"),
+            ("u_aff", c["uaff"], _BOOL, "B PT TP"),
+            ("u_anti", c["uanti"], _BOOL, "B AT TP"),
+            ("u_forb", c["uforb"], _BOOL, "B TP"),
+            ("u_pref", c["upref"], _F32, "B TP"),
+            ("self_eff", c["self"], _BOOL, "B PT")]
+    if (hosts is None) != (accept is None):
+        raise ValueError("round_pairs wants both hosts and accept, or "
+                         "neither")
+    dims, dev, keep = _bind("round_pairs", args, rows)
+    for k in ("uaff", "uanti", "uforb", "upref", "self"):
+        if not c[k].is_contiguous():
+            raise ValueError(f"round_pairs updates the carry in place: {k} "
+                             f"must be contiguous")
+    B = dims["B"]
+    if not (0 < B < (1 << 31) and B * B < (1 << 62)):
+        raise ValueError(f"round_pairs: B={B} out of range")
+    args.hard_w = float(hard_w)
+    args.b, args.tp, args.kt = B, dims["TP"], dims["KT"]
+    args.pt, args.at, args.pp = dims["PT"], dims["AT"], dims["PP"]
+    return args, keep
+
+
+def round_pairs_launch(args) -> None:
+    """Queue one prepared K16 launch (round_pairs_prepare) on the current
+    stream; raises on a refused launch."""
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    _launch_error(lib, "round_pairs", lib.round_pairs_launch(
+        args, torch.cuda.current_stream().cuda_stream))
+    _count("round_pairs")
+
+
+def round_pairs(c, hosts, accept, pods, aff, pairs,
+                hard_w: float) -> None:
+    """K16: the pair commit of one round's accepted pods and the next
+    round's bootstrap gate (accept None: the gate alone), in place on the
+    carry c, on its CUDA device.  See models/speculative.py
+    round_pairs_plain, its twin, and round_pairs_prepare for the
+    arguments.  Raises on anything the kernel does not take and on a
+    refused launch."""
+    args, keep = round_pairs_prepare(c, hosts, accept, pods, aff,
+                                     pairs, hard_w)
+    with torch.cuda.device(c["active"].device):
+        round_pairs_launch(args)
 
 
 def graph_versions() -> tuple:

@@ -103,6 +103,8 @@ def library() -> ctypes.CDLL:
 
     lib.filter_pass_launch.argtypes = [FilterPassArgs, p]
     lib.filter_pass_launch.restype = ctypes.c_int
+    lib.node_pair_build_launch.argtypes = [p, p, i, i, i, p, p]
+    lib.node_pair_build_launch.restype = ctypes.c_int
     lib.score_pass_launch.argtypes = [ScorePassArgs, p, p, i, p]
     lib.score_pass_launch.restype = ctypes.c_int
     lib.score_pass_smem_max.argtypes = []
@@ -113,7 +115,8 @@ def library() -> ctypes.CDLL:
     lib.seq_scan_launch.restype = ctypes.c_int
     lib.seq_scan_workspace_bytes.argtypes = [i, i, i]
     lib.seq_scan_workspace_bytes.restype = ctypes.c_longlong
-    from kubernetes_tpu_torch.kernels import RoundCommitArgs, RoundFoldArgs
+    from kubernetes_tpu_torch.kernels import (RoundCommitArgs, RoundFoldArgs,
+                                              RoundPairsArgs)
 
     lib.round_fold_launch.argtypes = [RoundFoldArgs, p]
     lib.round_fold_launch.restype = ctypes.c_int
@@ -121,6 +124,8 @@ def library() -> ctypes.CDLL:
     lib.round_fold_workspace_bytes.restype = ctypes.c_longlong
     lib.round_commit_launch.argtypes = [RoundCommitArgs, p]
     lib.round_commit_launch.restype = ctypes.c_int
+    lib.round_pairs_launch.argtypes = [RoundPairsArgs, p]
+    lib.round_pairs_launch.restype = ctypes.c_int
     lib.select_hosts_launch_dev.argtypes = [p, p, i, i, p, p, p, i, p]
     lib.select_hosts_launch_dev.restype = ctypes.c_int
     u64 = ctypes.c_uint64

@@ -15,13 +15,16 @@
 //         (the need_per=True route; kernel K7 folds it).
 // A predicate the profile disables (a 0 bit in `enabled`) reads all true.
 //
-// What stays outside: the topology-pair incidence products (the
-// anti-affinity and affinity terms of MatchInterPodAffinity, the volume
-// zone and binding terms) are exact f32 matrix products that the wrapper
-// computes with torch.matmul, as the reference leaves them to XLA.  They
-// arrive as one f32[B, X, N] `hits` tensor, each term a row at the offset
-// the arguments give (-1: the batch is lean in those terms and the
-// predicate passes, as in the twin).
+// The topology-pair terms (the existing pods' forbidden pairs, the
+// anti-affinity and affinity terms of MatchInterPodAffinity and their
+// topology keys, the volume zone and binding terms) are the reference's
+// incidence products with the topology; here each is a gather over the
+// node's pairs (pair_gather.cuh): the pods' pair rows bool[B, X, TP] are
+// read at node_pair[n, k] for the KT topology key slots, and "the node has
+// the term's key" is node_pair[n, slot] >= 0 (aff_slot: each affinity
+// term's key slot).  A family the batch is lean in (its width is not TP)
+// passes, as in the twin.  node_pair_build, a second kernel here, makes
+// the table once a snapshot upload.
 //
 // Bound: operations, at the live shapes.  The inputs are the snapshot's
 // node rows (a few hundred bytes a node) and the pods' rows, read once
@@ -43,6 +46,7 @@
 #include <stdint.h>
 
 #include "label_select.cuh"
+#include "pair_gather.cuh"
 
 namespace {
 
@@ -121,13 +125,18 @@ struct FilterPassArgs {
   const int* svc_aff_fixed;      // [B, SA]
   const int* svc_aff_d0;         // [B]
   const int* svc_aff_d1;
-  const uint8_t* aff_term_pairs; // [B, PT, TP] (read when off_aff >= 0)
+  const uint8_t* aff_term_pairs; // [B, PT, TP] (read when aff_on)
   const uint8_t* aff_term_valid; // [B, PT]
   const uint8_t* aff_term_self;
   const uint8_t* anti_term_valid;  // [B, AT]
   const uint8_t* vol_zone_valid;   // [B, VZ]
   const uint8_t* vol_bind_valid;   // [B, VB]
-  const float* hits;             // [B, X, N] pair-incidence products
+  const uint8_t* forbidden_pairs;  // [B, TP] (read when aff_on)
+  const uint8_t* anti_term_pairs;  // [B, AT, TP] (read when aff_on)
+  const uint8_t* vol_zone_pairs;   // [B, VZ, TP] (read when vz_on)
+  const uint8_t* vol_bind_pairs;   // [B, VB, TP] (read when vb_on)
+  const int* node_pair;          // [N, KT] each node's pair a key slot, or -1
+  const int* aff_slot;           // [B, PT] each affinity term's key slot
   // configuration
   const float* max_vols;         // [VT] per-column default limits
   const int* presence_keys;      // [n_presence]
@@ -135,7 +144,7 @@ struct FilterPassArgs {
   uint8_t* out;                  // [B, N] (mask) or [B, 23, N] (stack)
   int b, n, r, l, t, p, q, tt, ns, s, e, v, vt, dv, dvn, sa, at, pt, vz,
       vb, tp;
-  int x_rows, off_forb, off_anti, off_aff, off_key, off_vz, off_vb;
+  int kt, aff_on, vz_on, vb_on;
   int n_presence, presence_present, n_svc, unsched_key, enabled,
       stack_mode, vec;
 };
@@ -279,36 +288,43 @@ __device__ __forceinline__ bool vol_ok(const FilterPassArgs& a, int b, int n,
   return !(nw > 0.f && __fadd_rn(used, nw) > lim);
 }
 
-__device__ __forceinline__ bool hit(const FilterPassArgs& a, int b, int row,
-                                    int n) {
-  return __ldg(a.hits + ((size_t)b * a.x_rows + row) * a.n + n) > 0.f;
-}
-
 // AND over terms of "the node is in one of the term's pairs" (an invalid
-// term passes); a lean batch (off < 0) passes
+// term passes); a lean batch (!on) passes
 __device__ __forceinline__ bool pair_terms_ok(const FilterPassArgs& a, int b,
-                                              int n, int off, int k_terms,
+                                              int n, bool on,
+                                              const uint8_t* pairs,
+                                              int k_terms,
                                               const uint8_t* term_valid) {
-  if (off < 0) return true;
+  if (!on) return true;
+  const int* np = a.node_pair + (size_t)n * a.kt;
   for (int k = 0; k < k_terms; ++k)
-    if (__ldg(term_valid + (size_t)b * k_terms + k) && !hit(a, b, off + k, n))
+    if (__ldg(term_valid + (size_t)b * k_terms + k) &&
+        !pair_gather::any_hit(pairs + ((size_t)b * k_terms + k) * a.tp, np,
+                              a.kt))
       return false;
   return true;
 }
 
 __device__ bool inter_pod_ok(const FilterPassArgs& a, int b, int n,
                              const uint8_t* any_match) {
-  if (a.off_aff < 0) return true;
-  if (hit(a, b, a.off_forb, n)) return false;
+  if (!a.aff_on) return true;
+  const int* np = a.node_pair + (size_t)n * a.kt;
+  if (pair_gather::any_hit(a.forbidden_pairs + (size_t)b * a.tp, np, a.kt))
+    return false;
   for (int k = 0; k < a.at; ++k)
     if (__ldg(a.anti_term_valid + (size_t)b * a.at + k) &&
-        hit(a, b, a.off_anti + k, n))
+        pair_gather::any_hit(
+            a.anti_term_pairs + ((size_t)b * a.at + k) * a.tp, np, a.kt))
       return false;
   for (int k = 0; k < a.pt; ++k) {
     const size_t i = (size_t)b * a.pt + k;
-    if (!__ldg(a.aff_term_valid + i) || hit(a, b, a.off_aff + k, n)) continue;
+    if (!__ldg(a.aff_term_valid + i) ||
+        pair_gather::any_hit(a.aff_term_pairs + i * a.tp, np, a.kt))
+      continue;
+    // the bootstrap: no pair matches the term anywhere, the pod matches
+    // it itself, and the node has the term's key
     if (!any_match[k] && __ldg(a.aff_term_self + i) &&
-        hit(a, b, a.off_key + k, n))
+        pair_gather::pair_of(np, __ldg(a.aff_slot + i)) >= 0)
       continue;
     return false;
   }
@@ -363,10 +379,12 @@ __device__ uint32_t eval_node(const FilterPassArgs& a, int b, int n,
   if (K11_ON(kVolumeBinding))
     K11_SET(kVolumeBinding,
             !__ldg(a.vol_fail_all + b) &&
-                pair_terms_ok(a, b, n, a.off_vb, a.vb, a.vol_bind_valid));
+                pair_terms_ok(a, b, n, a.vb_on, a.vol_bind_pairs, a.vb,
+                              a.vol_bind_valid));
   if (K11_ON(kVolumeZone))
     K11_SET(kVolumeZone,
-            pair_terms_ok(a, b, n, a.off_vz, a.vz, a.vol_zone_valid));
+            pair_terms_ok(a, b, n, a.vz_on, a.vol_zone_pairs, a.vz,
+                          a.vol_zone_valid));
   if (general || K11_ON(kHostPorts)) {
     ports = ports_ok(a, b, n);
     if (K11_ON(kHostPorts)) K11_SET(kHostPorts, ports);
@@ -421,7 +439,7 @@ __device__ uint32_t eval_node(const FilterPassArgs& a, int b, int n,
 
 __global__ void __launch_bounds__(kThreads) k11_filter_pass(
     const FilterPassArgs a) {
-  extern __shared__ uint8_t any_match[];   // [PT] when off_aff >= 0
+  extern __shared__ uint8_t any_match[];   // [PT] when aff_on
   __shared__ int tol_unsched;
   const int b = blockIdx.x;
   // per-pod values the whole block needs: a toleration of the
@@ -438,8 +456,14 @@ __global__ void __launch_bounds__(kThreads) k11_filter_pass(
     }
     tol_unsched = ok;
   }
-  if (a.off_aff >= 0) {
+  if (a.aff_on) {
     for (int k = 0; k < a.pt; ++k) {
+      // an invalid term passes without its flag (inter_pod_ok): its row
+      // is not scanned (the test is the same for the whole block)
+      if (!__ldg(a.aff_term_valid + (size_t)b * a.pt + k)) {
+        if (threadIdx.x == 0) any_match[k] = 0;
+        continue;
+      }
       const uint8_t* row = a.aff_term_pairs + ((size_t)b * a.pt + k) * a.tp;
       int mine = 0;
       for (int i = threadIdx.x; i < a.tp && !mine; i += kThreads)
@@ -512,7 +536,69 @@ extern "C" int filter_pass_launch(FilterPassArgs a, cudaStream_t stream) {
   const long long tiles = (a.n + per_block - 1) / per_block;
   if (tiles > 65535 || a.b >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)a.b, (unsigned)tiles);
-  const size_t smem = a.off_aff >= 0 ? (size_t)a.pt : 0;
+  if ((a.aff_on || a.vz_on || a.vb_on) && (!a.node_pair || a.kt < 0))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = a.aff_on ? (size_t)a.pt : 0;
   k11_filter_pass<<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// node_pair[n, slot[p]] := p for every pair p node n lies in, -1 for a
+// slot it has no pair of (topo bool[N, TP]; slot i32[TP] the pair's
+// topology key slot, -1 for an unused pair).  The snapshot layer checked
+// on the host that a node lies in at most one pair of each key and in no
+// pair without a key (ops/predicates.py check_node_pairs), so each entry
+// has one writer.  One warp a node: its lanes fill the node's row with -1,
+// then walk the node's topology row, 16 bytes a lane a step when the rows
+// are 16-byte aligned.
+__global__ void node_pair_build_kernel(const uint8_t* __restrict__ topo,
+                                       const int* __restrict__ slot, int n,
+                                       int tp, int kt, int vec,
+                                       int* __restrict__ table) {
+  const long long node =
+      (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
+  if (node >= n) return;
+  const int lane = threadIdx.x & 31;
+  const uint8_t* row = topo + (size_t)node * tp;
+  int* out = table + (size_t)node * kt;
+  for (int k = lane; k < kt; k += 32) out[k] = -1;
+  __syncwarp();
+  if (vec) {
+    const uint4* row4 = reinterpret_cast<const uint4*>(row);
+    for (int q = lane; q < tp / 16; q += 32) {
+      const uint4 v = __ldg(row4 + q);
+      if (!(v.x | v.y | v.z | v.w)) continue;
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
+      for (int i = 0; i < 16; ++i)
+        if (b[i]) {
+          const int p = q * 16 + i, s = __ldg(slot + p);
+          if (s >= 0) out[s] = p;
+        }
+    }
+    return;
+  }
+  for (int p = lane; p < tp; p += 32) {
+    if (!__ldg(row + p)) continue;
+    const int s = __ldg(slot + p);
+    if (s >= 0) out[s] = p;
+  }
+}
+
+}  // namespace
+
+// The node-pair table of one snapshot on `stream`, written whole: one
+// kernel launch and no other stream operation.  Returns a cudaError_t
+// code.
+extern "C" int node_pair_build_launch(const uint8_t* topo, const int* slot,
+                                      int n, int tp, int kt, int* table,
+                                      cudaStream_t stream) {
+  if (n <= 0 || tp <= 0 || kt <= 0) return (int)cudaErrorInvalidValue;
+  const int warps = 8;
+  const long long blocks = ((long long)n + warps - 1) / warps;
+  const int vec = tp % 16 == 0 && (uintptr_t)topo % 16 == 0;
+  node_pair_build_kernel<<<(unsigned)blocks, warps * 32, 0, stream>>>(
+      topo, slot, n, tp, kt, vec, table);
   return (int)cudaGetLastError();
 }

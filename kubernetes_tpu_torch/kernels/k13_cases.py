@@ -18,6 +18,17 @@ wildcard conflicts; quality top-3 and a width past N; sampling at 50% and
 the adaptive 0, from a rotation counter that wraps int32 inside the batch;
 R = 32; shipped per-pod spread counts; NaN and tied totals; every
 state-dependent priority on.
+
+`affinity_cases` are K13's affinity mode's: worlds not lean in the pair
+terms (`affinity_world`) with an in-batch affinity state "aff" (the
+BatchAffinityState's dense fields, drawn as the encoder's cross matches
+are: each owner's valid terms against the batch's pods, the match
+tensors the own tensors transposed), PT = AT = 2: required affinity and
+anti terms on three topology keys (zone, a hostname-like key shared by a
+few nodes, a rack key on a third of the nodes), preferred terms of both
+signs on those keys and on a key no node has, the hard affinity weight,
+volume zone and binding terms, bootstrapped terms (no pair matches them),
+a 2-slot fleet, sampling and the top-k.
 """
 
 from __future__ import annotations
@@ -80,6 +91,56 @@ def scan_case(w: dict, seed: int, *, PV=4, p_port=0.0, last_index0=0,
     return w
 
 
+def affinity_world(seed: int, B: int, N: int, *, p_match=0.3, PP=2,
+                   hard_w=None, **kw) -> dict:
+    """A k11_cases world not lean in the pair terms (PT = AT = 2) with an
+    in-batch affinity state "aff" drawn from seed: each pod's valid terms
+    match a share p_match of the batch; preferred terms weigh -100..100
+    on keys 5-8 (8: no pair); hard_w (or the FilterConfig default) in
+    "cfg"."""
+    w = world(seed, B, N, lean_affinity=False, **kw)
+    rng = np.random.default_rng(seed + 7919)
+    p = w["pods"]
+    PT, AT = p["aff_term_valid"].shape[1], p["anti_term_valid"].shape[1]
+
+    def own(valid, T):
+        return (rng.random((B, T, B)) < p_match) & valid[:, :, None]
+
+    aff_own = own(p["aff_term_valid"], PT)
+    anti_own = own(p["anti_term_valid"], AT)
+    weight = (rng.integers(1, 101, (B, PP))
+              * rng.choice((-1, 1), (B, PP))
+              * (rng.random((B, PP)) < 0.7)).astype(np.float32)
+    pref_own = own(weight != 0, PP)
+    w["aff"] = {"aff_match": aff_own.transpose(2, 0, 1).copy(),
+                "anti_match": anti_own.transpose(2, 0, 1).copy(),
+                "anti_own": anti_own, "aff_own": aff_own,
+                "pref_topo_key": rng.integers(5, 9, (B, PP)).astype(np.int32),
+                "pref_weight": weight,
+                "pref_match": pref_own.transpose(2, 0, 1).copy(),
+                "pref_own": pref_own}
+    if hard_w is not None:
+        w["cfg"] = dict(w["cfg"], hard_pod_affinity_weight=hard_w)
+    return w
+
+
+def affinity_cases():
+    """[(name, case)] of K13's affinity-mode cases, in a fixed order; small
+    enough for the jitted JAX engine on the CPU."""
+    out = [("aff-b24-n40", scan_case(open_world(affinity_world(
+        330, 24, 40)), 430))]
+    w = open_world(affinity_world(331, 24, 16, hard_w=7,
+                                  lean_volumes=False))
+    w["cluster"]["allocatable"][:, 3] = 2.0      # two pod slots a node
+    w["cluster"]["requested"][:, 3] = 0.0
+    out.append(("aff-two-slots-volumes", scan_case(w, 431)))
+    out.append(("aff-dense-matches", scan_case(open_world(affinity_world(
+        332, 24, 40, p_match=0.7)), 432, topk=3, extra=True)))
+    out.append(("aff-sample-wrap", scan_case(open_world(affinity_world(
+        333, 24, 90)), 433, pct=50, last_index0=WRAP, weights=EVERY)))
+    return out
+
+
 def cases():
     """[(name, case)] of every K13 case, in a fixed order; small enough
     for the jitted JAX engine on the CPU."""
@@ -121,9 +182,10 @@ def cases():
 def run_case(case, engine: str = "sequential", device="cpu",
              select_impl: str = "kernel"):
     """The case through the port's engine ("sequential" or
-    "speculative") on `device`: (the engine's outputs, the engine).  On
-    CUDA tensors select_impl "kernel" takes K13 (and K14, K15), "plain"
-    the twins."""
+    "speculative") on `device`, with its in-batch affinity state "aff"
+    where it has one: (the engine's outputs, the engine).  On CUDA tensors
+    select_impl "kernel" takes K13 (and K14, K15, K16), "plain" the
+    twins."""
     import torch
 
     from kubernetes_tpu_torch.codec import schema as ts
@@ -146,7 +208,10 @@ def run_case(case, engine: str = "sequential", device="cpu",
               select_impl=select_impl)
     nom = (None if case["nominated"] is None
            else batched.NominatedState(**case["nominated"]))
+    aff = (None if case.get("aff") is None
+           else batched.BatchAffinityState(**case["aff"]))
     out = fn(ct, pb, batched.BatchPortState(**case["ports"]),
              case["last_index0"], nominated=nom,
-             extra_mask=case["extra_mask"], extra_score=case["extra_score"])
+             extra_mask=case["extra_mask"], extra_score=case["extra_score"],
+             aff_state=aff)
     return out, fn

@@ -2,9 +2,9 @@
 // Hopper (sm_90a).
 //
 // Replaces the part of the JAX package's models/speculative.py _round
-// (:196) after select_hosts_batch, for a batch with no in-batch pod
-// affinity.  The plain twin is the port's models/speculative.py
-// round_commit_plain, which the kernels equal bit for bit.  Pod b, a
+// (:196) after select_hosts_batch.  The plain twin is the port's
+// models/speculative.py round_commit_plain, which the kernels equal bit
+// for bit.  Pod b, a
 // proposer when it is active and K1 found it a node h, is accepted when h
 // still fits its request on top of the carried requests of h, every
 // earlier proposer of h in batch order and the claims of nominated pods
@@ -18,6 +18,19 @@
 // the rotation counter (+ B), the round count and the "any pod active"
 // flag follow.
 //
+// The affinity mode (node_pair non-null; a batch with in-batch pod
+// affinity, the reference's :405-434 and :495-545 but the pair commit,
+// which kernel K16 makes after this) adds: a proposer is not accepted when
+// an earlier proposer shares a topology domain with it under one of its
+// anti terms that the earlier pod matches, or under one of the earlier
+// pod's that it matches (node_pair comparisons, pair_gather.cuh); such a
+// conflict with an accepted earlier pod is no real bounce; a passed-over
+// pod with a later accepted pod whose node its round mask held, or to which
+// it is related through required terms, raises the redo flag (the order
+// inversion); and the retirement is deferred: while the round accepts
+// anything an infeasible pod stays active, and a round that accepts
+// nothing retires only the first infeasible pod in batch order.
+//
 // Two launches, a block a pod each, so that no block reads a carry row
 // another block already wrote: k14_accept reads the carry (each pod's
 // node row and claimed ports, kept in a scratch for the second) and
@@ -27,12 +40,17 @@
 // conditional handle, the last block of k14_apply sets it to "any pod
 // active", the condition of the CUDA graph's WHILE node over the rounds.
 //
-// Bound: bytes.  The work is a few B x B and B x R passes over integers;
-// the bytes are the batch's rows, the carry rows of the proposed nodes and
-// the [B, N] emask row of each bounced pod.
+// Bound: bytes.  The work is a few B x B and B x R passes over integers
+// (in the affinity mode B x B x AT compares of node-pair rows more); the
+// bytes are the batch's rows, the carry rows of the proposed nodes, the
+// [B, N] emask row of each bounced pod and in the affinity mode the
+// anti-affinity cross matches, read once.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "pair_gather.cuh"
 
 namespace {
 
@@ -86,8 +104,18 @@ struct RoundCommitArgs {
   uint8_t* claimed_h;           // [B, PV] its claimed ports
   int* prior;                   // [B, B] each block's list of proposers
   unsigned* ticket;             // [] zero between rounds
+  // in-batch pod affinity, or null (node_pair null: no affinity mode)
+  const uint8_t* round_mask;    // [B, N] the round's mask (K15's)
+  const uint8_t* rel;           // [B, B] related through required terms
+  const int* node_pair;         // [N, KT]
+  const int* anti_slot;         // [B, AT] each anti term's key slot
+  const uint8_t* anti_match;    // [B, B, AT] [j, i, t]: j matches i's term t
+  const uint8_t* anti_own;      // [B, AT, B] [j, t, i]: i matches j's term t
+  int* any_acc;                 // [] any pod accepted this round (0 between)
+  int* first_inf;               // [] the first infeasible active pod (INT_MAX
+                                // between rounds)
   uint64_t cond;                // the WHILE node's handle, or 0
-  int b, n, r, g, gp, pv, tk;
+  int b, n, r, g, gp, pv, tk, kt, at;
 };
 
 namespace {
@@ -142,6 +170,32 @@ __device__ bool fits_over(const RoundCommitArgs& a, int b, int h,
   return !__syncthreads_or(over | conf);
 }
 
+// Does an earlier proposer j of the round (accepted_only: an accepted one)
+// share a topology domain with pod b on h under one of b's anti terms that
+// j matches, or under one of j's that b matches?  Every thread gets the
+// answer.
+__device__ bool anti_conflict(const RoundCommitArgs& a, int b, int h,
+                              bool accepted_only) {
+  const int* nph = a.node_pair + (size_t)h * a.kt;
+  const size_t B = (size_t)a.b, AT = (size_t)a.at;
+  int c = 0;
+  for (int j = threadIdx.x; j < b && !c; j += kThreads) {
+    const bool on = accepted_only ? a.accept[j] != 0
+                                  : a.c_active[j] && a.feasible[j];
+    if (!on) continue;
+    const int* npj = a.node_pair + (size_t)a.hosts[j] * a.kt;
+    for (size_t t = 0; t < AT && !c; ++t) {
+      const int sb = __ldg(a.anti_slot + (size_t)b * AT + t);
+      const int sj = __ldg(a.anti_slot + (size_t)j * AT + t);
+      c = (__ldg(a.anti_match + ((size_t)j * B + b) * AT + t) &&
+           pair_gather::same_domain(nph, npj, sb)) ||
+          (__ldg(a.anti_own + ((size_t)j * AT + t) * B + b) &&
+           pair_gather::same_domain(npj, nph, sj));
+    }
+  }
+  return __syncthreads_or(c) != 0;
+}
+
 __global__ void __launch_bounds__(kThreads) k14_accept(
     const RoundCommitArgs a) {
   extern __shared__ uint8_t pp[];   // [PV]
@@ -149,11 +203,13 @@ __global__ void __launch_bounds__(kThreads) k14_accept(
   const int b = blockIdx.x, tid = threadIdx.x;
   const int R = a.r, PV = a.pv;
   const int h = a.hosts[b];
+  const bool aff = a.node_pair != nullptr;
   const bool prop = a.c_active[b] && a.feasible[b];
   if (tid == 0) {
     a.prop[b] = prop;
     cnt = 0;
     if (b == 0) *a.c_any = 0;
+    if (aff && a.c_active[b] && !a.feasible[b]) atomicMin(a.first_inf, b);
   }
   float* nrow = a.node_req + (size_t)b * R;
   uint8_t* crow = a.claimed_h + (size_t)b * PV;
@@ -171,8 +227,14 @@ __global__ void __launch_bounds__(kThreads) k14_accept(
     if (a.c_active[j] && a.feasible[j] && a.hosts[j] == h)
       lst[atomicAdd(&cnt, 1)] = j;
   __syncthreads();
-  const bool ok = fits_over(a, b, h, lst, cnt, nrow, crow, pp);
-  if (tid == 0) a.accept[b] = ok;
+  bool ok = fits_over(a, b, h, lst, cnt, nrow, crow, pp);
+  // the same round's anti-affinity order: an earlier proposer in one of
+  // the two pods' anti domains takes precedence
+  if (aff && ok) ok = !anti_conflict(a, b, h, false);
+  if (tid == 0) {
+    a.accept[b] = ok;
+    if (aff && ok) atomicExch(a.any_acc, 1);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) k14_apply(
@@ -183,6 +245,8 @@ __global__ void __launch_bounds__(kThreads) k14_apply(
   const int R = a.r, PV = a.pv, N = a.n;
   const int h = a.hosts[b];
   const bool prop = a.prop[b] != 0, acc = a.accept[b] != 0;
+  const bool aff = a.node_pair != nullptr;
+  const bool act = a.c_active[b] != 0, feas = a.feasible[b] != 0;
   if (tid == 0) cnt = 0;
   __syncthreads();
   bool bounce = false;
@@ -196,6 +260,19 @@ __global__ void __launch_bounds__(kThreads) k14_apply(
     __syncthreads();
     bounce = !fits_over(a, b, h, lst, cnt, a.node_req + (size_t)b * R,
                         a.claimed_h + (size_t)b * PV, pp);
+    // an anti conflict with an accepted earlier pod needs no ban: the
+    // next round's pair state excludes the whole domain
+    if (aff && bounce) bounce = !anti_conflict(a, b, h, true);
+  }
+  if (aff && act && !acc) {
+    // the order inversion: a later pod accepted on a node this passed-
+    // over pod's round mask held, or a later pod related to it
+    int inv = 0;
+    for (int j = b + 1 + tid; j < a.b && !inv; j += kThreads)
+      inv = a.accept[j] &&
+            (a.round_mask[(size_t)b * N + a.hosts[j]] ||
+             __ldg(a.rel + (size_t)b * a.b + j));
+    if (inv) *a.c_inv = 1;
   }
   // every pod adds its request times its acceptance to its node's row, as
   // the twin's index_add (0.0 for the others)
@@ -237,7 +314,9 @@ __global__ void __launch_bounds__(kThreads) k14_apply(
       a.c_emask[(size_t)b * N + h] = 0;
       *a.c_inv = 1;
     }
-    const bool still = prop && !acc;
+    bool still = prop && !acc;
+    // the deferred retirement of an infeasible pod
+    if (aff && act && !feas) still = *a.any_acc || b != *a.first_inf;
     a.c_active[b] = still;
     if (still) *a.c_any = 1;
     if (b == 0) {
@@ -255,6 +334,10 @@ __global__ void __launch_bounds__(kThreads) k14_apply(
                                 any ? 1u : 0u);
 #endif
       *a.ticket = 0;
+      if (aff) {
+        *a.any_acc = 0;
+        *a.first_inf = INT_MAX;
+      }
     }
   }
 }
@@ -266,6 +349,9 @@ __global__ void __launch_bounds__(kThreads) k14_apply(
 extern "C" int round_commit_launch(RoundCommitArgs a, cudaStream_t stream) {
   if (a.b <= 0 || a.n <= 0 || a.r <= 0 || a.pv <= 0 || a.tk < 0 ||
       (a.tk > 0 && !(a.top_nodes && a.c_topn)) || !a.ticket)
+    return (int)cudaErrorInvalidValue;
+  if (a.node_pair && (a.kt < 0 || a.at < 0 || !a.round_mask || !a.rel ||
+                      !a.any_acc || !a.first_inf))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)a.pv;
   if (smem > 48 * 1024) {

@@ -2,10 +2,9 @@
 // selector, for Hopper (sm_90a).
 //
 // Replaces the part of the JAX package's models/speculative.py _round
-// (:196) between score_batch and select_hosts_batch, for a batch with no
-// in-batch pod affinity.  The plain twin is the port's
-// models/speculative.py round_fold_plain, which the kernel equals bit for
-// bit.  For each pod b (one block), over the N nodes:
+// (:196) between score_batch and select_hosts_batch.  The plain twin is the
+// port's models/speculative.py round_fold_plain, which the kernel equals
+// bit for bit.  For each pod b (one block), over the N nodes:
 //   total  = K12's total, plus, for a spread-lean batch, w_spread times
 //            the pod's SelectorSpread score: the score of each of its
 //            groups over the carried [G, N] counts (spread_score_from_counts,
@@ -14,11 +13,18 @@
 //   mask   = K11's mask & active[b] & emask[b, :] & valid[b], then with a
 //            sampling limit the first `limit` feasible nodes from the
 //            rotated start li + b (limit_feasible)
+//   total += w_ipa times ipa_normalize of the IPA raw sums, for a batch
+//            with in-batch pod affinity (u_pref non-null): the carried
+//            preferred pair weights of the pod (its own and the earlier
+//            rounds' commits) summed over each node's pairs
+//            (pair_gather.cuh), min and max over the valid nodes
 //   total += escore[b, :] when the caller gives one.
 //
 // Bound: bytes.  It reads the two [B, N] grids, emask and escore, and
 // writes the total and the mask: 14 bytes a (pod, node), 18 with escore,
-// plus the carried counts (L2-resident, read once a group a pod).  A block
+// plus the carried counts (L2-resident, read once a group a pod), and in
+// the affinity mode each pod's pair weights (4 TP bytes) and the
+// node-pair table (4 KT bytes a node, L2-resident).  A block
 // a pod; each thread owns a contiguous run of nodes so that node order is
 // thread order for the sampling prefix.
 
@@ -27,6 +33,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "pair_gather.cuh"
 #include "priority_math.cuh"
 
 namespace {
@@ -35,6 +42,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSmemZs = 48 * 1024;  // zone sums above this: workspace
+constexpr float kBig = 3.4e38f;     // ipa_normalize's masked extremes
 
 }  // namespace
 
@@ -56,16 +64,41 @@ struct RoundFoldArgs {
   float* total_out;             // [B, N]
   uint8_t* mask_out;            // [B, N]
   uint8_t* work;                // round_fold_workspace_bytes(b, n, tp, limited)
-  float w_spread;
-  int b, n, g, gp, tp;
+  const float* u_pref;          // [B, TP] carried preferred pair weights, or
+                                // null (no in-batch pod affinity)
+  const int* node_pair;         // [N, KT] (read with u_pref)
+  const uint8_t* node_valid;    // [N]
+  float w_spread, w_ipa;
+  int b, n, g, gp, tp, kt;
 };
 
 namespace {
 
 struct Shared {
   float f[kWarps];
+  float g[kWarps];
   int i[kWarps];
 };
+
+// fminf of mn and fmaxf of mx over the block (every thread gets both)
+__device__ void block_minmax(float& mn, float& mx, Shared& sh) {
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = fminf(mn, __shfl_xor_sync(kFull, mn, o));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+  }
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) {
+    sh.f[threadIdx.x >> 5] = mn;
+    sh.g[threadIdx.x >> 5] = mx;
+  }
+  __syncthreads();
+  mn = sh.f[0];
+  mx = sh.g[0];
+  for (int k = 1; k < kWarps; ++k) {
+    mn = fminf(mn, sh.f[k]);
+    mx = fmaxf(mx, sh.g[k]);
+  }
+}
 
 __device__ float block_fmax(float v, Shared& sh) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
@@ -204,6 +237,31 @@ __global__ void __launch_bounds__(kThreads) k15_round_fold(
           a.mask_out[row + n] = 0;
       }
   }
+  if (a.u_pref) {
+    // the IPA score over the carried pair weights, renormalized per pod
+    const float* urow = a.u_pref + (size_t)b * a.tp;
+    float mn = kBig, mx = -kBig;
+    for (int n = n0; n < n1; ++n)
+      if (__ldg(a.node_valid + n)) {
+        const float x = pair_gather::sum(urow, a.node_pair + (size_t)n * a.kt,
+                                         a.kt);
+        mn = fminf(mn, x);
+        mx = fmaxf(mx, x);
+      }
+    block_minmax(mn, mx, sh);
+    const float spr = __fsub_rn(mx, mn);
+    for (int n = n0; n < n1; ++n) {
+      float ipa = 0.f;
+      if (__ldg(a.node_valid + n) && spr > 0.f) {
+        const float x = pair_gather::sum(urow, a.node_pair + (size_t)n * a.kt,
+                                         a.kt);
+        ipa = floorf(__fdiv_rn(
+            __fmul_rn(prio_math::kMaxPriority, __fsub_rn(x, mn)), spr));
+      }
+      a.total_out[row + n] = __fadd_rn(a.total_out[row + n],
+                                       __fmul_rn(a.w_ipa, ipa));
+    }
+  }
   if (a.escore)
     for (int n = n0; n < n1; ++n)
       a.total_out[row + n] = __fadd_rn(a.total_out[row + n],
@@ -221,7 +279,8 @@ extern "C" long long round_fold_workspace_bytes(int b, int n, int tp,
 // One fold of B pod rows on `stream`: one kernel launch and no other
 // stream operation.  Returns a cudaError_t code.
 extern "C" int round_fold_launch(RoundFoldArgs a, cudaStream_t stream) {
-  if (a.b <= 0 || a.n <= 0 || a.tp <= 0 || !a.work || !a.li)
+  if (a.b <= 0 || a.n <= 0 || a.tp <= 0 || !a.work || !a.li ||
+      (a.u_pref && (!a.node_pair || !a.node_valid || a.kt < 0)))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)a.tp * 4 <= (size_t)kSmemZs ? (size_t)a.tp * 4 : 0;

@@ -16,7 +16,10 @@
 //          zone sums (shared-memory atomics, one slot a topology pair; the
 //          counts are integers, so the sums are exact in any order while
 //          they stay below 2^24), and InterPodAffinity's min and max over
-//          the valid nodes;
+//          the valid nodes of its raw sums, each the sum of the pod's
+//          preferred pair weights over the node's pairs (the reference's
+//          product with the topology, gathered through node_pair:
+//          pair_gather.cuh; integer sums, exact);
 //   pass 2 normalizes, computes the per-node priorities and writes the
 //          weighted total, summed in PRIORITY_ORDER as the twin's
 //          need_per=False loop does, and with need_per the f32[B, 12, N]
@@ -50,6 +53,7 @@
 #include <stdint.h>
 
 #include "label_select.cuh"
+#include "pair_gather.cuh"
 #include "priority_math.cuh"
 
 namespace {
@@ -115,7 +119,9 @@ struct ScorePassArgs {
   const int* image_ids;         // [B, C]
   // made for this launch
   int* zone_of_node;            // [N] (k12_zone_index writes it)
-  const float* ipa_sums;        // [B, N], or null (affinity-lean batch)
+  const float* ipa_w;           // [B, TP] the pods' preferred pair weights,
+                                // or null (affinity-lean batch, row off)
+  const int* node_pair;         // [N, KT] (read with ipa_w)
   // configuration
   const int* prefs_key;         // [n_prefs] NodeLabelPriority
   const int* prefs_presence;
@@ -126,7 +132,7 @@ struct ScorePassArgs {
   float* total;                 // [B, N]
   float* per;                   // [B, 12, N], or null
   float w[kPrios];
-  int b, n, r, l, t, tt, i, c, a, g, gp, ps, e, v, tp;
+  int b, n, r, l, t, tt, i, c, a, g, gp, ps, e, v, tp, kt;
   int n_prefs, n_rtc, rows, smem_mode, region, na_off, zs_off;
 };
 
@@ -192,6 +198,14 @@ __device__ __forceinline__ float spread_count(const ScorePassArgs& a, int b,
   return c;
 }
 
+// InterPodAffinity's raw sum of pod b on node n: its preferred pair
+// weights over the node's pairs
+__device__ __forceinline__ float ipa_raw(const ScorePassArgs& a, int b,
+                                         int n) {
+  return pair_gather::sum(a.ipa_w + (size_t)b * a.tp,
+                          a.node_pair + (size_t)n * a.kt, a.kt);
+}
+
 struct Reduced {
   float mx_spread, mx_na, mx_tt, ipa_mn, ipa_mx, mx_zone;
   bool have_zones;
@@ -222,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) k12_score_pass(
   float* na = region + a.na_off;   // [N] NodeAffinity sums
   float* zs = region + a.zs_off;   // [TP] SelectorSpread zone sums
   const bool on_spread = row_on(a, kSpread);
-  const bool on_ipa = row_on(a, kInterPod) && a.ipa_sums;
+  const bool on_ipa = row_on(a, kInterPod) && a.ipa_w;
   const bool on_na = row_on(a, kNodeAffinity) && a.ps > 0;
   const bool on_tt = row_on(a, kTaint);
   if (on_spread)
@@ -250,7 +264,7 @@ __global__ void __launch_bounds__(kThreads) k12_score_pass(
       }
     }
     if (on_ipa && __ldg(a.valid + n)) {
-      const float s = __ldg(a.ipa_sums + (size_t)b * a.n + n);
+      const float s = ipa_raw(a, b, n);
       ipa_mn = fminf(ipa_mn, s);
       ipa_mx = fmaxf(ipa_mx, s);
     }
@@ -290,7 +304,7 @@ __global__ void __launch_bounds__(kThreads) k12_score_pass(
                                       z >= 0 ? zs[z] : 0.f);
     }
     if (on_ipa && __ldg(a.valid + n)) {
-      const float s = __ldg(a.ipa_sums + (size_t)b * a.n + n);
+      const float s = ipa_raw(a, b, n);
       sc[kInterPod] =
           ipa_spread > 0.f
               ? fdiv_floor(__fmul_rn(kMaxPriority, __fsub_rn(s, r.ipa_mn)),
@@ -407,7 +421,8 @@ extern "C" int score_pass_smem_max() { return kSmemMax; }
 extern "C" int score_pass_launch(ScorePassArgs a, const uint8_t* topo,
                                  const int* pair_key, int zone_key,
                                  cudaStream_t stream) {
-  if (a.b <= 0 || a.n <= 0 || a.tp <= 0 || a.region < 0)
+  if (a.b <= 0 || a.n <= 0 || a.tp <= 0 || a.region < 0 ||
+      (a.ipa_w && (!a.node_pair || a.kt < 0)))
     return (int)cudaErrorInvalidValue;
   const bool spread = (a.rows >> kSpread) & 1;
   if (spread) {

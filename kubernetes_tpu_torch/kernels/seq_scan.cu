@@ -2,9 +2,9 @@
 // (sm_90a), in one launch.
 //
 // Replaces the JAX package's models/batched.py schedule_impl (:581): its
-// lax.scan (:976) of the step (:704), with _dynamic_scores (:471), for a
-// batch with no in-batch pod affinity.  The plain twin is the port's eager
-// step loop (models/batched.py scan_plain), which the kernel equals bit for
+// lax.scan (:976) of the step (:704), with _dynamic_scores (:471), with or
+// without in-batch pod affinity.  The plain twin is the port's eager step
+// loop (models/batched.py scan_plain), which the kernel equals bit for
 // bit.  The static pass (K11's mask, K12's state-independent total) and
 // the caller's extra mask and score (folded in here, as the twin's
 // static_pass folds them) are its input; for each pod b in batch
@@ -24,6 +24,25 @@
 //   select   K1's rule (select_row.cuh) with the counter last_index0 + b
 //   top-k    with tk > 0, K3's winner-pinned ranking of the same row
 //   commit   requested, nonzero and the used ports of the chosen node.
+// With in-batch pod affinity (the affinity mode, node_pair non-null) the
+// scan carries each pod's pair state, the pods' own pairs or'ed (summed for
+// the preferred weights) with those the earlier commits added (the
+// reference's pair reads :748, :776 and commit :874-916), in the u_* rows:
+//   affinity MatchInterPodAffinity against the pod's rows, gathered over
+//            the node's pairs (pair_gather.cuh): no forbidden pair, no pair
+//            of a valid anti term, and each valid affinity term in one of
+//            its pairs or bootstrapped (no pair matches it anywhere, the
+//            pod matches it itself, the node has its key)
+//   IPA      w_ipa times ipa_normalize of the raw sums (the preferred
+//            weights over the node's pairs), min and max over the valid
+//            nodes, added last
+//   pairs    after the pick, for every later pod: the pair of the chosen
+//            node under each term's key where the committed pod matches
+//            the later pod's affinity or anti term, its anti terms forbid
+//            a later pod it matches, and the preferred weights: the hard
+//            affinity weight, the later pod's preferred terms it matches,
+//            its own preferred terms the later pod matches (integers:
+//            exact in any order).
 // The in-batch spread counts are the reference's spread_extra row of the
 // pod (:865-868), rebuilt at each step from the earlier pods' hosts: b
 // atomic adds of integers (exact in any order) instead of a [B, N] carry.
@@ -42,6 +61,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "pair_gather.cuh"
 #include "priority_math.cuh"
 #include "select_row.cuh"
 
@@ -50,6 +70,7 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kBig = 3.4e38f;      // ipa_normalize's masked extremes
 constexpr int kSmemMax = 96 * 1024;  // the request row and zone sums above
                                      // this: zone sums in the workspace
 
@@ -104,8 +125,30 @@ struct SeqScanArgs {
   float* top_scores;            // [B, tk]
   int* top_feas;                // [B]
   uint8_t* work;                // seq_scan_workspace_bytes(n, pv, tp)
-  float w_least, w_most, w_bal, w_spread, w_rtc;
-  int b, n, r, g, gp, pv, tp, tk, n_rtc, zone_key, last_index0;
+  // in-batch pod affinity, or null (node_pair null: no affinity mode)
+  const int* node_pair;         // [N, KT] each node's pair a key slot
+  const uint8_t* node_valid;    // [N]
+  const int* aff_slot;          // [B, PT] each term's topology key slot
+  const int* anti_slot;         // [B, AT]
+  const int* pref_slot;         // [B, PP]
+  const uint8_t* aff_valid;     // [B, PT]
+  const uint8_t* aff_self;      // [B, PT]
+  const uint8_t* anti_valid;    // [B, AT]
+  const uint8_t* aff_match;     // [B, B, PT] [j, i, t]: j matches i's term t
+  const uint8_t* anti_match;    // [B, B, AT]
+  const uint8_t* anti_own;      // [B, AT, B] [j, t, i]: i matches j's term t
+  const uint8_t* aff_own;       // [B, PT, B]
+  const uint8_t* pref_match;    // [B, B, PP]
+  const uint8_t* pref_own;      // [B, PP, B]
+  const float* pref_weight;     // [B, PP] signed
+  uint8_t* u_aff;               // [B, PT, TP] the pods' pairs, then the
+  uint8_t* u_anti;              // [B, AT, TP]   scan's commits, in place
+  uint8_t* u_forb;              // [B, TP]
+  float* u_pref;                // [B, TP]
+  uint8_t* any_aff;             // [B, PT] does any pair match the term
+  float w_least, w_most, w_bal, w_spread, w_rtc, w_ipa, hard_w;
+  int b, n, r, g, gp, pv, tp, tk, n_rtc, zone_key, last_index0, kt, pt, at,
+      pp;
 };
 
 namespace {
@@ -114,6 +157,7 @@ struct Work {
   float* tot;        // [N] the step's total
   float* counts;     // [N] the step's spread counts
   float* zs;         // [TP] their zone sums
+  float* raw;        // [N] the step's IPA raw sums (affinity mode)
   int* zone;         // [N] each node's zone pair, or -1
   int* hist;         // [N] sampled: masked nodes at each rotated position
   int* first;        // [N] the lowest such node
@@ -139,6 +183,7 @@ __host__ __device__ inline size_t carve(const SeqScanArgs* a, uint8_t* base,
   uint8_t* tot = take(base, off, n * 4);
   uint8_t* counts = take(base, off, n * 4);
   uint8_t* zs = take(base, off, tp * 4);
+  uint8_t* raw = take(base, off, n * 4);
   uint8_t* zone = take(base, off, n * 4);
   uint8_t* hist = take(base, off, n * 4);
   uint8_t* first = take(base, off, n * 4);
@@ -150,6 +195,7 @@ __host__ __device__ inline size_t carve(const SeqScanArgs* a, uint8_t* base,
     w->tot = (float*)tot;
     w->counts = (float*)counts;
     w->zs = (float*)zs;
+    w->raw = (float*)raw;
     w->zone = (int*)zone;
     w->hist = (int*)hist;
     w->first = (int*)first;
@@ -163,6 +209,7 @@ __host__ __device__ inline size_t carve(const SeqScanArgs* a, uint8_t* base,
 
 struct Shared {
   float f[kWarps];
+  float g[kWarps];
   int i[kWarps];
   long long l[kWarps];
   int nq, host;
@@ -177,6 +224,104 @@ __device__ float block_fmax(float v, Shared& sh) {
   float x = sh.f[0];
   for (int k = 1; k < kWarps; ++k) x = fmaxf(x, sh.f[k]);
   return x;
+}
+
+// fminf of mn and fmaxf of mx over the block, in one exchange (every
+// thread gets both); the IPA sums' extremes
+__device__ void block_minmax(float& mn, float& mx, Shared& sh) {
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = fminf(mn, __shfl_xor_sync(kFull, mn, o));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+  }
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) {
+    sh.f[threadIdx.x >> 5] = mn;
+    sh.g[threadIdx.x >> 5] = mx;
+  }
+  __syncthreads();
+  mn = sh.f[0];
+  mx = sh.g[0];
+  for (int k = 1; k < kWarps; ++k) {
+    mn = fminf(mn, sh.f[k]);
+    mx = fmaxf(mx, sh.g[k]);
+  }
+}
+
+// MatchInterPodAffinity of pod b on node n against the carried pair rows
+__device__ bool affinity_ok(const SeqScanArgs& a, int b, int n) {
+  const int* np = a.node_pair + (size_t)n * a.kt;
+  const size_t tp = (size_t)a.tp;
+  if (pair_gather::any_hit(a.u_forb + (size_t)b * tp, np, a.kt)) return false;
+  for (int t = 0; t < a.at; ++t) {
+    const size_t i = (size_t)b * a.at + t;
+    if (__ldg(a.anti_valid + i) &&
+        pair_gather::any_hit(a.u_anti + i * tp, np, a.kt))
+      return false;
+  }
+  for (int t = 0; t < a.pt; ++t) {
+    const size_t i = (size_t)b * a.pt + t;
+    if (!__ldg(a.aff_valid + i) ||
+        pair_gather::any_hit(a.u_aff + i * tp, np, a.kt))
+      continue;
+    if (!a.any_aff[i] && __ldg(a.aff_self + i) &&
+        pair_gather::pair_of(np, __ldg(a.aff_slot + i)) >= 0)
+      continue;
+    return false;
+  }
+  return true;
+}
+
+// The AddPod analogue of pod b committed on host h, for the later pod i:
+// one pair a (term, key) at h's pair of the key
+__device__ void commit_pairs(const SeqScanArgs& a, int b, int h, int i) {
+  const int* nph = a.node_pair + (size_t)h * a.kt;
+  const size_t B = (size_t)a.b, tp = (size_t)a.tp;
+  for (int t = 0; t < a.pt; ++t)
+    if (__ldg(a.aff_match + ((size_t)b * B + i) * a.pt + t)) {
+      const int p =
+          pair_gather::pair_at(nph, a.aff_slot, (size_t)i * a.pt + t);
+      if (p >= 0) {
+        a.u_aff[((size_t)i * a.pt + t) * tp + p] = 1;
+        a.any_aff[(size_t)i * a.pt + t] = 1;
+      }
+    }
+  for (int t = 0; t < a.at; ++t)
+    if (__ldg(a.anti_match + ((size_t)b * B + i) * a.at + t)) {
+      const int p =
+          pair_gather::pair_at(nph, a.anti_slot, (size_t)i * a.at + t);
+      if (p >= 0) a.u_anti[((size_t)i * a.at + t) * tp + p] = 1;
+    }
+  // b's anti terms forbid their domains to the later pods they match
+  for (int t = 0; t < a.at; ++t)
+    if (__ldg(a.anti_own + ((size_t)b * a.at + t) * B + i)) {
+      const int p =
+          pair_gather::pair_at(nph, a.anti_slot, (size_t)b * a.at + t);
+      if (p >= 0) a.u_forb[(size_t)i * tp + p] = 1;
+    }
+  // the preferred weights, in the reference's order of terms: the hard
+  // affinity weight of b's terms i matches, i's preferred terms b
+  // matches, b's preferred terms i matches
+  float* up = a.u_pref + (size_t)i * tp;
+  for (int t = 0; t < a.pt; ++t)
+    if (__ldg(a.aff_own + ((size_t)b * a.pt + t) * B + i)) {
+      const int p =
+          pair_gather::pair_at(nph, a.aff_slot, (size_t)b * a.pt + t);
+      if (p >= 0) up[p] = __fadd_rn(up[p], a.hard_w);
+    }
+  for (int t = 0; t < a.pp; ++t)
+    if (__ldg(a.pref_match + ((size_t)b * B + i) * a.pp + t)) {
+      const int p =
+          pair_gather::pair_at(nph, a.pref_slot, (size_t)i * a.pp + t);
+      if (p >= 0)
+        up[p] = __fadd_rn(up[p], __ldg(a.pref_weight + (size_t)i * a.pp + t));
+    }
+  for (int t = 0; t < a.pp; ++t)
+    if (__ldg(a.pref_own + ((size_t)b * a.pp + t) * B + i)) {
+      const int p =
+          pair_gather::pair_at(nph, a.pref_slot, (size_t)b * a.pp + t);
+      if (p >= 0)
+        up[p] = __fadd_rn(up[p], __ldg(a.pref_weight + (size_t)b * a.pp + t));
+    }
 }
 
 // the NaN-propagating max over the block; the row's best
@@ -248,6 +393,7 @@ __global__ void __launch_bounds__(kThreads, 1) k13_seq_scan(
   const bool use_most = a.w_most != 0.f, use_rtc = a.w_rtc != 0.f;
   const bool limited = a.feas_limit != nullptr;
   const int lim = limited ? *a.feas_limit : 0;
+  const bool aff = a.node_pair != nullptr;
 
   // the state the batch starts from (+ 0.0: the twin's first commit adds
   // 0.0 to every row, so a -0.0 reads 0.0 from then on)
@@ -336,6 +482,24 @@ __global__ void __launch_bounds__(kThreads, 1) k13_seq_scan(
         for (int k = tid; k < a.tp; k += kThreads) mz = fmaxf(mz, w.zs[k]);
       mx_zone = block_fmax(mz, sh);          // barriers 5, 6
     }
+    float ipa_mn = 0.f, ipa_spr = 0.f;
+    if (aff) {
+      // the IPA raw sums and their extremes over the valid nodes
+      const float* urow = a.u_pref + (size_t)b * a.tp;
+      float mn = kBig, mx = -kBig;
+      for (int n = n0; n < n1; ++n) {
+        const float x =
+            pair_gather::sum(urow, a.node_pair + (size_t)n * a.kt, a.kt);
+        w.raw[n] = x;
+        if (__ldg(a.node_valid + n)) {
+          mn = fminf(mn, x);
+          mx = fmaxf(mx, x);
+        }
+      }
+      block_minmax(mn, mx, sh);              // 2 barriers
+      ipa_mn = mn;
+      ipa_spr = __fsub_rn(mx, mn);
+    }
 
     // the step's mask and total, node by node
     for (int n = n0; n < n1; ++n) {
@@ -369,9 +533,10 @@ __global__ void __launch_bounds__(kThreads, 1) k13_seq_scan(
       for (int i = 0; i < nq && !port_bad; ++i)
         port_bad = w.used[(size_t)n * PV + w.qlist[i]] != 0;
       const size_t bn = (size_t)b * N + n;
-      const bool m = __ldg(a.static_mask + bn) &&
-                     (!a.extra_mask || __ldg(a.extra_mask + bn)) && fit &&
-                     !port_bad;
+      bool m = __ldg(a.static_mask + bn) &&
+               (!a.extra_mask || __ldg(a.extra_mask + bn)) && fit &&
+               !port_bad;
+      if (aff && m) m = affinity_ok(a, b, n);
       const float cap[2] = {__ldg(alloc), __ldg(alloc + 1)};
       const float rq2[2] = {__fadd_rn(a.nonzero_out[2 * (size_t)n], pnz0),
                             __fadd_rn(a.nonzero_out[2 * (size_t)n + 1], pnz1)};
@@ -393,6 +558,15 @@ __global__ void __launch_bounds__(kThreads, 1) k13_seq_scan(
       if (use_rtc)
         total = __fadd_rn(total, __fmul_rn(
             a.w_rtc, prio_math::rtc(a.rtc_xs, a.rtc_ys, a.n_rtc, cap, rq2)));
+      if (aff) {
+        // ipa_normalize, then w_ipa times it, added last
+        float ipa = 0.f;
+        if (__ldg(a.node_valid + n) && ipa_spr > 0.f)
+          ipa = floorf(__fdiv_rn(
+              __fmul_rn(prio_math::kMaxPriority, __fsub_rn(w.raw[n], ipa_mn)),
+              ipa_spr));
+        total = __fadd_rn(total, __fmul_rn(a.w_ipa, ipa));
+      }
       w.tot[n] = total;
       w.msk[n] = m;
       if (limited) {
@@ -509,6 +683,9 @@ __global__ void __launch_bounds__(kThreads, 1) k13_seq_scan(
       }
       for (int p = tid; p < PV; p += kThreads)
         if (__ldg(pports + p)) w.used[(size_t)host * PV + p] = 1;
+      if (aff)   // one later pod a thread: its rows are its own
+        for (int i = b + 1 + tid; i < a.b; i += kThreads)
+          commit_pairs(a, b, host, i);
     }
     if (tid == 0) a.hosts[b] = feasible ? host : -1;
     __syncthreads();   // barrier 13: the commit before the next step
@@ -534,6 +711,9 @@ extern "C" int seq_scan_threads() { return kThreads; }
 extern "C" int seq_scan_launch(SeqScanArgs a, cudaStream_t stream) {
   if (a.b <= 0 || a.n <= 0 || a.r < 2 || a.pv <= 0 || a.tp <= 0 ||
       a.tk < 0 || a.tk > a.n || (a.tk > 0 && !a.top_nodes) || !a.work)
+    return (int)cudaErrorInvalidValue;
+  if (a.node_pair && (a.kt < 0 || a.pt < 0 || a.at < 0 || a.pp < 0 ||
+                      !a.node_valid || !a.u_forb || !a.u_pref))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       ((size_t)a.r + (zs_in_smem(a.r, a.tp) ? a.tp : 0)) * sizeof(float);

@@ -7,11 +7,12 @@ K1 on the card) and committing it, so pod i+1 sees pod i's resources, ports
 and spreading counts exactly as if the reference had scheduled them one by
 one (scheduler.go:438 scheduleOne).
 
-The JAX version runs the steps under `lax.scan`.  On the card, a batch with
-no in-batch pod affinity runs its whole scan in one launch of kernel K13
-(kernels/seq_scan.cu) after the static pass (one K11 and one K12 launch);
-its plain twin, and the path of affinity batches and of the CPU, is
-`scan_plain`, a Python loop over B with all state on the device.  Nothing
+The JAX version runs the steps under `lax.scan`.  On the card, a batch
+runs its whole scan in one launch of kernel K13 (kernels/seq_scan.cu)
+after the static pass (one K11 and one K12 launch); a batch with in-batch
+pod affinity takes its affinity mode, which carries the pair state through
+the steps.  Its plain twin, the path of the CPU, is `scan_plain`, a Python
+loop over B with all state on the device.  Nothing
 in either reads a device value back (no .item(), no bool()), so the host
 only enqueues work.
 
@@ -55,7 +56,11 @@ from kubernetes_tpu_torch.codec.schema import (
     ScoreConfig,
     _pow2,
 )
-from kubernetes_tpu_torch.ops.predicates import filter_batch
+from kubernetes_tpu_torch.ops.predicates import (
+    batch_pairs,
+    filter_batch,
+    union_rows,
+)
 from kubernetes_tpu_torch.ops.priorities import (
     MAX_PRIORITY,
     balanced_allocation_score,
@@ -531,10 +536,11 @@ def scan_plain(cluster: ClusterTensors, pods: PodBatch, ports, static_mask,
                select_impl: str = "kernel", aff=None, ipa=(0.0, 0.0)):
     """The sequential engine's steps over one batch, pod by pod in batch
     order: kernel K13's plain twin (kernels.seq_scan takes the same
-    arguments but select_impl, aff and ipa) and, with aff (a dense
-    BatchAffinityState), the in-batch affinity steps.  weights: (least,
-    most, balanced, spread, rtc) as floats; ipa: (InterPodAffinity's
-    weight, the hard pod affinity weight), read with aff.  Returns (hosts
+    arguments but select_impl) and, with aff (a dense BatchAffinityState),
+    the in-batch affinity steps, the twin of K13's affinity mode.
+    weights: (least, most, balanced, spread, rtc) as floats; ipa:
+    (InterPodAffinity's weight, the hard pod affinity weight), read with
+    aff.  Returns (hosts
     i32[B], requested, nonzero_req, (top_nodes, top_scores, top_feas) or
     None)."""
     w_least, w_most, w_bal, w_spread, w_rtc = weights
@@ -733,8 +739,7 @@ def make_sequential_scheduler(
     call also returns an ops/select.TopKQuality as its last output: per
     pod, the winner-pinned top min(K, N) node rows, their scores and the
     feasible count, off each step's exact (total, mask, host, feasible)
-    (inside K13 on the card; kernel K3 at B=1 in an affinity batch's
-    steps)."""
+    (inside K13 on the card)."""
     reject_later_slices(attribution=attribution)
     if select_impl not in SELECT_IMPLS:
         raise ValueError(f"select_impl {select_impl!r} not in {SELECT_IMPLS}")
@@ -760,8 +765,7 @@ def make_sequential_scheduler(
         # quality top-k width, clamped to the arena (a 2-node cluster
         # cannot rank 3 rows)
         tkq = min(quality_topk, N) if quality_topk else 0
-        on_k13 = (aff is None and dev.type == "cuda"
-                  and select_impl == "kernel")
+        on_k13 = dev.type == "cuda" and select_impl == "kernel"
         # K13 folds the extra mask and score itself
         static_mask, static_score = static_pass(
             cluster, pods, cfg, unsched_taint_key, w, score_cfg,
@@ -782,10 +786,15 @@ def make_sequential_scheduler(
         weights5 = (w_least, w_most, w_bal, w_spread, w_rtc)
         if on_k13:
             # the whole scan in one launch of K13
+            pairs = unions = None
+            if aff is not None:
+                pairs = batch_pairs(cluster, pods, aff.pref_topo_key)
+                unions = union_rows(pods, cluster.topo_pairs.shape[1])
             hosts, requested, nonzero2, top = kernels.seq_scan(
                 cluster, pods, ports, static_mask, static_score,
                 spread_match, nom, feas_limit, rtc, weights5, zone_key_id,
-                last_index0, tkq, extra_mask, extra_score)
+                last_index0, tkq, extra_mask, extra_score, aff, pairs,
+                unions, (w_ipa, hard_w))
         else:
             hosts, requested, nonzero2, top = scan_plain(
                 cluster, pods, ports, static_mask, static_score,

@@ -22,16 +22,17 @@ any real capacity/port bounce, any order inversion with interference
 result and redoes the batch through the sequential engine, so the
 scheduled/unschedulable split always matches one-at-a-time semantics.
 
-A batch with no in-batch pod affinity runs on the card as one CUDA graph
-(the reference's lax.while_loop and lax.cond, `plain_graph`): a WHILE node
-over the round (K11, K12, kernel K15 for the fold between the score pass
-and the selector, K1, [K3], kernel K14 for the acceptance and the carry
-update), then an IF node over the exact redo (the static pass and K13),
-with no host sync; fn.last_rounds and fn.last_redo are then device
-scalars.  Their twins are round_fold_plain and round_commit_plain, which
-the CPU path and select_impl="plain" run with the host checking
-`active.any()` once a round.  Affinity batches keep those host rounds
-(`_round`) and the host check.
+A batch runs on the card as one CUDA graph (the reference's
+lax.while_loop and lax.cond, `batch_graph`): a WHILE node over the round
+(K11, K12, kernel K15 for the fold between the score pass and the
+selector, K1, [K3], kernel K14 for the acceptance and the carry update,
+and for a batch with in-batch pod affinity kernel K16 for its pair commit
+and bootstrap gate), then an IF node over the exact redo (the static pass
+and K13), with no host sync; fn.last_rounds and fn.last_redo are then
+device scalars.  Their twins are round_fold_plain, round_commit_plain and
+round_pairs_plain (an affinity batch's round is `_round`), which the CPU
+path and select_impl="plain" run with the host checking `active.any()`
+once a round.
 
 In-batch REQUIRED (anti-)affinity (aff_state): the carry holds the
 per-topology-pair extras the sequential engine threads through its steps
@@ -45,7 +46,9 @@ placements.  Two orderings keep it faithful to the sequential semantics:
     round commits anything (its mates may open domains); a commit-free
     round retires only the first infeasible pod in batch order.
 Within a round, a pod is bounced when an earlier proposer shares a
-topology domain with it under either pod's anti-affinity terms.
+topology domain with it under either pod's anti-affinity terms.  The carry
+holds the unions (the pods' own pairs or'ed with the in-batch ones, the
+preferred weights summed), so the filter and the fold read one row each.
 
 Nominated pods (`nominated`): at commit, the resource claims of nominated
 pods with priority >= the proposer's on its proposed node join the fit
@@ -88,9 +91,15 @@ from kubernetes_tpu_torch.models.batched import (
     static_profile,
     topology_key_pairs,
 )
-from kubernetes_tpu_torch.ops.predicates import filter_batch, pair_hits
+from kubernetes_tpu_torch.ops.predicates import (
+    batch_pairs,
+    filter_batch,
+    pair_inputs,
+    union_rows,
+)
 from kubernetes_tpu_torch.ops.priorities import (
     MAX_PRIORITY,
+    ipa_node_pair,
     pod_group_onehot,
     pod_spread_match,
     rtc_tables,
@@ -112,7 +121,8 @@ from kubernetes_tpu_torch.ops.select import (
 
 def plain_carry(cluster: ClusterTensors, pods: PodBatch, pod_ports,
                 last_index0: int, emask0, tk: int, on_device: bool) -> dict:
-    """The carry of a plain batch's rounds: hosts, the committed requests
+    """The carry of a batch's rounds (an affinity batch's adds the pair
+    state, affinity_carry): hosts, the committed requests
     (req, nz), the spread counts (a spread-lean batch's [G, N] group
     columns, else each pod's [B, N] row; the snapshot's counts plus the
     batch's commits), claimed ports, emask, active, the inversion flag and
@@ -156,15 +166,18 @@ def plain_carry(cluster: ClusterTensors, pods: PodBatch, pod_ports,
 
 def round_fold_plain(total, mask, c, pods: PodBatch, cluster: ClusterTensors,
                      zone_key_id: int, zones, feas_limit, li: int, escore,
-                     w_spread: float):
-    """Kernel K15's plain twin: a plain round's fold between the score
-    pass (total) and the selector, for the carry c.  A spread-lean batch
-    adds w_spread times each pod's SelectorSpread score over the carried
-    group counts (one score a group, broadcast with a one-hot product:
-    exact, one nonzero term a row; a groupless pod scores 10); the mask
-    takes active, emask and the pods' validity, then with a sampling limit
-    the first feasible nodes from the rotated start li + b; escore adds
-    last.  Returns (total, mask)."""
+                     w_spread: float, w_ipa=None):
+    """Kernel K15's plain twin: a round's fold between the score pass
+    (total) and the selector, for the carry c.  A spread-lean batch adds
+    w_spread times each pod's SelectorSpread score over the carried group
+    counts (one score a group, broadcast with a one-hot product: exact,
+    one nonzero term a row; a groupless pod scores 10); the mask takes
+    active, emask and the pods' validity; with w_ipa (a batch with
+    in-batch pod affinity, K15's affinity mode) w_ipa times the IPA score
+    over the carried pair weights c["upref"] (their product with the
+    topology, renormalized per pod) adds; then with a sampling limit the
+    mask keeps the first feasible nodes from the rotated start li + b;
+    escore adds last.  Returns (total, mask)."""
     B = mask.shape[0]
     if pods.spread_counts.shape[-1] != mask.shape[1]:
         scores_g = spread_score_from_counts(
@@ -177,6 +190,12 @@ def round_fold_plain(total, mask, c, pods: PodBatch, cluster: ClusterTensors,
         sp = torch.where(has_g[:, None], sp, MAX_PRIORITY)
         total = total + w_spread * sp
     mask = mask & c["active"][:, None] & c["emask"] & pods.valid[:, None]
+    if w_ipa is not None:
+        # the IPA score over (pre-batch | in-batch) raw pair weights,
+        # renormalized per pod
+        raw = torch.matmul(c["upref"],
+                           cluster.topo_pairs.to(torch.float32).T)  # [B, N]
+        total = total + w_ipa * ipa_normalize(raw, cluster.valid[None])
     if feas_limit is not None:
         mask = limit_feasible(mask, feas_limit,
                               rotation_counters(li, B, mask.device))
@@ -186,13 +205,18 @@ def round_fold_plain(total, mask, c, pods: PodBatch, cluster: ClusterTensors,
 
 
 def round_commit_plain(c, hosts, feasible, top, pods: PodBatch, ports,
-                       cluster: ClusterTensors, nom, spread_match, tril):
+                       cluster: ClusterTensors, nom, spread_match, tril,
+                       aff=None):
     """Kernel K14's plain twin: the acceptance and the carry update of a
-    plain round, as a new carry.  hosts / feasible: the selector's picks;
-    top: the round's TopKQuality or None; nom: the NominatedState or
-    None; spread_match: f32[B, B] for per-pod spread counts, None for a
-    spread-lean batch; tril: f32[B, B], ones strictly below the
-    diagonal."""
+    round, as a new carry.  hosts / feasible: the selector's picks; top:
+    the round's TopKQuality or None; nom: the NominatedState or None;
+    spread_match: f32[B, B] for per-pod spread counts, None for a
+    spread-lean batch; tril: f32[B, B], ones strictly below the diagonal;
+    aff: None, or for a batch with in-batch pod affinity (K14's affinity
+    mode) {"aff": the dense BatchAffinityState, "mask": the round's mask,
+    "rel": bool[B, B] pods related through required terms}: the same
+    round's anti order, the inversion sentinel and the deferred
+    retirement; the new carry then holds the round's "accept" too."""
     B = pods.valid.shape[0]
     N = cluster.allocatable.shape[0]
     dev = cluster.valid.device
@@ -234,6 +258,34 @@ def round_commit_plain(c, hosts, feasible, top, pods: PodBatch, ports,
         (claimed_h | prior_ports).to(torch.float32), conflict_f) > 0
     pconf = torch.any(pports & blocked, dim=1)
     accept = prop & fits & ~pconf
+    if aff is not None:
+        # same-round required-anti ordering: pod b is rejected when an
+        # earlier proposer j shares a topology domain with b under one of
+        # b's anti terms (j matches it) or one of j's (b matches it).
+        # D[o, t, c] = "candidate c's proposed node is in owner o's term-t
+        # domain at o's proposed node".
+        a = aff["aff"]
+        H = cluster.topo_pairs.to(torch.float32)[hosts_l]    # [B, TP]
+        anti_kp = topology_key_pairs(pods.anti_term_topo_key, cluster)
+        a_own = anti_kp.to(torch.float32) * H[:, None, :]     # [B, AT, TP]
+        D = torch.einsum("otp,cp->otc", a_own, H) > 0         # [B, AT, B]
+        # am1[b, t, j] = "pod j matches pod b's required anti term t"
+        am1 = a.anti_match.permute(1, 2, 0)                   # [B, AT, B]
+        v1 = torch.any(D & am1, dim=1)                        # [b, j]
+        v2 = torch.any(D & a.anti_own, dim=1)                 # [j, b]
+        conf_ba = v1 | v2.T                                   # [b, j]
+        earlier_prop = (tril > 0) & prop[None, :]
+        accept = accept & ~torch.any(conf_ba & earlier_prop, dim=1)
+        # order-inversion sentinel: a later pod committing while an
+        # earlier one is passed over, where the commit can interfere with
+        # what the earlier pod would have got one at a time (j's node was
+        # feasible for i this round, or i and j are related through
+        # required terms in either direction): the hybrid check then
+        # redoes the batch
+        passed_over = c["active"] & ~accept                   # [i]
+        interf = aff["mask"][:, hosts_l] | aff["rel"]         # [i, j]
+        inv_new = torch.any(passed_over[:, None] & accept[None, :]
+                            & (tril.T > 0) & interf)
     accf = accept[:, None].to(torch.float32)
     # the accept pass is conservative (earlier proposers count even if they
     # bounce themselves); ban the node only when the bounce also holds
@@ -250,6 +302,11 @@ def round_commit_plain(c, hosts, feasible, top, pods: PodBatch, ports,
         (claimed_h | prior_ports_acc).to(torch.float32), conflict_f) > 0
     pconf_acc = torch.any(pports & blocked_acc, dim=1)
     real_bounce = prop & ~accept & (~fits_acc | pconf_acc)
+    if aff is not None:
+        # an anti-violation against an ACCEPTED peer needs no emask ban:
+        # next round's pair state excludes the whole domain
+        real_bounce = real_bounce & ~torch.any(
+            conf_ba & (tril > 0) & accept[None, :], dim=1)
     node_ids = torch.arange(N, dtype=torch.int64, device=dev)
     acc_node = accf * (hosts_l[:, None] == node_ids[None, :]).to(
         torch.float32)                                   # [B, N]
@@ -287,6 +344,92 @@ def round_commit_plain(c, hosts, feasible, top, pods: PodBatch, ports,
         out["topn"] = torch.where(upd, top.top_nodes, c["topn"])
         out["tops"] = torch.where(upd, top.top_scores, c["tops"])
         out["feas"] = torch.where(accept, top.feasible, c["feas"])
+    if aff is not None:
+        out["inv"] = out["inv"] | inv_new
+        # deferred retirement: while the round commits anything, an
+        # infeasible pod stays active (a mate's landing may open its
+        # domain next round).  A commit-free round retires only the FIRST
+        # infeasible pod in batch order, the pod the sequential engine
+        # would fail next.
+        inf = c["active"] & ~feasible
+        first_inf = inf & (torch.cumsum(inf.to(torch.int32), 0) == 1)
+        out["active"] = out["active"] | torch.where(
+            torch.any(accept), inf, inf & ~first_inf)
+        out["accept"] = accept
+    return out
+
+
+def affinity_carry(c: dict, pods: PodBatch, tp: int) -> dict:
+    """The carry c of a batch with in-batch pod affinity, in place: the
+    unions the rounds add to from the pods' own pairs ("uaff", "uanti",
+    "uforb"; OR is idempotent) and preferred weights ("upref"; integer
+    sums), tp pairs wide (a lean batch's width-1 placeholders broadcast),
+    and the gated aff_term_self ("self", set by the first round_pairs
+    call)."""
+    c.update(union_rows(pods, tp))
+    c["self"] = pods.aff_term_self.clone()
+    return c
+
+
+def related_pods(aff) -> torch.Tensor:
+    """bool[B, B]: pods i and j related through required terms in either
+    direction (one satisfies or matches the other's affinity or anti
+    term), the inversion sentinel's interference."""
+    a_any = torch.any(aff.aff_match, dim=2)    # [x, y]: x sats y's aff
+    n_any = torch.any(aff.anti_match, dim=2)   # [x, y]: x matches y's anti
+    return a_any | a_any.T | n_any | n_any.T
+
+
+def round_pairs_plain(c, hosts, accept, pods: PodBatch, aff,
+                      cluster: ClusterTensors, hard_w: float) -> dict:
+    """Kernel K16's plain twin: the predicateMetadata.AddPod analogue,
+    batched over a round's accepted placements (hosts and accept; None:
+    none, the first round), whose topology pairs flow into the pending
+    pods' union state for the next round, then the next round's bootstrap
+    gate over c["active"]: pod i may self-bootstrap term t only when no
+    EARLIER-in-batch pod that could satisfy t is still pending (the gate
+    folds into aff_term_self, so the shared MatchInterPodAffinity
+    predicate evaluates the unioned state unchanged).  Returns the new
+    "uaff", "uanti", "uforb", "upref" and "self"."""
+    f32 = torch.float32
+    out = {k: c[k] for k in ("uaff", "uanti", "uforb", "upref")}
+    if accept is not None:
+        aff_kp = topology_key_pairs(pods.aff_term_topo_key, cluster)
+        anti_kp = topology_key_pairs(pods.anti_term_topo_key, cluster)
+        pref_kp = topology_key_pairs(aff.pref_topo_key, cluster)
+        H = cluster.topo_pairs.to(f32)[hosts.to(torch.int64)]   # [B, TP]
+        accN = accept[:, None].to(f32) * H                      # [B(j), TP]
+        out["uaff"] = c["uaff"] | (
+            (torch.einsum("jit,jp->itp", aff.aff_match.to(f32), accN) > 0)
+            & aff_kp)
+        out["uanti"] = c["uanti"] | (
+            (torch.einsum("jit,jp->itp", aff.anti_match.to(f32), accN) > 0)
+            & anti_kp)
+        keyed_anti = anti_kp.to(f32) * accN[:, None, :]
+        out["uforb"] = c["uforb"] | (
+            torch.einsum("jti,jtp->ip", aff.anti_own.to(f32), keyed_anti)
+            > 0)
+        # the JAX order of the three weight terms: the hard-affinity
+        # symmetric weight, then the pending pods' own preferred terms
+        # that the accepted pods match, then the accepted pods' preferred
+        # terms over the landing domain
+        keyed_aff = aff_kp.to(f32) * accN[:, None, :]
+        upref = c["upref"] + hard_w * torch.einsum(
+            "jti,jtp->ip", aff.aff_own.to(f32), keyed_aff)
+        m1 = torch.einsum("jit,jp->itp", aff.pref_match.to(f32), accN)
+        upref = upref + torch.sum(
+            m1 * aff.pref_weight[:, :, None] * pref_kp.to(f32), dim=1)
+        keyed_pref = pref_kp.to(f32) * accN[:, None, :]
+        out["upref"] = upref + torch.einsum(
+            "jti,jt,jtp->ip", aff.pref_own.to(f32), aff.pref_weight,
+            keyed_pref)
+    B = pods.valid.shape[0]
+    tril = torch.tril(torch.ones((B, B), dtype=f32,
+                                 device=pods.valid.device), diagonal=-1)
+    earlier_alive = tril * c["active"].to(f32)[None, :]
+    cb = torch.einsum("jit,ij->it", aff.aff_match.to(f32),
+                      earlier_alive) <= 0                     # [B, PT]
+    out["self"] = pods.aff_term_self & cb
     return out
 
 
@@ -309,7 +452,7 @@ def make_speculative_scheduler(
 
     After each call, fn.last_rounds holds the rounds used and fn.last_redo
     whether the batch was redone through the sequential engine: 0-d
-    tensors on the card for a plain batch (read them after the clock
+    tensors on the card through the kernels (read them after the clock
     stops: reading syncs), a Python int and bool otherwise.
 
     quality_topk=K > 0 (output-only): the call returns (hosts, new_cluster,
@@ -329,7 +472,6 @@ def make_speculative_scheduler(
     w_no_ipa = w_all.copy()
     w_no_ipa[PRIO_INDEX["InterPodAffinityPriority"]] = 0.0
     hard_w = float(cfg.hard_pod_affinity_weight)
-    f32 = torch.float32
     if score_cfg is None:
         score_cfg = ScoreConfig()
     w_rtc = float(w_all[PRIO_INDEX["RequestedToCapacityRatioPriority"]])
@@ -345,309 +487,46 @@ def make_speculative_scheduler(
         quality_topk=quality_topk, device=device, select_impl=select_impl,
     )
 
-    def _affinity_context(cluster, pods, aff, tril):
-        """The state-independent affinity tensors of a batch, made once a
-        batch: the topology as f32, each term's key-pair slots, and which
-        pods are related through required terms in either direction."""
-        a_any = torch.any(aff.aff_match, dim=2)    # [x, y]: x sats y's aff
-        n_any = torch.any(aff.anti_match, dim=2)   # [x, y]: x matches y's anti
-        return {
-            "topo": cluster.topo_pairs.to(f32),                  # [N, TP]
-            "aff_kp": topology_key_pairs(pods.aff_term_topo_key, cluster),
-            "anti_kp": topology_key_pairs(pods.anti_term_topo_key, cluster),
-            "pref_kp": topology_key_pairs(aff.pref_topo_key, cluster),
-            "rel": a_any | a_any.T | n_any | n_any.T,
-            "later": tril.T > 0,                                 # [i, j]: j > i
-        }
-
-    def _round(cluster: ClusterTensors, pods: PodBatch, pod_ports, conflict,
-               escore, nom, tril, aff, ax, c):
-        """One propose-and-commit round of an affinity batch; c is the
-        carry dict (tensors plus the host-side rotation counter "li"); nom
-        the NominatedState on the device or None; aff the dense
-        BatchAffinityState, ax its _affinity_context."""
-        B = pods.valid.shape[0]
-        N = cluster.allocatable.shape[0]
-        dev = cluster.valid.device
-        reqf = pods.req
-        nzf = pods.nonzero_req
-        pports = pod_ports
-        pports_f = pod_ports.to(torch.float32)
-        conflict_f = conflict.to(torch.float32)
-        cl = dataclasses.replace(cluster, requested=c["req"],
-                                 nonzero_req=c["nz"])
-        # bootstrap gating: pod i may self-bootstrap term t only when no
-        # EARLIER-in-batch pod that could satisfy t is still pending; the
-        # gate folds into aff_term_self, so the shared MatchInterPodAffinity
-        # predicate evaluates the unioned (pre-batch | in-batch) state
-        # unchanged
-        earlier_alive = tril * c["active"].to(f32)[None, :]
-        cb = torch.einsum("jit,ij->it", aff.aff_match.to(f32),
-                          earlier_alive) <= 0                 # [B, PT]
+    def _round(cluster, pods, ports, escore, nom, tril, aff, st, c):
+        """One propose-and-commit round of an affinity batch through the
+        twins (the CPU, select_impl="plain"): the filter pass against the
+        carried unions and the gated aff_term_self, the score pass without
+        the IPA score, round_fold_plain with it, the selector,
+        round_commit_plain and round_pairs_plain in their affinity mode; c
+        is the carry dict (tensors plus the host-side rotation counter
+        "li"), nom the NominatedState on the device or None, aff the dense
+        BatchAffinityState."""
         pods_eval = dataclasses.replace(
-            pods,
-            aff_term_pairs=pods.aff_term_pairs | c["xaff"],
-            anti_term_pairs=pods.anti_term_pairs | c["xanti"],
-            forbidden_pairs=pods.forbidden_pairs | c["xforb"],
-            aff_term_self=pods.aff_term_self & cb,
-        )
-        mask, _ = filter_batch(cl, pods_eval, cfg, unsched_taint_key,
-                               need_per=False)
-        # spread freshness: base snapshot counts plus the in-batch commits
-        # accumulated in the carry
-        lean_spread = pods.spread_counts.shape[-1] != N
-        w_use = w_no_ipa
-        if lean_spread:
-            # every pod in <= 1 spread group: the SelectorSpread score is a
-            # function of the pod's GROUP, computed once per group over
-            # [G, N] and broadcast with a one-hot product (exact: one
-            # nonzero term per row)
-            counts_g = cluster.group_counts.T + c["spread"]   # [G, N]
-            scores_g = spread_score_from_counts(
-                counts_g, cluster, zone_key_id)               # [G, N]
-            onehot_g = pod_group_onehot(
-                pods, cluster.group_counts.shape[1])          # [B, G]
-            has_g = torch.any(onehot_g > 0, dim=-1)
-            sp = torch.matmul(onehot_g, scores_g)
-            # a groupless pod has zero counts everywhere -> score 10
-            sp = torch.where(has_g[:, None], sp, MAX_PRIORITY)
-            w_use = np.array(w_use, np.float32)
-            w_spread = float(w_use[PRIO_INDEX["SelectorSpreadPriority"]])
-            w_use[PRIO_INDEX["SelectorSpreadPriority"]] = 0.0
-            pods_r = pods
-        else:
-            pods_r = dataclasses.replace(
-                pods, spread_counts=spread_counts(cl, pods) + c["spread"])
-        total, _ = score_batch(
-            cl, pods_r, weights=w_use, score_cfg=score_cfg,
-            zone_key_id=zone_key_id, skip_zero_weight=True, need_per=False,
-        )
-        if lean_spread:
-            total = total + w_spread * sp
-        mask = mask & c["active"][:, None] & c["emask"] & pods.valid[:, None]
-        # dynamic IPA score over (pre-batch | in-batch) raw pair weights,
-        # renormalized per pod
-        topo = ax["topo"]
-        raw = torch.matmul(pods.pref_pair_weights + c["xpref"],
-                           topo.T)                            # [B, N]
-        total = total + w_ipa * ipa_normalize(raw, cluster.valid[None])
-        if percentage_of_nodes_to_score < 100:  # 0 = adaptive
-            lim = num_feasible_nodes_device(
-                torch.sum(cl.valid, dtype=torch.int32),
-                percentage_of_nodes_to_score)
-            mask = limit_feasible(mask, lim,
-                                  rotation_counters(c["li"], B, dev))
-        if escore is not None:
-            total = total + escore
+            pods, aff_term_pairs=c["uaff"], anti_term_pairs=c["uanti"],
+            forbidden_pairs=c["uforb"], aff_term_self=c["self"])
+        total, mask = plain_passes(cluster, pods_eval, st, c)
+        total, mask = round_fold_plain(
+            total, mask, c, pods, cluster, zone_key_id, st["zones"],
+            st["feas_limit"], c["li"], escore, st["w_spread"], w_ipa)
         hosts, feasible = select_hosts_batch(total, mask, c["li"],
                                              select_impl)
-        if quality_topk:
-            # every row's winner-pinned ranking off the exact (mask, total,
-            # hosts) the acceptance below uses; only accepted rows keep it
-            qb = select_topk_batch(total, mask, hosts, feasible,
-                                   c["topn"].shape[1])
-        hosts_l = hosts.to(torch.int64)
-        prop = c["active"] & feasible            # proposers this round
-        # earlier same-node proposers (batch order = commit order)
-        same = (
-            (hosts[:, None] == hosts[None, :])
-            & prop[:, None] & prop[None, :]
-        )
-        prior = same.to(torch.float32) * tril                # [B, B]
-        # request columns are multiples of 100m / 256Mi: the prefix sums
-        # are exact in any summation order
-        cum_req = torch.matmul(prior, reqf)                  # [B, R]
-        node_req = c["req"][hosts_l]                         # [B, R]
-        alloc_h = cluster.allocatable[hosts_l]
-        if nom is not None:
-            # podFitsOnNode pass one: nominated pods with priority >= this
-            # pod's claim resources on their nominated node (resource fit
-            # is monotone, so pass one implies the no-nominated pass two)
-            nw = (
-                (nom.prio[None, :] >= pods.priority[:, None])
-                & (nom.node[None, :] >= 0)
-                & (nom.node[None, :] == hosts[:, None])
-            ).to(torch.float32)                              # [B, K]
-            nom_extra = torch.matmul(nw, nom.req)            # [B, R]
-            held = node_req + cum_req + nom_extra
-        else:
-            nom_extra = None
-            held = node_req + cum_req
-        over = (reqf > 0) & (held + reqf > alloc_h)
-        fits = ~torch.any(over, dim=1)
-        # ports: conflict with claims already on the node OR with an
-        # earlier same-node proposer's wanted ports
-        prior_ports = torch.matmul(prior, pports_f) > 0
-        claimed_h = c["claimed"][hosts_l]                    # [B, PV]
-        blocked = torch.matmul(
-            (claimed_h | prior_ports).to(torch.float32), conflict_f) > 0
-        pconf = torch.any(pports & blocked, dim=1)
-        accept = prop & fits & ~pconf
-        # same-round required-anti ordering: pod b is rejected when an
-        # earlier proposer j shares a topology domain with b under one of
-        # b's anti terms (j matches it) or one of j's (b matches it).
-        # D[o, t, c] = "candidate c's proposed node is in owner o's term-t
-        # domain at o's proposed node".
-        H = topo[hosts_l]                                     # [B, TP]
-        a_own = ax["anti_kp"].to(f32) * H[:, None, :]         # [B, AT, TP]
-        D = torch.einsum("otp,cp->otc", a_own, H) > 0         # [B, AT, B]
-        # am1[b, t, j] = "pod j matches pod b's required anti term t"
-        am1 = aff.anti_match.permute(1, 2, 0)                 # [B, AT, B]
-        v1 = torch.any(D & am1, dim=1)                        # [b, j]
-        v2 = torch.any(D & aff.anti_own, dim=1)               # [j, b]
-        conf_ba = v1 | v2.T                                   # [b, j]
-        earlier_prop = (tril > 0) & prop[None, :]
-        aviol = torch.any(conf_ba & earlier_prop, dim=1)
-        accept = accept & ~aviol
-        # order-inversion sentinel: a later pod committing while an earlier
-        # one is passed over, where the commit can interfere with what the
-        # earlier pod would have got one at a time (j's node was feasible
-        # for i this round, or i and j are related through required terms
-        # in either direction): the hybrid check then redoes the batch
-        passed_over = c["active"] & ~accept                   # [i]
-        interf = mask[:, hosts_l] | ax["rel"]                 # [i, j]
-        inv_new = torch.any(passed_over[:, None] & accept[None, :]
-                            & ax["later"] & interf)
-        accf = accept[:, None].to(torch.float32)
-        # the accept pass is conservative (earlier proposers count even if
-        # they bounce themselves); ban the node only when the bounce also
-        # holds against the accepted-only prior state
-        prior_acc = prior * accept[None, :].to(torch.float32)
-        cum_acc = torch.matmul(prior_acc, reqf)
-        held_acc = node_req + cum_acc
-        if nom_extra is not None:
-            held_acc = held_acc + nom_extra
-        over_acc = (reqf > 0) & (held_acc + reqf > alloc_h)
-        fits_acc = ~torch.any(over_acc, dim=1)
-        prior_ports_acc = torch.matmul(prior_acc, pports_f) > 0
-        blocked_acc = torch.matmul(
-            (claimed_h | prior_ports_acc).to(torch.float32), conflict_f) > 0
-        pconf_acc = torch.any(pports & blocked_acc, dim=1)
-        real_bounce = prop & ~accept & (~fits_acc | pconf_acc)
-        # an anti-violation against an ACCEPTED peer needs no emask ban:
-        # next round's xanti/xforb exclude the whole domain
-        aviol_acc = torch.any(conf_ba & (tril > 0) & accept[None, :], dim=1)
-        real_bounce = real_bounce & ~aviol_acc
-        node_ids = torch.arange(N, dtype=torch.int64, device=dev)
-        acc_node = accf * (hosts_l[:, None] == node_ids[None, :]).to(
-            torch.float32)                                   # [B, N]
-        if lean_spread:
-            # group-granular commit counts ([G, N] carry)
-            spread_next = c["spread"] + torch.matmul(onehot_g.T, acc_node)
-        else:
-            # the SAME AND-subset match the sequential engine uses
-            spread_match = pod_spread_match(
-                pods, cluster.group_counts.shape[1])         # [B, B] [i, j]
-            spread_next = c["spread"] + torch.matmul(spread_match, acc_node)
-        # committed state lands via scatter-add on the node axis (integer
-        # multiples again: exact in any order)
-        claimed_add = torch.zeros_like(c["claimed"], dtype=torch.float32)
-        claimed_add.index_add_(0, hosts_l, (pports & accept[:, None]).to(
-            torch.float32))
-        out = {
-            "hosts": torch.where(accept, hosts, c["hosts"]),
-            "req": c["req"].index_add(0, hosts_l, reqf * accf),
-            "nz": c["nz"].index_add(0, hosts_l, nzf * accf),
-            "spread": spread_next,
-            "claimed": c["claimed"] | (claimed_add > 0),
-            # really-bounced proposers never re-pick the node that bounced
-            # them
-            "emask": c["emask"] & ~(
-                real_bounce[:, None] & (node_ids[None, :] == hosts_l[:, None])
-            ),
-            "li": c["li"] + B,
-            # the contention signals of the hybrid redo: order inversion
-            # with interference, and any REAL capacity/port bounce
-            "inv": c["inv"] | inv_new | torch.any(real_bounce),
-        }
-        if quality_topk:
-            upd = accept[:, None]
-            out["topn"] = torch.where(upd, qb.top_nodes, c["topn"])
-            out["tops"] = torch.where(upd, qb.top_scores, c["tops"])
-            out["feas"] = torch.where(accept, qb.feasible, c["feas"])
-        # deferred retirement: while the round commits anything, an
-        # infeasible pod stays active (a mate's landing may open its
-        # domain next round).  A commit-free round retires only the FIRST
-        # infeasible pod in batch order, the pod the sequential engine
-        # would fail next.
-        inf = c["active"] & ~feasible
-        first_inf = inf & (torch.cumsum(inf.to(torch.int32), 0) == 1)
-        out["active"] = ((c["active"] & feasible & ~accept)
-                         | torch.where(torch.any(accept), inf,
-                                       inf & ~first_inf))
-        # predicateMetadata.AddPod analogue, batched over this round's
-        # accepted placements: their topology pairs flow into the pending
-        # pods' affinity state for the next round
-        aff_kp, anti_kp, pref_kp = ax["aff_kp"], ax["anti_kp"], ax["pref_kp"]
-        accN = accf * H                                       # [B(j), TP]
-        out["xaff"] = c["xaff"] | (
-            (torch.einsum("jit,jp->itp", aff.aff_match.to(f32), accN) > 0)
-            & aff_kp)
-        out["xanti"] = c["xanti"] | (
-            (torch.einsum("jit,jp->itp", aff.anti_match.to(f32), accN) > 0)
-            & anti_kp)
-        keyed_anti = anti_kp.to(f32) * accN[:, None, :]
-        out["xforb"] = c["xforb"] | (
-            torch.einsum("jti,jtp->ip", aff.anti_own.to(f32), keyed_anti)
-            > 0)
-        # the JAX order of the three xpref terms: the hard-affinity
-        # symmetric weight, then the pending pods' own preferred terms
-        # that the accepted pods match, then the accepted pods' preferred
-        # terms over the landing domain
-        keyed_aff = aff_kp.to(f32) * accN[:, None, :]
-        xpref = c["xpref"] + hard_w * torch.einsum(
-            "jti,jtp->ip", aff.aff_own.to(f32), keyed_aff)
-        m1 = torch.einsum("jit,jp->itp", aff.pref_match.to(f32), accN)
-        xpref = xpref + torch.sum(
-            m1 * aff.pref_weight[:, :, None] * pref_kp.to(f32), dim=1)
-        keyed_pref = pref_kp.to(f32) * accN[:, None, :]
-        out["xpref"] = xpref + torch.einsum(
-            "jti,jt,jtp->ip", aff.pref_own.to(f32), aff.pref_weight,
-            keyed_pref)
+        top = (select_topk_batch(total, mask, hosts, feasible,
+                                 c["topn"].shape[1])
+               if quality_topk else None)
+        out = round_commit_plain(
+            c, hosts, feasible, top, pods, ports, cluster, nom,
+            st["spread_match"], tril,
+            {"aff": aff, "mask": mask, "rel": st["rel"]})
+        out.update(round_pairs_plain({**c, "active": out["active"]}, hosts,
+                                     out["accept"], pods, aff, cluster,
+                                     hard_w))
         return out
 
-    def _init_carry(cluster, pods, pod_ports, last_index0, emask0):
-        """The carry of an affinity batch's rounds."""
-        B = pods.valid.shape[0]
-        N = cluster.allocatable.shape[0]
-        dev = cluster.valid.device
-        lean_spread = pods.spread_counts.shape[-1] != N
-        S = cluster.group_counts.shape[1] if lean_spread else B
-        TP = cluster.topo_pairs.shape[1]
-        PT = pods.aff_term_pairs.shape[1]
-        AT = pods.anti_term_pairs.shape[1]
-        c = {
-            "hosts": torch.full((B,), -1, dtype=torch.int32, device=dev),
-            "req": cluster.requested.to(torch.float32),
-            "nz": cluster.nonzero_req.to(torch.float32),
-            "spread": torch.zeros((S, N), dtype=torch.float32, device=dev),
-            "claimed": torch.zeros((N, pod_ports.shape[1]), dtype=torch.bool,
-                                   device=dev),
-            "emask": emask0,
-            "active": pods.valid,
-            "li": last_index0,
-            "inv": torch.zeros((), dtype=torch.bool, device=dev),
-            "xaff": torch.zeros((B, PT, TP), dtype=torch.bool, device=dev),
-            "xanti": torch.zeros((B, AT, TP), dtype=torch.bool, device=dev),
-            "xforb": torch.zeros((B, TP), dtype=torch.bool, device=dev),
-            "xpref": torch.zeros((B, TP), dtype=f32, device=dev),
-        }
-        if quality_topk:
-            tkq = min(quality_topk, N)
-            c["topn"] = torch.full((B, tkq), -1, dtype=torch.int32,
-                                   device=dev)
-            c["tops"] = torch.zeros((B, tkq), dtype=f32, device=dev)
-            c["feas"] = torch.zeros(B, dtype=torch.int32, device=dev)
-        return c
-
-    def plain_setup(cluster, pods):
-        """What a plain batch's rounds share, made once a batch: the score
+    def plain_setup(cluster, pods, affinity: bool = False):
+        """What a batch's rounds share, made once a batch: the score
         pass's weights (a spread-lean batch scores SelectorSpread in the
-        fold, so its weight moves there), the zone layout, the sampling
-        limit, and for per-pod spread counts the AND-subset match."""
+        fold, so its weight moves there; an affinity batch scores
+        InterPodAffinity there, against the in-batch state), the zone
+        layout, the sampling limit, and for per-pod spread counts the
+        AND-subset match."""
         N = cluster.n_nodes
         lean = pods.spread_counts.shape[-1] != N
-        w_use = np.array(w_all, np.float32)
+        w_use = np.array(w_no_ipa if affinity else w_all, np.float32)
         w_spread = 0.0
         if lean:
             w_spread = float(w_use[PRIO_INDEX["SelectorSpreadPriority"]])
@@ -667,8 +546,8 @@ def make_speculative_scheduler(
         }
 
     def plain_passes(cluster, pods, st, c):
-        """A plain round's filter and score passes against the carry (K11
-        and K12 on CUDA tensors): (total, mask)."""
+        """A round's filter and score passes against the carry (K11 and
+        K12 on CUDA tensors): (total, mask)."""
         cl = dataclasses.replace(cluster, requested=c["req"],
                                  nonzero_req=c["nz"])
         mask, _ = filter_batch(cl, pods, cfg, unsched_taint_key,
@@ -694,44 +573,46 @@ def make_speculative_scheduler(
         return round_commit_plain(c, hosts, feasible, top, pods, ports,
                                   cluster, nom, st["spread_match"], tril)
 
-    def ipa_sums(cluster, pods, w):
-        """The IPA pair sums the score pass reads (score_batch's), or None
-        for an affinity-lean batch or a zero InterPodAffinity weight."""
-        if (w[PRIO_INDEX["InterPodAffinityPriority"]] != 0.0
-                and pods.pref_pair_weights.shape[-1]
-                == cluster.topo_pairs.shape[-1]):
-            return pods.pref_pair_weights @ cluster.topo_pairs.to(f32).T
-        return None
-
-    def plain_graph(cluster, pods, ports, last_index0, nom, emask, escore,
-                    st, c, tk):
-        """A plain batch on the card as one CUDA graph launch
+    def batch_graph(cluster, pods, ports, last_index0, nom, emask, escore,
+                    st, c, tk, aff):
+        """A batch on the card as one CUDA graph launch
         (kernels/round_graph.cu): WHILE any pod is active, a round (K11,
-        K12, K15, K1, [K3], K14); then IF the round's sentinels call for
-        it, the exact redo (the static pass, K11 and K12, and K13) over
-        the carry's outputs.  Every buffer is allocated before the capture
-        and nothing reads the card: the returned redo flag (i32[], 0 or 1)
-        and c["rounds"] stay there.  The graph is built a call; its build
-        seconds add to GRAPH_STATS, and the launches its capture records
-        are counted when they settle (kernels.graph_launched)."""
+        K12, K15, K1, [K3], K14, and with in-batch pod affinity K16 after
+        K14, one more K16 launch before the loop for the first round's
+        bootstrap gate); then IF the round's sentinels call for it, the
+        exact redo (the static pass, K11 and K12, and K13, in its affinity
+        mode for an affinity batch) over the carry's outputs.  Every
+        buffer is allocated before the capture and nothing reads the card:
+        the returned redo flag (i32[], 0 or 1) and c["rounds"] stay there.
+        The graph is built a call; its build seconds add to GRAPH_STATS,
+        and the launches its capture records are counted when they settle
+        (kernels.graph_launched)."""
         B, N = pods.n_pods, cluster.n_nodes
         dev = cluster.valid.device
         t0 = time.perf_counter()
         # the round's launches, prepared (every output allocated here)
         cl = dataclasses.replace(cluster, requested=c["req"],
                                  nonzero_req=c["nz"])
-        pods_r = (pods if st["spread_match"] is None
-                  else dataclasses.replace(pods, spread_counts=c["spread"]))
-        hits, offsets = pair_hits(cluster, pods)
+        pods_f = pods if aff is None else dataclasses.replace(
+            pods, aff_term_pairs=c["uaff"], anti_term_pairs=c["uanti"],
+            forbidden_pairs=c["uforb"], aff_term_self=c["self"])
+        pods_r = (pods_f if st["spread_match"] is None
+                  else dataclasses.replace(pods_f, spread_counts=c["spread"]))
+        # the batch's node pairs and key slots, once a batch
+        bp = (None if aff is None
+              else batch_pairs(cluster, pods, aff.pref_topo_key))
         a11, k11, mask0 = kernels.filter_pass_prepare(
-            cl, pods, cfg, unsched_taint_key, hits, offsets, False)
+            cl, pods_f, cfg, unsched_taint_key,
+            *(pair_inputs(cluster, pods_f) if aff is None
+              else (bp.node_pair, bp.aff_slot)), False)
         a12, x12, k12, (total0, _) = kernels.score_pass_prepare(
             cl, pods_r, st["w_use"], False, False, score_cfg, zone_key_id,
-            ipa_sums(cluster, pods, st["w_use"]))
+            ipa_node_pair(cluster, pods, st["w_use"]))
         a15, k15, (total, mask) = kernels.round_fold_prepare(
             total0, mask0, c, pods, st["zone_of_node"],
             cluster.topo_pairs.shape[1], escore, st["feas_limit"],
-            st["w_spread"])
+            st["w_spread"],
+            None if aff is None else (bp.node_pair, cluster.valid, w_ipa))
         k1, (hosts, feasible) = kernels.select_hosts_prepare(
             total, mask, c["li_dev"])
         k3, top = (kernels.select_topk_prepare(total, mask, hosts, feasible,
@@ -740,24 +621,37 @@ def make_speculative_scheduler(
         a14, k14 = kernels.round_commit_prepare(
             c, hosts, feasible, TopKQuality(*top) if tk else None, pods,
             ports, cluster, st["nom_lists"], st["spread_match"],
-            st["scratch"])
+            st["scratch"], aff=None if aff is None else {
+                "mask": mask, "rel": related_pods(aff),
+                "node_pair": bp.node_pair, "anti_slot": bp.anti_slot,
+                "anti_match": aff.anti_match, "anti_own": aff.anti_own})
+        if aff is not None:
+            a16, k16 = kernels.round_pairs_prepare(
+                c, hosts, st["scratch"]["accept"], pods, aff, bp, hard_w)
+            a16g, k16g = kernels.round_pairs_prepare(
+                c, None, None, pods, aff, bp, hard_w)
         # the redo's launches, writing over the carry's outputs
-        static_cfg, w_static = static_profile(cfg, w_all)
+        static_cfg, w_static = static_profile(cfg, w_all, aff is not None)
         a11s, k11s, smask = kernels.filter_pass_prepare(
-            cluster, pods, static_cfg, unsched_taint_key, hits, offsets,
-            False)
+            cluster, pods, static_cfg, unsched_taint_key,
+            *pair_inputs(cluster, pods), False)
         a12s, x12s, k12s, (sscore, _) = kernels.score_pass_prepare(
             cluster, pods, w_static, False, False, score_cfg, zone_key_id,
-            ipa_sums(cluster, pods, w_static))
+            ipa_node_pair(cluster, pods, w_static))
         a13, k13, _ = kernels.seq_scan_prepare(
             cluster, pods, ports, smask, sscore, emask, escore,
             pod_spread_match(pods, cluster.group_counts.shape[1]), nom,
             st["feas_limit"], st["rtc"], st["weights5"], zone_key_id,
             last_index0, tk,
             out=(c["hosts"], c["req"], c["nz"],
-                 (c["topn"], c["tops"], c["feas"]) if tk else None))
+                 (c["topn"], c["tops"], c["feas"]) if tk else None),
+            aff=aff, pairs=bp,
+            unions=(None if aff is None
+                    else union_rows(pods, cluster.topo_pairs.shape[1])),
+            ipa=(w_ipa, hard_w))
         redo = torch.zeros((), dtype=torch.int32, device=dev)
-        keep = (k11, k12, k15, k14, k11s, k12s, k13, hosts, top, redo)
+        keep = (k11, k12, k15, k14, k11s, k12s, k13, hosts, top, redo,
+                (k16, k16g) if aff is not None else None)
         # the capture: it records the launches of each body, and
         # settle_launches counts them from the card's rounds and redo flag
         cap, body = kernels.graph_streams(dev)
@@ -767,6 +661,9 @@ def make_speculative_scheduler(
             err = lib.graph_begin(cap.cuda_stream)
             try:
                 kernels.check_graph(lib, err)
+                if aff is not None:
+                    with torch.cuda.stream(cap):
+                        kernels.round_pairs_launch(a16g)   # the first gate
                 h_while = kernels.graph_handle(lib, cap)
                 kernels.check_graph(lib, lib.graph_init_launch(
                     h_while, c["active"].data_ptr(), B, cap.cuda_stream))
@@ -782,6 +679,8 @@ def make_speculative_scheduler(
                     if k3 is not None:
                         k3()
                     kernels.round_commit_launch(a14)
+                    if aff is not None:
+                        kernels.round_pairs_launch(a16)
                 kernels.check_graph(lib, lib.graph_cond_end(
                     body.cuda_stream))
                 rec.into("once")
@@ -825,19 +724,25 @@ def make_speculative_scheduler(
         del keep
         return redo
 
-    def schedule_plain(cluster, pods, ports, last_index0, nom, emask,
-                       escore):
-        """A batch with no in-batch pod affinity: (hosts, carry, redo)."""
+    def schedule_rounds(cluster, pods, ports, last_index0, nom, emask,
+                        escore, aff):
+        """The rounds of a batch (aff: its dense BatchAffinityState or
+        None): (hosts, carry, redo).  On the card through the kernels, one
+        CUDA graph that runs the redo itself when it is due (redo and the
+        rounds then device scalars); else the twins' rounds with one host
+        sync a round."""
         B, N = pods.n_pods, cluster.n_nodes
         dev = cluster.valid.device
         emask0 = (torch.ones((B, N), dtype=torch.bool, device=dev)
                   if emask is None else emask)
         tk = min(quality_topk, N) if quality_topk else 0
-        st = plain_setup(cluster, pods)
+        st = plain_setup(cluster, pods, aff is not None)
         rounds = 0
         if dev.type == "cuda" and select_impl == "kernel":
             c = plain_carry(cluster, pods, ports.pod_ports, last_index0,
                             emask0, tk, on_device=True)
+            if aff is not None:
+                affinity_carry(c, pods, cluster.topo_pairs.shape[1])
             node_in_zone, zone_of, _ = st["zones"]
             st["zone_of_node"] = torch.where(
                 node_in_zone, zone_of, -1).to(torch.int32)
@@ -849,20 +754,27 @@ def make_speculative_scheduler(
             st["rtc"] = rtc_tables(score_cfg, dev) if w_rtc else None
             st["weights5"] = weights5
             # the rounds and the redo in one graph: no host sync
-            redo = plain_graph(cluster, pods, ports, last_index0, nom,
-                               emask, escore, st, c, tk)
+            redo = batch_graph(cluster, pods, ports, last_index0, nom,
+                               emask, escore, st, c, tk, aff)
             return c, c["rounds"], redo
-        else:
-            c = plain_carry(cluster, pods, ports.pod_ports, last_index0,
-                            emask0, tk, on_device=False)
-            tril = torch.tril(torch.ones((B, B), dtype=torch.float32,
-                                         device=dev), diagonal=-1)
-            while bool(c["active"].any()):       # one host sync per round
-                c = plain_round_plain(cluster, pods, ports, escore, nom,
-                                      tril, st, c)
-                rounds += 1
-            redo = (bool(c["inv"])
-                    or bool(torch.any(pods.valid & (c["hosts"] < 0))))
+        c = plain_carry(cluster, pods, ports.pod_ports, last_index0, emask0,
+                        tk, on_device=False)
+        tril = torch.tril(torch.ones((B, B), dtype=torch.float32,
+                                     device=dev), diagonal=-1)
+        if aff is not None:
+            affinity_carry(c, pods, cluster.topo_pairs.shape[1])
+            st["rel"] = related_pods(aff)
+            c.update(round_pairs_plain(c, None, None, pods, aff, cluster,
+                                       hard_w))
+        while bool(c["active"].any()):       # one host sync per round
+            c = (plain_round_plain(cluster, pods, ports, escore, nom, tril,
+                                   st, c) if aff is None else
+                 _round(cluster, pods, ports, escore, nom, tril, aff, st, c))
+            rounds += 1
+        # the contention sentinels, checked on the host: a real bounce or
+        # an order inversion, or a pod left unscheduled
+        redo = (bool(c["inv"])
+                or bool(torch.any(pods.valid & (c["hosts"] < 0))))
         return c, rounds, redo
 
     def schedule(cluster, pods, ports, last_index0, nominated=None,
@@ -874,35 +786,14 @@ def make_speculative_scheduler(
         nom = transfer.upload_nominated(nominated, device)
         # densified on the device once a batch, not once a round
         aff = transfer.upload_affinity(aff_state, device)
-        if aff is None:
-            c, rounds, redo = schedule_plain(cluster, pods, ports,
-                                             last_index0, nom, emask, escore)
-            if isinstance(redo, torch.Tensor):
-                # the graph ran the redo itself when it was due: the
-                # carry holds the outputs either way
-                schedule.last_rounds, schedule.last_redo = rounds, redo
-                return outputs(cluster, c)
-        else:
-            B, N = pods.n_pods, cluster.n_nodes
-            dev = cluster.valid.device
-            emask0 = (torch.ones((B, N), dtype=torch.bool, device=dev)
-                      if emask is None else emask)
-            tril = torch.tril(torch.ones((B, B), dtype=torch.float32,
-                                         device=dev), diagonal=-1)
-            ax = _affinity_context(cluster, pods, aff, tril)
-            c = _init_carry(cluster, pods, ports.pod_ports, int(last_index0),
-                            emask0)
-            rounds = 0
-            while bool(c["active"].any()):       # one host sync per round
-                c = _round(cluster, pods, ports.pod_ports, ports.conflict,
-                           escore, nom, tril, aff, ax, c)
-                rounds += 1
-            # the contention sentinels, checked on the host: a real bounce
-            # or an order inversion, or a pod left unscheduled
-            redo = (bool(c["inv"])
-                    or bool(torch.any(pods.valid & (c["hosts"] < 0))))
+        c, rounds, redo = schedule_rounds(cluster, pods, ports, last_index0,
+                                          nom, emask, escore, aff)
         schedule.last_rounds = rounds
         schedule.last_redo = redo
+        if isinstance(redo, torch.Tensor):
+            # the graph ran the redo itself when it was due: the carry
+            # holds the outputs either way
+            return outputs(cluster, c)
         if redo:
             # contention: the split could deviate from one-at-a-time
             # semantics, so redo the WHOLE batch through the exact

@@ -11,18 +11,22 @@ be attributed.
 On CUDA tensors the stack and the mask are kernel K11
 (kernels/filter_pass.cu, `filter_batch` and `predicate_stack` dispatch to
 it; it launches or raises) and the fold of a stack kernel K7; the
-topology-pair incidence products stay exact f32 matrix products
-(`pair_hits`), as the reference leaves them to XLA.  On CPU tensors they
-are the plain twins below (`filter_batch_plain`, `predicate_stack_plain`),
-integer/bool/f32 tensor math.  Where the JAX version broadcasts a small
-pod-side axis (ports, tolerations) into a 4-D grid, the twins loop over
-that axis and OR the [B, N, *] slices, so eager PyTorch never
-materializes the [B, Q, N, P] grid at full width; the verdicts are the
-same.
+topology-pair incidence products are a gather over each node's pairs inside
+K11 (`node_pair_table`, one pair a node and topology key; the reference
+leaves them to XLA as products, `pair_hits` here, which only CPU tensors
+reach).  On CPU tensors they are the plain twins below
+(`filter_batch_plain`, `predicate_stack_plain`), integer/bool/f32 tensor
+math.  Where the JAX version broadcasts a small pod-side axis (ports,
+tolerations) into a 4-D grid, the twins loop over that axis and OR the
+[B, N, *] slices, so eager PyTorch never materializes the [B, Q, N, P]
+grid at full width; the verdicts are the same.
 """
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
+import numpy as np
 import torch
 
 from kubernetes_tpu_torch.codec.schema import (
@@ -502,15 +506,26 @@ def filter_batch_plain(cluster: ClusterTensors, pods: PodBatch,
 
 
 def pair_hits(cluster: ClusterTensors, pods: PodBatch):
-    """The topology-pair incidence products K11 reads, as one exact f32
-    product (hits f32[B, X, N], offsets): row offsets["forb"] is the
+    """The topology-pair incidence products of a filter pass, as one exact
+    f32 product (hits f32[B, X, N], offsets): row offsets["forb"] is the
     existing pods' forbidden pairs, then the pod's anti-affinity terms
     ("anti"), its required affinity terms ("aff") and their topology keys'
     pairs ("key"), the volume zone ("vz") and binding ("vb") terms; a
     family the batch is lean in has no rows and no key.  (None, {}) when
-    the batch is lean in all of them."""
-    parts, offsets, x = [], {}, 0
+    the batch is lean in all of them.  The twin's form of what K11
+    gathers over node_pair_table; CPU tensors only reach it."""
+    parts, offsets = pair_rows(cluster, pods)
+    if not parts:
+        return None, offsets
+    pairs = torch.cat(parts, dim=1).to(torch.float32)        # [B, X, TP]
     topo = cluster.topo_pairs
+    return torch.matmul(pairs, topo.T.to(torch.float32)), offsets
+
+
+def pair_rows(cluster: ClusterTensors, pods: PodBatch):
+    """([bool[B, X_f, TP] a family], offsets): pair_hits' rows before the
+    product, family by family, and each family's first row."""
+    parts, offsets, x = [], {}, 0
 
     def add(name, t):
         nonlocal x
@@ -528,18 +543,207 @@ def pair_hits(cluster: ClusterTensors, pods: PodBatch):
         add("vz", pods.vol_zone_pairs)
     if not _is_lean(pods.vol_bind_pairs, cluster):
         add("vb", pods.vol_bind_pairs)
-    if not parts:
-        return None, offsets
-    pairs = torch.cat(parts, dim=1).to(torch.float32)        # [B, X, TP]
-    return torch.matmul(pairs, topo.T.to(torch.float32)), offsets
+    return parts, offsets
+
+
+class NodePairs(NamedTuple):
+    """The node-pair table of one snapshot: a node carries at most one
+    value for each label key, so for each topology key it lies in at most
+    one topology pair.  table[n, k] is node n's pair of key slot k, or -1;
+    keys[k] is slot k's topology key id (ascending, PAD excluded).  The
+    table has max(KT, 1) columns: a snapshot without pairs gets one
+    column of -1, so the kernels always get a table."""
+
+    table: Any      # i32[N, KT]
+    keys: Any       # i32[KT]
+
+
+class BatchPairs(NamedTuple):
+    """What the kernels' pair gathers read of one batch with in-batch pod
+    affinity, made once a batch (batch_pairs): the snapshot's node-pair
+    table and each term's topology key slot in it (-1: no pair has the
+    key)."""
+
+    node_pair: Any  # i32[N, KT]
+    aff_slot: Any   # i32[B, PT]
+    anti_slot: Any  # i32[B, AT]
+    pref_slot: Any  # i32[B, PP]
+
+
+class NodePairRefusal(ValueError):
+    """A snapshot breaks the invariant the gathers rest on."""
+
+
+_REFUSAL = ("node_pair_table: a node lies in two topology pairs of one "
+            "key, or in a pair with no key")
+
+
+def key_slots(key_ids, keys):
+    """i32[...]: the slot of each topology key id in `keys` (ascending,
+    NodePairs.keys), or -1 where the key has no pair.  Device ops, no
+    host sync."""
+    if keys.numel() == 0:
+        return torch.full(key_ids.shape, -1, dtype=torch.int32,
+                          device=key_ids.device)
+    ids = key_ids.to(torch.int32).contiguous()
+    at = torch.searchsorted(keys, ids).clamp_(max=keys.numel() - 1)
+    return torch.where(keys[at] == ids, at, -1).to(torch.int32)
+
+
+def _pair_keys(pair_key):
+    """(keys i32[KT], slot i32[TP]): the distinct topology keys of the
+    pairs and each pair's slot (-1 for PAD).  One host sync (the count)."""
+    keys = torch.unique(pair_key[pair_key != PAD]).to(torch.int32)
+    return keys, key_slots(pair_key, keys)
+
+
+def pair_key_slots(pair_key):
+    """_pair_keys on the host: pair_key i32[TP] (numpy) -> (keys, slot)
+    as numpy int32 arrays."""
+    pk = np.asarray(pair_key).astype(np.int32)
+    keys = np.unique(pk[pk != PAD]).astype(np.int32)
+    if keys.size == 0:
+        return keys, np.full(pk.shape, -1, np.int32)
+    at = np.minimum(np.searchsorted(keys, pk), keys.size - 1)
+    return keys, np.where(keys[at] == pk, at, -1).astype(np.int32)
+
+
+def check_node_pairs(topo, slot, kt: int) -> None:
+    """Raise NodePairRefusal when a node of topo (bool[N, TP], numpy) lies
+    in two pairs of one key slot or in a pair with no key (slot: the
+    pairs' slots, pair_key_slots')."""
+    topo = np.ascontiguousarray(topo, dtype=bool)
+    flat = topo.reshape(-1).view(np.uint8)
+    if flat.size % 8 == 0:
+        # the set bytes inside the nonzero 8-byte words: a few thousand
+        # words of the millions a bench snapshot holds
+        words = np.flatnonzero(flat.view(np.uint64))
+        idx = (words[:, None] * 8 + np.arange(8)).ravel()
+        idx = idx[flat[idx] != 0]
+    else:
+        idx = np.flatnonzero(flat)
+    n_idx, p_idx = np.divmod(idx, topo.shape[1])
+    k_idx = slot[p_idx]
+    flat = n_idx.astype(np.int64) * max(kt, 1) + k_idx
+    if np.any(k_idx < 0) or np.unique(flat).size != flat.size:
+        raise NodePairRefusal(_REFUSAL)
+
+
+def node_pair_table_plain(topo, pair_key) -> NodePairs:
+    """The node-pair table's plain twin: topo bool[N, TP], pair_key
+    i32[TP] -> NodePairs.  Raises when a node lies in two pairs of one
+    topology key, or in a pair with no key (the encoder makes neither):
+    the gather would then miss a pair the products count."""
+    keys, slot = _pair_keys(pair_key)
+    N, KT = topo.shape[0], max(keys.numel(), 1)
+    n_idx, p_idx = torch.nonzero(topo, as_tuple=True)
+    k_idx = slot[p_idx].to(torch.int64)
+    flat = n_idx * KT + k_idx
+    if bool(torch.any(k_idx < 0)) or (
+            torch.unique(flat).numel() != flat.numel()):
+        raise NodePairRefusal(_REFUSAL)
+    table = torch.full((N * KT,), -1, dtype=torch.int32, device=topo.device)
+    table[flat] = p_idx.to(torch.int32)
+    return NodePairs(table.view(N, KT), keys)
+
+
+def build_node_pairs(cluster: ClusterTensors, host=None) -> None:
+    """Make the snapshot's NodePairs and keep them with its topo_pairs
+    tensor, for node_pair_table to read.  The snapshot layer calls it once
+    a snapshot upload (codec/schema.py cluster_to_torch,
+    codec/transfer.py DeviceSnapshotCache.update, which calls it again
+    after it writes the pair tensors), so an engine call only reads the
+    table.  host: the snapshot's (topo_pairs, pair_topo_key) as numpy
+    arrays, or None.  On CUDA tensors the keys, the slots and the check
+    come from the host arrays (read back from the card when host is None:
+    one host sync) and kernels.node_pair_build makes the table with no
+    sync; on CPU tensors the twin.  A failure (a snapshot that breaks the
+    invariant) is kept and raised where the table is read: a batch that
+    gathers no pair terms never reads it."""
+    topo, ptk = cluster.topo_pairs, cluster.pair_topo_key
+    try:
+        if topo.is_cuda:
+            from kubernetes_tpu_torch import kernels
+
+            if host is None:
+                host = (topo.cpu().numpy(), ptk.cpu().numpy())
+            keys, slot = pair_key_slots(host[1])
+            check_node_pairs(host[0], slot, keys.size)
+            dev = topo.device
+            out = NodePairs(
+                kernels.node_pair_build(topo, torch.from_numpy(slot).to(dev),
+                                        keys.size),
+                torch.from_numpy(keys).to(dev))
+        else:
+            out = node_pair_table_plain(topo, ptk)
+    except Exception as e:          # noqa: BLE001 - raised on read
+        out = e
+    topo._node_pairs = (ptk, out)
+
+
+def has_node_pairs(cluster: ClusterTensors) -> bool:
+    """Whether the snapshot's NodePairs are kept for its pair tensors."""
+    memo = getattr(cluster.topo_pairs, "_node_pairs", None)
+    return memo is not None and memo[0] is cluster.pair_topo_key
+
+
+def node_pair_table(cluster: ClusterTensors) -> NodePairs:
+    """The snapshot's NodePairs, as build_node_pairs kept them (a snapshot
+    whose tensors the snapshot layer did not make builds them here).
+    Raises the snapshot's refusal."""
+    if not has_node_pairs(cluster):
+        build_node_pairs(cluster)
+    out = cluster.topo_pairs._node_pairs[1]
+    if isinstance(out, Exception):
+        raise out
+    return out
+
+
+def batch_pairs(cluster: ClusterTensors, pods: PodBatch,
+                pref_topo_key) -> BatchPairs:
+    """The BatchPairs of a batch with in-batch pod affinity (pref_topo_key:
+    its dense BatchAffinityState's).  Device ops, no host sync."""
+    np_ = node_pair_table(cluster)
+    return BatchPairs(np_.table,
+                      key_slots(pods.aff_term_topo_key, np_.keys),
+                      key_slots(pods.anti_term_topo_key, np_.keys),
+                      key_slots(pref_topo_key, np_.keys))
+
+
+def union_rows(pods: PodBatch, tp: int) -> dict:
+    """Fresh tp-wide copies of the pods' pair rows ("uaff", "uanti",
+    "uforb", "upref"), a lean batch's placeholders broadcast: the rows
+    the affinity kernels update in place."""
+    def wide(t, dtype=None):
+        t = t if dtype is None else t.to(dtype)
+        return torch.broadcast_to(t, t.shape[:-1] + (tp,)).clone(
+            memory_format=torch.contiguous_format)
+
+    return {"uaff": wide(pods.aff_term_pairs),
+            "uanti": wide(pods.anti_term_pairs),
+            "uforb": wide(pods.forbidden_pairs),
+            "upref": wide(pods.pref_pair_weights, torch.float32)}
+
+
+def pair_inputs(cluster: ClusterTensors, pods: PodBatch):
+    """(node_pair i32[N, KT] or None, aff_slot i32[B, PT] or None): what
+    K11's gather reads beside the pods' pair rows; None where the batch is
+    lean in every pair family (in the affinity terms)."""
+    aff = not _is_lean(pods.aff_term_pairs, cluster)
+    if not (aff or not _is_lean(pods.vol_zone_pairs, cluster)
+            or not _is_lean(pods.vol_bind_pairs, cluster)):
+        return None, None
+    np_ = node_pair_table(cluster)
+    return np_.table, (key_slots(pods.aff_term_topo_key, np_.keys)
+                       if aff else None)
 
 
 def _filter_pass(cluster, pods, cfg, unsched_taint_key, stack):
     from kubernetes_tpu_torch import kernels
 
-    hits, offsets = pair_hits(cluster, pods)
-    return kernels.filter_pass(cluster, pods, cfg, unsched_taint_key, hits,
-                               offsets, stack)
+    node_pair, aff_slot = pair_inputs(cluster, pods)
+    return kernels.filter_pass(cluster, pods, cfg, unsched_taint_key,
+                               node_pair, aff_slot, stack)
 
 
 def predicate_stack(cluster: ClusterTensors, pods: PodBatch,

@@ -44,7 +44,11 @@ from kubernetes_tpu_torch.codec.schema import (
     RES_MILLICPU,
     ScoreConfig,
 )
-from kubernetes_tpu_torch.ops.predicates import _eval_exprs, tolerated_taints
+from kubernetes_tpu_torch.ops.predicates import (
+    _eval_exprs,
+    node_pair_table,
+    tolerated_taints,
+)
 
 MAX_PRIORITY = 10.0
 _PREFER_NO_SCHEDULE = 1
@@ -547,10 +551,17 @@ def score_batch(cluster: ClusterTensors, pods: PodBatch, weights=None,
         weights = DEFAULT_PRIORITY_WEIGHTS
     w = np.asarray(weights, np.float32)
     all_rows = need_per and not skip_zero_weight
-    ipa_sums = None
+    return kernels.score_pass(cluster, pods, w, all_rows, need_per,
+                              score_cfg, zone_key_id,
+                              ipa_node_pair(cluster, pods, w, all_rows))
+
+
+def ipa_node_pair(cluster: ClusterTensors, pods: PodBatch, w,
+                  all_rows: bool = False):
+    """The node-pair table K12 gathers the InterPodAffinity raw sums over
+    (ops/predicates.py node_pair_table), or None for an affinity-lean
+    batch or when the row is off (zero weight, no per rows)."""
     if (all_rows or w[PRIO_INDEX["InterPodAffinityPriority"]] != 0.0) and \
             pods.pref_pair_weights.shape[-1] == cluster.topo_pairs.shape[-1]:
-        ipa_sums = pods.pref_pair_weights @ \
-            cluster.topo_pairs.to(torch.float32).T
-    return kernels.score_pass(cluster, pods, w, all_rows, need_per,
-                              score_cfg, zone_key_id, ipa_sums)
+        return node_pair_table(cluster).table
+    return None

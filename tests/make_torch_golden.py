@@ -11,6 +11,9 @@ bit.
     python tests/make_torch_golden.py --workload pod-anti-affinity \
         --existing 1000                                    # ~20-30 s
     python tests/make_torch_golden.py --workload pod-affinity
+    python tests/make_torch_golden.py --workload pod-anti-affinity \
+        --node-pods 2 --pods 9800 \
+        --out tests/data/torch_port_golden_affinity_redo.npz  # ~37 min
     python tests/make_torch_golden.py --nodes 64 --pods 300 --batch 128 \
         --out /tmp/small.npz                               # a quick small run
 

@@ -1,7 +1,9 @@
 """Kernels K11 (filter_pass.cu) and K12 (score_pass.cu) against their plain
 twins on the card, bit for bit, on every kernels/k11_cases.py and
-k12_cases.py case: the stack and the mask (K11), the total and every row
-with need_per on and off (K12).
+k12_cases.py case and on the encoder-made affinity batches of
+kernels/k14_cases.py (their pair terms gathered over each node's pairs):
+the stack and the mask (K11), the total and every row with need_per on
+and off (K12); and the node-pair table's kernel against its twin.
 
 The tests carry the `cuda` marker and skip where there is no card.  The
 file imports neither JAX nor the JAX package (the machine with the card
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from kubernetes_tpu_torch.codec import schema as ts
-from kubernetes_tpu_torch.kernels import k11_cases, k12_cases
+from kubernetes_tpu_torch.kernels import k11_cases, k12_cases, k14_cases
 from kubernetes_tpu_torch.ops import predicates as tpred
 from kubernetes_tpu_torch.ops import priorities as tprio
 
@@ -37,10 +39,17 @@ def _need_card():
         pytest.skip("needs a CUDA card: K11 and K12 have no CPU mode")
 
 
+def _encoded_cases():
+    """The encoder-made affinity batches of k14_cases (not its random
+    worlds, which k11_cases' already cover)."""
+    return [(n, c) for n, c in k14_cases.affinity_cases()
+            if not n.startswith("aff-")]
+
+
 @pytest.mark.cuda
 def test_k11_matches_plain_twin_on_card():
     _need_card()
-    for name, case in k11_cases.cases():
+    for name, case in k11_cases.cases() + _encoded_cases():
         ct, pb = _on_card(case)
         cfg = ts.FilterConfig(**case["cfg"])
         key = case["unsched_key"]
@@ -56,7 +65,9 @@ def test_k11_matches_plain_twin_on_card():
 @pytest.mark.cuda
 def test_k12_matches_plain_twin_on_card():
     _need_card()
-    for name, case in k12_cases.cases():
+    for name, case in k12_cases.cases() + [
+            (n, dict(c, skip_zero_weight=False)) for n, c in
+            _encoded_cases()]:
         ct, pb = _on_card(case)
         kw = dict(weights=case["weights"], zone_key_id=case["zone_key"],
                   skip_zero_weight=case["skip_zero_weight"],
@@ -69,3 +80,29 @@ def test_k12_matches_plain_twin_on_card():
             if need_per:
                 assert torch.equal(got[1].view(torch.int32),
                                    want[1].view(torch.int32)), name
+
+
+@pytest.mark.cuda
+def test_node_pair_build_matches_its_twin_on_card():
+    """The kernel, given the host's keys and slots, against the twin; the
+    table the upload made (cluster_to_torch) is the same; a snapshot with
+    a node in two pairs of one key is refused where its table is read."""
+    from kubernetes_tpu_torch import kernels
+
+    _need_card()
+    for name, case in k11_cases.cases() + _encoded_cases():
+        if name == "no-zones":          # two pairs of one key on a node
+            continue
+        ct, _ = _on_card(case)
+        want = tpred.node_pair_table_plain(ct.topo_pairs, ct.pair_topo_key)
+        keys, slot = tpred.pair_key_slots(ct.pair_topo_key.cpu().numpy())
+        got = kernels.node_pair_build(
+            ct.topo_pairs, torch.from_numpy(slot).cuda(), keys.size)
+        assert torch.equal(got, want.table), name
+        assert keys.tolist() == want.keys.tolist(), name
+        made = tpred.node_pair_table(ct)
+        assert torch.equal(made.table, want.table), name
+        assert torch.equal(made.keys, want.keys), name
+    ct, _ = _on_card(dict(k11_cases.cases())["no-zones"])
+    with pytest.raises(ValueError, match="two topology pairs"):
+        tpred.node_pair_table(ct)

@@ -2,16 +2,20 @@
 and their plain twins, on the CPU.
 
 The port's speculative engine on CPU tensors runs a plain batch's rounds
-through the twins (models/speculative.py round_fold_plain between the
-score pass and the selector, round_commit_plain after it); it is held bit
-for bit against the jitted JAX speculative engine on every
-kernels/k14_cases.py case: hosts, the committed requested and nonzero_req
-columns, the top-k, the rounds and the redo flag.  The twins' carry
-layout (spread counts carried with the snapshot's counts in them) gives
-the counts the eager round gave.  The ctypes structs mirror the C
-structs; the wrappers refuse CPU tensors.  The kernels themselves are
-held to the twins on the card by tests/test_torch_scan_cuda.py and
-chip_smoke.py.  Tolerance: none.
+through the twins (models/speculative.py round_fold_plain between the score
+pass and the selector, round_commit_plain after it); it is held bit for bit
+against the jitted JAX speculative engine on every kernels/k14_cases.py
+case: hosts, the committed requested and nonzero_req columns, the top-k,
+the rounds and the redo flag.  So is an affinity batch's round (K15's and
+K14's affinity modes beside K16's twin, round_pairs_plain) on every
+kernels/k14_cases.py affinity case, which cover the same round's anti
+conflicts (with bounced and with accepted peers), the inversion sentinel
+and the deferred retirement.  The twins' carry layout (spread counts
+carried with the snapshot's counts in them, the pair state as unions) gives
+the counts the eager round gave.  The ctypes structs mirror the C structs;
+the wrappers refuse CPU tensors.  The kernels themselves are held to the
+twins on the card by tests/test_torch_scan_cuda.py and chip_smoke.py.
+Tolerance: none.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from test_torch_filter_pass import _c_struct_fields
 from test_torch_seq_scan import assert_outputs_equal, jax_engine
 
 CASES = k14_cases.cases()
+AFFINITY = k14_cases.affinity_cases()
 
 
 @pytest.mark.parametrize("name", [n for n, _ in CASES])
@@ -51,6 +56,49 @@ def test_k14_cases_cover_their_corners():
     assert max(rounds) >= 3 and min(rounds) == 1
     assert any(redos) and not all(redos)
     assert any(lean) and not all(lean)
+
+
+@pytest.mark.parametrize("name", [n for n, _ in AFFINITY])
+def test_twins_match_jax_on_affinity_case(name):
+    case = dict(AFFINITY)[name]
+    jout, jfn = jax_engine(case, "speculative")
+    tout, tfn = k14_cases.run_case(case, "speculative")
+    assert_outputs_equal(jout, tout, name)
+    assert tfn.last_rounds == int(jfn.last_rounds), name
+    assert tfn.last_redo == bool(np.asarray(jfn.last_redo)), name
+
+
+def test_affinity_cases_cover_their_corners(monkeypatch):
+    """Each corner of the affinity mode acts in some round of the cases:
+    against the same round without it, a proposer that fits loses to an
+    earlier one in an anti domain; an order inversion raises the redo
+    flag; an infeasible pod stays active; a bounced pod's ban is lifted
+    because its conflict is with an accepted peer."""
+    seen = {"aviol": 0, "inversion": 0, "deferred": 0, "no_ban": 0}
+    commit = tspec.round_commit_plain
+
+    def recording(c, hosts, feasible, top, pods, ports, cluster, nom, sm,
+                  tril, aff=None):
+        out = commit(c, hosts, feasible, top, pods, ports, cluster, nom,
+                     sm, tril, aff)
+        if aff is not None:
+            base = commit(c, hosts, feasible, top, pods, ports, cluster,
+                          nom, sm, tril)
+            seen["aviol"] += int(((base["hosts"] != c["hosts"])
+                                  & ~out["accept"]).sum())
+            seen["inversion"] += int(bool(out["inv"])
+                                     and not bool(base["inv"]))
+            seen["deferred"] += int((out["active"] & ~base["active"]).sum())
+            seen["no_ban"] += int((out["emask"] & ~base["emask"]).sum())
+        return out
+
+    monkeypatch.setattr(tspec, "round_commit_plain", recording)
+    rounds = []
+    for _, case in AFFINITY:
+        _, fn = k14_cases.run_case(case, "speculative")
+        rounds.append(fn.last_rounds)
+    assert all(v > 0 for v in seen.values()), seen
+    assert min(rounds) == 1 and max(rounds) >= 5
 
 
 @pytest.mark.parametrize("source,cls", [

@@ -4,7 +4,9 @@ The port's sequential engine on CPU tensors runs its step loop
 (models/batched.py scan_plain, K13's twin); it is held bit for bit against
 the jitted JAX sequential engine on every kernels/k13_cases.py case:
 hosts, the committed requested and nonzero_req columns and the top-k.
-The ctypes struct K13 takes mirrors the C struct; the wrapper refuses CPU
+The affinity mode's twin (scan_plain with the in-batch affinity state) is
+held the same way on every kernels/k14_cases.py affinity case.  The
+ctypes struct K13 takes mirrors the C struct; the wrapper refuses CPU
 tensors and the engine sends them to the twin.  The kernel itself is held
 to the twin on the card by tests/test_torch_scan_cuda.py and
 chip_smoke.py.  Tolerance: none.
@@ -19,16 +21,18 @@ import torch
 from kubernetes_tpu.codec import schema as jschema
 from kubernetes_tpu.models import batched as jbatched
 from kubernetes_tpu_torch import kernels
-from kubernetes_tpu_torch.kernels import k13_cases
+from kubernetes_tpu_torch.kernels import k13_cases, k14_cases
 
 from test_torch_filter_pass import _c_struct_fields, jax_inputs
 from torch_port_helpers import TORCH_TEST_THREADS  # noqa: F401  (caps threads)
 
 CASES = k13_cases.cases()
+AFFINITY = k14_cases.affinity_cases()
 
 
 def jax_engine(case, engine="sequential"):
-    """The case through the jitted JAX engine: (outputs, engine)."""
+    """The case through the jitted JAX engine, with its in-batch affinity
+    state where it has one: (outputs, engine)."""
     from kubernetes_tpu.models import speculative as jspec
 
     ct, pb, cfg = jax_inputs(case)
@@ -42,9 +46,12 @@ def jax_engine(case, engine="sequential"):
               quality_topk=case["topk"])
     nom = (None if case["nominated"] is None
            else jbatched.NominatedState(**case["nominated"]))
+    aff = (None if case.get("aff") is None
+           else jbatched.BatchAffinityState(**case["aff"]))
     out = fn(ct, pb, jbatched.BatchPortState(**case["ports"]),
              np.int32(case["last_index0"]), nominated=nom,
-             extra_mask=case["extra_mask"], extra_score=case["extra_score"])
+             extra_mask=case["extra_mask"], extra_score=case["extra_score"],
+             aff_state=aff)
     return out, fn
 
 
@@ -69,6 +76,27 @@ def test_twin_matches_jax_on_k13_case(name):
     jout, _ = jax_engine(case)
     tout, _ = k13_cases.run_case(case)
     assert_outputs_equal(jout, tout, name)
+
+
+@pytest.mark.parametrize("name", [n for n, _ in AFFINITY])
+def test_twin_matches_jax_on_affinity_case(name):
+    case = dict(AFFINITY)[name]
+    jout, _ = jax_engine(case)
+    tout, _ = k13_cases.run_case(case)
+    assert_outputs_equal(jout, tout, name)
+
+
+def test_affinity_cases_place_and_refuse():
+    """Every affinity case places pods, and the random worlds refuse some
+    (their filters, the pair terms)."""
+    placed = {}
+    for name, case in AFFINITY:
+        out, _ = k13_cases.run_case(case)
+        placed[name] = (int((out[0] >= 0).sum()),
+                        int(case["pods"]["valid"].sum()))
+    assert all(p > 0 for p, _ in placed.values())
+    assert any(p < v for p, v in placed.values())
+    assert placed["ipa-floor-boundary"] == (6, 6)
 
 
 def test_k13_cases_cover_their_corners():
@@ -112,3 +140,8 @@ def test_barrier_count_follows_the_options():
     assert kernels.seq_scan_barriers(True, False, 0) == base + 4
     assert kernels.seq_scan_barriers(False, True, 0) == base + 5
     assert kernels.seq_scan_barriers(False, False, 3) == base + 6
+
+
+def test_affinity_mode_adds_its_barriers():
+    base = kernels.seq_scan_barriers(True, False, 0)
+    assert kernels.seq_scan_barriers(True, False, 0, True) == base + 2

@@ -74,3 +74,19 @@ def test_golden_file_shape(workload):
     assert len(data["rounds"]) == 5
     assert (hosts >= 0).all() and hosts.max() < 5000
     assert os.path.getsize(path) < 1 << 20
+
+
+def test_affinity_redo_golden_shape():
+    """The 2-slot affinity redo's golden (chip_smoke.py phase 10): 9,800
+    pod-anti-affinity pods on 5,000 nodes of 2 pod slots, every pod placed,
+    three of the five batches redone."""
+    data = np.load(golden_path("affinity-redo"))
+    hosts = data["hosts"]
+    assert hosts.dtype == np.int32 and hosts.shape == (9800,)
+    assert int(data["nodes"]) == 5000 and int(data["batch"]) == 2048
+    assert int(data["node_pods"]) == 2 and int(data["existing"]) == 0
+    assert data["rounds"].tolist() == [1, 1, 3, 4, 10]
+    assert int(data["redos"]) == 3
+    assert (hosts >= 0).all() and hosts.max() < 5000
+    # two slots a node: no node holds more than two of the pods
+    assert np.bincount(hosts).max() <= 2
