@@ -126,7 +126,21 @@ printing one line of numbers; any failure exits non-zero with no result:
      collections inside the clock, K1 and K2 launches, bytes per cycle
      and per attempt, the dirty rows each
      snapshot update scattered, and one more attempt under torch.profiler
-     (device time, idle share, K2's kernel launches and their time);
+     (device time, idle share, K2's kernel launches and their time); every
+     attempt's candidates one launch of K11's candidates mode (no K7
+     launch, no K11 stack), and in the profiled attempt one K11 launch
+     in candidates mode and no K7 launch (the wrappers' counts over it)
+     and no aten::mm, bmm or matmul (the profile);
+ 13b. the same cell with required pod affinity: the running pods labelled
+     (batch pods app: batch, production pods in zones 0-3 team: east) and
+     16 preemptors, four of each kind of loop.affinity_preemptors (to a
+     batch pod's node, to a team: east pod's zone, to its own label's zone
+     through the bootstrap rule, on a topology key no node carries):
+     the preemptions, bindings and order, verdicts and requested CPU equal
+     tests/data/torch_port_golden_live_preemption_affinity.npz (the JAX
+     Scheduler's), every pick verified on the host (verify seconds > 0,
+     printed an attempt), and the profiled attempt (one more preemptor of
+     the first kind, which finds a node) as in phase 13;
  14. the placement-quality observatory (quality_top_k=3, the reference's
      default): K3 (select_topk) against its plain twin on the card, bit
      for bit, on every shape, case, rotation counter and K of
@@ -213,7 +227,12 @@ printing one line of numbers; any failure exits non-zero with no result:
      at [1, 6,144] in stack mode (the sidecar's), [2,048, 6,144] in mask
      mode (the engines') and on the pod-anti-affinity batch in mask mode,
      with L2 cold and warm, beside its bound (bytes and operations from
-     the shapes), an empty launch and its twin's;
+     the shapes), an empty launch and its twin's; then its candidates mode
+     against its twin on every k11_cases.candidates_cases case, and at
+     [1, 6,144] on phase 13's and 13b's batches (one preemptor as
+     Scheduler.preempt encodes it) beside the chain the mode replaced (K11
+     stack, K7, the eager required_affinity_ok and preemption_candidates),
+     with its bound;
  K12. the score pass (score_pass.cu) against its plain twin, bit for bit,
      on every case of kernels/k12_cases.py (stock, every-priority and a
      Policy's weights, skip_zero_weight, shipped and group-column spread
@@ -233,8 +252,13 @@ printing one line of numbers; any failure exits non-zero with no result:
      JAX sidecar's), K7 launched twice a pod; then a second sidecar synced
      with phase 13's fleet and 20,500 running pods answers the first 16
      preemptors' /preempt (each reply's victims deleted before the next)
-     equal to the same golden, K2 launched; K11 (stack mode) and K12
-     launched twice a pod; per-verb latency p50 / p99 and requests/s, the
+     equal to the same golden, K2 launched, K11 in candidates mode once a
+     request and no K7; a third, synced with the labelled running pods of
+     phase 13b, answers two preemptors of each of its first three kinds
+     equal to tests/data/torch_port_golden_extender_affinity.npz (the JAX
+     sidecar's), and one more /preempt under torch.profiler launches K11
+     once in candidates mode, no K7 and no product; K11 (stack mode) and
+     K12 launched twice a pod; per-verb latency p50 / p99 and requests/s, the
      split of a /filter request, the syncs' seconds, and one warm /filter's
      device operations counted by torch.profiler in a child process (at
      most 30, or the phase fails);
@@ -309,7 +333,8 @@ wide variant) to their twins at full shapes, with their times.
 
 Every phase whose cell filters and scores (3-19, 21, 22) checks that its
 run launched K11 and K12, and K7 once for every K11 stack (stack mode:
-the sidecar's requests, the preemption candidates); phase 7's round
+the sidecar's requests; the preemption candidates are K11's candidates
+mode); phase 7's round
 profile reports K11's and K12's device ms and share.
 
 Phases K13, K13 affinity, K14 K15 and K16 run after 10 and before 7.
@@ -319,7 +344,8 @@ after the graph ran.
 
 Then the card's name and power limit, the kernels' JSON record (K1-K16
 and the node-pair table's kernel; K1's, K11's to K16's launches in each
-cell among their keys) and the device line.
+cell among their keys, K11's by mode and its three modes' times) and the
+device line.
 """
 
 from __future__ import annotations
@@ -2182,7 +2208,8 @@ def _k11_costs(ct, pb, cfg, offsets) -> dict:
             if on(k) or (general and k in (3, 4, 5, 6))}
 
 
-def _k11_bound(ct, pb, cfg, stack: bool, stack_rows=None) -> dict:
+def _k11_bound(ct, pb, cfg, stack: bool, stack_rows=None,
+               candidates: bool = False) -> dict:
     """K11's least time on these inputs: the fields it binds, the pair rows
     it gathers from and the node-pair table read once, the output written
     once (1 byte a pair, 23 with the stack), over the memory rate; against
@@ -2191,10 +2218,18 @@ def _k11_bound(ct, pb, cfg, stack: bool, stack_rows=None) -> dict:
     rate, the two pipes side by side.  Stack mode evaluates every pair;
     mask mode skips a pair whose node or pod is padding and stops a
     pair's walk at its first failing predicate (from stack_rows, the
-    twin's stack of these inputs)."""
+    twin's stack of these inputs); candidates mode (stack False) tests
+    every valid node's required affinity rules for every pod, walks the
+    pairs that pass them and stops at the first failing unresolvable
+    row."""
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.kernels import k1_bench
-    from kubernetes_tpu_torch.ops.predicates import pair_rows
+    from kubernetes_tpu_torch.models.preemption import UNRESOLVABLE_MASK
+    from kubernetes_tpu_torch.ops.predicates import (
+        node_pair_table,
+        pair_rows,
+        required_affinity_ok,
+    )
 
     B, N = pb.n_pods, ct.n_nodes
     rows, offsets = pair_rows(ct, pb)
@@ -2202,13 +2237,25 @@ def _k11_bound(ct, pb, cfg, stack: bool, stack_rows=None) -> dict:
     alive = (torch.ones((B, N), dtype=torch.bool, device=ct.valid.device)
              if stack else pb.valid[:, None] & ct.valid[None])
     int_ops = f32_ops = 0.0
+    stop = [True] * len(K11_WALK)
+    if candidates:
+        # the rules on every valid node (a slot gather a valid term and
+        # its bootstrap key check), then the walk where they hold
+        alive = ct.valid[None].expand(B, N)
+        if "aff" in offsets:
+            kt = node_pair_table(ct).table.shape[1]
+            int_ops += _charge(_pairs(pod=1.0 + (4.0 * kt + 2.0) * _count(
+                pb.aff_term_valid)), alive)
+        alive = alive & required_affinity_ok(ct, pb)
+        stop = [bool((UNRESOLVABLE_MASK >> k) & 1)
+                for k in range(len(K11_WALK))]
     for k in K11_WALK:
         if k in costs:
             int_ops += _charge(costs[k][0], alive)
             f32_ops += _charge(costs[k][1], alive)
-        if not stack:
-            # the walk stops at the first failure (a disabled row reads
-            # all true)
+        if not stack and stop[k]:
+            # the walk stops at the first failure (of an unresolvable row
+            # in candidates mode; a disabled row reads all true)
             alive = alive & stack_rows[:, k]
     skip = () if pb.vol_overlap.shape[-1] == N else ("vol_overlap",)
     keep = {s[0] for s in kernels._K11_ARGS} - set(skip)
@@ -2220,7 +2267,8 @@ def _k11_bound(ct, pb, cfg, stack: bool, stack_rows=None) -> dict:
         # pair" flag, the whole row when it has none; the table's valid
         # rows; the affinity terms' key slots (4 bytes a term) in place of
         # the key rows.  Mask mode reads the valid pods' rows only.
-        pods = (torch.ones_like(pb.valid) if stack else pb.valid)[:, None]
+        pods = (torch.ones_like(pb.valid) if stack or candidates
+                else pb.valid)[:, None]
         valid = {"forb": pods, "anti": pb.anti_term_valid,
                  "aff": pb.aff_term_valid, "vz": pb.vol_zone_valid,
                  "vb": pb.vol_bind_valid}
@@ -2485,7 +2533,10 @@ def phase_k11(bench: dict) -> dict:
     pod-anti-affinity batch at [2,048, 6,144] (mask mode, its pair terms
     gathered, and again with its pair families made lean: the pair terms'
     share) with L2 cold and warm, beside its bound, an empty launch and
-    its twin's time, and the table kernel's time beside its bytes."""
+    its twin's time, and the table kernel's time beside its bytes.  Then
+    its candidates mode (_k11_candidates): every candidates case, and
+    phase 13's and 13b's batches at [1, 6,144] beside the chain the mode
+    replaced."""
     import dataclasses
 
     from kubernetes_tpu_torch import kernels
@@ -2556,13 +2607,17 @@ def phase_k11(bench: dict) -> dict:
     anti.update(pairs_off_ms=k1_bench.time_ms(off, cold=True),
                 pairs_off_ms_warm=k1_bench.time_ms(off, cold=False))
     anti["pair_share"] = 1.0 - anti["pairs_off_ms"] / anti["ms"]
+    cand_cases, cand = _k11_candidates()
     main = shapes["b2048"]
     out = {**{k: main[k] for k in ("ms", "ms_warm", "plain_ms", "bound_ms",
                                    "bound_by")},
            "empty_launch_ms": empty, "max_abs_err": 0.0, "cases": len(names),
            "full_width": full,
            "shape": {k: main[k] for k in ("B", "N", "mode")},
-           "shapes": shapes, "node_pair_build": table}
+           "shapes": shapes, "node_pair_build": table,
+           "candidates_cases": cand_cases,
+           "modes": {"mask": main, "stack": shapes["b1"],
+                     "candidates": cand}}
     print(f"[K11] bit-identical to the twin on {len(names)} cases and "
           f"{len(full)} full-width batches ({', '.join(full)}), stack, mask "
           f"and need_per mask | the node-pair table [{table['N']}, "
@@ -2583,7 +2638,108 @@ def phase_k11(bench: dict) -> dict:
                  f"share {d['pair_share']:.4f}" if "pair_share" in d else "")
               for d in shapes.values())
           + f" | empty_launch_ms {empty:.4f}", flush=True)
+    print(f"[K11 candidates] bit-identical to the twin on {cand_cases} "
+          f"cases | " + " | ".join(
+              f"{name} batch [{d['B']}, {d['N']}] TP {d['TP']}, "
+              f"{d['candidates']} candidates: cold_ms {d['ms']:.4f} warm_ms "
+              f"{d['ms_warm']:.4f}; the chain it replaced (K11 stack, K7, "
+              f"eager required_affinity_ok and preemption_candidates) "
+              f"cold_ms {d['chain_ms']:.4f} warm_ms {d['chain_ms_warm']:.4f}"
+              f"; plain_ms (twin on the card) {d['plain_ms']:.4f}; bound_ms "
+              f"{d['bound_ms']:.6f} ({d['bound_by']}; bytes_ms "
+              f"{d['bytes_ms']:.6f} ops_ms {d['ops_ms']:.6f})"
+              for name, d in cand.items()), flush=True)
     return out
+
+
+def _preempt_batches() -> dict:
+    """{"plain", "affinity"}: (cluster, pods, unsched key) on the card of
+    one preemption attempt as Scheduler.preempt encodes it (the preemptor
+    alone, one row, then the snapshot): phase 13's (the preemption fleet,
+    its 20,500 running pods and a plain preemptor) and phase 13b's (the
+    running pods labelled, a preemptor of kind a: hostname affinity to a
+    batch pod, its row TP wide)."""
+    from kubernetes_tpu_torch import loop
+    from kubernetes_tpu_torch.codec.schema import cluster_to_torch, pods_to_torch
+
+    fleet = loop.preemption_fleet(NODES)
+    out = {}
+    for name, labels, pod in (
+            ("plain", False, loop.preemptors(1)[0]),
+            ("affinity", True, loop.affinity_preemptors(1, "a")[0])):
+        enc = loop.build_encoder(fleet)
+        enc.add_pods(loop.preemption_running_pods(fleet, labels=labels))
+        with enc.batch_width(1):
+            pb = enc.encode_pods([pod])
+        out[name] = (cluster_to_torch(enc.snapshot(), "cuda"),
+                     pods_to_torch(pb, "cuda"),
+                     enc.interner.intern("node.kubernetes.io/unschedulable"))
+    return out
+
+
+def _k11_candidates():
+    """K11's candidates mode (models/preemption.py preempt_eval) against
+    its twin (preempt_eval_plain), bit for bit, on every case of
+    kernels/k11_cases.py candidates_cases; then on _preempt_batches'
+    two batches, where the launch and the chain it replaced (K11's stack,
+    K7, the eager required_affinity_ok and preemption_candidates) must
+    give the twin's candidates, their times with L2 cold and warm beside
+    the twin's and the mode's bound.  Returns (cases, {batch: numbers})."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.codec.schema import FilterConfig
+    from kubernetes_tpu_torch.kernels import k1_bench, k11_cases
+    from kubernetes_tpu_torch.models import preemption as pp
+    from kubernetes_tpu_torch.ops import predicates as tp
+
+    cases = k11_cases.candidates_cases()
+    for name, case in cases:
+        ct, pb = _case_tensors(case)
+        cfg = FilterConfig(**case["cfg"])
+        key = case["unsched_key"]
+        got = pp.make_preempt_eval(cfg, key)(ct, pb)
+        want = pp.preempt_eval_plain(ct, pb, cfg, key)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            at = [int(x) for x in torch.nonzero(got != want)[0]]
+            fail(f"K11: the candidates mode differs from the twin on case "
+                 f"{name} at {at}: kernel {got[tuple(at)].item()} twin "
+                 f"{want[tuple(at)].item()}")
+    cfg = FilterConfig()
+    out = {}
+    for name, (ct, pb, key) in _preempt_batches().items():
+        node_pair, aff_slot = tp.pair_inputs(ct, pb)
+
+        def launch():
+            return kernels.filter_pass(ct, pb, cfg, key, node_pair, aff_slot,
+                                       kernels.K11_CANDIDATES,
+                                       pp.UNRESOLVABLE_MASK)
+
+        def chain():
+            stack = tp.predicate_stack(ct, pb, cfg, key)
+            tp.fold_predicates(stack, ct.valid, pb.valid)
+            return pp.preemption_candidates(
+                stack, ct.valid, tp.required_affinity_ok(ct, pb))
+
+        want = pp.preempt_eval_plain(ct, pb, cfg, key)
+        for what, run in (("the launch", launch), ("the old chain", chain),
+                          ("make_preempt_eval", lambda: pp.make_preempt_eval(
+                              cfg, key)(ct, pb))):
+            check(torch.equal(run(), want), f"K11 candidates: {what} "
+                  f"differs from the twin on phase 13{'b' * (name != 'plain')}"
+                  f"'s batch")
+        rows = tp.predicate_stack_plain(ct, pb, cfg, key)
+        out[name] = {
+            "B": pb.n_pods, "N": ct.n_nodes, "TP": ct.topo_pairs.shape[1],
+            "mode": "candidates", "candidates": int(want.sum()),
+            "ms": k1_bench.time_ms(launch, cold=True),
+            "ms_warm": k1_bench.time_ms(launch, cold=False),
+            "chain_ms": k1_bench.time_ms(chain, cold=True),
+            "chain_ms_warm": k1_bench.time_ms(chain, cold=False),
+            "plain_ms": k1_bench.time_ms(lambda: pp.preempt_eval_plain(
+                ct, pb, cfg, key), reps=10),
+            **_k11_bound(ct, pb, cfg, False, rows, candidates=True)}
+        del rows
+    return len(cases), out
 
 
 def _round_weights(ct, pb, aff: bool) -> np.ndarray:
@@ -2704,8 +2860,8 @@ def phase_k12(bench: dict) -> dict:
 
 def _passes_launched(label: str, launches: dict) -> None:
     """K11 and K12 launched in a cell that filters and scores, and K7
-    once for every K11 stack (stack mode: the sidecar's B9, the
-    preemption candidates)."""
+    once for every K11 stack (stack mode: the sidecar's B9; the
+    preemption candidates are K11's candidates mode, with no K7)."""
     check(launches["filter_pass"] > 0,
           f"{label}: the main path launched K11 no time")
     check(launches["score_pass"] > 0,
@@ -2718,6 +2874,7 @@ def _passes_launched(label: str, launches: dict) -> None:
 EXT_RUNNING = 1000     # running pods synced into the phase 18 sidecar
 EXT_PODS = 512         # pending pods through /filter, /prioritize, /bind
 EXT_PREEMPT = 16       # /preempt requests against the preemption fleet
+EXT_AFF_PER_KIND = 2   # /preempt requests of each affinity kind a-c
 # phase 19: timed pods, batch, and a warmup batch of 64 pods (cut, as the
 # timed pods are from 10,000: every pod costs two round trips of 5,000 names)
 LIVE_EXT_PODS, LIVE_EXT_BATCH, LIVE_EXT_WARMUP = 1024, 256, 64
@@ -2736,9 +2893,14 @@ def phase_extender(label: str = "18 extender sidecar") -> dict:
     before and read just after; every reply digest and bound node against
     tests/data/torch_port_golden_extender.npz, K7 launched twice a pod.
     Then a second sidecar synced with phase 13's fleet and running pods
-    answers the first 16 preemptors' /preempt against the same golden.
-    Per-verb latency p50 / p99, requests/s, the split of a /filter
-    request, the syncs' seconds."""
+    answers the first 16 preemptors' /preempt against the same golden,
+    each request's candidates one K11 launch in candidates mode; and a
+    third, synced with the same fleet's labelled running pods, answers
+    EXT_AFF_PER_KIND preemptors of each of loop.affinity_preemptors' kinds
+    a-c against tests/data/torch_port_golden_extender_affinity.npz, then
+    one more (kind b) /preempt under torch.profiler: one K11 launch, no
+    K7, no product (_extender_affinity_preempt).  Per-verb latency p50 / p99, requests/s, the split of
+    a /filter request, the syncs' seconds."""
     from kubernetes_tpu_torch import kernels, loop
     from kubernetes_tpu_torch.extender.server import FILTER_PARTS, ExtenderServer
 
@@ -2805,18 +2967,23 @@ def phase_extender(label: str = "18 extender sidecar") -> dict:
     check(pre_launches["preempt_one"] >= EXT_PREEMPT,
           f"{label}: K2 launched {pre_launches['preempt_one']} times for "
           f"{EXT_PREEMPT} /preempt requests")
-    check(pre_launches["filter_pass_stack"] > 0
-          and pre_launches["fold_predicates"]
-          == pre_launches["filter_pass_stack"],
-          f"{label}: the /preempt candidates' stacks: K11 "
+    check(pre_launches["filter_pass_candidates"] == EXT_PREEMPT
+          and pre_launches["filter_pass_stack"] == 0
+          and pre_launches["fold_predicates"] == 0,
+          f"{label}: the /preempt candidates: K11 in candidates mode "
+          f"{pre_launches['filter_pass_candidates']} times for "
+          f"{EXT_PREEMPT} requests, its stack "
           f"{pre_launches['filter_pass_stack']}, K7 "
           f"{pre_launches['fold_predicates']}")
+    aff = _extender_affinity_preempt(label, fleet)
+    aff_launches, aff_cand = aff["launches"], aff["profiled"]
     ops = _child_stream_ops(_FILTER_OPS_CHILD, label, "cuda")
     n_ops = sum(ops.values())
     check(n_ops <= 30, f"{label}: one /filter ran {n_ops} device "
           f"operations, above 30: {ops}")
     lat = {v: res["latency"][v] for v in ("filter", "prioritize", "bind")}
     lat["preempt"] = pre["latency"]["preempt"]
+    lat["preempt affinity"] = aff["latency"]["preempt"]
     verbs = {v: {"p50_ms": _pct_ms(x, 50), "p99_ms": _pct_ms(x, 99),
                  "requests": len(x), "requests_per_s": len(x) / sum(x)}
              for v, x in lat.items()}
@@ -2825,14 +2992,26 @@ def phase_extender(label: str = "18 extender sidecar") -> dict:
     out = {"verbs": verbs, "filter_split_ms": split, "launches": launches,
            "filter_device_ops": n_ops, "filter_ops": ops,
            "preempt_launches": pre_launches,
+           "affinity_preempt_launches": aff_launches,
+           "affinity_profiled": aff_cand,
            "sync_seconds": res["sync_seconds"],
            "preempt_sync_seconds": pre["sync_seconds"],
+           "affinity_sync_seconds": aff["sync_seconds"],
            "synced": {"nodes": NODES, "running": EXT_RUNNING,
                       "preempt_running": len(pre_running)}}
-    print(f"[{label}] {EXT_PODS} pods x 3 verbs and {EXT_PREEMPT} /preempt "
-          f"equal to the JAX sidecar's golden, K7 launches "
+    print(f"[{label}] {EXT_PODS} pods x 3 verbs, {EXT_PREEMPT} /preempt "
+          f"and {aff['requests']} affinity /preempt equal to the JAX "
+          f"sidecar's goldens, K7 launches "
           f"{launches['fold_predicates']} (two a pod), K1 "
-          f"{launches['select_hosts']}, K2 {pre_launches['preempt_one']} | "
+          f"{launches['select_hosts']}, K2 {pre_launches['preempt_one']}"
+          f" + {aff_launches['preempt_one']}, K11 candidates "
+          f"{pre_launches['filter_pass_candidates']} + "
+          f"{aff_launches['filter_pass_candidates']}, K7 on /preempt "
+          f"{pre_launches['fold_predicates']} + "
+          f"{aff_launches['fold_predicates']} | a profiled affinity "
+          f"/preempt: K11 {aff_cand['k11_launches']} (kernels profiled "
+          f"{aff_cand['k11_kernels_profiled']}) K7 "
+          f"{aff_cand['k7_launches']} products {aff_cand['products']} | "
           + " | ".join(
               f"{v} p50_ms {d['p50_ms']:.3f} p99_ms {d['p99_ms']:.3f} "
               f"req_per_s {d['requests_per_s']:.1f}"
@@ -2844,8 +3023,76 @@ def phase_extender(label: str = "18 extender sidecar") -> dict:
           + f" | sync seconds: bench fleet {res['sync_seconds']:.2f} "
           f"({NODES} nodes, {EXT_RUNNING} pods), preemption fleet "
           f"{pre['sync_seconds']:.2f} ({NODES} nodes, "
-          f"{len(pre_running)} pods)", flush=True)
+          f"{len(pre_running)} pods), labelled "
+          f"{aff['sync_seconds']:.2f}", flush=True)
     return out
+
+
+def _extender_affinity_preempt(label: str, fleet) -> dict:
+    """Phase 18's third sidecar: the port's ExtenderServer on the card
+    synced with `fleet` and its labelled running pods
+    (loop.preemption_running_pods(labels=True)) answers EXT_AFF_PER_KIND
+    preemptors of each of loop.affinity_preemptors' kinds a-c over HTTP,
+    each reply's victims removed before the next, with the launch counts
+    reset just before and read just after: the replies equal
+    tests/data/torch_port_golden_extender_affinity.npz (the JAX
+    sidecar's), K11 in candidates mode once a request, no K7; then one
+    more /preempt (kind b) under torch.profiler: one K11 launch, no K7,
+    no product.  Returns loop.drive_extender's dict with "launches",
+    "profiled" and "requests"."""
+    from kubernetes_tpu_torch import kernels, loop
+    from kubernetes_tpu_torch.api.serialize import pod_to_dict
+    from kubernetes_tpu_torch.extender.server import ExtenderServer
+
+    aff_data = np.load(golden("extender_affinity"))
+    check(int(aff_data["per_kind"]) == EXT_AFF_PER_KIND,
+          f"{label}: the affinity /preempt golden holds "
+          f"{int(aff_data['per_kind'])} preemptors a kind, not "
+          f"{EXT_AFF_PER_KIND}")
+    aff_running = loop.preemption_running_pods(fleet, labels=True)
+    aff_pending = loop.affinity_preemptors(EXT_AFF_PER_KIND, "abc")
+    extra = loop.affinity_preemptors(EXT_AFF_PER_KIND + 1, "b")[-1]
+    aff_srv = ExtenderServer(device="cuda")
+    aff_srv.start()
+    try:
+        kernels.reset_launch_counts()
+        aff = loop.drive_extender(aff_srv.address, fleet, aff_running,
+                                  preemptors=aff_pending)
+        torch.cuda.synchronize()
+        aff_launches = kernels.settle_launches()
+        # one more /preempt, called in this thread for the profiler (the
+        # mirror keeps its pods: victims leave by /sync/pod/remove)
+        kernels.reset_launch_counts()
+        prof, _, dev = _profiled(
+            lambda: aff_srv.preempt({"pod": pod_to_dict(extra)}))
+        extra_launches = kernels.settle_launches()
+    finally:
+        aff_srv.stop()
+    replies = [json.dumps(r, sort_keys=True, separators=(",", ":"))
+               for r in aff["preempt_replies"]]
+    want = aff_data["preempt_replies"].tolist()
+    if replies != want:
+        i = next((j for j, (x, y) in enumerate(zip(replies, want))
+                  if x != y), min(len(replies), len(want)))
+        fail(f"{label}: affinity /preempt reply {i} differs from the JAX "
+             f"sidecar's: port {replies[i] if i < len(replies) else None} "
+             f"JAX {want[i] if i < len(want) else None}")
+    check(aff["digests"]["preempt"]
+          == [bytes(r) for r in aff_data["preempt"]],
+          f"{label}: affinity /preempt reply digests differ from the JAX "
+          f"sidecar's")
+    check(aff_launches["filter_pass_candidates"] == len(aff_pending)
+          and aff_launches["fold_predicates"] == 0
+          and aff_launches["preempt_one"] >= len(aff_pending),
+          f"{label}: the affinity /preempt drive launched K11 in "
+          f"candidates mode {aff_launches['filter_pass_candidates']} times, "
+          f"K7 {aff_launches['fold_predicates']}, K2 "
+          f"{aff_launches['preempt_one']}, for {len(aff_pending)} requests")
+    aff["launches"] = aff_launches
+    aff["profiled"] = _one_candidates_launch(label + " /preempt", prof, dev,
+                                             extra_launches)
+    aff["requests"] = len(aff_pending)
+    return aff
 
 
 def phase_live_extender(label: str = "19 live extender") -> dict:
@@ -2923,16 +3170,65 @@ def _preemption_recount(nodes, running, res: dict, label: str) -> None:
           f"from the encoder's requested CPU")
 
 
-def phase_preemption(label: str) -> dict:
+PRODUCT_OPS = ("aten::mm", "aten::bmm", "aten::matmul")
+
+
+def _one_candidates_launch(label: str, prof, dev, launches: dict) -> dict:
+    """A profiled preemption attempt's candidates were one launch of K11's
+    candidates mode: the wrappers' counts over the attempt (`launches`)
+    hold one K11 launch, in candidates mode, and no K7 or stack launch,
+    and the profile no aten::mm, bmm or matmul op and no K7 kernel.  The
+    K11 kernels the profile recorded are reported beside: at full width
+    the profiler kept only the attempt's device activity after its host
+    walk (K2 and its copy back), not the candidates' launch before it."""
+    k11 = sum(1 for n, *_ in dev if _is_k11(n))
+    k7 = sum(1 for n, *_ in dev if "k7_fold_predicates" in n)
+    mm = sorted({e.key for e in prof.key_averages() if e.key in PRODUCT_OPS})
+    counted = {k: launches[k] for k in ("filter_pass",
+                                        "filter_pass_candidates",
+                                        "filter_pass_stack",
+                                        "fold_predicates")}
+    check(counted == {"filter_pass": 1, "filter_pass_candidates": 1,
+                      "filter_pass_stack": 0, "fold_predicates": 0}
+          and k7 == 0 and not mm,
+          f"{label}: the profiled attempt launched {counted} (K7 kernels "
+          f"profiled {k7}) and the products {mm}: not one K11 launch in "
+          f"candidates mode, no K7, no product")
+    return {"k11_launches": counted["filter_pass_candidates"],
+            "k7_launches": counted["fold_predicates"], "products": mm,
+            "k11_kernels_profiled": k11}
+
+
+def _candidates_launched(label: str, launches: dict, attempts: int) -> None:
+    """The candidates of every attempt were K11 in candidates mode: at
+    most one launch an attempt, and no K11 stack and no K7 launch."""
+    check(0 < launches["filter_pass_candidates"] <= attempts
+          and launches["filter_pass_stack"] == 0
+          and launches["fold_predicates"] == 0,
+          f"{label}: K11 in candidates mode launched "
+          f"{launches['filter_pass_candidates']} times for {attempts} "
+          f"attempts, its stack {launches['filter_pass_stack']}, K7 "
+          f"{launches['fold_predicates']}")
+
+
+PREEMPT_AFF_PER_KIND = 4   # phase 13b: preemptors of each kind a-d
+
+
+def phase_preemption(label: str, affinity: bool = False) -> dict:
     """loop.run_preemption at full width on the card, launch counts reset
     just before and read just after; the preemptions, bindings, order,
     verdicts and requested CPU against the JAX Scheduler's golden file; a
-    recount; one more attempt under torch.profiler; one line of
-    numbers."""
-    from torch.autograd import DeviceType
-
+    recount; one more attempt under torch.profiler (its candidates one
+    K11 launch, no K7, no product); one line of numbers.  affinity (phase
+    13b): the running pods labelled and PREEMPT_AFF_PER_KIND preemptors
+    of each kind of loop.affinity_preemptors, against
+    tests/data/torch_port_golden_live_preemption_affinity.npz; every
+    attempt's pick is verified on the host (verify seconds > 0), and the
+    profiled attempt is one more preemptor of kind a, which finds a
+    node."""
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.loop import (
+        affinity_preemptors,
         preemption_fleet,
         preemption_running_pods,
         preemptors,
@@ -2940,20 +3236,28 @@ def phase_preemption(label: str) -> dict:
     )
 
     nodes = preemption_fleet(NODES)
-    running = preemption_running_pods(nodes)
-    pending = preemptors(PREEMPTORS + 1)
+    running = preemption_running_pods(nodes, labels=affinity)
+    if affinity:
+        pending = affinity_preemptors(PREEMPT_AFF_PER_KIND)
+        extra = affinity_preemptors(PREEMPT_AFF_PER_KIND + 1, "a")[-1]
+    else:
+        pending = preemptors(PREEMPTORS + 1)
+        pending, extra = pending[:PREEMPTORS], pending[-1]
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    res = run_preemption(nodes, running, pending[:PREEMPTORS], BATCH,
-                         device="cuda")
+    res = run_preemption(nodes, running, pending, BATCH, device="cuda")
     launches = kernels.settle_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     attempts = res["attempts"]
-    check(attempts > 0 and launches["preempt_one"] >= attempts,
+    # every attempt of phase 13 has candidates; 13b's kind d has none
+    check(attempts > 0 and launches["preempt_one"]
+          >= (1 if affinity else attempts),
           f"{label}: K2 launched {launches['preempt_one']} times for "
           f"{attempts} preemption attempts")
     check(launches["select_hosts"] > 0, f"{label}: K1 launched no time")
-    data = np.load(golden("live_preemption"))
+    _candidates_launched(label, launches, attempts)
+    data = np.load(golden("live_preemption_affinity" if affinity
+                          else "live_preemption"))
     pre = res["preemptions"]
     got = {"preemptor": [p[0][1] for p in pre],
            "preempt_node": [p[1] for p in pre],
@@ -2974,10 +3278,17 @@ def phase_preemption(label: str) -> dict:
           f"{label}: requested CPU per node differs from the JAX "
           f"Scheduler's")
     _preemption_recount(nodes, running, res, label)
+    ps = res["preempt_seconds"]
+    check(not affinity or ps["verify"] > 0,
+          f"{label}: no pick was verified on the host")
     sched = res["scheduler"]
-    # one more attempt that finds no node (every usable batch node is
-    # taken): candidates, host arrays and K2, no state change
-    prof, wall, dev = _profiled(lambda: sched.preempt(pending[-1]))
+    # one more attempt: in phase 13 it finds no node (every usable batch
+    # node is taken): candidates, host arrays and K2, no state change; in
+    # 13b a kind a preemptor: candidates, K2, the verify and its victims
+    kernels.reset_launch_counts()
+    prof, wall, dev = _profiled(lambda: sched.preempt(extra))
+    cand = _one_candidates_launch(label, prof, dev,
+                                  kernels.settle_launches())
     k2_ms: dict = {}
     k2_ops = 0
     for n, _, ms in dev:
@@ -2995,7 +3306,7 @@ def phase_preemption(label: str) -> dict:
     cycles = max(res["cycles"], 1)
     scat = {int(r): res["scatter_rows"].count(r)
             for r in sorted(set(res["scatter_rows"]))}
-    ph, ps = res["phases"], res["preempt_seconds"]
+    ph = res["phases"]
     out = {"pods_per_s": res["pods_per_s"], "seconds": res["seconds"],
            "placed": res["placed"], "preemptions": len(pre),
            "attempts": attempts, "phases": ph, "preempt_seconds": ps,
@@ -3004,7 +3315,8 @@ def phase_preemption(label: str) -> dict:
            "h2d_bytes_per_cycle": h2d / cycles, "scatter_rows": scat,
            "profiled_attempt": {"wall_ms": wall * 1e3, "device_ms": dev_ms,
                                 "kernels": len(dev), "k2_ms": k2_ms,
-                                "k2_launches": k2_ops},
+                                "k2_launches": k2_ops, **cand},
+           "verify_ms_per_attempt": ps["verify"] / attempts * 1e3,
            "gc_full": res["gc_full"], "peak_gb": peak_gb, "transfers": xf}
     print(f"[{label}] pods_per_s {res['pods_per_s']:.1f} seconds "
           f"{res['seconds']:.3f} placed {res['placed']} preemptions "
@@ -3015,19 +3327,23 @@ def phase_preemption(label: str) -> dict:
           f"{ph['commit']:.4f} preempt {ph['preempt']:.4f} | preempt "
           f"split candidates {ps['candidates']:.4f} arrays "
           f"{ps['arrays']:.4f} pick(K2) {ps['pick']:.4f} verify "
-          f"{ps['verify']:.4f} evict {ps['evict']:.4f} | full collections "
+          f"{ps['verify']:.4f} ({ps['verify'] / attempts * 1e3:.3f} ms an "
+          f"attempt) evict {ps['evict']:.4f} | full collections "
           f"in the window {res['gc_full']['collections']} "
           f"({res['gc_full']['seconds']:.4f} s) | K1 launches "
           f"{launches['select_hosts']} (B=1 {launches['select_hosts_b1']}) "
           f"K13 {launches['seq_scan']} K2 launches {launches['preempt_one']}"
-          f" | bytes per attempt "
+          f" K11 candidates {launches['filter_pass_candidates']} K7 "
+          f"{launches['fold_predicates']} | bytes per attempt "
           f"{per_attempt} H2D bytes per cycle (the attempts' left out) "
           f"{h2d / cycles:.0f} | dirty "
           f"rows scattered per update (rows: updates) {scat} | one "
           f"attempt profiled: wall_ms {wall * 1e3:.3f} device_ms "
           f"{dev_ms:.3f} idle_share {1 - dev_ms / (wall * 1e3):.3f} "
           f"kernels {len(dev)} K2 launches {k2_ops} K2 device ms {k2_ms} "
-          f"| peak_device_GiB "
+          f"K11 launches {cand['k11_launches']} (kernels profiled "
+          f"{cand['k11_kernels_profiled']}) K7 {cand['k7_launches']} "
+          f"products {cand['products']} | peak_device_GiB "
           f"{peak_gb:.2f} | preemptions, bindings and order equal to the "
           f"JAX Scheduler's", flush=True)
     return out
@@ -4279,6 +4595,10 @@ def main() -> None:
     _passes_launched("13 live preemption", live13["launches"])
     print(f"[13 done] total seconds {time.monotonic() - t_start:.1f}",
           flush=True)
+    live13b = phase_preemption("13b live preemption affinity", affinity=True)
+    _passes_launched("13b live preemption affinity", live13b["launches"])
+    print(f"[13b done] total seconds {time.monotonic() - t_start:.1f}",
+          flush=True)
     k3 = phase_k3(main_n)
     k4 = phase_k4()
     live14 = phase_quality(nodes, live)
@@ -4349,7 +4669,9 @@ def main() -> None:
                "live-nominated": live12["launches"]["select_hosts"],
                "live-nominated_b1": live12["launches"]["select_hosts_b1"],
                "live-preemption": live13["launches"]["select_hosts"],
-               "live-preemption_b1": live13["launches"]["select_hosts_b1"]}
+               "live-preemption_b1": live13["launches"]["select_hosts_b1"],
+               "live-preemption-affinity":
+                   live13b["launches"]["select_hosts"]}
     record = {"kernels": [{
         "name": "select_hosts",
         "route": "cuda",
@@ -4384,6 +4706,8 @@ def main() -> None:
         "shape": k2["shape"],
         "kernel_ms_in_an_attempt": live13["profiled_attempt"]["k2_ms"],
         "attempts": live13["attempts"],
+        "launches_live_preemption_affinity":
+            live13b["launches"]["preempt_one"],
         "wide": k2["wide"],
     }, {
         "name": "select_topk",
@@ -4516,11 +4840,13 @@ def main() -> None:
              "pod-affinity": launches9, "affinity-redo": launches10,
              "live": live["launches"], "live-nominated": live12["launches"],
              "live-preemption": live13["launches"],
+             "live-preemption-affinity": live13b["launches"],
              "live-quality": live14["launches"],
              "live-default": live15["launches"],
              "megacycle": mega["launches"], "R=32": wide17["launches"],
              "extender": ext["launches"],
              "extender-preempt": ext["preempt_launches"],
+             "extender-affinity-preempt": ext["affinity_preempt_launches"],
              "live-extender": live19["launches"],
              "live-capacity": live21["launches"],
              "replicas": rep22["launches"]}
@@ -4544,6 +4870,10 @@ def main() -> None:
         })
     record["kernels"][-2]["stack_launches_by_cell"] = {
         c: d["filter_pass_stack"] for c, d in cells.items()}
+    record["kernels"][-2]["candidates_launches_by_cell"] = {
+        c: d["filter_pass_candidates"] for c, d in cells.items()}
+    record["kernels"][-2]["modes"] = k11["modes"]
+    record["kernels"][-2]["candidates_cases"] = k11["candidates_cases"]
     record["kernels"][-2]["filter_device_ops"] = ext["filter_device_ops"]
     # K13 once a redone plain batch (the redo cell's, the live cells'),
     # K15 and K14 once a plain round (the plain cell's)

@@ -93,7 +93,8 @@ the stream; K5 one up to K5_ONE_LAUNCH_ROWS snapshot rows and, above, a
 sequence of launches (cluster_analytics.cu launch_wide), counted once a
 call.  K8 and K10 put one kernel launch each on the stream, K9 one per
 K9_MAX_LANES lanes (counted once a call).  K11 puts one launch on the
-stream (`filter_pass_stack` also counts those in stack mode); K12 two
+stream (`filter_pass_stack` also counts those in stack mode,
+`filter_pass_candidates` those in candidates mode); K12 two
 when SelectorSpread's row is on (the zone index, then the pass), else
 one, counted once a call; K13, K15 and K16 one launch, K14 two, counted
 once a round; node_pair_build one launch, once a snapshot upload.  Inside a CUDA
@@ -121,7 +122,7 @@ LAUNCHES = {"select_hosts": 0, "select_hosts_b1": 0, "preempt_one": 0,
             "cluster_analytics": 0, "commit_group_counts": 0,
             "fold_predicates": 0, "ffd_order": 0, "binpack_counts": 0,
             "reconcile_admit": 0, "filter_pass": 0, "filter_pass_stack": 0,
-            "score_pass": 0, "seq_scan": 0, "round_fold": 0,
+            "filter_pass_candidates": 0, "score_pass": 0, "seq_scan": 0, "round_fold": 0,
             "round_commit": 0, "round_graph": 0, "round_pairs": 0,
             "node_pair_build": 0}
 
@@ -952,7 +953,7 @@ class FilterPassArgs(ctypes.Structure):
                     "v", "vt", "dv", "dvn", "sa", "at", "pt", "vz", "vb",
                     "tp", "kt", "aff_on", "vz_on", "vb_on", "n_presence",
                     "presence_present", "n_svc", "unsched_key", "enabled",
-                    "stack_mode", "vec")])
+                    "unresolvable", "stack_mode", "vec")])
 
 
 class ScorePassArgs(ctypes.Structure):
@@ -1043,14 +1044,27 @@ def _filter_config(cfg, vt: int) -> tuple:
             tuple(int(k) for k in cfg.service_affinity_labels))
 
 
+# K11's modes (filter_pass.cu stack_mode); False and True name the first
+# two
+K11_MASK, K11_STACK, K11_CANDIDATES = 0, 1, 2
+
+
 def filter_pass_prepare(cluster, pods, cfg, unsched_taint_key: int,
-                        node_pair, aff_slot, stack: bool):
+                        node_pair, aff_slot, mode, unresolvable: int = 0):
     """The arguments of one K11 launch (see filter_pass) with its output
     allocated: (FilterPassArgs, the tensors they point into, out).  The
     launch itself (filter_pass_launch) allocates nothing, so a CUDA graph
     can capture it."""
     from kubernetes_tpu_torch.codec.schema import NUM_PREDICATES
 
+    mode = int(mode)
+    if mode not in (K11_MASK, K11_STACK, K11_CANDIDATES):
+        raise ValueError(f"filter_pass: mode {mode} is not mask (0), stack "
+                         f"(1) or candidates (2)")
+    if not 0 <= int(unresolvable) < (1 << NUM_PREDICATES):
+        raise ValueError(f"filter_pass: unresolvable {unresolvable} is not "
+                         f"a mask of the {NUM_PREDICATES} predicates")
+    stack = mode == K11_STACK
     args = FilterPassArgs()
     overlap = pods.vol_overlap
     lean_overlap = (isinstance(overlap, torch.Tensor) and overlap.dim() == 3
@@ -1119,7 +1133,8 @@ def filter_pass_prepare(cluster, pods, cfg, unsched_taint_key: int,
     args.n_svc = len(svc)
     args.unsched_key = int(unsched_taint_key)
     args.enabled = enabled
-    args.stack_mode = int(stack)
+    args.unresolvable = int(unresolvable)
+    args.stack_mode = mode
     shape = (B, NUM_PREDICATES, N) if stack else (B, N)
     out = torch.empty(shape, dtype=torch.bool, device=dev)
     args.out = out.data_ptr()
@@ -1176,12 +1191,14 @@ def filter_pass_launch(args) -> None:
     _launch_error(lib, "filter_pass", lib.filter_pass_launch(
         args, torch.cuda.current_stream().cuda_stream))
     _count("filter_pass")
-    if args.stack_mode:
+    if args.stack_mode == K11_STACK:
         _count("filter_pass_stack")
+    elif args.stack_mode == K11_CANDIDATES:
+        _count("filter_pass_candidates")
 
 
 def filter_pass(cluster, pods, cfg, unsched_taint_key: int, node_pair,
-                aff_slot, stack: bool) -> torch.Tensor:
+                aff_slot, mode, unresolvable: int = 0) -> torch.Tensor:
     """K11: every predicate of one filter pass over the pods x nodes grid,
     on the snapshot's CUDA device.  cluster / pods: the schema dataclasses
     of tensors; cfg: the FilterConfig; node_pair: None (the batch is lean
@@ -1189,14 +1206,19 @@ def filter_pass(cluster, pods, cfg, unsched_taint_key: int, node_pair,
     node_pair_table's, the pair rows (the pods' forbidden, anti-affinity,
     affinity, volume zone and binding pairs) are gathered at; aff_slot:
     i32[B, PT] each affinity term's key slot (ops/predicates.py
-    key_slots), or None for an affinity-lean batch.  stack False -> mask
-    bool[B, N] (valid, pod_valid and every predicate folded); True -> the
-    stack bool[B, 23, N].  See ops/predicates.py filter_batch_plain /
-    predicate_stack_plain.  Raises on anything the kernel does not take
-    and on a refused launch."""
+    key_slots), or None for an affinity-lean batch.  mode K11_MASK (or
+    False) -> mask bool[B, N] (valid, pod_valid and every predicate
+    folded); K11_STACK (or True) -> the stack bool[B, 23, N];
+    K11_CANDIDATES -> bool[B, N], the nodes where preemption might help:
+    valid, some predicate failing, none of the rows in the `unresolvable`
+    bit mask (bit k: predicate k) failing and the pod's required affinity
+    rules holding.  See ops/predicates.py filter_batch_plain /
+    predicate_stack_plain and models/preemption.py preempt_eval_plain.
+    Raises on anything the kernel does not take and on a refused
+    launch."""
     args, keep, out = filter_pass_prepare(cluster, pods, cfg,
                                           unsched_taint_key, node_pair,
-                                          aff_slot, stack)
+                                          aff_slot, mode, unresolvable)
     with torch.cuda.device(out.device):
         filter_pass_launch(args)
     return out

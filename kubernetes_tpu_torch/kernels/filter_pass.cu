@@ -7,12 +7,22 @@
 // filter_batch_plain / predicate_stack_plain, which the kernel equals bit
 // for bit.
 //
-// Two modes:
+// Three modes:
 //   mask  (stack_mode 0): out bool[B, N] = valid[n] & pod_valid[b] & the
 //         AND of every row, folded in registers; no stack is written (the
 //         engines' need_per=False route);
 //   stack (stack_mode 1): out bool[B, 23, N], row k = predicate k's verdict
-//         (the need_per=True route; kernel K7 folds it).
+//         (the need_per=True route; kernel K7 folds it);
+//   candidates (stack_mode 2): out bool[B, N] = valid[n] & !fits &
+//         !hard_fail, the nodes where preemption might help (the JAX
+//         package's models/preemption.py make_preempt_eval, :144-169:
+//         filter_batch, required_affinity_ok and preemption_candidates in
+//         one launch).  fits: every row passes; hard_fail: a row of the
+//         `unresolvable` bit mask fails, or component 3 of
+//         MatchInterPodAffinity (the pod's required affinity terms alone,
+//         aff_rules_ok) fails whatever the profile enables.  Pod validity
+//         is not read, as in the reference.  The twin is
+//         models/preemption.py preempt_eval_plain.
 // A predicate the profile disables (a 0 bit in `enabled`) reads all true.
 //
 // The topology-pair terms (the existing pods' forbidden pairs, the
@@ -38,7 +48,9 @@
 // same words, one broadcast transaction each; the per-pod values the
 // whole block needs (whether a toleration covers the unschedulable taint,
 // whether each affinity term matches any pair) are reduced once a block
-// into shared memory.  In mask mode a node stops at its first failure.
+// into shared memory.  In mask mode a node stops at its first failure, in
+// candidates mode at its first failing unresolvable row (the answer is
+// then false) and before its walk when component 3 fails.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -56,6 +68,7 @@ constexpr int kThreads = 128;
 constexpr int kNodesPerThread = 4;
 constexpr int kPreds = 23;          // NUM_PREDICATES
 constexpr uint32_t kAll = (1u << kPreds) - 1;
+enum { kMaskMode = 0, kStackMode = 1, kCandidatesMode = 2 };
 
 // PREDICATE_ORDER
 enum {
@@ -141,12 +154,14 @@ struct FilterPassArgs {
   const float* max_vols;         // [VT] per-column default limits
   const int* presence_keys;      // [n_presence]
   const int* svc_labels;         // [n_svc]
-  uint8_t* out;                  // [B, N] (mask) or [B, 23, N] (stack)
+  uint8_t* out;                  // [B, N] (mask, candidates) or [B, 23, N]
   int b, n, r, l, t, p, q, tt, ns, s, e, v, vt, dv, dvn, sa, at, pt, vz,
       vb, tp;
   int kt, aff_on, vz_on, vb_on;
+  // unresolvable: the rows (bit k: predicate k) whose failure preemption
+  // cannot fix, read in candidates mode
   int n_presence, presence_present, n_svc, unsched_key, enabled,
-      stack_mode, vec;
+      unresolvable, stack_mode, vec;
 };
 
 namespace {
@@ -305,17 +320,14 @@ __device__ __forceinline__ bool pair_terms_ok(const FilterPassArgs& a, int b,
   return true;
 }
 
-__device__ bool inter_pod_ok(const FilterPassArgs& a, int b, int n,
+// Component 3 of MatchInterPodAffinity (the twin's required_affinity_ok):
+// every valid required affinity term of the pod holds on node n; an
+// affinity-lean batch passes.  any_match[k]: term k matches some pair
+// (the block's scan).
+__device__ bool aff_rules_ok(const FilterPassArgs& a, int b, int n,
                              const uint8_t* any_match) {
   if (!a.aff_on) return true;
   const int* np = a.node_pair + (size_t)n * a.kt;
-  if (pair_gather::any_hit(a.forbidden_pairs + (size_t)b * a.tp, np, a.kt))
-    return false;
-  for (int k = 0; k < a.at; ++k)
-    if (__ldg(a.anti_term_valid + (size_t)b * a.at + k) &&
-        pair_gather::any_hit(
-            a.anti_term_pairs + ((size_t)b * a.at + k) * a.tp, np, a.kt))
-      return false;
   for (int k = 0; k < a.pt; ++k) {
     const size_t i = (size_t)b * a.pt + k;
     if (!__ldg(a.aff_term_valid + i) ||
@@ -331,18 +343,36 @@ __device__ bool inter_pod_ok(const FilterPassArgs& a, int b, int n,
   return true;
 }
 
-// The verdict bits of node n for pod b (bit k: predicate k passes).  With
-// stop (mask mode) it returns at the first failure, the other bits unset.
+// MatchInterPodAffinity: the existing pods' anti-affinity (forbidden
+// pairs), the pod's own anti-affinity terms, then component 3
+__device__ bool inter_pod_ok(const FilterPassArgs& a, int b, int n,
+                             const uint8_t* any_match) {
+  if (!a.aff_on) return true;
+  const int* np = a.node_pair + (size_t)n * a.kt;
+  if (pair_gather::any_hit(a.forbidden_pairs + (size_t)b * a.tp, np, a.kt))
+    return false;
+  for (int k = 0; k < a.at; ++k)
+    if (__ldg(a.anti_term_valid + (size_t)b * a.at + k) &&
+        pair_gather::any_hit(
+            a.anti_term_pairs + ((size_t)b * a.at + k) * a.tp, np, a.kt))
+      return false;
+  return aff_rules_ok(a, b, n, any_match);
+}
+
+// The verdict bits of node n for pod b (bit k: predicate k passes).  It
+// returns at the first failure of a row in `stop` (every row in mask mode,
+// none in stack mode, the unresolvable rows in candidates mode), the bits
+// of the rows not yet walked unset.
 __device__ uint32_t eval_node(const FilterPassArgs& a, int b, int n,
                               bool tol_unsched, const uint8_t* any_match,
-                              bool stop) {
+                              uint32_t stop) {
   const uint32_t en = (uint32_t)a.enabled;
   uint32_t bits = ~en & kAll;
 #define K11_ON(k) ((en >> (k)) & 1u)
-#define K11_SET(k, ok)                  \
-  do {                                  \
-    if (ok) bits |= 1u << (k);          \
-    else if (stop) return bits;         \
+#define K11_SET(k, ok)                        \
+  do {                                        \
+    if (ok) bits |= 1u << (k);                \
+    else if ((stop >> (k)) & 1u) return bits; \
   } while (0)
   // node-only and per-pod flags first: the cheap rows
   if (K11_ON(kCondition)) K11_SET(kCondition, !__ldg(a.not_ready + n));
@@ -478,29 +508,41 @@ __global__ void __launch_bounds__(kThreads) k11_filter_pass(
   if (n0 >= a.n) return;
   const bool tol = tol_unsched != 0;
   const bool pv = __ldg(a.pod_valid + b) != 0;
+  const int mode = a.stack_mode;
+  const uint32_t unres = (uint32_t)a.unresolvable & kAll;
+  const uint32_t stop = mode == kMaskMode ? kAll
+                        : mode == kCandidatesMode ? unres : 0u;
   uint32_t bits[kNodesPerThread];
   bool alive[kNodesPerThread];
 #pragma unroll
   for (int j = 0; j < kNodesPerThread; ++j) {
     const int n = (int)n0 + j;
     bits[j] = 0;
-    alive[j] = n < a.n && pv && __ldg(a.valid + n);
-    if (n < a.n && (a.stack_mode || alive[j]))
-      bits[j] = eval_node(a, b, n, tol, any_match, !a.stack_mode);
+    // candidates: a valid node whose required affinity rules hold (a
+    // failure there is unresolvable), the pod's validity unread
+    alive[j] = n < a.n && __ldg(a.valid + n) &&
+               (mode == kCandidatesMode ? aff_rules_ok(a, b, n, any_match)
+                                        : pv);
+    if (n < a.n && (mode == kStackMode || alive[j]))
+      bits[j] = eval_node(a, b, n, tol, any_match, stop);
   }
-  if (!a.stack_mode) {
+  if (mode != kStackMode) {
+    // mask: every row passes; candidates: some row fails, no
+    // unresolvable one (an early return leaves its bit unset)
+    bool m[kNodesPerThread];
+#pragma unroll
+    for (int j = 0; j < kNodesPerThread; ++j)
+      m[j] = alive[j] && (mode == kMaskMode
+                              ? bits[j] == kAll
+                              : bits[j] != kAll && (bits[j] & unres) == unres);
     const size_t o = (size_t)b * a.n + n0;
     if (a.vec) {
-      uchar4 m;
-      m.x = alive[0] && bits[0] == kAll;
-      m.y = alive[1] && bits[1] == kAll;
-      m.z = alive[2] && bits[2] == kAll;
-      m.w = alive[3] && bits[3] == kAll;
-      *reinterpret_cast<uchar4*>(a.out + o) = m;
+      *reinterpret_cast<uchar4*>(a.out + o) = make_uchar4(m[0], m[1], m[2],
+                                                          m[3]);
     } else {
 #pragma unroll
       for (int j = 0; j < kNodesPerThread; ++j)
-        if (n0 + j < a.n) a.out[o + j] = alive[j] && bits[j] == kAll;
+        if (n0 + j < a.n) a.out[o + j] = m[j];
     }
     return;
   }
@@ -523,12 +565,13 @@ __global__ void __launch_bounds__(kThreads) k11_filter_pass(
 
 }  // namespace
 
-// One filter pass: the arguments above, on `stream`.  vec != 0 takes the
-// uchar4 stores, which need n % 4 == 0 and a 4-byte aligned `out`.  One
-// kernel launch and no other stream operation.  Returns a cudaError_t
-// code.
+// One filter pass: the arguments above, on `stream`, in the mode
+// stack_mode names.  vec != 0 takes the uchar4 stores, which need
+// n % 4 == 0 and a 4-byte aligned `out`.  One kernel launch and no other
+// stream operation.  Returns a cudaError_t code.
 extern "C" int filter_pass_launch(FilterPassArgs a, cudaStream_t stream) {
-  if (a.b <= 0 || a.n <= 0 || a.pt < 0 || a.pt > 48 * 1024)
+  if (a.b <= 0 || a.n <= 0 || a.pt < 0 || a.pt > 48 * 1024 ||
+      a.stack_mode < kMaskMode || a.stack_mode > kCandidatesMode)
     return (int)cudaErrorInvalidValue;
   if (a.vec && (a.n % 4 || (uintptr_t)a.out % 4))
     return (int)cudaErrorInvalidValue;

@@ -4,7 +4,9 @@ tests/test_torch_filter_pass.py holds K11's plain twin (ops/predicates.py
 filter_batch_plain and predicate_stack_plain) against the jitted JAX
 filter_batch and first_failure on every case on the CPU; chip_smoke.py
 holds the kernel against its twin on the card on all of them, bit for bit,
-in mask and stack mode.  kernels/k12_cases.py draws K12's cases from the
+in mask and stack mode.  `candidates_cases` are the cases of its
+candidates mode (the preemption candidates; twin models/preemption.py
+preempt_eval_plain, held against the jitted JAX make_preempt_eval).  kernels/k12_cases.py draws K12's cases from the
 same worlds.  numpy only: one seed gives the same arrays on every machine.
 
 A case is a dict: "cluster" and "pods", the fields of the schema's
@@ -239,3 +241,78 @@ def cases():
     out.append(("no-zones", world(137, 5, 30, zones=False)))
     out.append(("all-pods-valid", world(138, 6, 12, pod_validity=False)))
     return out
+
+
+def candidates_cases():
+    """[(name, case)] of K11's candidates mode, in a fixed order: lean and
+    affinity batches at B = 1 and B = 3, with padding nodes and invalid
+    pods; a profile that disables two unresolvable predicates (the taint
+    and unschedulable rows); and a corner batch whose pods' required
+    affinity terms are, pod by pod: a self-matching term that matches no
+    pair (the bootstrap, on every node with the key), a term on a key no
+    pair has and one on PAD (no node has them), and a term that matches
+    pairs beside one that matches none (any_match differs by pod and by
+    term)."""
+    out = []
+    for i, (b, n) in enumerate(((1, 64), (3, 130))):
+        c = _preemptors(world(140 + i, b, n, n_valid=n - 7))
+        c["pods"]["valid"][1:] = False
+        out.append((f"cand-lean-b{b}-n{n}", c))
+    for i, (b, n) in enumerate(((1, 66), (3, 257))):
+        c = _preemptors(world(142 + i, b, n, lean_affinity=False,
+                              lean_volumes=False, lean_overlap=False,
+                              n_valid=n - 5))
+        c["pods"]["valid"][2:] = False
+        out.append((f"cand-affinity-b{b}-n{n}", c))
+    c = _preemptors(world(144, 3, 96))
+    c["cfg"] = {"enabled": tuple(
+        k for k in _PREDICATES
+        if k not in ("PodToleratesNodeTaints", "CheckNodeUnschedulable"))}
+    out.append(("cand-profile-no-taints", c))
+    c = _preemptors(world(145, 3, 120, lean_affinity=False, PT=3))
+    pods = c["pods"]
+    pods["valid"][:] = True
+    pods["aff_term_valid"][:] = True
+    pods["aff_term_self"][:] = True
+    pods["aff_term_topo_key"][:] = ZONE_KEY
+    # pod 0: one self-matching term that matches no pair (the bootstrap)
+    pods["aff_term_pairs"][0] = False
+    pods["aff_term_valid"][0, 1:] = False
+    # pod 1: a term on a key no pair has, one on PAD, one matching pairs
+    pods["aff_term_pairs"][1, :2] = False
+    pods["aff_term_topo_key"][1, :2] = (9, PAD)
+    pods["aff_term_pairs"][1, 2] = False
+    pods["aff_term_pairs"][1, 2, :3] = True
+    # pod 2: a term that matches pairs beside a bootstrap term
+    pods["aff_term_pairs"][2, 0] = False
+    pods["aff_term_pairs"][2, 1] = False
+    pods["aff_term_pairs"][2, 1, 4] = True
+    pods["aff_term_valid"][2, 2] = False
+    out.append(("cand-affinity-corners", c))
+    return out
+
+
+def _preemptors(case):
+    """The case with its pods' own unresolvable requirements taken off
+    but for the last pod's (no node selector, required node affinity,
+    node name or volume topology), so that their candidates are the
+    nodes that fail a resolvable row and nothing the node holds."""
+    pods = case["pods"]
+    keep = slice(0, max(pods["valid"].shape[0] - 1, 1))
+    for f, v in (("has_req_affinity", False), ("ns_valid", False),
+                 ("node_name_req", PAD), ("vol_fail_all", False),
+                 ("vol_zone_valid", False), ("vol_bind_valid", False)):
+        pods[f][keep] = v
+    return case
+
+
+# PREDICATE_ORDER (codec/schema.py), for the profiles above
+_PREDICATES = (
+    "CheckNodeCondition", "CheckNodeUnschedulable", "GeneralPredicates",
+    "PodFitsHost", "PodFitsHostPorts", "PodMatchNodeSelector",
+    "PodFitsResources", "NoDiskConflict", "PodToleratesNodeTaints",
+    "PodToleratesNodeNoExecuteTaints", "CheckNodeLabelPresence",
+    "CheckServiceAffinity", "MaxEBSVolumeCount", "MaxGCEPDVolumeCount",
+    "MaxCSIVolumeCount", "MaxAzureDiskVolumeCount", "MaxCinderVolumeCount",
+    "CheckVolumeBinding", "NoVolumeZoneConflict", "CheckNodeMemoryPressure",
+    "CheckNodePIDPressure", "CheckNodeDiskPressure", "MatchInterPodAffinity")

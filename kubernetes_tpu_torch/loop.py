@@ -10,8 +10,10 @@ engine -> AsyncFetch -> batched state commit -> bind/event tail.
 `run_preemption` drives the live Scheduler with preemption on: a full
 cluster of running pods at two priorities (`preemption_fleet`,
 `preemption_running_pods`) and a batch of higher-priority pods that fit
-nowhere (`preemptors`), through FitError -> candidates -> kernel K2 ->
-victims deleted -> nomination -> the next cycle's placement.
+nowhere (`preemptors`, or `affinity_preemptors` with required pod-affinity
+terms against the running pods' labels), through FitError -> candidates
+(kernel K11's candidates mode) -> kernel K2 -> the host verify -> victims
+deleted -> nomination -> the next cycle's placement.
 
 The counterpart of bench.py run()'s timed section (bench.py:256-470) in the
 JAX package.  `run_raw` adds `existing` running pods before the clock
@@ -836,11 +838,15 @@ def preemption_fleet(n_nodes: int, make_node=make_node) -> List[Node]:
 
 
 def preemption_running_pods(nodes: Sequence[Node], seed: int = 0,
-                            make_pod=make_pod) -> List[Pod]:
+                            make_pod=make_pod,
+                            labels: bool = False) -> List[Pod]:
     """The running pods that fill every node to its 4 CPU: 4 production
     pods (priority 1,000, 1 CPU / 1Gi) on each node, except every
     BATCH_NODE_EVERY-th, which holds 2 production pods and 4 batch pods
-    (priority 0, 500m / 512Mi) with distinct start times from `seed`."""
+    (priority 0, 500m / 512Mi) with distinct start times from `seed`.
+    labels: the batch pods carry `app: batch` and the production pods on
+    the nodes of zones 0-3 `team: east` (what affinity_preemptors' terms
+    select); off, the pods carry no label."""
     batch_rows = range(0, len(nodes), BATCH_NODE_EVERY)
     starts = 1.6e9 + np.random.default_rng(seed).permutation(
         4 * len(batch_rows)) * 7.0
@@ -848,16 +854,19 @@ def preemption_running_pods(nodes: Sequence[Node], seed: int = 0,
     k = b = 0
     for i, node in enumerate(nodes):
         batch_node = i % BATCH_NODE_EVERY == 0
+        east = labels and int(node.labels[ZONE_KEY].rsplit("-", 1)[1]) < 4
         for _ in range(2 if batch_node else 4):
             pod = make_pod(f"prod-{k}", cpu="1", mem="1Gi",
-                           priority=PRODUCTION_PRIORITY, node_name=node.name)
+                           priority=PRODUCTION_PRIORITY, node_name=node.name,
+                           labels={"team": "east"} if east else None)
             pod.status.start_time = 1.5e9 + k
             pods.append(pod)
             k += 1
         if batch_node:
             for _ in range(4):
                 pod = make_pod(f"batch-{b}", cpu="500m", mem="512Mi",
-                               priority=BATCH_PRIORITY, node_name=node.name)
+                               priority=BATCH_PRIORITY, node_name=node.name,
+                               labels={"app": "batch"} if labels else None)
                 pod.status.start_time = float(starts[b])
                 pods.append(pod)
                 b += 1
@@ -869,6 +878,44 @@ def preemptors(k: int, make_pod=make_pod) -> List[Pod]:
     toleration: they fit on no full node and preempt batch pods."""
     return [make_pod(f"preemptor-{j}", cpu="1500m", mem="1Gi",
                      priority=PREEMPTING_PRIORITY) for j in range(k)]
+
+
+# the kinds of affinity_preemptors, each one required pod-affinity term:
+# (label selector, topology key, the pod's own labels)
+MISSING_TOPOLOGY_KEY = "example.com/no-such-domain"
+AFFINITY_PREEMPTOR_KINDS = (
+    # a: share a node with a batch pod (the candidates are the batch
+    # nodes; the verify must find one left after the eviction)
+    ("host", {"app": "batch"}, HOSTNAME_KEY, None),
+    # b: share a zone with a team: east pod (zones 0-3)
+    ("east", {"team": "east"}, ZONE_KEY, None),
+    # c: share a zone with a pod of its own label, which no running pod
+    # carries: the first takes the bootstrap rule, the later ones follow
+    ("fresh", {"app": "fresh"}, ZONE_KEY, {"app": "fresh"}),
+    # d: a self-matching term on a key no node carries: no candidate
+    ("nokey", {"app": "nokey"}, MISSING_TOPOLOGY_KEY, {"app": "nokey"}),
+)
+
+
+def affinity_preemptors(per_kind: int, kinds: str = "abcd",
+                        make_pod=make_pod) -> List[Pod]:
+    """`per_kind` preemptors of each of AFFINITY_PREEMPTOR_KINDS named by
+    letter in `kinds`, at preemptors()' request and priority, each with
+    one required pod-affinity term, kind by kind in turn (a0, b0, c0, d0,
+    a1, ...).  Against preemption_running_pods(labels=True)."""
+    table = dict(zip("abcd", AFFINITY_PREEMPTOR_KINDS))
+    out = []
+    for j in range(per_kind):
+        for letter in kinds:
+            name, selector, key, own = table[letter]
+            out.append(make_pod(
+                f"preemptor-{name}-{j}", cpu="1500m", mem="1Gi",
+                priority=PREEMPTING_PRIORITY, labels=own,
+                affinity={"podAffinity": {
+                    "requiredDuringSchedulingIgnoredDuringExecution": [{
+                        "labelSelector": {"matchLabels": dict(selector)},
+                        "topologyKey": key}]}}))
+    return out
 
 
 def run_preemption(nodes: Sequence[Node], running: Sequence[Pod],

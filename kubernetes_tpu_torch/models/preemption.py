@@ -6,9 +6,12 @@ MightHelp (:65-123) -> selectNodesForPreemption over every node
 (:964-998) -> selectVictimsOnNode's remove-all-lower-priority + reprieve
 loop (:1054-1128) -> pickOneNodeForPreemption's six criteria (:837-962).
 
-  * candidates: the port's filter_batch (need_per) and required_affinity_ok
-    give the nodes where the pod does not fit and no unresolvable predicate
-    failed (`preemption_candidates`, run by `make_preempt_eval`);
+  * candidates: the nodes where the pod does not fit and no unresolvable
+    predicate failed (nodesWherePreemptionMightHelp), `make_preempt_eval`:
+    on CUDA tensors one launch of kernel K11 in its candidates mode
+    (kernels/filter_pass.cu), on CPU tensors `preempt_eval_plain`, its
+    twin (filter_batch_plain, required_affinity_ok and
+    `preemption_candidates`);
   * `preempt_one`: the "remove every listed victim, does the pod fit?"
     what-if over the extended resource axis (resources, host ports, disk
     conflicts and the identity-deduped volume budgets), the reprieve in
@@ -121,19 +124,46 @@ def dense_start_ranks(starts) -> np.ndarray:
     return inv.astype(np.float32)
 
 
-def make_preempt_eval(cfg, unsched_taint_key: int):
-    """Candidate evaluation: filter_batch (need_per) + required_affinity_ok
-    + preemption_candidates, on the device of the snapshot it is given.
-    run(cluster, batch) -> bool[B, N]."""
+# UNRESOLVABLE as K11's bit mask (bit k: predicate k of PREDICATE_ORDER)
+UNRESOLVABLE_MASK = sum(1 << PRED_INDEX[p] for p in UNRESOLVABLE)
+
+
+def preempt_eval_plain(cluster, batch, cfg, unsched_taint_key: int):
+    """K11's candidates mode's plain twin: bool[B, N], the JAX package's
+    jitted make_preempt_eval (filter_batch, required_affinity_ok and
+    preemption_candidates), bit for bit, in plain PyTorch."""
     from kubernetes_tpu_torch.ops.predicates import (
-        filter_batch,
+        filter_batch_plain,
         required_affinity_ok,
     )
 
+    _, per_pred = filter_batch_plain(cluster, batch, cfg, unsched_taint_key)
+    aff_ok = required_affinity_ok(cluster, batch)
+    return preemption_candidates(per_pred, cluster.valid, aff_ok)
+
+
+def preempt_eval(cluster, batch, cfg, unsched_taint_key: int):
+    """The candidates of one preemption attempt, bool[B, N]: on CUDA
+    tensors one K11 launch in candidates mode (its input preparation, the
+    node-pair table's read and the terms' key slots, beside it; it
+    launches or raises), on CPU tensors preempt_eval_plain."""
+    if not cluster.valid.is_cuda:
+        return preempt_eval_plain(cluster, batch, cfg, unsched_taint_key)
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.ops.predicates import pair_inputs
+
+    node_pair, aff_slot = pair_inputs(cluster, batch)
+    return kernels.filter_pass(cluster, batch, cfg, unsched_taint_key,
+                               node_pair, aff_slot, kernels.K11_CANDIDATES,
+                               UNRESOLVABLE_MASK)
+
+
+def make_preempt_eval(cfg, unsched_taint_key: int):
+    """Candidate evaluation on the device of the snapshot it is given:
+    run(cluster, batch) -> bool[B, N] (preempt_eval)."""
+
     def run(cluster, batch):
-        _, per_pred = filter_batch(cluster, batch, cfg, unsched_taint_key)
-        aff_ok = required_affinity_ok(cluster, batch)
-        return preemption_candidates(per_pred, cluster.valid, aff_ok)
+        return preempt_eval(cluster, batch, cfg, unsched_taint_key)
 
     return run
 

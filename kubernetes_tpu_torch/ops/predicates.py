@@ -385,7 +385,11 @@ def check_node_label_presence(cluster: ClusterTensors, pods: PodBatch,
 
 def required_affinity_ok(cluster: ClusterTensors, pods: PodBatch):
     """bool[B, N]: the pod's required affinity rules alone hold on the node
-    (component 3 of MatchInterPodAffinity)."""
+    (component 3 of MatchInterPodAffinity).  The twins' form of what K11
+    gathers over node_pair_table (filter_pass.cu aff_rules_ok, in its
+    candidates mode for models/preemption.py preempt_eval): CPU tensors
+    reach it on the main path; on the card only the twins'
+    comparisons and select_impl="plain" run it."""
     if _is_lean(pods.aff_term_pairs, cluster):
         return _ones(pods.n_pods, cluster.n_nodes, cluster.valid.device)
     topo_t = cluster.topo_pairs.T                            # [TP, N]
@@ -406,7 +410,10 @@ def match_inter_pod_affinity(cluster: ClusterTensors, pods: PodBatch):
     """MatchInterPodAffinity (predicates.go:1196-1509) via topology-pair
     incidence tensors: existing pods' anti-affinity (forbidden pairs), the
     pod's own anti-affinity terms, and its required affinity terms with the
-    first-pod bootstrap rule."""
+    first-pod bootstrap rule.  The twins' form of K11's kInterPod row
+    (filter_pass.cu inter_pod_ok): CPU tensors reach it on the main path;
+    on the card only the twins' comparisons and select_impl="plain" run
+    it."""
     if _is_lean(pods.aff_term_pairs, cluster):
         return _ones(pods.n_pods, cluster.n_nodes, cluster.valid.device)
     topo_t = cluster.topo_pairs.T                            # [TP, N]

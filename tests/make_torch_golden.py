@@ -45,6 +45,18 @@ the final requested CPU per node row.
 
     python tests/make_torch_golden.py --live --preemption 256   # ~2-4 min
 
+With --live --preemption K --affinity-preemptors, the running pods carry
+labels (loop.preemption_running_pods(labels=True)) and the pending pods
+are K // 4 preemptors of each kind of loop.affinity_preemptors (required
+pod affinity to a batch pod's node, to a team: east pod's zone, to the
+pod's own label's zone through the bootstrap rule, and on a topology key
+no node carries); the file,
+tests/data/torch_port_golden_live_preemption_affinity.npz, holds the same
+arrays as the preemption golden.
+
+    python tests/make_torch_golden.py --live --preemption 16 \
+        --affinity-preemptors
+
 With --live --quality K, the JAX Scheduler runs the live cell with the
 placement-quality observatory on (quality_top_k=K, a regret sample every
 --quality-interval cycles, default 1); loop.record_quality wraps its
@@ -91,6 +103,16 @@ replies.
 
     python tests/make_torch_golden.py --extender --pods 512 \
         --existing 1000                                    # ~4-5 min
+
+With --extender --affinity-preemptors, only the /preempt drive, on a
+sidecar synced with the preemption fleet and its labelled running pods,
+of --preempt // 3 preemptors of each of loop.affinity_preemptors' kinds
+a-c (`jax_extender_affinity`); the file,
+tests/data/torch_port_golden_extender_affinity.npz, holds the replies'
+digests and the replies as canonical JSON.
+
+    python tests/make_torch_golden.py --extender --affinity-preemptors \
+        --preempt 6
 
 With --live --extender, the golden is the JAX Scheduler in the live cell
 with one HTTP extender (filter, prioritize and bind verbs) pointed at the
@@ -441,10 +463,12 @@ def jax_megacycle(n_nodes: int, n_pods: int, batch: int, k: int,
 
 
 def jax_preemption(n_nodes: int, n_preemptors: int, batch: int,
-                   budget_s: float = 3600.0):
+                   budget_s: float = 3600.0, affinity: bool = False):
     """The JAX Scheduler with preemption on, under the loop of the port's
     loop.run_preemption: the same fleet, running pods and preemptors (built
     with the JAX factory), drained until nothing schedulable remains.
+    affinity: the running pods labelled and n_preemptors // 4 preemptors
+    of each kind of loop.affinity_preemptors in place of loop.preemptors.
     Returns (preemptions [(preemptor key, node name, victim keys)],
     bindings [(pod name, node name)] in call order, unschedulable pod
     names, the final requested column matrix, the scheduler)."""
@@ -461,7 +485,8 @@ def jax_preemption(n_nodes: int, n_preemptors: int, batch: int,
     enc.add_nodes(nodes)
     for d in range(bench._N_DEPLOY):
         enc.add_spread_selector("default", {"app": f"dep-{d}"})
-    enc.add_pods(loop.preemption_running_pods(nodes, make_pod=make_pod))
+    enc.add_pods(loop.preemption_running_pods(nodes, make_pod=make_pod,
+                                              labels=affinity))
     cache = SchedulerCache(enc)
     queue = PriorityQueue()
     bindings = []
@@ -477,7 +502,10 @@ def jax_preemption(n_nodes: int, n_preemptors: int, batch: int,
                           batched_commit=True, pipeline_commit=True,
                           cpu_fallback=False, telemetry=False,
                           quality_top_k=0, timeline=False))
-    for p in loop.preemptors(n_preemptors, make_pod=make_pod):
+    pending = (loop.affinity_preemptors(n_preemptors // 4,
+                                        make_pod=make_pod) if affinity
+               else loop.preemptors(n_preemptors, make_pod=make_pod))
+    for p in pending:
         queue.add(p)
     deadline = time.monotonic() + budget_s
     while time.monotonic() < deadline:
@@ -522,6 +550,41 @@ def jax_extender(n_nodes: int, n_pods: int, existing: int,
     finally:
         srv.stop()
     return main, pre
+
+
+def jax_extender_affinity(n_nodes: int, per_kind: int, server=None):
+    """loop.drive_extender's /preempt against the JAX package's sidecar
+    (or `server`) synced with the preemption cell's fleet and its labelled
+    running pods: per_kind preemptors of each of loop.affinity_preemptors'
+    kinds a-c, each reply's victims removed before the next.  Returns the
+    drive."""
+    from kubernetes_tpu_torch import loop
+
+    if server is None:
+        from kubernetes_tpu.extender.server import ExtenderServer as server
+    fleet = loop.preemption_fleet(n_nodes)
+    srv = server()
+    srv.start()
+    try:
+        return loop.drive_extender(
+            srv.address, fleet,
+            loop.preemption_running_pods(fleet, labels=True),
+            preemptors=loop.affinity_preemptors(per_kind, "abc"))
+    finally:
+        srv.stop()
+
+
+def affinity_preempt_arrays(pre: dict) -> dict:
+    """The affinity /preempt golden's arrays: each reply's digest (uint8
+    [n, 32]) and the replies as canonical JSON."""
+    import json
+
+    return dict(
+        preempt=np.asarray([list(x) for x in pre["digests"]["preempt"]],
+                           np.uint8).reshape(-1, 32),
+        preempt_replies=np.asarray(
+            [json.dumps(r, sort_keys=True, separators=(",", ":"))
+             for r in pre["preempt_replies"]], dtype=str))
 
 
 def extender_arrays(main: dict, pre: dict) -> dict:
@@ -686,6 +749,12 @@ def main():
     ap.add_argument("--preempt", type=int, default=16,
                     help="with --extender: /preempt requests of the "
                          "preemption cell's first preemptors")
+    ap.add_argument("--affinity-preemptors", action="store_true",
+                    help="with --live --preemption K: the running pods "
+                         "labelled and K // 4 preemptors of each kind of "
+                         "loop.affinity_preemptors; with --extender: only "
+                         "the /preempt drive of --preempt // 3 preemptors "
+                         "of each of its kinds a-c")
     args = ap.parse_args()
 
     import jax
@@ -739,6 +808,20 @@ def main():
         )
         print(f"wrote {out}: {int((hosts >= 0).sum())}/{len(hosts)} bound "
               f"(warmup included), {dt:.1f} s on the CPU")
+        return
+    if args.extender and args.affinity_preemptors:
+        out = args.out or golden_path("extender_affinity")
+        t0 = time.monotonic()
+        pre = jax_extender_affinity(args.nodes, args.preempt // 3)
+        dt = time.monotonic() - t0
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(
+            out, **affinity_preempt_arrays(pre),
+            nodes=np.int32(args.nodes),
+            per_kind=np.int32(args.preempt // 3))
+        print(f"wrote {out}: {len(pre['preempt_replies'])} /preempt "
+              f"replies, sync {pre['sync_seconds']:.1f} s, {dt:.1f} s on "
+              f"the CPU")
         return
     if args.extender:
         out = args.out or golden_path("extender")
@@ -799,10 +882,13 @@ def main():
               f"{dt:.1f} s on the CPU")
         return
     if args.live and args.preemption:
-        out = args.out or live_golden_path(preemption=args.preemption)
+        out = args.out or (golden_path("live_preemption_affinity")
+                           if args.affinity_preemptors else
+                           live_golden_path(preemption=args.preemption))
         t0 = time.monotonic()
         preemptions, bindings, unsched, requested, sched = jax_preemption(
-            args.nodes, args.preemption, args.batch)
+            args.nodes, args.preemption, args.batch,
+            affinity=args.affinity_preemptors)
         dt = time.monotonic() - t0
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         np.savez_compressed(

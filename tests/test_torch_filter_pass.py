@@ -4,7 +4,10 @@ The twin (ops/predicates.py filter_batch_plain, predicate_stack_plain) is
 held bit for bit against the jitted JAX filter_batch and first_failure on
 every kernels/k11_cases.py case and on one batch the port's encoder makes
 from the bench fleet: the mask, the stack and the first failure.  The
-dispatch sends CPU tensors to the twin; the wrapper refuses CPU tensors.
+candidates mode's twin (models/preemption.py preempt_eval_plain) is held
+against the jitted JAX make_preempt_eval on every
+k11_cases.candidates_cases case.  The dispatch sends CPU tensors to the
+twin; the wrapper refuses CPU tensors.
 The kernel itself is held to the twin on the card by
 tests/test_torch_passes_cuda.py and chip_smoke.py.  Tolerance: none.
 """
@@ -20,15 +23,18 @@ import pytest
 import torch
 
 from kubernetes_tpu.codec import schema as jschema
+from kubernetes_tpu.models import preemption as jpreempt
 from kubernetes_tpu.ops import predicates as jpred
 from kubernetes_tpu_torch import kernels
 from kubernetes_tpu_torch.codec import schema as tschema
 from kubernetes_tpu_torch.kernels import k11_cases
+from kubernetes_tpu_torch.models import preemption as tpreempt
 from kubernetes_tpu_torch.ops import predicates as tpred
 
 import torch_port_helpers  # noqa: F401  (caps torch's threads)
 
 CASES = k11_cases.cases()
+CANDIDATE_CASES = dict(k11_cases.candidates_cases())
 
 
 def jax_inputs(case):
@@ -195,6 +201,71 @@ def test_k11_wrapper_refuses_cpu_tensors():
     ct, pb, cfg = port_inputs(case)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.filter_pass(ct, pb, cfg, 0, None, {}, False)
+    with pytest.raises(ValueError, match="mode 3"):
+        kernels.filter_pass(ct, pb, cfg, 0, None, {}, 3)
+    with pytest.raises(ValueError, match="unresolvable"):
+        kernels.filter_pass(ct, pb, cfg, 0, None, {},
+                            kernels.K11_CANDIDATES, 1 << 23)
+
+
+@pytest.mark.parametrize("name", list(CANDIDATE_CASES))
+def test_candidates_twin_matches_jax_make_preempt_eval(name):
+    """K11's candidates mode's twin, and make_preempt_eval's run on CPU
+    tensors, against the JAX package's jitted make_preempt_eval (one
+    launch of filter_batch, required_affinity_ok and
+    preemption_candidates), bit for bit."""
+    case = CANDIDATE_CASES[name]
+    ct, pb, cfg = jax_inputs(case)
+    key = case["unsched_key"]
+    want = np.asarray(jpreempt.make_preempt_eval(cfg, key)(ct, pb))
+    ct, pb, cfg = port_inputs(case)
+    got = tpreempt.preempt_eval_plain(ct, pb, cfg, key)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tpreempt.make_preempt_eval(cfg, key)(ct, pb).numpy(), want)
+
+
+def test_candidates_cases_cover_their_corners():
+    """The candidates cases hold what the mode must get right: candidates
+    at B = 1 and B = 3, an invalid pod's candidates (validity unread),
+    padding nodes never candidates, a node failing an unresolvable row
+    and the pod's required affinity rules at once, the profile that turns
+    tainted and unschedulable nodes into candidates, the bootstrap pod's
+    candidates and the missing-key pod's none."""
+    import dataclasses
+
+    out = {}
+    for name, case in CANDIDATE_CASES.items():
+        ct, pb, cfg = port_inputs(case)
+        key = case["unsched_key"]
+        _, stack = tpred.filter_batch_plain(ct, pb, cfg, key)
+        idx = [tschema.PRED_INDEX[p] for p in tpreempt.UNRESOLVABLE]
+        out[name] = dict(
+            got=tpreempt.preempt_eval_plain(ct, pb, cfg, key),
+            unres=(~stack[:, idx]).any(1),
+            rules=tpred.required_affinity_ok(ct, pb), ct=ct, pb=pb,
+            cfg=cfg, key=key)
+    for name in ("cand-lean-b1-n64", "cand-affinity-b1-n66"):
+        assert out[name]["got"].shape[0] == 1 and out[name]["got"].any()
+    lean = out["cand-lean-b3-n130"]
+    assert not lean["pb"].valid[1] and lean["got"][1].any()
+    for d in out.values():
+        assert not d["got"][:, ~d["ct"].valid].any()
+    both = out["cand-affinity-b3-n257"]
+    assert (both["unres"] & ~both["rules"]).any()
+    assert (~both["rules"] & ~both["unres"]).any()
+    prof = out["cand-profile-no-taints"]
+    default = tpreempt.preempt_eval_plain(
+        prof["ct"], prof["pb"], dataclasses.replace(prof["cfg"],
+                                                    enabled=None),
+        prof["key"])
+    assert (prof["got"] & ~default).any()
+    corners = out["cand-affinity-corners"]
+    assert corners["got"][0].any() and not corners["got"][1].any()
+    assert not corners["pb"].aff_term_pairs[0].any()
+    assert tpreempt.UNRESOLVABLE_MASK == sum(
+        1 << tschema.PRED_INDEX[p] for p in jpreempt.UNRESOLVABLE)
 
 
 def chip_smoke_module():

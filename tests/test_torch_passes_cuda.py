@@ -3,7 +3,10 @@ twins on the card, bit for bit, on every kernels/k11_cases.py and
 k12_cases.py case and on the encoder-made affinity batches of
 kernels/k14_cases.py (their pair terms gathered over each node's pairs):
 the stack and the mask (K11), the total and every row with need_per on
-and off (K12); and the node-pair table's kernel against its twin.
+and off (K12); K11's candidates mode against its twin
+(models/preemption.py preempt_eval_plain) on every
+k11_cases.candidates_cases case; and the node-pair table's kernel against
+its twin.
 
 The tests carry the `cuda` marker and skip where there is no card.  The
 file imports neither JAX nor the JAX package (the machine with the card
@@ -60,6 +63,27 @@ def test_k11_matches_plain_twin_on_card():
         assert torch.equal(mask, want_mask), name
         mask, _ = tpred.filter_batch(ct, pb, cfg, key)
         assert torch.equal(mask, want_mask), name
+
+
+@pytest.mark.cuda
+def test_k11_candidates_mode_matches_plain_twin_on_card():
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.models import preemption as pp
+
+    _need_card()
+    kernels.reset_launch_counts()
+    cases = k11_cases.candidates_cases()
+    for name, case in cases:
+        ct, pb = _on_card(case)
+        cfg = ts.FilterConfig(**case["cfg"])
+        key = case["unsched_key"]
+        got = pp.make_preempt_eval(cfg, key)(ct, pb)
+        assert torch.equal(got, pp.preempt_eval_plain(ct, pb, cfg, key)), \
+            name
+    launches = kernels.settle_launches()
+    assert (launches["filter_pass"] == launches["filter_pass_candidates"]
+            == len(cases))
+    assert launches["fold_predicates"] == launches["filter_pass_stack"] == 0
 
 
 @pytest.mark.cuda

@@ -39,9 +39,10 @@ from kubernetes_tpu_torch.runtime import cache as port_cache
 from kubernetes_tpu_torch.runtime import queue as port_queue
 from kubernetes_tpu_torch.runtime import scheduler as port_sched
 
-from make_torch_golden import jax_preemption, live_golden_path
+from make_torch_golden import golden_path, jax_preemption, live_golden_path
 
 ZONE = "failure-domain.beta.kubernetes.io/zone"
+HOST = "kubernetes.io/hostname"
 PKGS = {
     "jax": (jax_factory, jax_types, jax_cache, jax_queue, jax_sched),
     "port": (port_factory, port_types, port_cache, port_queue, port_sched),
@@ -172,7 +173,106 @@ def _waiter_and_sneak(w):
     return want
 
 
+def _aff(selector, key):
+    return {"podAffinity": {
+        "requiredDuringSchedulingIgnoredDuringExecution": [{
+            "labelSelector": {"matchLabels": selector},
+            "topologyKey": key}]}}
+
+
+def _batch_node(w, name, batch_pods, zone="z1"):
+    """A 2-CPU node full: `batch_pods` batch pods (app: batch, priority 0,
+    500m) and a production pod (priority 1,000) taking the rest."""
+    n, p = w.f.make_node, w.f.make_pod
+    w.cache.add_node(n(name, cpu="2", mem="8Gi", labels={ZONE: zone}))
+    for i in range(batch_pods):
+        w.cache.add_pod(p(f"{name}-batch-{i}", cpu="500m", node_name=name,
+                          priority=0, labels={"app": "batch"}))
+    w.cache.add_pod(p(f"{name}-prod", cpu=f"{2000 - 500 * batch_pods}m",
+                      node_name=name, priority=1000, labels={"team": "east"}
+                      if zone == "z2" else None))
+
+
+def _plain_node(w, name, zone):
+    """A 2-CPU node full of one low-priority pod with no label."""
+    n, p = w.f.make_node, w.f.make_pod
+    w.cache.add_node(n(name, cpu="2", mem="8Gi", labels={ZONE: zone}))
+    w.cache.add_pod(p(f"{name}-low", cpu="2", node_name=name, priority=1))
+
+
+def _affinity_host(w):
+    """Kind a: hostname affinity to a batch pod.  The what-if picks n0
+    first (its two victims tie n1's, the lower row wins), which would
+    lose both its batch pods, so the verify vetoes it; n1 keeps one."""
+    p = w.f.make_pod
+    _batch_node(w, "n0", 2)
+    _batch_node(w, "n1", 3)
+    _plain_node(w, "n2", "z1")
+    w.nominated = w.sched.preempt(p("boss", cpu="1", priority=100,
+                                    affinity=_aff({"app": "batch"}, HOST)))
+    return {"deleted": ["n1-batch-1", "n1-batch-2"], "bound": []}
+
+
+def _affinity_host_veto(w):
+    """Kind a where every candidate's pick loses its last batch pod: the
+    verify vetoes the only candidate and nothing is preempted."""
+    p = w.f.make_pod
+    _batch_node(w, "n0", 2)
+    _plain_node(w, "n1", "z1")
+    w.queue.add(p("boss", cpu="1", priority=100,
+                  affinity=_aff({"app": "batch"}, HOST)))
+    _drain(w, cycles=2)
+    return {"deleted": [], "bound": []}
+
+
+def _affinity_zone(w):
+    """Kind b: zone affinity to a team: east pod, which only zone z2
+    holds: the first node (z1) is no candidate."""
+    p = w.f.make_pod
+    _plain_node(w, "n0", "z1")
+    _batch_node(w, "n1", 2, zone="z2")
+    _plain_node(w, "n2", "z2")
+    w.queue.add(p("boss", cpu="1", priority=100,
+                  affinity=_aff({"team": "east"}, ZONE)))
+    _drain(w)
+    return {"deleted": ["n1-batch-0", "n1-batch-1"], "bound": [("boss",
+                                                                "n1")]}
+
+
+def _affinity_bootstrap(w):
+    """Kind c: zone affinity to the pod's own label, which no running pod
+    carries: both preemptors take the bootstrap rule in the first cycle
+    (n0 in z1, n1 in z2); once the first is bound on n0, the second
+    follows it into z1, to the room n0 has left."""
+    p = w.f.make_pod
+    for i, zone in enumerate(("z1", "z2", "z1", "z2")):
+        _plain_node(w, f"n{i}", zone)
+    for name in ("fresh-0", "fresh-1"):
+        w.queue.add(p(name, cpu="1", priority=100, labels={"app": "fresh"},
+                      affinity=_aff({"app": "fresh"}, ZONE)))
+    _drain(w, cycles=6)
+    return {"deleted": ["n0-low", "n1-low"],
+            "bound": [("fresh-0", "n0"), ("fresh-1", "n0")]}
+
+
+def _affinity_missing_key(w):
+    """Kind d: a self-matching term on a topology key no node carries: no
+    node is a candidate, nothing is preempted or nominated."""
+    p = w.f.make_pod
+    _batch_node(w, "n0", 3)
+    _plain_node(w, "n1", "z1")
+    w.nominated = w.sched.preempt(p(
+        "boss", cpu="1", priority=100, labels={"app": "boss"},
+        affinity=_aff({"app": "boss"}, "example.com/no-such-domain")))
+    return {"deleted": [], "bound": []}
+
+
 SCENARIOS = {
+    "affinity-host": _affinity_host,
+    "affinity-host-veto": _affinity_host_veto,
+    "affinity-zone": _affinity_zone,
+    "affinity-bootstrap": _affinity_bootstrap,
+    "affinity-missing-key": _affinity_missing_key,
     "end-to-end": _end_to_end,
     "claim-protected": _claim_protected,
     "pdb-choice": _pdb_choice,
@@ -215,8 +315,15 @@ def test_scenarios_match_jax_scheduler(which, engine):
     if which == "claim-protected":
         assert pw.nominated == "n1" and ("cheeky", "n1") not in pw.bound
         assert pw.queue.nominated_pods() == []
-    if which == "anti-affinity-veto":
-        assert pw.nominated is None and pw.sched.preemptions == []
+    if which in ("anti-affinity-veto", "affinity-missing-key",
+                 "affinity-host-veto"):
+        assert getattr(pw, "nominated", None) is None
+        assert pw.sched.preemptions == []
+    if which.startswith("affinity-") and which != "affinity-missing-key":
+        # the what-if cannot see the affinity terms: every pick is verified
+        assert pw.sched.preempt_seconds["verify"] > 0
+    if which == "affinity-host":
+        assert pw.nominated == "n1"
 
 
 @pytest.mark.parametrize("which", ["end-to-end", "pdb-choice",
@@ -345,6 +452,66 @@ def test_live_preemption_golden_file():
         data["preemptor"].tolist())
     assert sorted(data["bound_node"].tolist()) == sorted(nodes)
     assert data["unschedulable"].size == 312
+    cpu = data["requested_cpu"]
+    assert cpu.shape == (6144,) and cpu[:5000].max() == 4000.0
+    assert os.path.getsize(path) < 1 << 20
+
+
+def test_live_preemption_affinity_cell_matches_jax():
+    """chip_smoke.py phase 13b's cell cut to 200 nodes (10 batch nodes,
+    rows 0 and 100 tainted): the running pods labelled and four
+    preemptors of each kind of loop.affinity_preemptors.  Preemptions in
+    order, bindings in call order, verdicts and the requested columns
+    equal the JAX Scheduler's; picks are verified on the host; kind d
+    preempts nothing."""
+    jpre, jbind, junsched, jreq, _ = jax_preemption(200, 16, 2048,
+                                                    affinity=True)
+    nodes = loop.preemption_fleet(200)
+    res = loop.run_preemption(
+        nodes, loop.preemption_running_pods(nodes, labels=True),
+        loop.affinity_preemptors(4), 2048, device="cpu")
+    assert res["preemptions"] == jpre
+    assert res["bindings"] == jbind
+    assert res["unschedulable_pods"] == junsched
+    np.testing.assert_array_equal(res["requested"], jreq)
+    assert res["preempt_seconds"]["verify"] > 0
+    assert jpre and not any("nokey" in p[0][1] for p in jpre)
+    assert {n for n in junsched if "nokey" in n} == {
+        f"preemptor-nokey-{j}" for j in range(4)}
+
+
+def test_live_preemption_affinity_golden_file():
+    """The full-width golden chip_smoke.py phase 13b reads: preemptions of
+    3 batch pods each on untainted batch nodes, none by kind d; every
+    bound pod a preemptor; kinds b and c bound in zone 0 (b's team: east
+    zones hold batch nodes in zone 0 only; c follows its first pod's
+    zone); every kind d pod unschedulable; every node at most its 4
+    CPU."""
+    path = golden_path("live_preemption_affinity")
+    data = np.load(path)
+    assert set(data.files) == {
+        "preemptor", "preempt_node", "victim_count", "victims", "bound_pod",
+        "bound_node", "unschedulable", "requested_cpu", "nodes", "batch",
+        "preemptors"}
+    assert int(data["nodes"]) == 5000 and int(data["batch"]) == 2048
+    assert int(data["preemptors"]) == 16
+    names = {p.name for p in loop.affinity_preemptors(4)}
+    pre = data["preemptor"].tolist()
+    assert pre and set(pre) <= names
+    assert not any("nokey" in n for n in pre)
+    rows = [int(n.split("-")[1]) for n in data["preempt_node"].tolist()]
+    assert all(r % 20 == 0 and r % 50 for r in rows)
+    assert set(data["victim_count"].tolist()) == {3}
+    assert data["victims"].size == 3 * len(pre)
+    assert all(v.startswith("batch-") for v in data["victims"].tolist())
+    bound = dict(zip(data["bound_pod"].tolist(),
+                     data["bound_node"].tolist()))
+    assert bound and set(bound) <= names
+    for name, node in bound.items():
+        if "east" in name or "fresh" in name:
+            assert int(node.split("-")[1]) % 8 == 0, (name, node)
+    unsched = set(data["unschedulable"].tolist())
+    assert {f"preemptor-nokey-{j}" for j in range(4)} <= unsched
     cpu = data["requested_cpu"]
     assert cpu.shape == (6144,) and cpu[:5000].max() == 4000.0
     assert os.path.getsize(path) < 1 << 20

@@ -45,6 +45,7 @@ from kubernetes_tpu_torch.kernels import k2_cases
 from kubernetes_tpu_torch.models import preemption as pp
 
 from fixtures import TEST_DIMS
+from make_torch_golden import golden_path, jax_extender_affinity
 from torch_port_helpers import UNSCHED_KEY, twin_world
 
 
@@ -473,3 +474,39 @@ def test_k2_wrapper_refuses_cpu_tensors_and_bad_shapes():
         kernels.preempt_one(*a)
     with pytest.raises(TypeError, match="15 tensors"):
         kernels.preempt_one(*a[:10])
+
+
+def test_sidecars_answer_affinity_preemptors_alike():
+    """The port's sidecar and the JAX package's, synced over HTTP with the
+    preemption fleet at 200 nodes and its labelled running pods, answer
+    two preemptors of each of loop.affinity_preemptors' kinds a-c with
+    the same /preempt reply bodies (each reply's victims removed before
+    the next); some reply names victims."""
+    from kubernetes_tpu_torch.extender.server import ExtenderServer
+
+    want = jax_extender_affinity(200, 2)
+    got = jax_extender_affinity(200, 2,
+                                server=lambda: ExtenderServer(device="cpu"))
+    assert got["preempt_replies"] == want["preempt_replies"]
+    assert got["digests"]["preempt"] == want["digests"]["preempt"]
+    assert len(got["preempt_replies"]) == 6
+    assert any(r["nodeNameToMetaVictims"] for r in got["preempt_replies"])
+
+
+def test_extender_affinity_golden_file():
+    """The golden chip_smoke.py phase 18 holds its affinity /preempt drive
+    to: six replies (two a kind a-c) with their digests, each naming one
+    node and three batch victims."""
+    import json
+
+    data = np.load(golden_path("extender_affinity"))
+    assert set(data.files) == {"preempt", "preempt_replies", "nodes",
+                               "per_kind"}
+    assert int(data["nodes"]) == 5000 and int(data["per_kind"]) == 2
+    assert data["preempt"].shape == (6, 32)
+    for reply in data["preempt_replies"].tolist():
+        victims = json.loads(reply)["nodeNameToMetaVictims"]
+        assert len(victims) == 1
+        (meta,) = victims.values()
+        assert [v["uid"].split("/")[1].split("-")[0]
+                for v in meta["pods"]] == ["batch"] * 3
