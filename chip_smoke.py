@@ -3824,6 +3824,39 @@ def _k13_bytes(inp: dict) -> int:
     return ins + outs
 
 
+# The paths K13 picks by size (kernels/seq_scan.cu seq_scan_paths' bits)
+# that each case of the cluster's edges was made to take; every other case
+# takes the default, 1: the carried state in shared memory, one node a
+# thread, the top-k, zone sums and tie words in the pushed partials.
+_K13_PATHS = {"global-state": 0,          # the state in the workspace
+              "cluster-ragged": 1 | 2,    # two nodes a thread
+              "sample-mid-block": 1 | 4 | 8,   # top-12, 70 zone pairs
+              "aff-wide-blocks": 1 | 2 | 16}   # 33 tie words a block
+
+
+def _check_k13_paths(cases) -> None:
+    """Fails unless each K13 case takes the size-chosen paths it was made
+    for (_K13_PATHS)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch import kernels
+
+    lib = kernels.library()
+    for name, case in cases:
+        c = case["cluster"]
+        B, N = case["pods"]["valid"].shape[0], c["valid"].shape[0]
+        zk = int((np.asarray(c["pair_topo_key"]) == case["zone_key"]).sum())
+        got = lib.seq_scan_paths(
+            N, c["allocatable"].shape[1], case["ports"]["pod_ports"].shape[1],
+            B, c["topo_pairs"].shape[1], min(case["topk"], N), zk,
+            int(case.get("aff") is not None))
+        want = _K13_PATHS.get(name, 1)
+        check(got == want, f"K13 case {name}: paths {got}, made for {want} "
+              "(1 state in shared memory, 2 nodes a thread > 1, 4 top-k "
+              "and 8 zone sums through the workspace, 16 tie words past "
+              "the partial)")
+
+
 def phase_k13() -> dict:
     """K13 against its twin: the sequential engine through K13 and through
     the step loop on the card, bit for bit, on every
@@ -3844,6 +3877,7 @@ def phase_k13() -> dict:
         got, _ = k13_cases.run_case(case, "sequential", "cuda", "kernel")
         want, _ = k13_cases.run_case(case, "sequential", "cuda", "plain")
         _same_outputs(got, want, f"K13 case {name}")
+    _check_k13_paths(cases)
     floor_steps = 2048
     floor_ms = k1_bench.time_ms(
         lambda: kernels.barrier_floor_launch(floor_steps), reps=10,
@@ -3902,7 +3936,9 @@ def phase_k13() -> dict:
               f"bound_ms {d['bound_ms']:.4f} ({d['bound_by']}: bytes "
               f"{d['bytes_ms']:.5f}, {d['stages_a_step']} stages a step "
               f"{d['stages_ms']:.4f}; the kernel passes "
-              f"{d['kernel_barriers_a_step']} barriers a step) over_bound "
+              f"{d['kernel_barriers_a_step'][0]} block and "
+              f"{d['kernel_barriers_a_step'][1]} cluster stages a step) "
+              f"over_bound "
               f"{d['ms'] / d['bound_ms']:.1f}x placed {d['placed']}"
               for k, d in shapes.items()), flush=True)
     return {"cases": len(cases), "max_abs_err": 0.0, "ms": main["ms"],
@@ -4210,6 +4246,7 @@ def phase_k13_affinity(k13: dict) -> dict:
         got, _ = k13_cases.run_case(case, "sequential", "cuda", "kernel")
         want, _ = k13_cases.run_case(case, "sequential", "cuda", "plain")
         _same_outputs(got, want, f"K13 affinity case {name}")
+    _check_k13_paths(cases)
     st = _aff_batch(loop.bench_nodes(NODES, pods_per_node=2),
                     [loop.pending_pod(i, "pod-anti-affinity")
                      for i in range(BATCH)])
@@ -4270,7 +4307,9 @@ def phase_k13_affinity(k13: dict) -> dict:
           f"{plain_ms:.1f} bound_ms {out['bound_ms']:.4f} "
           f"({out['bound_by']}: bytes {bytes_ms:.5f}, {stages} stages a "
           f"step {stages_ms:.4f}; the kernel passes "
-          f"{out['kernel_barriers_a_step']} barriers a step) over_bound "
+          f"{out['kernel_barriers_a_step'][0]} block and "
+          f"{out['kernel_barriers_a_step'][1]} cluster stages a step) "
+          f"over_bound "
           f"{ms / out['bound_ms']:.1f}x placed {out['placed']}", flush=True)
     return out
 

@@ -67,8 +67,10 @@ there dispatch.  Each takes its arguments as one struct by value
 
 K13 `seq_scan` (seq_scan.cu) replaces the JAX package's models/batched.py
 schedule_impl: the sequential engine's whole scan of a batch in one
-launch, with an affinity mode that carries the in-batch pair state; its
-twin is models/batched.py `scan_plain`.  K15 `round_fold`
+launch of one thread-block cluster (its nodes spread over the cluster's
+blocks, the carried node state in their shared memory), with an affinity
+mode that carries the in-batch pair state; its twin is models/batched.py
+`scan_plain`.  K15 `round_fold`
 (round_fold.cu), K14 `round_commit` (round_commit.cu, two launches) and
 K16 `round_pairs` (round_pairs.cu) replace the parts of
 models/speculative.py _round around the selector: K15 and K14 each with
@@ -1445,12 +1447,19 @@ def nominated_lists(node: torch.Tensor, n_nodes: int):
 
 
 def seq_scan_barriers(spread: bool, limited: bool, tk: int,
-                      aff: bool = False) -> int:
-    """The block-wide barriers one K13 step passes (seq_scan.cu), by
-    option.  The function needs fewer dependent stages a step than the
-    kernel passes barriers (chip_smoke.py _k13_stages prices those)."""
-    return (9 + 4 * bool(spread) + 5 * bool(limited)
-            + (2 * tk if tk > 0 else 0) + 2 * bool(aff))
+                      aff: bool = False) -> tuple:
+    """The barriers one K13 step passes (seq_scan.cu), by option: (block
+    barriers, cluster stages).  The cluster stages are the function's
+    dependent stages (the select; the spread maxima, or with affinity the
+    fence behind the pair commits; the IPA extremes; the sample's prefix),
+    the top-k riding on the select's; each is a wait for the partials every
+    block pushed (an mbarrier's bytes, or a cluster barrier where global
+    memory must be ordered).  The block barriers gather a stage's warps:
+    the select's, the commit's; the spread's node maximum and zone sums;
+    the IPA extremes; the sample's words and their prefix."""
+    block = 2 + bool(spread) + bool(aff) + 2 * bool(limited)
+    cluster = 1 + bool(spread or aff) + bool(aff) + bool(limited)
+    return block, cluster
 
 
 def seq_scan_prepare(cluster, pods, ports, static_mask, static_score,
@@ -1534,12 +1543,6 @@ def seq_scan_prepare(cluster, pods, ports, static_mask, static_score,
     elif any(not t.is_contiguous() for t in out[:3]):
         raise ValueError("seq_scan writes its outputs in place: they must "
                          "be contiguous")
-    from kubernetes_tpu_torch.kernels._build import library
-
-    lib = library()
-    work = torch.empty(lib.seq_scan_workspace_bytes(N, PV, TP),
-                       dtype=torch.uint8, device=dev)
-    args.work = work.data_ptr()
     (args.w_least, args.w_most, args.w_bal, args.w_spread,
      args.w_rtc) = (float(x) for x in weights)
     args.w_ipa, args.hard_w = (float(x) for x in ipa)
@@ -1552,6 +1555,11 @@ def seq_scan_prepare(cluster, pods, ports, static_mask, static_score,
         raise ValueError("seq_scan: RequestedToCapacityRatio needs a curve")
     args.zone_key = int(zone_key)
     args.last_index0 = wrap_i32(last_index0)
+    from kubernetes_tpu_torch.kernels._build import library
+
+    work = torch.empty(library().seq_scan_workspace_size(args),
+                       dtype=torch.uint8, device=dev)
+    args.work = work.data_ptr()
     return args, keep + [work, out], out
 
 
@@ -1618,7 +1626,8 @@ def seq_scan(cluster, pods, ports, static_mask, static_score, spread_match,
     weight).  Returns (hosts i32[B], requested f32[N, R], nonzero_req
     f32[N, 2], (top_nodes, top_scores, top_feas) or None); see
     models/batched.py scan_plain, its twin.  Raises on anything the kernel
-    does not take and on a refused launch."""
+    does not take, on a cluster the card cannot place and on a refused
+    launch."""
     args, keep, out = seq_scan_prepare(
         cluster, pods, ports, static_mask, static_score, extra_mask,
         extra_score, spread_match, nom, feas_limit, rtc, weights, zone_key,

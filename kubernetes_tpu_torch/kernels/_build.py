@@ -113,8 +113,10 @@ def library() -> ctypes.CDLL:
 
     lib.seq_scan_launch.argtypes = [SeqScanArgs, p]
     lib.seq_scan_launch.restype = ctypes.c_int
-    lib.seq_scan_workspace_bytes.argtypes = [i, i, i]
-    lib.seq_scan_workspace_bytes.restype = ctypes.c_longlong
+    lib.seq_scan_workspace_size.argtypes = [SeqScanArgs]
+    lib.seq_scan_workspace_size.restype = ctypes.c_longlong
+    lib.seq_scan_paths.argtypes = [i] * 8
+    lib.seq_scan_paths.restype = ctypes.c_int
     from kubernetes_tpu_torch.kernels import (RoundCommitArgs, RoundFoldArgs,
                                               RoundPairsArgs)
 

@@ -138,7 +138,38 @@ def affinity_cases():
         332, 24, 40, p_match=0.7)), 432, topk=3, extra=True)))
     out.append(("aff-sample-wrap", scan_case(open_world(affinity_world(
         333, 24, 90)), 433, pct=50, last_index0=WRAP, weights=EVERY)))
+    # the cluster's edges: 150 nodes over 16 blocks of 32 threads, the
+    # later pods' pair commits (pod i on the cluster's thread i) spread
+    # over three blocks; 16,400 nodes, more tie words a block (33) than
+    # its select partial carries, and three nodes a thread
+    out.append(("aff-across-blocks", scan_case(open_world(affinity_world(
+        334, 80, 150)), 434, topk=3)))
+    out.append(("aff-wide-blocks", scan_case(open_world(affinity_world(
+        335, 8, 16400)), 435)))
     return out
+
+
+def many_zones(w: dict, Z: int = 70) -> dict:
+    """The world's first Z topology pairs made zone pairs (more than K13
+    keeps in a partial: its zone sums go through the workspace), nine
+    nodes in ten in one of them."""
+    c = w["cluster"]
+    N = c["topo_pairs"].shape[0]
+    rng = np.random.default_rng(7 * Z + N)
+    c["pair_topo_key"][:Z] = ZONE_KEY
+    c["topo_pairs"][:, :Z] = False
+    on = rng.random(N) < 0.9
+    c["topo_pairs"][np.flatnonzero(on), rng.integers(0, Z, N)[on]] = True
+    return w
+
+
+def identical_nodes(w: dict) -> dict:
+    """Every node a copy of node 0's resources, nothing requested: ties."""
+    c = w["cluster"]
+    c["allocatable"][:] = c["allocatable"][0]
+    c["requested"][:] = 0.0
+    c["nonzero_req"][:] = c["nonzero_req"][0]
+    return w
 
 
 def cases():
@@ -176,6 +207,27 @@ def cases():
     out.append(("nan-and-ties", w))
     out.append(("every-priority", scan_case(world(311, 24, 40), 411,
                                             weights=EVERY, nominated=8)))
+    # the cluster's edges (K13 spreads the nodes over 16 blocks of
+    # ceil(N / 16) nodes, up to 384 threads a block): fewer nodes than
+    # blocks; 6,500 nodes, two a thread, a ragged last block and partial
+    # warps (and three spread groups a pod, more than K13 gathers a step
+    # ahead); identical nodes tied across blocks, the counter picking a
+    # tie in a later block; a sampled row whose rotated start falls inside
+    # a block, with 70 zone pairs and a top-12 (more than a partial
+    # carries: both go through the workspace); and N x R past the blocks'
+    # shared memory, the carried state in the global workspace
+    out.append(("cluster-short", scan_case(open_world(world(312, 24, 11)),
+                                           412, topk=3)))
+    out.append(("cluster-ragged", scan_case(world(313, 24, 6500, GP=3), 413,
+                                            extra=True)))
+    w = identical_nodes(scan_case(open_world(world(314, 24, 100)), 414,
+                                  last_index0=77))
+    out.append(("ties-across-blocks", w))
+    out.append(("sample-mid-block", scan_case(
+        many_zones(open_world(world(315, 24, 300, TP=160))), 415, pct=50,
+        last_index0=45, topk=12)))
+    out.append(("global-state", scan_case(open_world(world(
+        316, 24, 1800, R=256)), 416)))
     return out
 
 

@@ -107,6 +107,28 @@ def test_k13_cases_cover_their_corners():
     assert np.isnan(names["nan-and-ties"]["extra_score"]).any()
     assert names["nominated"]["nominated"]["node"].min() == -1
     assert names["quality-past-n"]["topk"] > 5
+    # the cluster's edges: fewer nodes than 16 blocks; 6,500 nodes, more
+    # than 16 blocks of 384 threads hold one a thread, and no multiple of
+    # their 32-node warps; ties across blocks; a sampled start inside a
+    # block, with more zone pairs (64) and a wider top-k (8) than a
+    # block's partial carries; R = 256 at 1,800 nodes
+    assert names["cluster-short"]["cluster"]["valid"].shape[0] < 16
+    n_ragged = names["cluster-ragged"]["cluster"]["valid"].shape[0]
+    assert n_ragged > 16 * 384 and n_ragged % 32
+    assert names["cluster-ragged"]["pods"]["group_ids"].shape[1] == 3
+    assert (names["ties-across-blocks"]["cluster"]["allocatable"]
+            == names["ties-across-blocks"]["cluster"]["allocatable"][0]).all()
+    mid = names["sample-mid-block"]
+    assert mid["last_index0"] % 19
+    assert mid["topk"] > 8
+    assert (mid["cluster"]["pair_topo_key"] == mid["zone_key"]).sum() > 64
+    assert names["global-state"]["cluster"]["allocatable"].shape == (1800,
+                                                                     256)
+    # the affinity mode's: more pods than a block's 32 threads commit
+    # pairs for, and more than 32 tie words (1,024 nodes) a block
+    aff = dict(k13_cases.affinity_cases())
+    assert aff["aff-across-blocks"]["pods"]["valid"].shape[0] > 32
+    assert aff["aff-wide-blocks"]["cluster"]["valid"].shape[0] > 16 * 1024
     # the sampling case has more feasible nodes than the limit keeps: the
     # first pod sees exactly the limit
     from kubernetes_tpu_torch.ops.select import num_feasible_nodes_to_find
@@ -136,12 +158,24 @@ def test_cpu_tensors_take_the_twin(monkeypatch):
 
 
 def test_barrier_count_follows_the_options():
+    """(block barriers, cluster stages) a step: the select's and the
+    commit's block barriers and the select's cluster stage; the spread
+    maxima add a cluster stage and a block barrier, the sample's prefix a
+    cluster stage and two block barriers; the top-k rides on the select."""
     base = kernels.seq_scan_barriers(False, False, 0)
-    assert kernels.seq_scan_barriers(True, False, 0) == base + 4
-    assert kernels.seq_scan_barriers(False, True, 0) == base + 5
-    assert kernels.seq_scan_barriers(False, False, 3) == base + 6
+    assert base == (2, 1)
+    assert kernels.seq_scan_barriers(True, False, 0) == (base[0] + 1,
+                                                         base[1] + 1)
+    assert kernels.seq_scan_barriers(False, True, 0) == (base[0] + 2,
+                                                         base[1] + 1)
+    assert kernels.seq_scan_barriers(False, False, 3) == base
 
 
 def test_affinity_mode_adds_its_barriers():
+    """The IPA extremes are one more cluster stage and block barrier.
+    Without spread the affinity mode keeps the first cluster stage, the
+    fence behind the pair commits."""
     base = kernels.seq_scan_barriers(True, False, 0)
-    assert kernels.seq_scan_barriers(True, False, 0, True) == base + 2
+    assert kernels.seq_scan_barriers(True, False, 0, True) == (base[0] + 1,
+                                                               base[1] + 1)
+    assert kernels.seq_scan_barriers(False, False, 0, True) == (3, 3)
