@@ -238,10 +238,15 @@ printing one line of numbers; any failure exits non-zero with no result:
      Policy's weights, skip_zero_weight, shipped and group-column spread
      counts, no zones, zero maxima, InterPodAffinity with and without
      spread, ImageLocality's clamps, RTC's ends, a snapshot past one
-     block's shared memory) and on the encoder-made affinity batches, the
-     total and every row with need_per and the total without; then its
-     times at [1, 6,144], [2,048, 6,144] and on the pod-anti-affinity
-     batch at the stock weights (its IPA sums gathered);
+     block's shared memory, and the layout cases: N below the cluster's
+     blocks, a ragged last block, three nodes a thread, the extremes in
+     the last block, an invalid block, IPA min == max, zone pairs without
+     nodes, zones in every block, a ragged pod tile, the workspace at
+     12,000 zone pairs, each on the path it pins) and on the encoder-made
+     affinity batches, the total and every row with need_per and the total
+     without; then its times at [1, 6,144], [2,048, 6,144] and on the
+     pod-anti-affinity batch at the stock weights (its IPA sums gathered),
+     one launch each;
  18. the extender sidecar: the port's ExtenderServer on the card driven
      over HTTP on 127.0.0.1 by loop.drive_extender as a stock
      kube-scheduler with NodeCacheCapable: true drives it (the bench
@@ -261,7 +266,7 @@ printing one line of numbers; any failure exits non-zero with no result:
      K12 launched twice a pod; per-verb latency p50 / p99 and requests/s, the
      split of a /filter request, the syncs' seconds, and one warm /filter's
      device operations counted by torch.profiler in a child process (at
-     most 30, or the phase fails);
+     most 30 and one K12 launch, or the phase fails);
  19. the live extender: loop.run_live through the port's Scheduler with
      one HTTP extender (filter, prioritize, bind verbs) pointed at the
      port's sidecar in this process, 5,000 nodes, a 64-pod warmup batch,
@@ -304,7 +309,10 @@ printing one line of numbers; any failure exits non-zero with no result:
      tests/data/torch_port_golden_live_capacity.npz (the JAX
      Scheduler's), placements equal to a planner-off run, K8 and K9
      launched twice a solve and no solve dropped; pods/s and the hook's
-     share of the window;
+     share of the window; then K8 at the cell's own two launch shapes
+     (stage 1, per-bin over the node rows, and stage 2, uniform over
+     max_bins bins): every launch of the cell again, against its twin,
+     timed beside its bound, summed by stage;
  22. the replicas: loop.run_replicas at full width with 1 and 2 replicas,
      then the four-tenant storm with a 50-CPU quota on the flooding
      tenant: every pod placed or accounted for, no invariant violation,
@@ -806,7 +814,7 @@ def _is_k11(name: str) -> bool:
 
 
 def _is_k12(name: str) -> bool:
-    return "k12_score_pass" in name or "k12_zone_index" in name
+    return "k12_score_pass" in name
 
 
 def _is_k14(name: str) -> bool:
@@ -945,7 +953,7 @@ def _round_line(label, run, fn, out: dict, graph: bool = False) -> str:
             f"{copies} {where}K1 launches {k1_n} K1_ms {k1_ms:.4f} K1_share "
             f"{k1_ms / dev_ms:.4f} K11 launches {len(k11)} K11_ms "
             f"{sum(k11):.4f} K11_share {sum(k11) / dev_ms:.4f} K12 "
-            f"launches (zone index and pass) {len(k12)} K12_ms "
+            f"launches {len(k12)} K12_ms "
             f"{sum(k12):.4f} K12_share {sum(k12) / dev_ms:.4f} "
             f"einsum_ms {ein:.3f} einsum_share "
             f"{ein / dev_ms:.4f} matmul_ms {mm:.3f} matmul_share "
@@ -2313,10 +2321,10 @@ def _k12_bound(ct, pb, weights, all_rows: bool, need_per: bool, zone_key,
     """K12's least time on these inputs for the rows this call computes
     (every row with all_rows, else the nonzero weights'): the fields those
     rows read, the pods' preferred pair weights and the node-pair table
-    when the IPA row gathers over them, the zone index's reads
-    (the pair keys, and each node's zone-pair columns up to its zone pair)
-    and the total (with need_per the 12 rows too) written once, over the
-    memory rate; against its operations, counting only the entries that hold something (the pod's
+    when the IPA row gathers over them, each node's zone (its zone-key
+    slot of the node-pair table, and for a node in a zone its pair's
+    rank) and the total (with need_per the 12 rows too) written once,
+    over the memory rate; against its operations, counting only the entries that hold something (the pod's
     valid preferred terms and expressions against the node's label slots
     in use, its valid tolerations against the node's PreferNoSchedule
     taints, its images against the node's, the node's avoid slots, its
@@ -2390,16 +2398,16 @@ def _k12_bound(ct, pb, weights, all_rows: bool, need_per: bool, zone_key,
         # gather reads) and the table's valid rows
         in_bytes += B * _used_pairs(ct) * 4 + _table_bytes(ct)
     if 0 in rows:
-        # the zone index: the zone pairs' columns, found once from the pair
-        # keys, of each node's pair row up to its zone pair; the index
-        # written and read back
-        is_zone = ct.pair_topo_key == zone_key
-        zone = ct.topo_pairs[:, is_zone]
-        first = torch.where(zone.any(1), zone.int().argmax(1) + 1,
-                            zone.shape[1])
-        zone_walk = float(first.sum(dtype=torch.float64))
-        int_ops += is_zone.numel() + zone_walk
-        in_bytes += zone_walk + is_zone.numel() * 4 + 8 * N
+        # each node's zone: its zone-key slot of the node-pair table and,
+        # for a node in a zone, its pair's rank among the zone key's pairs
+        from kubernetes_tpu_torch.ops.predicates import node_pair_table
+
+        pairs = node_pair_table(ct)
+        zslot = pairs.slot_of(zone_key)
+        if zslot >= 0:
+            in_zone = float((pairs.table[:, zslot] >= 0).sum())
+            int_ops += N + in_zone
+            in_bytes += 4 * N + 4 * in_zone
     out = B * N * 4 * (13 if need_per else 1)
     bytes_ms = (in_bytes + out) / k1_bench.HBM_BYTES_PER_S * 1e3
     ops_ms = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
@@ -2764,10 +2772,13 @@ def phase_k12(bench: dict) -> dict:
     batches (IPA sums present), with the stock weights (need_per on and
     off), the round's (skip_zero_weight) and static_pass's (the
     state-independent rows alone); the total and every row with need_per.
+    Each case of k12_cases.layout_cases takes the path it pins
+    (kernels.score_pass_path, k12_cases.PINS) with need_per on and off.
     Then its times on the plain batch at [1, 6,144] (the sidecar's: stock
-    weights, SelectorSpread on, the zone index and the pass) and [2,048,
-    6,144] (the round's: SelectorSpread zeroed for the spread-lean batch,
-    skip_zero_weight, one launch), total only, with L2 cold and warm,
+    weights, SelectorSpread on, each node's zone from the node-pair table)
+    and [2,048, 6,144] (the round's: SelectorSpread zeroed for the
+    spread-lean batch, skip_zero_weight), one launch each, total only,
+    with L2 cold and warm,
     beside the bound of each configuration, an empty launch and its
     twin's time; and on the pod-anti-affinity batch at [2,048, 6,144]
     with the stock weights, its InterPodAffinity sums gathered over each
@@ -2779,7 +2790,7 @@ def phase_k12(bench: dict) -> dict:
     from kubernetes_tpu_torch.models.batched import static_profile
     from kubernetes_tpu_torch.ops import priorities as tpr
 
-    names = []
+    names, pinned = [], {}
     for name, case in k12_cases.cases() + [
             (n, dict(c, skip_zero_weight=False))
             for n, c in _encoded_affinity_cases()]:
@@ -2789,6 +2800,16 @@ def phase_k12(bench: dict) -> dict:
                           skip_zero_weight=case["skip_zero_weight"],
                           score_cfg=ScoreConfig(**case["score_cfg"]))
         names.append(name)
+        for need_per in (True, False):
+            all_rows = need_per and not case["skip_zero_weight"]
+            path = kernels.score_pass_path(
+                ct, pb, case["weights"], all_rows, case["zone_key"],
+                tpr.ipa_gathers(ct, pb, case["weights"], all_rows))
+            for pin in case.get("pins", ()):
+                check(k12_cases.PINS[pin](path, pb.n_pods, ct.n_nodes),
+                      f"K12: case {name} (need_per {need_per}) does not "
+                      f"take the path it pins ({pin}): {path}")
+                pinned[name] = path._asdict()
     w_stock = tpr.DEFAULT_PRIORITY_WEIGHTS
     full = []
     for batch in (2048,) + AFFINITY_WORKLOADS:
@@ -2826,8 +2847,11 @@ def phase_k12(bench: dict) -> dict:
               f"K12: the bench fleet's [{B}, {ct.n_nodes}] batch differs "
               f"from the twin")
         spread = bool(w[tpr.PRIO_INDEX["SelectorSpreadPriority"]] != 0.0)
+        path = kernels.score_pass_path(ct, pb, w, False, zk, tpr.ipa_gathers(
+            ct, pb, w, False))
         shapes[f"b{B}" if isinstance(B, int) else B] = {
-            "B": pb.n_pods, "N": ct.n_nodes, "launches": 2 if spread else 1,
+            "B": pb.n_pods, "N": ct.n_nodes, "launches": 1,
+            "path": path._asdict(),
             "weights": ("stock, SelectorSpread on" if spread else
                         "the round's, SelectorSpread zeroed")
             + ("" if isinstance(B, int) else
@@ -2840,14 +2864,21 @@ def phase_k12(bench: dict) -> dict:
     out = {**{k: main[k] for k in ("ms", "ms_warm", "plain_ms", "bound_ms",
                                    "bound_by")},
            "empty_launch_ms": empty, "max_abs_err": 0.0, "cases": len(names),
-           "full_width": full,
+           "pinned": pinned, "full_width": full,
            "shape": {k: main[k] for k in ("B", "N")}, "shapes": shapes}
     print(f"[K12] bit-identical to the twin on {len(names)} cases (total "
-          f"and rows, need_per on and off) and the bench fleet's "
+          f"and rows, need_per on and off; {len(pinned)} layout cases on "
+          f"the paths they pin: " + ", ".join(
+              f"{n} ({p['cluster']} blocks x {p['threads']} threads, "
+              f"{p['per_thread']} a thread, tile {p['tile']}, "
+              f"{'smem' if p['smem'] else 'workspace'})"
+              for n, p in pinned.items()) + ") and the bench fleet's "
           f"{', '.join(full)} batches (stock weights with need_per on and "
           f"off, the round's, static_pass's) | " + " | ".join(
               f"[{d['B']}, {d['N']}] {d['weights']} ({d['launches']} "
-              f"launches): "
+              f"launch of {d['path']['tiles']} clusters of "
+              f"{d['path']['cluster']} blocks x {d['path']['threads']} "
+              f"threads, tile {d['path']['tile']}): "
               f"cold_ms {d['ms']:.4f} warm_ms {d['ms_warm']:.4f} plain_ms "
               f"(twin on the card) {d['plain_ms']:.4f} bound_ms "
               f"{d['bound_ms']:.6f} ({d['bound_by']}; bytes_ms "
@@ -2981,6 +3012,9 @@ def phase_extender(label: str = "18 extender sidecar") -> dict:
     n_ops = sum(ops.values())
     check(n_ops <= 30, f"{label}: one /filter ran {n_ops} device "
           f"operations, above 30: {ops}")
+    check(sum(v for k, v in ops.items() if _is_k12(k)) == 1
+          and not any("zone_index" in k for k in ops),
+          f"{label}: one /filter's score pass is not one K12 launch: {ops}")
     lat = {v: res["latency"][v] for v in ("filter", "prioritize", "bind")}
     lat["preempt"] = pre["latency"]["preempt"]
     lat["preempt affinity"] = aff["latency"]["preempt"]
@@ -3612,7 +3646,11 @@ def phase_live_capacity(label: str = "21 live capacity",
     read just after: bindings, order and every solve equal to
     tests/data/torch_port_golden_live_capacity.npz (the JAX Scheduler's);
     placements equal to a planner-off run; K8 and K9 twice a solve, none
-    dropped; pods/s and the hook's share of the window."""
+    dropped; pods/s and the hook's share of the window.  Then K8 at the
+    cell's own two launch shapes (stage 1, per-bin over the node rows,
+    and stage 2, uniform over max_bins bins): every launch of the cell
+    again on its own inputs, against its twin and timed
+    (_k8_capacity_shapes)."""
     from kubernetes_tpu_torch import kernels, loop
 
     data = np.load(golden("live_capacity"))
@@ -3622,11 +3660,23 @@ def phase_live_capacity(label: str = "21 live capacity",
     kw = dict(device=device,
               make_pending=lambda i: loop.capacity_pod(i, reqs),
               running=loop.capacity_running_pods(nodes))
+    # K8's calls in the cell, by stage, with their inputs
+    k8_real, k8_calls = kernels.binpack_counts, {}
+
+    def k8_seen(reqs_, counts, caps_, order, n_bins, per_bin, *rest):
+        k8_calls.setdefault("stage 1" if per_bin else "stage 2", []).append(
+            (reqs_, counts, caps_, order, n_bins, per_bin))
+        return k8_real(reqs_, counts, caps_, order, n_bins, per_bin, *rest)
+
     kernels.reset_launch_counts()
-    res = loop.run_live(nodes, PODS, BATCH, capacity_planner=True,
-                        capacity_interval_cycles=1,
-                        node_shape_catalog=loop.shape_catalog(
-                            caps[:CAPACITY_SHAPES]), **kw)
+    kernels.binpack_counts = k8_seen
+    try:
+        res = loop.run_live(nodes, PODS, BATCH, capacity_planner=True,
+                            capacity_interval_cycles=1,
+                            node_shape_catalog=loop.shape_catalog(
+                                caps[:CAPACITY_SHAPES]), **kw)
+    finally:
+        kernels.binpack_counts = k8_real
     launches = res["launches"]
     check(np.array_equal(res["hosts"], data["hosts"])
           and np.array_equal(res["bind_order"], data["bind_order"]),
@@ -3657,7 +3707,10 @@ def phase_live_capacity(label: str = "21 live capacity",
           f"{label}: placements differ with the planner off")
     share = res["capacity_seconds"] / res["seconds"]
     reco = cap["recommendation"] or {}
-    out = {"pods_per_s": res["pods_per_s"], "seconds": res["seconds"],
+    k8_shapes = (_k8_capacity_shapes(label, k8_calls) if device == "cuda"
+                 else {})
+    out = {"k8_shapes": k8_shapes,
+           "pods_per_s": res["pods_per_s"], "seconds": res["seconds"],
            "placed": res["placed"], "solves": len(samples),
            "dispatches_in_window": d, "launches": launches,
            "capacity_seconds": res["capacity_seconds"],
@@ -3673,6 +3726,66 @@ def phase_live_capacity(label: str = "21 live capacity",
           f"{launches['binpack_counts']} K9 {launches['ffd_order']} "
           f"launches, 0 dropped | bindings and order equal to the JAX "
           f"Scheduler's and to the planner-off run", flush=True)
+    return out
+
+
+def _k8_capacity_shapes(label: str, calls: dict) -> dict:
+    """K8 at the live capacity cell's own inputs, every launch of each
+    stage again: against its twin on the card, bit for bit; its times
+    with L2 cold and warm beside its bound (its bytes; four INT32
+    operations for every (bin, requested column) admission the scan
+    evaluates on this data, the twin's count) and the twin's time.  By
+    stage: the launches, their summed cold ms, bounds and launches x gap,
+    and the slowest launch's shape and times."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.models.binpack import binpack_counts_plain
+
+    out = {}
+    for stage, stage_calls in sorted(calls.items()):
+        runs = []
+        for reqs, counts, caps, order, n_bins, per_bin in stage_calls:
+            work: dict = {}
+            twin_ms, twin = _cuda_ms(lambda: binpack_counts_plain(
+                reqs, counts, caps, order, n_bins, per_bin, work=work))
+            got = kernels.binpack_counts(reqs, counts, caps, order, n_bins,
+                                         per_bin)
+            torch.cuda.synchronize()
+            check(_bits_equal(got[0], twin[0])
+                  and _bits_equal(got[1], twin[1]),
+                  f"{label}: K8 differs from its twin on the cell's {stage}")
+            S, (C, R) = order.shape[0], reqs.shape
+            nbytes = (C * R * 4 + C * 4 + caps.numel() * 4 + S * C * 4
+                      + S * 4 + S * C * 4 + (n_bins if per_bin else 0))
+            d = _timing(lambda: kernels.binpack_counts(
+                reqs, counts, caps, order, n_bins, per_bin), twin_ms,
+                nbytes, 4 * work["bin_columns"], reps=10)
+            d.update(S=S, C=C, R=R, bins=n_bins, per_bin=per_bin,
+                     bin_columns=work["bin_columns"])
+            runs.append(d)
+        top = max(runs, key=lambda d: d["ms"])
+        out[stage] = {
+            "launches": len(runs), "per_bin": top["per_bin"],
+            "ms_sum": sum(d["ms"] for d in runs),
+            "bound_ms_sum": sum(d["bound_ms"] for d in runs),
+            "gap_ms": sum(d["ms"] - d["bound_ms"] for d in runs),
+            "slowest": {k: top[k] for k in (
+                "S", "C", "R", "bins", "ms", "ms_warm", "bound_ms",
+                "bound_by", "plain_ms", "bin_columns")}}
+    print(f"[{label} K8] every launch of the cell again, equal to its twin: "
+          + " | ".join(
+              f"{st} ({'per-bin' if d['per_bin'] else 'uniform'}; "
+              f"{d['launches']} launches): cold_ms summed {d['ms_sum']:.4f}"
+              f" bound_ms summed {d['bound_ms_sum']:.6f} launches x gap "
+              f"{d['gap_ms']:.4f} ms; the slowest S {d['slowest']['S']} C "
+              f"{d['slowest']['C']} R {d['slowest']['R']} "
+              f"{d['slowest']['bins']} bins: cold_ms "
+              f"{d['slowest']['ms']:.4f} warm_ms "
+              f"{d['slowest']['ms_warm']:.4f} bound_ms "
+              f"{d['slowest']['bound_ms']:.6f} "
+              f"({d['slowest']['bound_by']}: "
+              f"{d['slowest']['bin_columns']} admissions) plain_ms "
+              f"{d['slowest']['plain_ms']:.3f}" for st, d in out.items()),
+          flush=True)
     return out
 
 
@@ -4852,6 +4965,7 @@ def main() -> None:
                               "empty_launch_ms", "cases", "shape",
                               "bin_columns")},
         "launches_what_if": what["launches"]["binpack_counts"],
+        "capacity_shapes": live21["k8_shapes"],
     }, {
         "name": "ffd_order",
         "route": "cuda",

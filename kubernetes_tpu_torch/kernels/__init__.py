@@ -59,7 +59,9 @@ terms gathered over each node's pairs (pair_gather.cuh, the node-pair
 table `node_pair_build` makes once a snapshot upload).  K12 `score_pass`
 (score_pass.cu) replaces ops/priorities.py score_batch: the 12
 priorities, normalized per pod, and their weighted total, the IPA raw
-sums gathered the same way.  Their plain twins are ops/predicates.py
+sums gathered the same way and each node's zone read from the same table,
+in one launch of thread-block clusters over the node axis, a tile of
+pods a cluster.  Their plain twins are ops/predicates.py
 `filter_batch_plain` / `predicate_stack_plain` and ops/priorities.py
 `score_batch_plain`; `filter_batch`, `predicate_stack` and `score_batch`
 there dispatch.  Each takes its arguments as one struct by value
@@ -96,12 +98,12 @@ sequence of launches (cluster_analytics.cu launch_wide), counted once a
 call.  K8 and K10 put one kernel launch each on the stream, K9 one per
 K9_MAX_LANES lanes (counted once a call).  K11 puts one launch on the
 stream (`filter_pass_stack` also counts those in stack mode,
-`filter_pass_candidates` those in candidates mode); K12 two
-when SelectorSpread's row is on (the zone index, then the pass), else
-one, counted once a call; K13, K15 and K16 one launch, K14 two, counted
-once a round; node_pair_build one launch, once a snapshot upload.  Inside a CUDA
-graph's capture a launch queues a node and counts nothing: the capture
-records the names each wrapper counts, by section (`capturing`), the
+`filter_pass_candidates` those in candidates mode); K12 one launch of
+thread-block clusters (score_pass_paths), counted once a call; K13, K15
+and K16 one launch, K14 two, counted once a round; node_pair_build one
+launch, once a snapshot upload.  Inside a CUDA graph's capture a launch
+queues a node and counts nothing: the capture records the names each
+wrapper counts, by section (`capturing`), the
 graph's launch is recorded (`graph_launched`) with them and its device
 round count and redo flag, and `settle_launches()` adds them (once a
 round for the WHILE body, once if it redid for the IF body); read
@@ -115,6 +117,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -960,19 +963,22 @@ class FilterPassArgs(ctypes.Structure):
 
 class ScorePassArgs(ctypes.Structure):
     """score_pass.cu's ScorePassArgs, field for field: a device pointer for
-    each row of _K12_ARGS, then the other pointers, the weights, then sizes
-    and flags (int32)."""
+    each row of _K12_ARGS, then the other pointers, the weights, then sizes,
+    flags and the path (int32)."""
 
     _fields_ = ([(spec[0], ctypes.c_void_p) for spec in _K12_ARGS]
                 + [(name, ctypes.c_void_p) for name in (
-                    "zone_of_node", "ipa_w", "node_pair", "prefs_key",
+                    "node_pair", "pair_rank", "ipa_w", "prefs_key",
                     "prefs_presence", "prefs_weight", "rtc_xs", "rtc_ys",
                     "work", "total", "per")]
                 + [("w", ctypes.c_float * 12)]
                 + [(name, ctypes.c_int) for name in (
                     "b", "n", "r", "l", "t", "tt", "i", "c", "a", "g", "gp",
                     "ps", "e", "v", "tp", "kt", "n_prefs", "n_rtc", "rows",
-                    "smem_mode", "region", "na_off", "zs_off")])
+                    "zslot", "zones", "cluster", "threads", "per_thread",
+                    "tile", "slice", "smem_mode", "region", "inbox",
+                    "node_off",
+                    "na_off", "sp_off", "ipa_off", "zp_off", "zt_off")])
 
 
 def _bind_rows(name: str, specs, cluster, pods, args) -> dict:
@@ -1226,15 +1232,142 @@ def filter_pass(cluster, pods, cfg, unsched_taint_key: int, node_pair,
     return out
 
 
+# K12's layout (score_pass.cu): a thread-block cluster of K12_CLUSTER
+# blocks spreads the node axis; each cluster scores a tile of pods (the
+# kernel's static shared memory holds K12_MAX_TILE); a block's threads, at
+# most K12_MAX_THREADS, walk its slice of nodes; the block's arrays live
+# in shared memory up to K12_SMEM_BUDGET bytes, else in the global
+# workspace.  At one pod a node a thread; at a batch K12_BATCH_PER_THREAD
+# nodes a thread and the larger of K12_TILES whose block keeps its shared
+# memory within K12_TILE_SMEM (else the smaller), so that more blocks
+# share an SM (tools/k12_compare.py's sweeps on the card, PERF.md §6).
+K12_CLUSTER = 16
+K12_MAX_THREADS = 512
+K12_MAX_TILE = 32
+K12_TILES = (16, 8)
+K12_TILE_SMEM = 32 * 1024
+K12_BATCH_PER_THREAD = 2
+K12_SMEM_BUDGET = 200 * 1024
+K12_NODE_ARRAYS = 7     # a node's values the node prologue keeps
+K12_PARTS = 6           # a pod's partials a block pushes to every block
+
+
+class ScorePassPath(NamedTuple):
+    """The path one K12 launch takes (score_pass_paths)."""
+
+    cluster: int        # blocks of a cluster, over the node axis
+    threads: int        # threads a block
+    per_thread: int     # nodes a thread
+    tile: int           # pods a cluster
+    tiles: int          # clusters of the launch
+    slice: int          # nodes a block
+    region: int         # floats of a block's arrays
+    smem: bool          # the arrays in shared memory (else the workspace)
+    inbox: int          # floats of a block's inbox (shared memory)
+
+
+def _k12_layout(B, N, zones, arrays, P, C, per_thread) -> ScorePassPath:
+    S = -(-N // C)
+    S = -(-S // 32) * 32
+    T = min(-(-S // (32 * per_thread)) * 32, K12_MAX_THREADS)
+    region = K12_NODE_ARRAYS * S + arrays * P * S + 2 * P * zones
+    # the inbox: every block's K12_PARTS partials a pod and, with the
+    # arrays in shared memory, its zone partials
+    smem = (region + C * P * (K12_PARTS + zones)) * 4 <= K12_SMEM_BUDGET
+    inbox = C * P * (K12_PARTS + (zones if smem else 0))
+    return ScorePassPath(C, T, -(-S // T), P, -(-B // P), S, region, smem,
+                         inbox)
+
+
+def score_pass_paths(B: int, N: int, zones: int = 0, arrays: int = 3,
+                     tile: int = None, cluster_size: int = K12_CLUSTER,
+                     per_thread: int = None) -> ScorePassPath:
+    """The path of a K12 launch over B pods and N nodes: the node axis
+    over a cluster of K12_CLUSTER blocks (cluster_size: another build's,
+    for the tools), each a slice of N / cluster nodes (a multiple of 32),
+    per_thread nodes a thread (one at B 1, K12_BATCH_PER_THREAD past) up
+    to K12_MAX_THREADS threads and more nodes a thread past; `tile` pods a
+    cluster (at B 1 one; past, the larger of K12_TILES whose block's
+    shared memory stays within K12_TILE_SMEM, else the smaller; never
+    more than B).  A
+    block's arrays: its slice's K12_NODE_ARRAYS node values (the node
+    prologue's), `arrays` per-(pod, node) rows of the slice (the
+    NodeAffinity sums, the spread counts and the IPA raw sums, each when
+    its row is on) and, with `zones` (the zone key's pairs when
+    SelectorSpread's row is on, else 0), the pod's zone partials and
+    totals; in shared memory up to K12_SMEM_BUDGET bytes, else in the
+    workspace; and the block's inbox, in shared memory, where every block
+    of the cluster pushes its K12_PARTS partials of each pod (and its zone
+    partials, with the arrays in shared memory).  Sizes only: the CPU
+    tests check it."""
+    if B <= 0 or N <= 0 or zones < 0 or not 0 <= arrays <= 3:
+        raise ValueError(f"score_pass_paths: B={B} N={N} zones={zones} "
+                         f"arrays={arrays}")
+    C = int(cluster_size)
+    k = int(per_thread or (1 if B == 1 else K12_BATCH_PER_THREAD))
+    if tile is not None:
+        return _k12_layout(B, N, zones, arrays,
+                           max(1, min(int(tile), K12_MAX_TILE, B)), C, k)
+    for P in K12_TILES:
+        path = _k12_layout(B, N, zones, arrays, max(1, min(P, B)), C, k)
+        if (path.inbox + (path.region if path.smem else 0)) * 4 \
+                <= K12_TILE_SMEM:
+            return path
+    return path
+
+
+class _K12Plan(NamedTuple):
+    rows: int           # the priority rows computed (bit k: row k)
+    on: tuple           # the NodeAffinity, spread and IPA arrays
+    zslot: int          # the zone key's slot in the node-pair table, or -1
+    zones: int          # its pairs (0 with zslot -1)
+    path: ScorePassPath
+
+
+def _k12_plan(cluster, pods, weights, all_rows: bool, zone_key_id: int,
+              ipa: bool, tile: int = None,
+              cluster_size: int = K12_CLUSTER,
+              per_thread: int = None) -> _K12Plan:
+    """What a K12 launch computes and the path it takes, from the shapes,
+    the weights and the snapshot's node-pair table (on any device; a
+    refused table raises)."""
+    from kubernetes_tpu_torch.codec.schema import NUM_PRIORITIES
+    from kubernetes_tpu_torch.ops.predicates import node_pair_table
+
+    w = np.asarray(weights, np.float32).reshape(-1)
+    rows = ((1 << NUM_PRIORITIES) - 1 if all_rows
+            else sum(1 << i for i, x in enumerate(w) if x != 0.0))
+    pairs = node_pair_table(cluster)
+    spread = bool(rows & 1)
+    zslot = pairs.slot_of(zone_key_id) if spread else -1
+    zones = int(pairs.sizes[zslot]) if zslot >= 0 else 0
+    ps = pods.pref_weight.shape[1] if pods.pref_weight.dim() == 2 else 0
+    on = (bool((rows >> 5) & 1) and ps > 0, spread, bool(ipa))
+    return _K12Plan(rows, on, zslot, zones, score_pass_paths(
+        pods.n_pods, cluster.n_nodes, zones, sum(on), tile, cluster_size,
+        per_thread))
+
+
+def score_pass_path(cluster, pods, weights, all_rows: bool,
+                    zone_key_id: int, ipa: bool) -> ScorePassPath:
+    """The ScorePassPath a K12 launch takes on this snapshot and batch
+    (score_pass's arguments), on any device."""
+    return _k12_plan(cluster, pods, weights, all_rows, zone_key_id,
+                     ipa).path
+
+
 def score_pass_prepare(cluster, pods, weights, all_rows: bool,
                        need_per: bool, score_cfg, zone_key_id: int,
-                       node_pair):
-    """The arguments of one K12 call (see score_pass) with its outputs
-    allocated: (ScorePassArgs, the launch's other arguments, the tensors
-    they point into, (total, per)).  The launch itself
-    (score_pass_launch) allocates nothing, so a CUDA graph can capture
-    it."""
+                       ipa: bool, tile: int = None,
+                       cluster_size: int = K12_CLUSTER,
+                       per_thread: int = None):
+    """The arguments of one K12 launch (see score_pass) with its outputs
+    allocated: (ScorePassArgs, the tensors they point into, (total,
+    per)).  The launch itself (score_pass_launch) allocates nothing, so a
+    CUDA graph can capture it.  args.path holds the ScorePassPath (tile,
+    cluster_size and per_thread: score_pass_paths', for the tools)."""
     from kubernetes_tpu_torch.codec.schema import NUM_PRIORITIES
+    from kubernetes_tpu_torch.ops.predicates import node_pair_table
 
     args = ScorePassArgs()
     lean_spread = (pods.spread_counts.dim() == 2
@@ -1256,29 +1389,27 @@ def score_pass_prepare(cluster, pods, weights, all_rows: bool,
     if len(w) != NUM_PRIORITIES:
         raise ValueError(f"score_pass wants {NUM_PRIORITIES} weights, got "
                          f"{len(w)}")
-    rows = ((1 << NUM_PRIORITIES) - 1 if all_rows
-            else sum(1 << i for i, x in enumerate(w) if x != 0.0))
-    topo, ptk = cluster.topo_pairs, cluster.pair_topo_key
-    TP = int(topo.shape[1]) if topo.dim() == 2 else -1
-    if (topo.dtype != torch.bool or topo.shape != (N, TP) or TP <= 0
-            or ptk.dtype != torch.int32 or ptk.shape != (TP,)
-            or topo.device != dev or ptk.device != dev):
-        raise ValueError(f"score_pass wants topo_pairs bool[{N}, TP] and "
-                         f"pair_topo_key i32[TP] on {dev}, got "
-                         f"{topo.dtype} {tuple(topo.shape)} and "
-                         f"{ptk.dtype} {tuple(ptk.shape)}")
-    topo, ptk = topo.contiguous(), ptk.contiguous()
-    keep = [topo, ptk]
-    zone_of_node = torch.empty(N, dtype=torch.int32, device=dev)
-    args.zone_of_node = zone_of_node.data_ptr()
-    if node_pair is not None:
+    plan = _k12_plan(cluster, pods, w, all_rows, zone_key_id, ipa, tile,
+                     cluster_size, per_thread)
+    rows, path = plan.rows, plan.path
+    TP = (int(cluster.topo_pairs.shape[1])
+          if cluster.topo_pairs.dim() == 2 else -1)
+    # every node's zone and the IPA gather read the node-pair table
+    # (refused snapshots raise here)
+    pairs = node_pair_table(cluster)
+    pdims, pdev, keep = _bind("score_pass", args, [
+        ("node_pair", pairs.table, _I32, f"{N} KT"),
+        ("pair_rank", pairs.rank, _I32, f"{TP}")])
+    if pdev != dev:
+        raise ValueError(f"score_pass: the node-pair table lies on {pdev}, "
+                         f"the snapshot on {dev}")
+    args.kt = pdims["KT"]
+    if ipa:
         # the IPA raw sums: the pods' preferred pair weights gathered over
         # each node's pairs
-        pdims, _, pkeep = _bind("score_pass", args, [
-            ("ipa_w", pods.pref_pair_weights, _F32, f"{B} {TP}"),
-            ("node_pair", node_pair, _I32, f"{N} KT")])
+        _, _, pkeep = _bind("score_pass", args, [
+            ("ipa_w", pods.pref_pair_weights, _F32, f"{B} {TP}")])
         keep += pkeep
-        args.kt = pdims["KT"]
     prefs = tuple(score_cfg.label_prefs)
     if prefs and (rows >> 9) & 1:
         for field, vals, dtype in (
@@ -1308,57 +1439,64 @@ def score_pass_prepare(cluster, pods, weights, all_rows: bool,
     args.tp = TP
     args.w = (ctypes.c_float * NUM_PRIORITIES)(*w)
     args.rows = rows
-    na = N if (rows >> 5) & 1 and dims["PS"] > 0 else 0
-    zs = TP if rows & 1 else 0
-    args.region, args.na_off, args.zs_off = na + zs, 0, na
-    from kubernetes_tpu_torch.kernels._build import library
-
-    lib = library()
-    args.smem_mode = int((na + zs) * 4 <= lib.score_pass_smem_max())
+    args.zslot, args.zones, zones = plan.zslot, plan.zones, plan.zones
+    args.cluster, args.threads, args.per_thread = (path.cluster, path.threads,
+                                                   path.per_thread)
+    args.tile, args.slice, args.region = path.tile, path.slice, path.region
+    args.inbox = path.inbox
+    args.smem_mode = int(path.smem)
+    args.node_off = 0
+    at = K12_NODE_ARRAYS * path.slice
+    for field, row in zip(("na_off", "sp_off", "ipa_off"), plan.on):
+        setattr(args, field, at if row else -1)
+        at += path.tile * path.slice if row else 0
+    args.zp_off = at if zones else -1
+    args.zt_off = at + path.tile * zones if zones else -1
     work = None
-    if not args.smem_mode:
-        work = torch.empty(B * (na + zs), dtype=torch.float32, device=dev)
+    if not path.smem:
+        work = torch.empty(path.tiles * path.cluster * path.region,
+                           dtype=torch.float32, device=dev)
         args.work = work.data_ptr()
     total = torch.empty((B, N), dtype=torch.float32, device=dev)
     per = (torch.empty((B, NUM_PRIORITIES, N), dtype=torch.float32,
                        device=dev) if need_per else None)
     args.total = total.data_ptr()
     args.per = per.data_ptr() if per is not None else None
-    keep = dims["keep"] + keep + [zone_of_node, work, total, per]
-    return (args, (topo.data_ptr(), ptk.data_ptr(), int(zone_key_id)), keep,
-            (total, per))
+    args.path = path
+    keep = dims["keep"] + keep + [work, total, per]
+    return args, keep, (total, per)
 
 
-def score_pass_launch(args, extra) -> None:
-    """Queue one prepared K12 call (its one or two launches) on the current
-    stream; raises on a refused launch."""
+def score_pass_launch(args) -> None:
+    """Queue one prepared K12 launch on the current stream; raises on a
+    refused launch."""
     from kubernetes_tpu_torch.kernels._build import library
 
     lib = library()
     _launch_error(lib, "score_pass", lib.score_pass_launch(
-        args, *extra, torch.cuda.current_stream().cuda_stream))
+        args, torch.cuda.current_stream().cuda_stream))
     _count("score_pass")
 
 
 def score_pass(cluster, pods, weights, all_rows: bool, need_per: bool,
-               score_cfg, zone_key_id: int, node_pair):
+               score_cfg, zone_key_id: int, ipa: bool):
     """K12: the priorities of one score pass over the pods x nodes grid,
     on the snapshot's CUDA device.  weights: 12 f32 in PRIORITY_ORDER;
     all_rows: compute every priority (else only the nonzero weights');
-    score_cfg: the ScoreConfig (NodeLabel and RTC arguments);
-    node_pair: None (affinity-lean, or the InterPodAffinity row off) or
-    i32[N, KT] (ops/predicates.py node_pair_table): the row's raw sums
-    are the pods' preferred pair weights gathered over each node's
-    pairs.  Returns (total f32[B, N], per
-    f32[B, 12, N] with the rows off at 0, or None without need_per); see
-    ops/priorities.py score_batch_plain.  Two kernel launches when
-    SelectorSpread's row is on (the zone index first), else one.  Raises
-    on anything the kernel does not take and on a refused launch."""
-    args, extra, keep, out = score_pass_prepare(
+    score_cfg: the ScoreConfig (NodeLabel and RTC arguments); ipa: the
+    InterPodAffinity row's raw sums are the pods' preferred pair weights
+    gathered over each node's pairs (ops/priorities.py ipa_gathers).  Each
+    node's zone is its pair of the zone key in the snapshot's node-pair
+    table (ops/predicates.py node_pair_table; a refused snapshot raises).
+    Returns (total f32[B, N], per f32[B, 12, N] with the rows off at 0, or
+    None without need_per); see ops/priorities.py score_batch_plain.  One
+    kernel launch of K12_CLUSTER-block clusters.  Raises on anything the
+    kernel does not take and on a refused launch."""
+    args, keep, out = score_pass_prepare(
         cluster, pods, weights, all_rows, need_per, score_cfg, zone_key_id,
-        node_pair)
+        ipa)
     with torch.cuda.device(out[0].device):
-        score_pass_launch(args, extra)
+        score_pass_launch(args)
     return out
 
 

@@ -105,10 +105,8 @@ def library() -> ctypes.CDLL:
     lib.filter_pass_launch.restype = ctypes.c_int
     lib.node_pair_build_launch.argtypes = [p, p, i, i, i, p, p]
     lib.node_pair_build_launch.restype = ctypes.c_int
-    lib.score_pass_launch.argtypes = [ScorePassArgs, p, p, i, p]
+    lib.score_pass_launch.argtypes = [ScorePassArgs, p]
     lib.score_pass_launch.restype = ctypes.c_int
-    lib.score_pass_smem_max.argtypes = []
-    lib.score_pass_smem_max.restype = ctypes.c_int
     from kubernetes_tpu_torch.kernels import SeqScanArgs
 
     lib.seq_scan_launch.argtypes = [SeqScanArgs, p]

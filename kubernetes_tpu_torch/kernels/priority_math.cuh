@@ -31,23 +31,42 @@ __device__ __forceinline__ float fdiv_floor(float x, float d) {
 // LeastRequested's and MostRequested's sums of the two per-resource
 // scores (cap: the node's milliCPU and memory allocatable, rq: its nonzero
 // requests with the pod's); each priority is floor(sum / 2).
-__device__ __forceinline__ void least_most_sums(const float cap[2],
-                                                const float rq[2],
-                                                float& least, float& most) {
-  least = 0.f;
-  most = 0.f;
+__device__ __forceinline__ float least_sum(const float cap[2],
+                                           const float rq[2]) {
+  float least = 0.f;
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const bool off = cap[k] == 0.f || rq[k] > cap[k];
     least += off ? 0.f
                  : fdiv_floor(__fmul_rn(__fsub_rn(cap[k], rq[k]),
                                         kMaxPriority), cap[k]);
-    most += off ? 0.f : fdiv_floor(__fmul_rn(rq[k], kMaxPriority), cap[k]);
   }
+  return least;
 }
 
+__device__ __forceinline__ float most_sum(const float cap[2],
+                                          const float rq[2]) {
+  float most = 0.f;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const bool off = cap[k] == 0.f || rq[k] > cap[k];
+    most += off ? 0.f : fdiv_floor(__fmul_rn(rq[k], kMaxPriority), cap[k]);
+  }
+  return most;
+}
+
+__device__ __forceinline__ void least_most_sums(const float cap[2],
+                                                const float rq[2],
+                                                float& least, float& most) {
+  least = least_sum(cap, rq);
+  most = most_sum(cap, rq);
+}
+
+// floor(sum / 2): a division by 2 and a multiplication by 0.5 round the
+// same exact value, so the multiplication is the twin's division bit for
+// bit
 __device__ __forceinline__ float half_floor(float sum) {
-  return floorf(__fdiv_rn(sum, 2.f));
+  return floorf(__fmul_rn(sum, 0.5f));
 }
 
 // BalancedResourceAllocation

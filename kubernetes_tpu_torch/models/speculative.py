@@ -99,7 +99,7 @@ from kubernetes_tpu_torch.ops.predicates import (
 )
 from kubernetes_tpu_torch.ops.priorities import (
     MAX_PRIORITY,
-    ipa_node_pair,
+    ipa_gathers,
     pod_group_onehot,
     pod_spread_match,
     rtc_tables,
@@ -605,9 +605,9 @@ def make_speculative_scheduler(
             cl, pods_f, cfg, unsched_taint_key,
             *(pair_inputs(cluster, pods_f) if aff is None
               else (bp.node_pair, bp.aff_slot)), False)
-        a12, x12, k12, (total0, _) = kernels.score_pass_prepare(
+        a12, k12, (total0, _) = kernels.score_pass_prepare(
             cl, pods_r, st["w_use"], False, False, score_cfg, zone_key_id,
-            ipa_node_pair(cluster, pods, st["w_use"]))
+            ipa_gathers(cluster, pods, st["w_use"]))
         a15, k15, (total, mask) = kernels.round_fold_prepare(
             total0, mask0, c, pods, st["zone_of_node"],
             cluster.topo_pairs.shape[1], escore, st["feas_limit"],
@@ -635,9 +635,9 @@ def make_speculative_scheduler(
         a11s, k11s, smask = kernels.filter_pass_prepare(
             cluster, pods, static_cfg, unsched_taint_key,
             *pair_inputs(cluster, pods), False)
-        a12s, x12s, k12s, (sscore, _) = kernels.score_pass_prepare(
+        a12s, k12s, (sscore, _) = kernels.score_pass_prepare(
             cluster, pods, w_static, False, False, score_cfg, zone_key_id,
-            ipa_node_pair(cluster, pods, w_static))
+            ipa_gathers(cluster, pods, w_static))
         a13, k13, _ = kernels.seq_scan_prepare(
             cluster, pods, ports, smask, sscore, emask, escore,
             pod_spread_match(pods, cluster.group_counts.shape[1]), nom,
@@ -673,7 +673,7 @@ def make_speculative_scheduler(
                 rec.into("while")
                 with torch.cuda.stream(body):
                     kernels.filter_pass_launch(a11)
-                    kernels.score_pass_launch(a12, x12)
+                    kernels.score_pass_launch(a12)
                     kernels.round_fold_launch(a15)
                     k1()
                     if k3 is not None:
@@ -694,7 +694,7 @@ def make_speculative_scheduler(
                 rec.into("if")
                 with torch.cuda.stream(body):
                     kernels.filter_pass_launch(a11s)
-                    kernels.score_pass_launch(a12s, x12s)
+                    kernels.score_pass_launch(a12s)
                     kernels.seq_scan_launch(a13)
                 kernels.check_graph(lib, lib.graph_cond_end(
                     body.cuda_stream))

@@ -559,10 +559,21 @@ class NodePairs(NamedTuple):
     one topology pair.  table[n, k] is node n's pair of key slot k, or -1;
     keys[k] is slot k's topology key id (ascending, PAD excluded).  The
     table has max(KT, 1) columns: a snapshot without pairs gets one
-    column of -1, so the kernels always get a table."""
+    column of -1, so the kernels always get a table.  rank[p] is pair p's
+    index among the pairs of its key (-1 for PAD); host_keys and sizes are
+    keys and each slot's pair count on the host, so a launch finds a key's
+    slot (slot_of) without reading the card."""
 
     table: Any      # i32[N, KT]
     keys: Any       # i32[KT]
+    rank: Any       # i32[TP]
+    host_keys: tuple = ()
+    sizes: tuple = ()
+
+    def slot_of(self, key_id: int) -> int:
+        """The slot of topology key key_id, or -1 where no pair has it."""
+        k = int(key_id)
+        return self.host_keys.index(k) if k in self.host_keys else -1
 
 
 class BatchPairs(NamedTuple):
@@ -615,6 +626,20 @@ def pair_key_slots(pair_key):
     return keys, np.where(keys[at] == pk, at, -1).astype(np.int32)
 
 
+def pair_ranks(slot, kt: int):
+    """(rank i32[TP], sizes i64[max(kt, 1)]) on the host from the pairs'
+    key slots (numpy, pair_key_slots'): each pair's index among the pairs
+    of its slot, in pair order (-1 for a pair with no key), and each
+    slot's pair count."""
+    slot = np.asarray(slot).astype(np.int64)
+    rank = np.full(slot.shape, -1, np.int32)
+    idx = np.flatnonzero(slot >= 0)
+    by = idx[np.argsort(slot[idx], kind="stable")]
+    sorted_slot = slot[by]
+    rank[by] = np.arange(by.size) - np.searchsorted(sorted_slot, sorted_slot)
+    return rank, np.bincount(slot[idx], minlength=max(int(kt), 1))
+
+
 def check_node_pairs(topo, slot, kt: int) -> None:
     """Raise NodePairRefusal when a node of topo (bool[N, TP], numpy) lies
     in two pairs of one key slot or in a pair with no key (slot: the
@@ -651,7 +676,10 @@ def node_pair_table_plain(topo, pair_key) -> NodePairs:
         raise NodePairRefusal(_REFUSAL)
     table = torch.full((N * KT,), -1, dtype=torch.int32, device=topo.device)
     table[flat] = p_idx.to(torch.int32)
-    return NodePairs(table.view(N, KT), keys)
+    rank, sizes = pair_ranks(slot.cpu().numpy(), keys.numel())
+    return NodePairs(table.view(N, KT), keys,
+                     torch.from_numpy(rank).to(topo.device),
+                     tuple(keys.tolist()), tuple(sizes.tolist()))
 
 
 def build_node_pairs(cluster: ClusterTensors, host=None) -> None:
@@ -677,10 +705,13 @@ def build_node_pairs(cluster: ClusterTensors, host=None) -> None:
             keys, slot = pair_key_slots(host[1])
             check_node_pairs(host[0], slot, keys.size)
             dev = topo.device
+            rank, sizes = pair_ranks(slot, keys.size)
+            # the slots and the ranks in one copy
+            both = torch.from_numpy(np.stack([slot, rank])).to(dev)
             out = NodePairs(
-                kernels.node_pair_build(topo, torch.from_numpy(slot).to(dev),
-                                        keys.size),
-                torch.from_numpy(keys).to(dev))
+                kernels.node_pair_build(topo, both[0], keys.size),
+                torch.from_numpy(keys).to(dev), both[1],
+                tuple(keys.tolist()), tuple(sizes.tolist()))
         else:
             out = node_pair_table_plain(topo, ptk)
     except Exception as e:          # noqa: BLE001 - raised on read

@@ -46,7 +46,6 @@ from kubernetes_tpu_torch.codec.schema import (
 )
 from kubernetes_tpu_torch.ops.predicates import (
     _eval_exprs,
-    node_pair_table,
     tolerated_taints,
 )
 
@@ -553,15 +552,15 @@ def score_batch(cluster: ClusterTensors, pods: PodBatch, weights=None,
     all_rows = need_per and not skip_zero_weight
     return kernels.score_pass(cluster, pods, w, all_rows, need_per,
                               score_cfg, zone_key_id,
-                              ipa_node_pair(cluster, pods, w, all_rows))
+                              ipa_gathers(cluster, pods, w, all_rows))
 
 
-def ipa_node_pair(cluster: ClusterTensors, pods: PodBatch, w,
-                  all_rows: bool = False):
-    """The node-pair table K12 gathers the InterPodAffinity raw sums over
-    (ops/predicates.py node_pair_table), or None for an affinity-lean
-    batch or when the row is off (zero weight, no per rows)."""
-    if (all_rows or w[PRIO_INDEX["InterPodAffinityPriority"]] != 0.0) and \
-            pods.pref_pair_weights.shape[-1] == cluster.topo_pairs.shape[-1]:
-        return node_pair_table(cluster).table
-    return None
+def ipa_gathers(cluster: ClusterTensors, pods: PodBatch, w,
+                all_rows: bool = False) -> bool:
+    """Whether K12 gathers the InterPodAffinity raw sums over the
+    node-pair table (ops/predicates.py node_pair_table): False for an
+    affinity-lean batch or when the row is off (zero weight, no per
+    rows)."""
+    return bool((all_rows or w[PRIO_INDEX["InterPodAffinityPriority"]]
+                 != 0.0) and pods.pref_pair_weights.shape[-1]
+                == cluster.topo_pairs.shape[-1])

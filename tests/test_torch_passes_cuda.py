@@ -88,7 +88,13 @@ def test_k11_candidates_mode_matches_plain_twin_on_card():
 
 @pytest.mark.cuda
 def test_k12_matches_plain_twin_on_card():
+    """Every case and encoded batch, need_per on and off, one launch a
+    call; each layout case takes the path it pins."""
+    from kubernetes_tpu_torch import kernels
+
     _need_card()
+    kernels.reset_launch_counts()
+    calls = 0
     for name, case in k12_cases.cases() + [
             (n, dict(c, skip_zero_weight=False)) for n, c in
             _encoded_cases()]:
@@ -99,11 +105,20 @@ def test_k12_matches_plain_twin_on_card():
         for need_per in (True, False):
             got = tprio.score_batch(ct, pb, need_per=need_per, **kw)
             want = tprio.score_batch_plain(ct, pb, need_per=need_per, **kw)
+            calls += 1
             assert torch.equal(got[0].view(torch.int32),
                                want[0].view(torch.int32)), name
             if need_per:
                 assert torch.equal(got[1].view(torch.int32),
                                    want[1].view(torch.int32)), name
+            all_rows = need_per and not case["skip_zero_weight"]
+            path = kernels.score_pass_path(
+                ct, pb, case["weights"], all_rows, case["zone_key"],
+                tprio.ipa_gathers(ct, pb, case["weights"], all_rows))
+            for pin in case.get("pins", ()):
+                assert k12_cases.PINS[pin](path, pb.n_pods, ct.n_nodes), \
+                    (name, pin, path)
+    assert kernels.settle_launches()["score_pass"] == calls
 
 
 @pytest.mark.cuda
@@ -127,6 +142,9 @@ def test_node_pair_build_matches_its_twin_on_card():
         made = tpred.node_pair_table(ct)
         assert torch.equal(made.table, want.table), name
         assert torch.equal(made.keys, want.keys), name
+        assert torch.equal(made.rank.cpu(), want.rank.cpu()), name
+        assert (made.host_keys, made.sizes) == (want.host_keys,
+                                                want.sizes), name
     ct, _ = _on_card(dict(k11_cases.cases())["no-zones"])
     with pytest.raises(ValueError, match="two topology pairs"):
         tpred.node_pair_table(ct)
