@@ -219,16 +219,18 @@ printing one line of numbers; any failure exits non-zero with no result:
      labels, wildcard tolerations and PAD effects, wildcard host IPs, CSI
      per-driver columns, profile subsets, label presence and service
      affinity, padding rows, N not a multiple of 4, non-lean affinity and
-     volume terms) and on the encoder-made affinity batches of
-     k14_cases.py (the pair terms gathered over each node's pairs): the
+     volume terms, and the layout cases, each on the path it pins:
+     kernels.filter_pass_paths) and on the encoder-made affinity batches
+     of k14_cases.py (the pair terms gathered over each node's pairs): the
      stack, the mask, and filter_batch's need_per mask (the stack folded
      by K7); the node-pair table's kernel (node_pair_build) against its
      twin at full width, and its time; then its times on the bench fleet
      at [1, 6,144] in stack mode (the sidecar's), [2,048, 6,144] in mask
      mode (the engines') and on the pod-anti-affinity batch in mask mode,
      with L2 cold and warm, beside its bound (bytes and operations from
-     the shapes), an empty launch and its twin's; then its candidates mode
-     against its twin on every k11_cases.candidates_cases case, and at
+     the shapes), an empty launch and its twin's, with the path each took;
+     then its candidates mode against its twin on every
+     k11_cases.candidates_cases and layout case, and at
      [1, 6,144] on phase 13's and 13b's batches (one preemptor as
      Scheduler.preempt encodes it) beside the chain the mode replaced (K11
      stack, K7, the eager required_affinity_ok and preemption_candidates),
@@ -2541,10 +2543,12 @@ def phase_k11(bench: dict) -> dict:
     pod-anti-affinity batch at [2,048, 6,144] (mask mode, its pair terms
     gathered, and again with its pair families made lean: the pair terms'
     share) with L2 cold and warm, beside its bound, an empty launch and
-    its twin's time, and the table kernel's time beside its bytes.  Then
-    its candidates mode (_k11_candidates): every candidates case, and
-    phase 13's and 13b's batches at [1, 6,144] beside the chain the mode
-    replaced."""
+    its twin's time, and the table kernel's time beside its bytes, each
+    with the path it took (kernels.filter_pass_path).  Each case of
+    k11_cases.layout_cases takes the path it pins (k11_cases.PINS).  Then
+    its candidates mode (_k11_candidates): every candidates case and
+    layout case, and phase 13's and 13b's batches at [1, 6,144] beside the
+    chain the mode replaced."""
     import dataclasses
 
     from kubernetes_tpu_torch import kernels
@@ -2554,12 +2558,18 @@ def phase_k11(bench: dict) -> dict:
     from kubernetes_tpu_torch.ops import predicates as tp
     from kubernetes_tpu_torch.ops.priorities import DEFAULT_PRIORITY_WEIGHTS
 
-    names = []
+    names, pinned = [], {}
     for name, case in k11_cases.cases() + _encoded_affinity_cases():
         ct, pb = _case_tensors(case)
         _k11_against_twin(f"case {name}", ct, pb, FilterConfig(**case["cfg"]),
                           case["unsched_key"])
         names.append(name)
+        path = kernels.filter_pass_path(ct, pb)
+        for pin in case.get("pins", ()):
+            check(k11_cases.PINS[pin](path, pb.n_pods, ct.n_nodes),
+                  f"K11: case {name} does not take the path it pins ({pin}):"
+                  f" {path}")
+            pinned[name] = path._asdict()
     cfg = FilterConfig()
     full = []
     for batch in (2048,) + AFFINITY_WORKLOADS:
@@ -2593,6 +2603,7 @@ def phase_k11(bench: dict) -> dict:
         shapes[f"b{B}" if isinstance(B, int) else B] = {
             "B": pb.n_pods, "N": ct.n_nodes,
             "mode": "stack" if stack else "mask",
+            "path": kernels.filter_pass_path(ct, pb)._asdict(),
             "batch": "plain" if isinstance(B, int) else B,
             "ms": k1_bench.time_ms(k11, cold=True),
             "ms_warm": k1_bench.time_ms(k11, cold=False),
@@ -2620,22 +2631,25 @@ def phase_k11(bench: dict) -> dict:
     out = {**{k: main[k] for k in ("ms", "ms_warm", "plain_ms", "bound_ms",
                                    "bound_by")},
            "empty_launch_ms": empty, "max_abs_err": 0.0, "cases": len(names),
-           "full_width": full,
+           "pinned": pinned, "full_width": full,
            "shape": {k: main[k] for k in ("B", "N", "mode")},
            "shapes": shapes, "node_pair_build": table,
            "candidates_cases": cand_cases,
            "modes": {"mask": main, "stack": shapes["b1"],
                      "candidates": cand}}
-    print(f"[K11] bit-identical to the twin on {len(names)} cases and "
-          f"{len(full)} full-width batches ({', '.join(full)}), stack, mask "
-          f"and need_per mask | the node-pair table [{table['N']}, "
+    print(f"[K11] bit-identical to the twin on {len(names)} cases ("
+          f"{len(pinned)} layout cases on the paths they pin: " + ", ".join(
+              f"{n} ({_k11_path(p)})" for n, p in pinned.items())
+          + f") and {len(full)} full-width batches ({', '.join(full)}), "
+          f"stack, mask and need_per mask | the node-pair table "
+          f"[{table['N']}, "
           f"{table['KT']}] equal to its twin: cold_ms {table['ms']:.4f} "
           f"warm_ms {table['ms_warm']:.4f} plain_ms {table['plain_ms']:.4f} "
           f"bound_ms {table['bound_ms']:.6f} (bytes), the upload's host "
           f"check {table['host_check_ms']:.3f} ms (host clock) | "
           + " | ".join(
-              f"{d['batch']} [{d['B']}, {d['N']}] {d['mode']}: cold_ms "
-              f"{d['ms']:.4f} "
+              f"{d['batch']} [{d['B']}, {d['N']}] {d['mode']} (path "
+              f"{_k11_path(d['path'])}): cold_ms {d['ms']:.4f} "
               f"warm_ms {d['ms_warm']:.4f} plain_ms (twin on the card) "
               f"{d['plain_ms']:.4f} bound_ms {d['bound_ms']:.6f} "
               f"({d['bound_by']}; bytes_ms {d['bytes_ms']:.6f} ops_ms "
@@ -2649,7 +2663,8 @@ def phase_k11(bench: dict) -> dict:
     print(f"[K11 candidates] bit-identical to the twin on {cand_cases} "
           f"cases | " + " | ".join(
               f"{name} batch [{d['B']}, {d['N']}] TP {d['TP']}, "
-              f"{d['candidates']} candidates: cold_ms {d['ms']:.4f} warm_ms "
+              f"{d['candidates']} candidates (path {_k11_path(d['path'])}):"
+              f" cold_ms {d['ms']:.4f} warm_ms "
               f"{d['ms_warm']:.4f}; the chain it replaced (K11 stack, K7, "
               f"eager required_affinity_ok and preemption_candidates) "
               f"cold_ms {d['chain_ms']:.4f} warm_ms {d['chain_ms_warm']:.4f}"
@@ -2658,6 +2673,12 @@ def phase_k11(bench: dict) -> dict:
               f"{d['bytes_ms']:.6f} ops_ms {d['ops_ms']:.6f})"
               for name, d in cand.items()), flush=True)
     return out
+
+
+def _k11_path(p: dict) -> str:
+    """A FilterPassPath (as a dict) in a few words."""
+    return (f"{p['slices']} x {p['tiles']} blocks of {p['threads']} "
+            f"threads, {p['per_thread']} a thread, tile {p['tile']}")
 
 
 def _preempt_batches() -> dict:
@@ -2688,8 +2709,8 @@ def _preempt_batches() -> dict:
 def _k11_candidates():
     """K11's candidates mode (models/preemption.py preempt_eval) against
     its twin (preempt_eval_plain), bit for bit, on every case of
-    kernels/k11_cases.py candidates_cases; then on _preempt_batches'
-    two batches, where the launch and the chain it replaced (K11's stack,
+    kernels/k11_cases.py candidates_cases and layout_cases; then on
+    _preempt_batches' two batches, where the launch and the chain it replaced (K11's stack,
     K7, the eager required_affinity_ok and preemption_candidates) must
     give the twin's candidates, their times with L2 cold and warm beside
     the twin's and the mode's bound.  Returns (cases, {batch: numbers})."""
@@ -2699,7 +2720,7 @@ def _k11_candidates():
     from kubernetes_tpu_torch.models import preemption as pp
     from kubernetes_tpu_torch.ops import predicates as tp
 
-    cases = k11_cases.candidates_cases()
+    cases = k11_cases.candidates_cases() + k11_cases.layout_cases()
     for name, case in cases:
         ct, pb = _case_tensors(case)
         cfg = FilterConfig(**case["cfg"])
@@ -2739,6 +2760,7 @@ def _k11_candidates():
         out[name] = {
             "B": pb.n_pods, "N": ct.n_nodes, "TP": ct.topo_pairs.shape[1],
             "mode": "candidates", "candidates": int(want.sum()),
+            "path": kernels.filter_pass_path(ct, pb)._asdict(),
             "ms": k1_bench.time_ms(launch, cold=True),
             "ms_warm": k1_bench.time_ms(launch, cold=False),
             "chain_ms": k1_bench.time_ms(chain, cold=True),

@@ -56,7 +56,9 @@ K11 `filter_pass` (filter_pass.cu) replaces the JAX package's
 ops/predicates.py filter_batch: the 23 predicates over the pods x nodes
 grid, as the folded mask or as the stack K7 folds, the topology-pair
 terms gathered over each node's pairs (pair_gather.cuh, the node-pair
-table `node_pair_build` makes once a snapshot upload).  K12 `score_pass`
+table `node_pair_build` makes once a snapshot upload), in one launch of
+blocks over (node slices, pod tiles) on the path filter_pass_paths picks.
+K12 `score_pass`
 (score_pass.cu) replaces ops/priorities.py score_batch: the 12
 priorities, normalized per pod, and their weighted total, the IPA raw
 sums gathered the same way and each node's zone read from the same table,
@@ -945,8 +947,8 @@ _K12_ARGS = (
 
 class FilterPassArgs(ctypes.Structure):
     """filter_pass.cu's FilterPassArgs, field for field: a device pointer
-    for each row of _K11_ARGS, then the other pointers, then sizes and
-    flags (int32)."""
+    for each row of _K11_ARGS, then the other pointers, then sizes, flags
+    and the path (int32)."""
 
     _fields_ = ([(spec[0], ctypes.c_void_p) for spec in _K11_ARGS]
                 + [(name, ctypes.c_void_p) for name in (
@@ -958,7 +960,8 @@ class FilterPassArgs(ctypes.Structure):
                     "v", "vt", "dv", "dvn", "sa", "at", "pt", "vz", "vb",
                     "tp", "kt", "aff_on", "vz_on", "vb_on", "n_presence",
                     "presence_present", "n_svc", "unsched_key", "enabled",
-                    "unresolvable", "stack_mode", "vec")])
+                    "unresolvable", "stack_mode", "threads", "per_thread",
+                    "tile", "slice")])
 
 
 class ScorePassArgs(ctypes.Structure):
@@ -1056,13 +1059,74 @@ def _filter_config(cfg, vt: int) -> tuple:
 # two
 K11_MASK, K11_STACK, K11_CANDIDATES = 0, 1, 2
 
+# K11's layout (filter_pass.cu): a block owns a slice of nodes, per_thread
+# nodes a thread strided by its threads; the grid is (slices, pod tiles),
+# a block walks a tile of pods over its slice, each thread reading its
+# nodes' rows in place.  At one pod a node a thread over ceil(N /
+# K11_THREADS) blocks; at a batch K11_BATCH_PER_THREAD nodes a thread and
+# K11_TILE pods a tile, the tile halved until its affinity flags fit in
+# K11_SMEM_BUDGET bytes of dynamic shared memory (the kernel's
+# kSmemBudget, set as the function's limit beside its static arrays;
+# tools/k11_compare.py's sweeps on the card, PERF.md §6).
+K11_SMEM_BUDGET = 48 * 1024
+K11_THREADS = 128
+K11_BATCH_PER_THREAD = 2
+K11_TILE = 32
+
+
+class FilterPassPath(NamedTuple):
+    """The path one K11 launch takes (filter_pass_paths)."""
+
+    threads: int        # threads a block
+    per_thread: int     # nodes a thread
+    slice: int          # nodes a block
+    tile: int           # pods a block
+    slices: int         # blocks over the node axis
+    tiles: int          # blocks over the pod axis
+    smem: int           # dynamic shared memory bytes a block
+
+
+def filter_pass_paths(B: int, N: int, PT: int = 0,
+                      aff: bool = False) -> FilterPassPath:
+    """The path of a K11 launch over B pods and N nodes, each pod with PT
+    affinity terms that the kernel reads where `aff` (the batch is not
+    lean in them): K11_THREADS threads a block; one node a thread and one
+    pod a tile at B 1, K11_BATCH_PER_THREAD nodes a thread and K11_TILE
+    pods a tile (never more than B) past; the tile's PT affinity flags in
+    shared memory, the tile halved until they fit in K11_SMEM_BUDGET.
+    Sizes only: the CPU tests check it.  Raises where the kernel takes no
+    path (more than K11_SMEM_BUDGET bytes of affinity flags at one pod, as
+    the parent refused)."""
+    if B <= 0 or N <= 0 or PT < 0:
+        raise ValueError(f"filter_pass_paths: B={B} N={N} PT={PT}")
+    T = K11_THREADS
+    k = 1 if B == 1 else K11_BATCH_PER_THREAD
+    P = min(1 if B == 1 else K11_TILE, B)
+    flags = PT if aff else 0
+    while P > 1 and P * flags > K11_SMEM_BUDGET:
+        P //= 2
+    if P * flags > K11_SMEM_BUDGET:
+        raise ValueError(f"filter_pass: {PT} affinity terms a pod, past "
+                         f"{K11_SMEM_BUDGET} bytes of flags")
+    S = T * k
+    return FilterPassPath(T, k, S, P, -(-N // S), -(-B // P), P * flags)
+
+
+def filter_pass_path(cluster, pods) -> FilterPassPath:
+    """The FilterPassPath a K11 launch takes on this snapshot and batch (on
+    any device)."""
+    aff = pods.aff_term_pairs.shape[-1] == cluster.topo_pairs.shape[1]
+    return filter_pass_paths(
+        int(pods.valid.shape[0]), int(cluster.valid.shape[0]),
+        int(pods.aff_term_valid.shape[1]), bool(aff))
+
 
 def filter_pass_prepare(cluster, pods, cfg, unsched_taint_key: int,
                         node_pair, aff_slot, mode, unresolvable: int = 0):
     """The arguments of one K11 launch (see filter_pass) with its output
     allocated: (FilterPassArgs, the tensors they point into, out).  The
     launch itself (filter_pass_launch) allocates nothing, so a CUDA graph
-    can capture it."""
+    can capture it.  args.path holds the FilterPassPath."""
     from kubernetes_tpu_torch.codec.schema import NUM_PREDICATES
 
     mode = int(mode)
@@ -1143,10 +1207,13 @@ def filter_pass_prepare(cluster, pods, cfg, unsched_taint_key: int,
     args.enabled = enabled
     args.unresolvable = int(unresolvable)
     args.stack_mode = mode
+    p = filter_pass_paths(B, N, dims["PT"], on["aff"])
+    args.threads, args.per_thread, args.tile = p.threads, p.per_thread, p.tile
+    args.slice = p.slice
+    args.path = p
     shape = (B, NUM_PREDICATES, N) if stack else (B, N)
     out = torch.empty(shape, dtype=torch.bool, device=dev)
     args.out = out.data_ptr()
-    args.vec = int(N % 4 == 0 and out.data_ptr() % 4 == 0)
     return args, dims["keep"] + consts + pkeep + [out], out
 
 

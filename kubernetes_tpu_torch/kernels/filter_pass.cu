@@ -39,23 +39,56 @@
 // Bound: operations, at the live shapes.  The inputs are the snapshot's
 // node rows (a few hundred bytes a node) and the pods' rows, read once
 // (about 2 MB at 6,144 nodes), and the output, 1 byte a (pod, node) in
-// mask mode; the work is some hundred integer compares a (pod, node) pair
-// (label lookups over L slots, tolerations x taints, ports x ports).  So
-// the design keeps everything in registers: the grid is (B, node tiles),
-// a thread owns 4 consecutive nodes of one pod, walks the predicates and
-// keeps the verdict bits of each node in one register word.  The pod's row
-// is read through the read-only cache: every thread of a block reads the
-// same words, one broadcast transaction each; the per-pod values the
-// whole block needs (whether a toleration covers the unschedulable taint,
-// whether each affinity term matches any pair) are reduced once a block
-// into shared memory.  In mask mode a node stops at its first failure, in
-// candidates mode at its first failing unresolvable row (the answer is
-// then false) and before its walk when component 3 fails.
+// mask mode; the work is some tens of integer compares a (pod, node) pair
+// once the walks that can only pass are skipped.  The layout (the path,
+// kernels.filter_pass_paths, chosen on the host and passed in the
+// arguments): a block owns a slice of nodes, `per_thread` nodes a thread
+// strided by the block's threads, so that a warp reads and writes 32
+// consecutive nodes; the grid is (node slices, pod tiles), a block walks a
+// tile of pods over its slice: at one pod a node a thread over many
+// blocks, at a batch two nodes a thread and 32 pods a block.  A thread
+// reads its node's rows in place for each pod of the tile, from L1 after
+// the first (a copy of the slice's resource and label rows in shared
+// memory measured no faster at a batch and slower at one pod).  No
+// thread-block cluster: each (pod, node) verdict stands alone, and the
+// one per-pod value that needs a whole row (an affinity term's "matches
+// any pair") is read 16 bytes a load by a warp.  Two prologues, each once
+// a block:
+//   the pod prologue (kPodParts parts of the pod's record, a warp a part
+//     and a lane a pod, in flight together): the rows the pod passes on
+//     every node, the rows a pair walk decides, its first requests, its
+//     valid anti-affinity terms; then each valid required affinity term's
+//     "matches any pair" flag (a warp a term, the whole TP-wide row in
+//     16-byte loads, every load independent);
+//   the node prologue (a thread a node, before its pods; the first node's
+//     loads in flight beside the pod prologue's): the rows the node passes
+//     for every pod (condition, pressures, label presence, and the taint,
+//     port and disk walks where it has none of them), its first kPairRegs
+//     pairs and, for an affinity batch, whether it lies in a pair of each
+//     tile pod's forbidden pairs or valid anti-affinity terms (8 pods'
+//     gathers in flight at a time).
+// A pair then sets every row either side passes, leaves unset a row the
+// flags fail that no walk could pass, and walks the rest: Host,
+// PodFitsResources (the requests from the pod's record) and
+// GeneralPredicates inline, MatchInterPodAffinity from the node
+// prologue's gather and the affinity rules, every other walk out of line
+// (rare_walk), so that the loop's common path stays small.  A walk is
+// skipped only where its verdict is the constant it would compute on
+// every input (the argument stands beside each skip below).  The stop
+// rules are the parent's: in mask mode a pair stops at its first failure,
+// in candidates mode at its first failing unresolvable row (the answer is
+// then false) and before its walk when component 3 fails; stack mode
+// walks every row.  The order of the rows does not change a verdict: mask
+// mode reads "every row passes", candidates mode "some row fails and no
+// unresolvable one does", stack mode every row.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <set>
 
 #include "label_select.cuh"
 #include "pair_gather.cuh"
@@ -64,9 +97,18 @@ namespace {
 
 using label_select::kPad;
 
-constexpr int kThreads = 128;
-constexpr int kNodesPerThread = 4;
-constexpr int kPreds = 23;          // NUM_PREDICATES
+// the paths the kernel takes (kernels.filter_pass_paths picks within them)
+constexpr int kMaxThreads = 256;
+constexpr int kMaxPerThread = 4;
+constexpr int kMaxTile = 64;
+// kernels.K11_SMEM_BUDGET, the tile's affinity flags (dynamic shared
+// memory): set as the function's limit once a device, so that they fit
+// beside the static arrays (pods, sel) whatever their size
+constexpr long long kSmemBudget = 48 * 1024;
+constexpr int kPairRegs = 4;           // node-pair slots a thread keeps
+constexpr int kResCols = 4;            // requests a pod's record keeps
+constexpr int kSelRegs = 2;            // nodeSelector entries it keeps
+constexpr int kPreds = 23;             // NUM_PREDICATES
 constexpr uint32_t kAll = (1u << kPreds) - 1;
 enum { kMaskMode = 0, kStackMode = 1, kCandidatesMode = 2 };
 
@@ -77,6 +119,49 @@ enum {
   kServiceAffinity, kEBS, kGCE, kCSI, kAzure, kCinder, kVolumeBinding,
   kVolumeZone, kMemPressure, kPIDPressure, kDiskPressure, kInterPod
 };
+
+__host__ __device__ constexpr uint32_t bit(int k) { return 1u << k; }
+
+// the parts of GeneralPredicates
+constexpr uint32_t kGeneralParts =
+    bit(kHost) | bit(kResources) | bit(kHostPorts) | bit(kSelector);
+// the rows no pair walk can decide: the node's or the pod's flags do
+constexpr uint32_t kFlagRows =
+    bit(kCondition) | bit(kPIDPressure) | bit(kDiskPressure) |
+    bit(kLabelPresence) | bit(kMemPressure) | bit(kUnschedulable);
+// the rows walked out of line (rare_walk): every walked row but Host,
+// PodFitsResources, GeneralPredicates and MatchInterPodAffinity
+constexpr uint32_t kRareRows =
+    kAll & ~kFlagRows &
+    ~(bit(kHost) | bit(kResources) | bit(kGeneral) | bit(kInterPod));
+
+// a pod's flags (the pod prologue's)
+enum : uint32_t {
+  kPodValid = 1u << 0, kWalkAff = 1u << 1,
+  // PodMatchNodeSelector is the AND of the kSelRegs entries the tile's
+  // `sel` keeps (their count in bits kSelShift up): no required node
+  // affinity read, at most kSelRegs valid nodeSelector entries
+  kPodSimpleSel = 1u << 2
+};
+constexpr int kSelShift = 8;
+
+// With -DK11_PHASE_CLOCKS thread 0 of every block adds the SM clock spent
+// between the launch's phase marks (K11_MARK) into g_phase_clocks, read
+// back with filter_pass_phase_clocks (tools/k11_compare.py --phases).  Off
+// by default: the marks compile to nothing.
+#ifdef K11_PHASE_CLOCKS
+constexpr int kPhases = 3;
+__device__ unsigned long long g_phase_clocks[kPhases];
+#define K11_MARK(i)                                                   \
+  if (threadIdx.x == 0) {                                             \
+    long long now_;                                                   \
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(now_) :: "memory"); \
+    clocks_[i] += now_ - then_;                                       \
+    then_ = now_;                                                     \
+  }
+#else
+#define K11_MARK(i)
+#endif
 
 }  // namespace
 
@@ -161,10 +246,54 @@ struct FilterPassArgs {
   // unresolvable: the rows (bit k: predicate k) whose failure preemption
   // cannot fix, read in candidates mode
   int n_presence, presence_present, n_svc, unsched_key, enabled,
-      unresolvable, stack_mode, vec;
+      unresolvable, stack_mode;
+  // the path (kernels.filter_pass_paths): threads a block, nodes a thread,
+  // pods a tile, nodes a block (threads x per_thread)
+  int threads, per_thread, tile, slice;
 };
 
 namespace {
+
+// The pod prologue's values of one pod of a tile.  pass: the rows (bit
+// k: predicate k) the pod passes on every node; walk: the rows a pair
+// walk decides where neither side's flags pass them (a row in neither
+// fails on the flags alone).
+struct PodInfo {
+  uint32_t flags;
+  uint32_t pass;
+  uint32_t walk;
+  uint32_t res;       // resource columns c < 32 the pod requests (> 0)
+  uint32_t vol;       // attach-count columns c < 32 whose vol_ok it walks
+  int name_req;
+  float rx[kResCols]; // the requests of res's first kResCols columns
+  uint32_t anti;      // its valid anti-affinity terms k < 32
+};
+
+// The node prologue's values of one node.  pass: the rows the node
+// passes for every pod.
+struct NodeInfo {
+  bool valid;
+  uint32_t pass;
+  int name;
+  int pairs[kPairRegs];   // node_pair[n, k] for k < min(KT, kPairRegs)
+};
+
+// Node n's label slots.
+__device__ __forceinline__ label_select::Slots slots_of(
+    const FilterPassArgs& a, int n) {
+  const size_t o = (size_t)n * a.l;
+  return {a.label_keys + o, a.label_vals + o, a.label_nums + o, a.l,
+          a.node_name_id + n};
+}
+
+// The value id node_label_value gives `key` on the node of `slots`.
+__device__ __forceinline__ int label_id(const label_select::Slots& slots,
+                                        int key) {
+  int v;
+  float unused;
+  label_select::slot_value(slots, key, &v, &unused);
+  return v;
+}
 
 // _node_label_value: the max over every slot of its value where it holds
 // `key` and PAD where not, or PAD when no slot holds it; no node-name
@@ -183,18 +312,39 @@ __device__ __forceinline__ int svc_label_value(const FilterPassArgs& a,
   return any ? v : kPad;
 }
 
+// CheckServiceAffinity with the profile's labels (n_svc > 0): each label's
+// value on node n equals the pod's fixed value, or else the value on the
+// node its service's first pod runs on (src) where that node has it.
+__device__ __noinline__ bool service_ok(const FilterPassArgs& a, int b,
+                                        int n) {
+  const int d0 = __ldg(a.svc_aff_d0 + b), d1 = __ldg(a.svc_aff_d1 + b);
+  const int src = d0 == n ? d1 : d0;
+  bool ok = true;
+  for (int k = 0; k < a.n_svc && ok; ++k) {
+    const int key = __ldg(a.svc_labels + k);
+    const int vn = svc_label_value(a, n, key);
+    const int fixed = __ldg(a.svc_aff_fixed + (size_t)b * a.sa + k);
+    if (fixed != kPad) {
+      ok = vn == fixed;
+    } else if (src >= 0) {
+      const int vs = svc_label_value(a, src, key);
+      ok = vs == kPad || vn == vs;
+    }
+  }
+  return ok;
+}
+
 // PodMatchNodeSelector: the nodeSelector map AND the required node
 // affinity (an OR of terms, each an AND of expressions; an empty term
 // matches nothing)
-__device__ bool selector_ok(const FilterPassArgs& a, int b, int n) {
-  const label_select::LabelRows lr{a.label_keys, a.label_vals, a.label_nums,
-                                   a.node_name_id, a.l};
+__device__ __noinline__ bool selector_ok(const FilterPassArgs& a, int b,
+                                         label_select::Slots slots) {
   for (int i = 0; i < a.ns; ++i) {
     const size_t k = (size_t)b * a.ns + i;
     if (!__ldg(a.ns_valid + k)) continue;
     int nv;
     float nn;
-    label_select::label_value(lr, n, __ldg(a.ns_keys + k), &nv, &nn);
+    label_select::slot_value(slots, __ldg(a.ns_keys + k), &nv, &nn);
     if (nv != __ldg(a.ns_vals + k)) return false;
   }
   if (a.s == 0 || !__ldg(a.has_req_affinity + b)) return true;
@@ -208,28 +358,49 @@ __device__ bool selector_ok(const FilterPassArgs& a, int b, int n) {
     for (int e = 0; e < a.e; ++e) {
       const size_t i = ts * a.e + e;
       nonempty |= __ldg(a.expr_valid + i) != 0;
-      if (all && !label_select::eval_expr(lr, ex, n, i)) all = false;
+      if (all && !label_select::eval_expr_at(slots, ex, i)) all = false;
     }
     if (nonempty && all) return true;
   }
   return false;
 }
 
-__device__ __forceinline__ bool resources_ok(const FilterPassArgs& a, int b,
-                                             int n) {
-  const float* rq = a.req + (size_t)b * a.r;
+// PodFitsResources: no column the pod requests (> 0) overflows.  A column
+// with a request <= 0 or NaN passes on every node (the parent's test is
+// `x > 0 && used + x > alloc`), so only the columns of the pod's `res`
+// are walked below 32, the first kResCols of them with the requests its
+// record keeps; the columns from 32 are tested as the parent does.
+__device__ __forceinline__ bool resources_ok(const FilterPassArgs& a, int n,
+                                             int b, const PodInfo& pi) {
   const float* used = a.requested + (size_t)n * a.r;
   const float* alloc = a.allocatable + (size_t)n * a.r;
-  for (int i = 0; i < a.r; ++i) {
-    const float x = __ldg(rq + i);
-    if (x > 0.f && __fadd_rn(__ldg(used + i), x) > __ldg(alloc + i))
+  // the record's columns first, their loads in flight together
+  uint32_t m = pi.res;
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < kResCols; ++i) {
+    const int c = m ? __ffs(m) - 1 : 0;
+    if (m)
+      ok &= !(__fadd_rn(__ldg(used + c), pi.rx[i]) > __ldg(alloc + c));
+    m &= m - 1;
+  }
+  if (!ok) return false;
+  const float* rq = a.req + (size_t)b * a.r;
+  for (; m; m &= m - 1) {
+    const int c = __ffs(m) - 1;
+    if (__fadd_rn(__ldg(used + c), __ldg(rq + c)) > __ldg(alloc + c))
+      return false;
+  }
+  for (int c = 32; c < a.r; ++c) {
+    const float x = __ldg(rq + c);
+    if (x > 0.f && __fadd_rn(__ldg(used + c), x) > __ldg(alloc + c))
       return false;
   }
   return true;
 }
 
-__device__ __forceinline__ bool ports_ok(const FilterPassArgs& a, int b,
-                                         int n) {
+__device__ __noinline__ bool ports_ok(const FilterPassArgs& a, int b,
+                                      int n) {
   const int* npp = a.node_port_pp + (size_t)n * a.p;
   const int* nip = a.node_port_ip + (size_t)n * a.p;
   const uint8_t* nused = a.node_port_used + (size_t)n * a.p;
@@ -246,8 +417,8 @@ __device__ __forceinline__ bool ports_ok(const FilterPassArgs& a, int b,
   return true;
 }
 
-__device__ __forceinline__ bool disk_ok(const FilterPassArgs& a, int b,
-                                        int n) {
+__device__ __noinline__ bool disk_ok(const FilterPassArgs& a, int b,
+                                     int n) {
   const int* nv = a.node_disk_ids + (size_t)n * a.dvn;
   for (int d = 0; d < a.dv; ++d) {
     const int x = __ldg(a.disk_ids + (size_t)b * a.dv + d);
@@ -258,12 +429,12 @@ __device__ __forceinline__ bool disk_ok(const FilterPassArgs& a, int b,
   return true;
 }
 
-// (NoSchedule/NoExecute ok, NoExecute ok): every considered taint of the
-// node is tolerated by some toleration of the pod (ToleratesTaint)
-__device__ __forceinline__ void taints_ok(const FilterPassArgs& a, int b,
-                                          int n, bool* sched, bool* exec) {
-  *sched = true;
-  *exec = true;
+// (NoSchedule/NoExecute ok, NoExecute ok) as bits 0 and 1: every
+// considered taint of the node is tolerated by some toleration of the pod
+// (ToleratesTaint)
+__device__ __noinline__ int taints_ok(const FilterPassArgs& a, int b,
+                                      int n) {
+  bool sched = true, exec = true;
   for (int t = 0; t < a.t; ++t) {
     const size_t nt = (size_t)n * a.t + t;
     const int eff = __ldg(a.taint_effect + nt);
@@ -278,10 +449,11 @@ __device__ __forceinline__ void taints_ok(const FilterPassArgs& a, int b,
             (__ldg(a.tol_op + k) == 1 || __ldg(a.tol_val + k) == val);
     }
     if (!tol) {
-      *sched = false;
-      if (eff == 2) *exec = false;
+      sched = false;
+      if (eff == 2) exec = false;
     }
   }
+  return (sched ? 1 : 0) | (exec ? 2 : 0);
 }
 
 // min that keeps a NaN operand, as torch.minimum
@@ -290,8 +462,8 @@ __device__ __forceinline__ float min_nan(float x, float y) {
 }
 
 // one attach-count column of max_volume_counts
-__device__ __forceinline__ bool vol_ok(const FilterPassArgs& a, int b, int n,
-                                       int c) {
+__device__ __noinline__ bool vol_ok(const FilterPassArgs& a, int b, int n,
+                                    int c) {
   float nw = __ldg(a.new_vol_counts + (size_t)b * a.vt + c);
   if (a.vol_overlap) {
     nw = __fsub_rn(nw, __ldg(a.vol_overlap + ((size_t)b * a.vt + c) * a.n + n));
@@ -303,286 +475,669 @@ __device__ __forceinline__ bool vol_ok(const FilterPassArgs& a, int b, int n,
   return !(nw > 0.f && __fadd_rn(used, nw) > lim);
 }
 
+// vol_ok where the pod prologue says the column can fail (`vol`), else
+// its constant true
+__device__ __forceinline__ bool vol_col_ok(const FilterPassArgs& a, int b,
+                                           int n, uint32_t vol, int c) {
+  return (c < 32 && !((vol >> c) & 1u)) || vol_ok(a, b, n, c);
+}
+
+// Is any of the node's kPairRegs slots' pairs set in row (bool[TP])?
+// Every slot's byte is read, byte 0 for a slot without a pair (its value
+// unused), so that the loads wait on no branch: the form the gathers
+// below unroll.  K11 writes no pair row, so they go through the
+// read-only cache.
+__device__ __forceinline__ bool regs_hit(const uint8_t* row,
+                                         const NodeInfo& nd) {
+  bool hit = false;
+#pragma unroll
+  for (int k = 0; k < kPairRegs; ++k) {
+    const int q = nd.pairs[k];
+    const uint8_t v = __ldg(row + max(q, 0));
+    hit |= q >= 0 && v != 0;
+  }
+  return hit;
+}
+
+// Is any of node n's pairs set in row (bool[TP])?  The first kPairRegs
+// slots from the node prologue's registers, else the table.
+__device__ __forceinline__ bool node_hit(const FilterPassArgs& a,
+                                         const uint8_t* row,
+                                         const NodeInfo& nd, int n) {
+  if (a.kt <= kPairRegs) return regs_hit(row, nd);
+  return pair_gather::any_hit(row, a.node_pair + (size_t)n * a.kt, a.kt);
+}
+
 // AND over terms of "the node is in one of the term's pairs" (an invalid
-// term passes); a lean batch (!on) passes
-__device__ __forceinline__ bool pair_terms_ok(const FilterPassArgs& a, int b,
-                                              int n, bool on,
-                                              const uint8_t* pairs,
-                                              int k_terms,
-                                              const uint8_t* term_valid) {
-  if (!on) return true;
-  const int* np = a.node_pair + (size_t)n * a.kt;
+// term passes)
+__device__ __noinline__ bool pair_terms_ok(const FilterPassArgs& a, int b,
+                                           int n, NodeInfo nd,
+                                           const uint8_t* pairs, int k_terms,
+                                           const uint8_t* term_valid) {
   for (int k = 0; k < k_terms; ++k)
     if (__ldg(term_valid + (size_t)b * k_terms + k) &&
-        !pair_gather::any_hit(pairs + ((size_t)b * k_terms + k) * a.tp, np,
-                              a.kt))
+        !node_hit(a, pairs + ((size_t)b * k_terms + k) * a.tp, nd, n))
       return false;
   return true;
 }
 
 // Component 3 of MatchInterPodAffinity (the twin's required_affinity_ok):
-// every valid required affinity term of the pod holds on node n; an
-// affinity-lean batch passes.  any_match[k]: term k matches some pair
-// (the block's scan).
-__device__ bool aff_rules_ok(const FilterPassArgs& a, int b, int n,
-                             const uint8_t* any_match) {
-  if (!a.aff_on) return true;
-  const int* np = a.node_pair + (size_t)n * a.kt;
+// every valid required affinity term of the pod holds on node n.
+// any_match[k]: term k matches some pair (the pod prologue's scan).
+__device__ __noinline__ bool aff_rules_ok(const FilterPassArgs& a, int b,
+                                          int n, NodeInfo nd,
+                                          const uint8_t* any_match) {
   for (int k = 0; k < a.pt; ++k) {
     const size_t i = (size_t)b * a.pt + k;
     if (!__ldg(a.aff_term_valid + i) ||
-        pair_gather::any_hit(a.aff_term_pairs + i * a.tp, np, a.kt))
+        node_hit(a, a.aff_term_pairs + i * a.tp, nd, n))
       continue;
     // the bootstrap: no pair matches the term anywhere, the pod matches
     // it itself, and the node has the term's key
     if (!any_match[k] && __ldg(a.aff_term_self + i) &&
-        pair_gather::pair_of(np, __ldg(a.aff_slot + i)) >= 0)
+        pair_gather::pair_of(a.node_pair + (size_t)n * a.kt,
+                             __ldg(a.aff_slot + i)) >= 0)
       continue;
     return false;
   }
   return true;
 }
 
-// MatchInterPodAffinity: the existing pods' anti-affinity (forbidden
-// pairs), the pod's own anti-affinity terms, then component 3
-__device__ bool inter_pod_ok(const FilterPassArgs& a, int b, int n,
-                             const uint8_t* any_match) {
-  if (!a.aff_on) return true;
-  const int* np = a.node_pair + (size_t)n * a.kt;
-  if (pair_gather::any_hit(a.forbidden_pairs + (size_t)b * a.tp, np, a.kt))
-    return false;
-  for (int k = 0; k < a.at; ++k)
-    if (__ldg(a.anti_term_valid + (size_t)b * a.at + k) &&
-        pair_gather::any_hit(
-            a.anti_term_pairs + ((size_t)b * a.at + k) * a.tp, np, a.kt))
-      return false;
-  return aff_rules_ok(a, b, n, any_match);
+// Does node n lie in a pair of the pod's forbidden pairs (unless
+// terms_only) or of one of its valid anti-affinity terms
+// (MatchInterPodAffinity's first two components)?  anti: the valid terms
+// below 32; the rest are read.
+__device__ __forceinline__ bool anti_hit(const FilterPassArgs& a, int b,
+                                         int n, const NodeInfo& nd,
+                                         uint32_t anti, bool terms_only) {
+  bool hit = !terms_only &&
+             node_hit(a, a.forbidden_pairs + (size_t)b * a.tp, nd, n);
+  for (uint32_t m = anti; m; m &= m - 1)
+    hit |= node_hit(
+        a, a.anti_term_pairs + ((size_t)b * a.at + __ffs(m) - 1) * a.tp, nd,
+        n);
+  for (int k = 32; k < a.at; ++k)
+    hit |= __ldg(a.anti_term_valid + (size_t)b * a.at + k) &&
+           node_hit(a, a.anti_term_pairs + ((size_t)b * a.at + k) * a.tp, nd,
+                    n);
+  return hit;
 }
 
-// The verdict bits of node n for pod b (bit k: predicate k passes).  It
-// returns at the first failure of a row in `stop` (every row in mask mode,
-// none in stack mode, the unresolvable rows in candidates mode), the bits
-// of the rows not yet walked unset.
-__device__ uint32_t eval_node(const FilterPassArgs& a, int b, int n,
-                              bool tol_unsched, const uint8_t* any_match,
-                              uint32_t stop) {
-  const uint32_t en = (uint32_t)a.enabled;
-  uint32_t bits = ~en & kAll;
-#define K11_ON(k) ((en >> (k)) & 1u)
+// Bit p: node n lies in a pair of the forbidden pairs or of a valid
+// anti-affinity term of pod b0 + p, for the tile's np pods (anti_hit's
+// answer).  Where the node's pairs sit in registers (KT <= kPairRegs), in
+// passes whose loads wait on no branch, 8 pods at a time: every pod's
+// forbidden row; the first valid term's row of each pod that has one
+// (first: those pods); then the rest of the terms of the pods that have
+// more (more: those pods, rare), by anti_hit.
+__device__ __forceinline__ uint64_t forbidden_bits(
+    const FilterPassArgs& a, const PodInfo* pods, int b0, int np,
+    uint64_t first, uint64_t more, int n, const NodeInfo& nd) {
+  uint64_t hit = 0;
+  if (a.kt > kPairRegs) {
+    for (int p = 0; p < np; ++p)
+      if (anti_hit(a, b0 + p, n, nd, pods[p].anti, false)) hit |= 1ull << p;
+    return hit;
+  }
+  for (int p0 = 0; p0 < np; p0 += 8) {
+    bool h[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int p = min(p0 + u, np - 1);
+      h[u] = regs_hit(a.forbidden_pairs + (size_t)(b0 + p) * a.tp, nd);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (h[u] && p0 + u < np) hit |= 1ull << (p0 + u);
+  }
+  for (uint64_t m = first; m;) {
+    int ps[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      ps[u] = m ? __ffsll((long long)m) - 1 : -1;
+      m &= m - 1;
+    }
+    bool h[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int p = ps[u] >= 0 ? ps[u] : ps[0];
+      h[u] = regs_hit(a.anti_term_pairs +
+                          ((size_t)(b0 + p) * a.at + __ffs(pods[p].anti) - 1) *
+                              a.tp,
+                      nd);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (h[u] && ps[u] >= 0) hit |= 1ull << ps[u];
+  }
+  for (uint64_t m = more & ~hit; m; m &= m - 1) {
+    const int p = __ffsll((long long)m) - 1;
+    const uint32_t anti = pods[p].anti;
+    if (anti_hit(a, b0 + p, n, nd, anti & (anti - 1), true))
+      hit |= 1ull << p;
+  }
+  return hit;
+}
+
+// The rows of `rows` a pair walk decides beyond Host, PodFitsResources
+// and MatchInterPodAffinity, in the parent's order, out of line (a small
+// loop body keeps the hot path in the instruction cache): bit k of the
+// result is set where row k passes; the walk returns at the first failure
+// of a row in `stop`, the rows not yet walked unset.  `parts`:
+// GeneralPredicates' parts it also needs (HostPorts, PodMatchNodeSelector)
+// whatever `rows` holds, their failures never stopping it.
+__device__ __noinline__ uint32_t rare_walk(const FilterPassArgs& a, int n,
+                                           int b, PodInfo pi,
+                                           NodeInfo nd,
+                                           const uint8_t* any_match,
+                                           uint32_t rows, uint32_t parts,
+                                           uint32_t stop) {
+  uint32_t w = 0;
+#define K11_DO(k) ((rows >> (k)) & 1u)
 #define K11_SET(k, ok)                        \
   do {                                        \
-    if (ok) bits |= 1u << (k);                \
-    else if ((stop >> (k)) & 1u) return bits; \
+    if (ok) w |= bit(k);                      \
+    else if ((stop >> (k)) & 1u) return w;    \
   } while (0)
-  // node-only and per-pod flags first: the cheap rows
-  if (K11_ON(kCondition)) K11_SET(kCondition, !__ldg(a.not_ready + n));
-  if (K11_ON(kMemPressure))
-    K11_SET(kMemPressure,
-            !(__ldg(a.best_effort + b) && __ldg(a.mem_pressure + n)));
-  if (K11_ON(kPIDPressure)) K11_SET(kPIDPressure, !__ldg(a.pid_pressure + n));
-  if (K11_ON(kDiskPressure))
-    K11_SET(kDiskPressure, !__ldg(a.disk_pressure + n));
-  if (K11_ON(kUnschedulable))
-    K11_SET(kUnschedulable, !(__ldg(a.unschedulable + n) && !tol_unsched));
-  const bool general = K11_ON(kGeneral);
-  bool host = true, res = true, ports = true, sel = true;
-  if (general || K11_ON(kHost)) {
-    const int want = __ldg(a.node_name_req + b);
-    host = want == kPad || want == __ldg(a.node_name_id + n);
-    if (K11_ON(kHost)) K11_SET(kHost, host);
-  }
-  if (general || K11_ON(kResources)) {
-    res = resources_ok(a, b, n);
-    if (K11_ON(kResources)) K11_SET(kResources, res);
-  }
-  if (K11_ON(kEBS)) K11_SET(kEBS, vol_ok(a, b, n, 0));
-  if (K11_ON(kGCE)) K11_SET(kGCE, vol_ok(a, b, n, 1));
-  if (K11_ON(kCSI)) {
+  if (K11_DO(kEBS)) K11_SET(kEBS, vol_col_ok(a, b, n, pi.vol, 0));
+  if (K11_DO(kGCE)) K11_SET(kGCE, vol_col_ok(a, b, n, pi.vol, 1));
+  if (K11_DO(kCSI)) {
     // the named CSI predicate folds the generic column and every
     // per-driver column
-    bool ok = vol_ok(a, b, n, 2);
-    for (int c = 5; c < a.vt && ok; ++c) ok = vol_ok(a, b, n, c);
+    bool ok = vol_col_ok(a, b, n, pi.vol, 2);
+    for (int c = 5; c < a.vt && ok; ++c) ok = vol_col_ok(a, b, n, pi.vol, c);
     K11_SET(kCSI, ok);
   }
-  if (K11_ON(kAzure)) K11_SET(kAzure, vol_ok(a, b, n, 3));
-  if (K11_ON(kCinder)) K11_SET(kCinder, vol_ok(a, b, n, 4));
-  if (K11_ON(kVolumeBinding))
-    K11_SET(kVolumeBinding,
-            !__ldg(a.vol_fail_all + b) &&
-                pair_terms_ok(a, b, n, a.vb_on, a.vol_bind_pairs, a.vb,
-                              a.vol_bind_valid));
-  if (K11_ON(kVolumeZone))
-    K11_SET(kVolumeZone,
-            pair_terms_ok(a, b, n, a.vz_on, a.vol_zone_pairs, a.vz,
-                          a.vol_zone_valid));
-  if (general || K11_ON(kHostPorts)) {
-    ports = ports_ok(a, b, n);
-    if (K11_ON(kHostPorts)) K11_SET(kHostPorts, ports);
+  if (K11_DO(kAzure)) K11_SET(kAzure, vol_col_ok(a, b, n, pi.vol, 3));
+  if (K11_DO(kCinder)) K11_SET(kCinder, vol_col_ok(a, b, n, pi.vol, 4));
+  if (K11_DO(kVolumeBinding))
+    K11_SET(kVolumeBinding, pair_terms_ok(a, b, n, nd, a.vol_bind_pairs,
+                                          a.vb, a.vol_bind_valid));
+  if (K11_DO(kVolumeZone))
+    K11_SET(kVolumeZone, pair_terms_ok(a, b, n, nd, a.vol_zone_pairs, a.vz,
+                                       a.vol_zone_valid));
+  if (K11_DO(kHostPorts) || ((parts >> kHostPorts) & 1u)) {
+    const bool ok = ports_ok(a, b, n);
+    if (K11_DO(kHostPorts)) K11_SET(kHostPorts, ok);
+    else if (ok) w |= bit(kHostPorts);
   }
-  if (K11_ON(kDiskConflict)) K11_SET(kDiskConflict, disk_ok(a, b, n));
-  if (K11_ON(kTaints) || K11_ON(kNoExecute)) {
-    bool sched, exec;
-    taints_ok(a, b, n, &sched, &exec);
-    if (K11_ON(kTaints)) K11_SET(kTaints, sched);
-    if (K11_ON(kNoExecute)) K11_SET(kNoExecute, exec);
+  if (K11_DO(kDiskConflict)) K11_SET(kDiskConflict, disk_ok(a, b, n));
+  if (K11_DO(kTaints) || K11_DO(kNoExecute)) {
+    const int ok = taints_ok(a, b, n);
+    if (K11_DO(kTaints)) K11_SET(kTaints, ok & 1);
+    if (K11_DO(kNoExecute)) K11_SET(kNoExecute, ok & 2);
   }
-  if (K11_ON(kLabelPresence)) {
-    bool ok = true;
-    const int* lk = a.label_keys + (size_t)n * a.l;
-    for (int i = 0; i < a.n_presence && ok; ++i) {
-      const int key = __ldg(a.presence_keys + i);
-      bool present = false;
-      for (int j = 0; j < a.l; ++j) present |= __ldg(lk + j) == key;
-      ok = present == (a.presence_present != 0);
-    }
-    K11_SET(kLabelPresence, ok);
+  if (K11_DO(kServiceAffinity))
+    K11_SET(kServiceAffinity, service_ok(a, b, n));
+  if (K11_DO(kSelector) || ((parts >> kSelector) & 1u)) {
+    const bool ok = selector_ok(a, b, slots_of(a, n));
+    if (K11_DO(kSelector)) K11_SET(kSelector, ok);
+    else if (ok) w |= bit(kSelector);
   }
-  if (K11_ON(kServiceAffinity)) {
-    bool ok = true;
-    if (a.n_svc > 0) {
-      const int d0 = __ldg(a.svc_aff_d0 + b), d1 = __ldg(a.svc_aff_d1 + b);
-      const int src = d0 == n ? d1 : d0;
-      for (int j = 0; j < a.n_svc && ok; ++j) {
-        const int key = __ldg(a.svc_labels + j);
-        const int vn = svc_label_value(a, n, key);
-        const int fixed = __ldg(a.svc_aff_fixed + (size_t)b * a.sa + j);
-        if (fixed != kPad) {
-          ok = vn == fixed;
-        } else if (src >= 0) {
-          const int vs = svc_label_value(a, src, key);
-          ok = vs == kPad || vn == vs;
-        }
-      }
-    }
-    K11_SET(kServiceAffinity, ok);
-  }
-  if (general || K11_ON(kSelector)) {
-    sel = selector_ok(a, b, n);
-    if (K11_ON(kSelector)) K11_SET(kSelector, sel);
-  }
-  if (general) K11_SET(kGeneral, res && host && ports && sel);
-  if (K11_ON(kInterPod)) K11_SET(kInterPod, inter_pod_ok(a, b, n, any_match));
 #undef K11_SET
-#undef K11_ON
+#undef K11_DO
+  return w;
+}
+
+// The verdict bits of node n (node j of the slice) for pod b (bit k:
+// predicate k passes; a row the profile disables reads true).  A row
+// either side's flags pass is set without a walk; a row they fail, and
+// no walk can pass, is left unset; the rest are walked.  It returns at
+// the first failure of a row in `stop` (every row in mask mode, none in
+// stack mode, the unresolvable rows in candidates mode), the bits of the
+// rows not yet walked unset.
+__device__ __forceinline__ uint32_t eval_pair(
+    const FilterPassArgs& a, int n, int b, const PodInfo& pi, const int2* sel,
+    const NodeInfo& nd, const uint8_t* any_match, bool forbidden,
+    uint32_t stop) {
+  const uint32_t en = (uint32_t)a.enabled & kAll;
+  uint32_t known = nd.pass | pi.pass;
+  // GeneralPredicates passes on the flags where its four parts do
+  if ((known & kGeneralParts) == kGeneralParts) known |= bit(kGeneral);
+  uint32_t bits = (~en | known) & kAll;
+  const uint32_t open = en & ~known;
+  if (open & ~pi.walk & stop) return bits;   // failed on the flags alone
+  const uint32_t todo = open & pi.walk;
+  if (!todo) return bits;
+  const bool general = (todo >> kGeneral) & 1u;
+  bool host = (known >> kHost) & 1u, res = (known >> kResources) & 1u;
+  if (!host && (general || ((todo >> kHost) & 1u))) {
+    host = pi.name_req == nd.name;
+    if (host) bits |= (todo & bit(kHost));
+    else if (todo & stop & bit(kHost)) return bits;
+  }
+  if (!res && (general || ((todo >> kResources) & 1u))) {
+    res = resources_ok(a, n, b, pi);
+    if (res) bits |= (todo & bit(kResources));
+    else if (todo & stop & bit(kResources)) return bits;
+  }
+  if ((todo >> kInterPod) & 1u) {
+    // MatchInterPodAffinity (an affinity-lean batch passes on the pod's
+    // flags): `forbidden`, the node prologue's gather of the first two
+    // components, then component 3
+    if (!forbidden && (!(pi.flags & kWalkAff) ||
+                       aff_rules_ok(a, b, n, nd, any_match)))
+      bits |= bit(kInterPod);
+    else if (stop & bit(kInterPod))
+      return bits;
+  }
+  uint32_t parts = known & kGeneralParts;
+  uint32_t rare = todo & kRareRows;
+  uint32_t need = general ? (bit(kHostPorts) | bit(kSelector)) & ~known : 0u;
+  if ((pi.flags & kPodSimpleSel) &&
+      ((todo | need) & bit(kSelector))) {
+    // PodMatchNodeSelector, inline: the AND of the pod's few entries
+    const auto slots = slots_of(a, n);
+    const int entries = (pi.flags >> kSelShift) & 3;
+    bool ok = true;
+#pragma unroll
+    for (int i = 0; i < kSelRegs; ++i)
+      if (i < entries) ok &= label_id(slots, sel[i].x) == sel[i].y;
+    if (ok) {
+      bits |= todo & bit(kSelector);
+      parts |= bit(kSelector);
+    } else if (todo & stop & bit(kSelector)) {
+      return bits;
+    }
+    rare &= ~bit(kSelector);
+    need &= ~bit(kSelector);
+  }
+  if (rare | need) {
+    const uint32_t w =
+        rare_walk(a, n, b, pi, nd, any_match, rare, need, stop);
+    bits |= w & rare;
+    if (rare & ~w & stop) return bits;
+    parts |= w & need;
+  }
+  if (general) {
+    if (host && res && (parts & bit(kHostPorts)) && (parts & bit(kSelector)))
+      bits |= bit(kGeneral);
+  }
   return bits;
 }
 
-__global__ void __launch_bounds__(kThreads) k11_filter_pass(
-    const FilterPassArgs a) {
-  extern __shared__ uint8_t any_match[];   // [PT] when aff_on
-  __shared__ int tol_unsched;
-  const int b = blockIdx.x;
-  // per-pod values the whole block needs: a toleration of the
-  // unschedulable taint (CheckNodeUnschedulable), and whether each
-  // required affinity term matches any topology pair
-  if (threadIdx.x == 0) {
-    int ok = 0;
+// The pod prologue is kPodParts parts, a warp a part for 32 pods of the
+// tile (a lane a pod), the parts in flight together; each ORs its rows
+// into the pod's record (zeroed before).  Each pass bit stands on the
+// argument beside it: the walk it skips would compute that constant.
+constexpr int kPodParts = 4;
+
+__device__ void pod_part(const FilterPassArgs& a, int b, int part,
+                         PodInfo* pi, int2* sel) {
+  uint32_t f = 0, pass = 0, walk = 0;
+  if (part == 0) {
+    if (__ldg(a.pod_valid + b)) f |= kPodValid;
+    // CheckNodeMemoryPressure fails only a best-effort pod
+    if (!__ldg(a.best_effort + b)) pass |= bit(kMemPressure);
+    // PodFitsHost: PAD asks for no node
+    pi->name_req = __ldg(a.node_name_req + b);
+    if (pi->name_req == kPad) pass |= bit(kHost);
+    else walk |= bit(kHost);
+    // CheckNodeUnschedulable: a toleration of the unschedulable taint;
+    // taints: with no valid toleration every considered taint is
+    // untolerated, so the node's flags decide (a fail where it has one)
+    bool tols = false, unsched = false;
+#pragma unroll 4
     for (int j = 0; j < a.tt; ++j) {
       const size_t k = (size_t)b * a.tt + j;
       const int te = __ldg(a.tol_effect + k), tk = __ldg(a.tol_key + k);
-      ok |= __ldg(a.tol_valid + k) && (te == kPad || te == 0) &&
-            (tk == 0 || tk == a.unsched_key) &&
-            (__ldg(a.tol_op + k) == 1 || __ldg(a.tol_val + k) == 0);
+      const bool valid = __ldg(a.tol_valid + k) != 0;
+      tols |= valid;
+      unsched |= valid && (te == kPad || te == 0) &&
+                 (tk == 0 || tk == a.unsched_key) &&
+                 (__ldg(a.tol_op + k) == 1 || __ldg(a.tol_val + k) == 0);
     }
-    tol_unsched = ok;
+    if (unsched) pass |= bit(kUnschedulable);
+    if (tols) walk |= bit(kTaints) | bit(kNoExecute);
+    walk |= bit(kGeneral);
+  } else if (part == 1) {
+    // PodFitsResources: a column with a request <= 0 or NaN passes
+    const float* rq = a.req + (size_t)b * a.r;
+    uint32_t res = 0;
+    int i = 0;
+#pragma unroll 4
+    for (int c = 0; c < a.r && c < 32; ++c) {
+      const float x = __ldg(rq + c);
+      if (x > 0.f) {
+        res |= 1u << c;
+        if (i < kResCols) pi->rx[i++] = x;
+      }
+    }
+    pi->res = res;
+    if (res == 0 && a.r <= 32) pass |= bit(kResources);
+    else walk |= bit(kResources);
+    // vol_ok fails only where the pod's count nw is > 0: with the overlap
+    // lean, a count <= 0 or NaN passes on every node; with the overlap,
+    // only a NaN count does (NaN - x is NaN, and an overlap < 0 could
+    // lift a count <= 0 above 0)
+    uint32_t vol = 0;
+#pragma unroll 4
+    for (int c = 0; c < a.vt && c < 32; ++c) {
+      const float nw = __ldg(a.new_vol_counts + (size_t)b * a.vt + c);
+      if (a.vol_overlap ? !isnan(nw) : nw > 0.f) vol |= 1u << c;
+    }
+    pi->vol = vol;
+    const int cols[4] = {kEBS, kGCE, kAzure, kCinder};
+    const int col_of[4] = {0, 1, 3, 4};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if ((vol >> col_of[k]) & 1u) walk |= bit(cols[k]);
+      else pass |= bit(cols[k]);
+    // the CSI row folds column 2 and every per-driver column from 5
+    if ((vol & ~0x1bu) == 0 && a.vt <= 32) pass |= bit(kCSI);
+    else walk |= bit(kCSI);
+  } else if (part == 2) {
+    // a lean pair family, or no valid term of it: the walk skips every
+    // term; CheckVolumeBinding fails everywhere where vol_fail_all
+    bool any = false;
+    for (int k = 0; a.vb_on && k < a.vb; ++k)
+      any |= __ldg(a.vol_bind_valid + (size_t)b * a.vb + k) != 0;
+    if (!__ldg(a.vol_fail_all + b))
+      (any ? walk : pass) |= bit(kVolumeBinding);
+    any = false;
+    for (int k = 0; a.vz_on && k < a.vz; ++k)
+      any |= __ldg(a.vol_zone_valid + (size_t)b * a.vz + k) != 0;
+    (any ? walk : pass) |= bit(kVolumeZone);
+    // PodFitsHostPorts: every invalid port is skipped
+    any = false;
+#pragma unroll 4
+    for (int q = 0; q < a.q; ++q)
+      any |= __ldg(a.port_valid + (size_t)b * a.q + q) != 0;
+    (any ? walk : pass) |= bit(kHostPorts);
+    // NoDiskConflict: a PAD disk id is skipped
+    any = false;
+#pragma unroll 4
+    for (int d = 0; d < a.dv; ++d)
+      any |= __ldg(a.disk_ids + (size_t)b * a.dv + d) != kPad;
+    (any ? walk : pass) |= bit(kDiskConflict);
+    // CheckServiceAffinity without the profile's labels passes
+    (a.n_svc == 0 ? pass : walk) |= bit(kServiceAffinity);
+  } else {
+    // PodMatchNodeSelector: no valid nodeSelector entry and no required
+    // node affinity read passes; a few entries and no required affinity
+    // are kept for the pair's inline test
+    const bool req = a.s > 0 && __ldg(a.has_req_affinity + b);
+    int entries = 0;
+#pragma unroll 4
+    for (int i = 0; i < a.ns; ++i) {
+      const size_t k = (size_t)b * a.ns + i;
+      if (!__ldg(a.ns_valid + k)) continue;
+      if (entries < kSelRegs)
+        sel[entries] = make_int2(__ldg(a.ns_keys + k), __ldg(a.ns_vals + k));
+      ++entries;
+    }
+    (req || entries ? walk : pass) |= bit(kSelector);
+    if (!req && entries && entries <= kSelRegs)
+      f |= kPodSimpleSel | (uint32_t)entries << kSelShift;
+    // MatchInterPodAffinity: an affinity-lean batch passes
+    if (a.aff_on) {
+      walk |= bit(kInterPod);
+      uint32_t anti = 0;
+      for (int k = 0; k < a.at && k < 32; ++k)
+        if (__ldg(a.anti_term_valid + (size_t)b * a.at + k)) anti |= 1u << k;
+      pi->anti = anti;
+      for (int k = 0; k < a.pt; ++k)
+        if (__ldg(a.aff_term_valid + (size_t)b * a.pt + k)) f |= kWalkAff;
+    } else {
+      pass |= bit(kInterPod);
+    }
+  }
+  if (f) atomicOr(&pi->flags, f);
+  if (pass) atomicOr(&pi->pass, pass);
+  if (walk) atomicOr(&pi->walk, walk);
+}
+
+// The node prologue of node n: its validity, the rows it passes for every
+// pod, its name and its first node-pair slots.
+__device__ NodeInfo node_info(const FilterPassArgs& a, int n) {
+  NodeInfo nd;
+  uint32_t pass = 0;
+  nd.valid = __ldg(a.valid + n) != 0;
+  // the node-only rows
+  if (!__ldg(a.not_ready + n)) pass |= bit(kCondition);
+  if (!__ldg(a.mem_pressure + n)) pass |= bit(kMemPressure);
+  if (!__ldg(a.disk_pressure + n)) pass |= bit(kDiskPressure);
+  if (!__ldg(a.pid_pressure + n)) pass |= bit(kPIDPressure);
+  if (!__ldg(a.unschedulable + n)) pass |= bit(kUnschedulable);
+  // taints: the walk skips every taint but NoSchedule (0) and NoExecute
+  // (2), and the NoExecute row fails only on an untolerated 2
+  bool sched = false, exec = false;
+  for (int t = 0; t < a.t; ++t) {
+    const int eff = __ldg(a.taint_effect + (size_t)n * a.t + t);
+    sched |= eff == 0 || eff == 2;
+    exec |= eff == 2;
+  }
+  if (!sched) pass |= bit(kTaints);
+  if (!exec) pass |= bit(kNoExecute);
+  // ports: the walk skips every unused node port
+  bool any = false;
+  for (int p = 0; p < a.p; ++p)
+    any |= __ldg(a.node_port_used + (size_t)n * a.p + p) != 0;
+  if (!any) pass |= bit(kHostPorts);
+  // disks: a PAD node disk id never equals the pod's (non-PAD) id
+  any = false;
+  for (int k = 0; k < a.dvn; ++k)
+    any |= __ldg(a.node_disk_ids + (size_t)n * a.dvn + k) != kPad;
+  if (!any) pass |= bit(kDiskConflict);
+  // CheckNodeLabelPresence reads the node alone
+  bool ok = true;
+  const int* lk = a.label_keys + (size_t)n * a.l;
+  for (int i = 0; i < a.n_presence && ok; ++i) {
+    const int key = __ldg(a.presence_keys + i);
+    bool present = false;
+    for (int k = 0; k < a.l; ++k) present |= __ldg(lk + k) == key;
+    ok = present == (a.presence_present != 0);
+  }
+  if (ok) pass |= bit(kLabelPresence);
+  nd.pass = pass;
+  nd.name = __ldg(a.node_name_id + n);
+#pragma unroll
+  for (int k = 0; k < kPairRegs; ++k)
+    nd.pairs[k] = k < a.kt && a.kt <= kPairRegs
+                      ? __ldg(a.node_pair + (size_t)n * a.kt + k)
+                      : -1;
+  return nd;
+}
+
+// Is any byte of row (bool[tp]) set?  A warp's lanes read it 16 bytes a
+// load where it is 16-byte aligned, every load independent of the last.
+__device__ __forceinline__ bool row_any(const uint8_t* row, int tp,
+                                        int lane) {
+  bool any = false;
+  int i0 = 0;
+  if (((uintptr_t)row & 15) == 0) {
+    const uint4* r4 = reinterpret_cast<const uint4*>(row);
+    const int n16 = tp >> 4;
+    for (int q = lane; q < n16; q += 32) {
+      const uint4 v = __ldg(r4 + q);
+      any |= (v.x | v.y | v.z | v.w) != 0;
+    }
+    i0 = n16 << 4;
+  }
+  for (int i = i0 + lane; i < tp; i += 32) any |= __ldg(row + i) != 0;
+  return __any_sync(0xffffffffu, any);
+}
+
+__global__ void __launch_bounds__(kMaxThreads) k11_filter_pass(
+    const __grid_constant__ FilterPassArgs a) {
+  extern __shared__ uint8_t any_match[];     // [tile, PT] when aff_on
+  __shared__ PodInfo pods[kMaxTile];
+  __shared__ int2 sel[kMaxTile][kSelRegs];   // nodeSelector (key, value)
+#ifdef K11_PHASE_CLOCKS
+  long long clocks_[kPhases] = {};
+  long long then_;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(then_) :: "memory");
+#endif
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, warps = T >> 5;
+  const long long tile = (long long)blockIdx.z * gridDim.y + blockIdx.y;
+  const long long b0 = tile * a.tile;
+  // past the last tile (the grid's rounding)
+  if (b0 >= a.b) return;
+  const int np = (int)min((long long)a.tile, (long long)a.b - b0);
+  const long long n0 = (long long)blockIdx.x * a.slice;
+  const int cnt = (int)min((long long)a.slice, (long long)a.n - n0);
+  // the pod prologue: a warp a part of 32 pods; then each valid affinity
+  // term's "matches any pair" flag, a warp a term over the whole TP-wide
+  // row (an invalid term's flag is never read)
+  for (int p = tid; p < np; p += T) pods[p] = PodInfo{};
+  // the node prologue of the thread's first node, its loads in flight
+  // beside the pod prologue's
+  NodeInfo first;
+  if (tid < cnt) first = node_info(a, (int)(n0 + tid));
+  __syncthreads();
+  for (int it = warp; it < kPodParts * ((np + 31) >> 5); it += warps) {
+    const int p = (it / kPodParts) * 32 + lane;
+    if (p < np)
+      pod_part(a, (int)(b0 + p), it % kPodParts, &pods[p], sel[p]);
   }
   if (a.aff_on) {
-    for (int k = 0; k < a.pt; ++k) {
-      // an invalid term passes without its flag (inter_pod_ok): its row
-      // is not scanned (the test is the same for the whole block)
-      if (!__ldg(a.aff_term_valid + (size_t)b * a.pt + k)) {
-        if (threadIdx.x == 0) any_match[k] = 0;
-        continue;
-      }
-      const uint8_t* row = a.aff_term_pairs + ((size_t)b * a.pt + k) * a.tp;
-      int mine = 0;
-      for (int i = threadIdx.x; i < a.tp && !mine; i += kThreads)
-        mine = __ldg(row + i) != 0;
-      const int any = __syncthreads_or(mine);
-      if (threadIdx.x == 0) any_match[k] = (uint8_t)any;
+    for (int r = warp; r < np * a.pt; r += warps) {
+      const size_t i = (size_t)b0 * a.pt + r;
+      if (!__ldg(a.aff_term_valid + i)) continue;
+      const bool any = row_any(a.aff_term_pairs + i * a.tp, a.tp, lane);
+      if (lane == 0) any_match[r] = any;
     }
   }
   __syncthreads();
-  const long long n0 =
-      ((long long)blockIdx.y * kThreads + threadIdx.x) * kNodesPerThread;
-  if (n0 >= a.n) return;
-  const bool tol = tol_unsched != 0;
-  const bool pv = __ldg(a.pod_valid + b) != 0;
+  K11_MARK(0);                                        // the pod prologue
+  // the tile's pods with a valid anti-affinity term below 32, and those
+  // with more than one (or with terms past 32)
+  uint64_t first_anti = 0, more_anti = 0;
+  for (int p = 0; a.aff_on && p < np; ++p) {
+    const uint32_t anti = pods[p].anti;
+    if (anti) first_anti |= 1ull << p;
+    if ((anti & (anti - 1)) || a.at > 32) more_anti |= 1ull << p;
+  }
   const int mode = a.stack_mode;
   const uint32_t unres = (uint32_t)a.unresolvable & kAll;
   const uint32_t stop = mode == kMaskMode ? kAll
                         : mode == kCandidatesMode ? unres : 0u;
-  uint32_t bits[kNodesPerThread];
-  bool alive[kNodesPerThread];
+  for (int q = 0; q < a.per_thread; ++q) {
+    const int j = tid + q * T;
+    if (j >= cnt) break;
+    const int n = (int)(n0 + j);
+    const NodeInfo nd = q == 0 ? first : node_info(a, n);
+    const bool valid = nd.valid;
+    // bit p: node n lies in a pair of pod p's forbidden pairs or of a
+    // valid anti-affinity term
+    const uint64_t forbidden =
+        a.aff_on ? forbidden_bits(a, pods, (int)b0, np, first_anti,
+                                  more_anti, n, nd)
+                 : 0;
+    K11_MARK(1);                                      // the node prologue
+    for (int p = 0; p < np; ++p) {
+      const PodInfo pi = pods[p];
+      const int b = (int)(b0 + p);
+      const uint8_t* am = any_match + (size_t)p * a.pt;
+      // mask: a valid node and pod, every row passes; candidates: a valid
+      // node whose required affinity rules hold (a failure there is
+      // unresolvable), the pod's validity unread, some row failing and no
+      // unresolvable one (an early return leaves its bit unset); stack:
+      // every node's rows
+      const bool alive =
+          mode == kStackMode ||
+          (valid && (mode == kMaskMode ? (pi.flags & kPodValid) != 0
+                                       : !(pi.flags & kWalkAff) ||
+                                             aff_rules_ok(a, b, n, nd, am)));
+      const uint32_t bits =
+          alive ? eval_pair(a, n, b, pi, sel[p], nd, am,
+                            (forbidden >> p) & 1u, stop)
+                : 0u;
+      if (mode == kStackMode) {
+        uint8_t* o = a.out + (size_t)b * kPreds * a.n + n;
 #pragma unroll
-  for (int j = 0; j < kNodesPerThread; ++j) {
-    const int n = (int)n0 + j;
-    bits[j] = 0;
-    // candidates: a valid node whose required affinity rules hold (a
-    // failure there is unresolvable), the pod's validity unread
-    alive[j] = n < a.n && __ldg(a.valid + n) &&
-               (mode == kCandidatesMode ? aff_rules_ok(a, b, n, any_match)
-                                        : pv);
-    if (n < a.n && (mode == kStackMode || alive[j]))
-      bits[j] = eval_node(a, b, n, tol, any_match, stop);
-  }
-  if (mode != kStackMode) {
-    // mask: every row passes; candidates: some row fails, no
-    // unresolvable one (an early return leaves its bit unset)
-    bool m[kNodesPerThread];
-#pragma unroll
-    for (int j = 0; j < kNodesPerThread; ++j)
-      m[j] = alive[j] && (mode == kMaskMode
-                              ? bits[j] == kAll
-                              : bits[j] != kAll && (bits[j] & unres) == unres);
-    const size_t o = (size_t)b * a.n + n0;
-    if (a.vec) {
-      *reinterpret_cast<uchar4*>(a.out + o) = make_uchar4(m[0], m[1], m[2],
-                                                          m[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kNodesPerThread; ++j)
-        if (n0 + j < a.n) a.out[o + j] = m[j];
+        for (int k = 0; k < kPreds; ++k) o[(size_t)k * a.n] = (bits >> k) & 1u;
+      } else {
+        a.out[(size_t)b * a.n + n] =
+            alive && (mode == kMaskMode
+                          ? bits == kAll
+                          : bits != kAll && (bits & unres) == unres);
+      }
     }
-    return;
+    K11_MARK(2);                                      // the walk, the writes
   }
-  for (int k = 0; k < kPreds; ++k) {
-    const size_t o = ((size_t)b * kPreds + k) * a.n + n0;
-    if (a.vec) {
-      uchar4 m;
-      m.x = (bits[0] >> k) & 1u;
-      m.y = (bits[1] >> k) & 1u;
-      m.z = (bits[2] >> k) & 1u;
-      m.w = (bits[3] >> k) & 1u;
-      *reinterpret_cast<uchar4*>(a.out + o) = m;
-    } else {
-#pragma unroll
-      for (int j = 0; j < kNodesPerThread; ++j)
-        if (n0 + j < a.n) a.out[o + j] = (bits[j] >> k) & 1u;
-    }
-  }
+#ifdef K11_PHASE_CLOCKS
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kPhases; ++i)
+      atomicAdd(&g_phase_clocks[i], (unsigned long long)clocks_[i]);
+#endif
+}
+
+// The dynamic shared memory of a launch: the tile's any_match flags.
+long long smem_bytes(const FilterPassArgs& a) {
+  return a.aff_on ? (long long)a.tile * a.pt : 0;
+}
+
+// Is the path in `a` one the kernel takes?
+bool layout_ok(const FilterPassArgs& a) {
+  return a.threads >= 32 && a.threads <= kMaxThreads &&
+         a.threads % 32 == 0 && a.per_thread >= 1 &&
+         a.per_thread <= kMaxPerThread &&
+         (long long)a.slice == (long long)a.threads * a.per_thread &&
+         a.tile >= 1 && a.tile <= kMaxTile && smem_bytes(a) <= kSmemBudget;
+}
+
+// The function's dynamic shared-memory limit, kSmemBudget, set once a
+// device: the default 48 KB counts the static arrays too, which would
+// refuse a tile's flags near the budget.  Setting an attribute is no
+// stream operation, so a launch inside a graph capture may do it.
+cudaError_t smem_limit_set() {
+  static std::mutex mu;
+  static std::set<int> done;   // devices
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(mu);
+  if (done.count(dev)) return cudaSuccess;
+  err = cudaFuncSetAttribute(k11_filter_pass,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kSmemBudget);
+  if (err == cudaSuccess) done.insert(dev);
+  return err;
 }
 
 }  // namespace
 
+#ifdef K11_PHASE_CLOCKS
+// The phases' names, in the order of filter_pass_phase_clocks.
+extern "C" const char* filter_pass_phase_names() {
+  return "pod prologue,node prologue,walk and writes";
+}
+
+// Zero the phase clocks (before the launch they are to time).
+extern "C" int filter_pass_phase_reset() {
+  static const unsigned long long zero[kPhases] = {};
+  return (int)cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
+}
+
+// The SM clocks by phase, summed over every block of the launches since
+// the reset (kPhases unsigned long longs).
+extern "C" int filter_pass_phase_clocks(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_phase_clocks,
+                                   sizeof(unsigned long long) * kPhases);
+}
+#endif
+
 // One filter pass: the arguments above, on `stream`, in the mode
-// stack_mode names.  vec != 0 takes the uchar4 stores, which need
-// n % 4 == 0 and a 4-byte aligned `out`.  One kernel launch and no other
-// stream operation.  Returns a cudaError_t code.
+// stack_mode names, on the path the arguments carry: one launch of
+// ceil(n / slice) x ceil(b / tile) blocks of `threads` threads, and no
+// other stream operation.  Returns a cudaError_t code.
 extern "C" int filter_pass_launch(FilterPassArgs a, cudaStream_t stream) {
-  if (a.b <= 0 || a.n <= 0 || a.pt < 0 || a.pt > 48 * 1024 ||
-      a.stack_mode < kMaskMode || a.stack_mode > kCandidatesMode)
+  if (a.b <= 0 || a.n <= 0 || a.pt < 0 || a.stack_mode < kMaskMode ||
+      a.stack_mode > kCandidatesMode || !a.out || !layout_ok(a))
     return (int)cudaErrorInvalidValue;
-  if (a.vec && (a.n % 4 || (uintptr_t)a.out % 4))
-    return (int)cudaErrorInvalidValue;
-  const long long per_block = (long long)kThreads * kNodesPerThread;
-  const long long tiles = (a.n + per_block - 1) / per_block;
-  if (tiles > 65535 || a.b >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)a.b, (unsigned)tiles);
   if ((a.aff_on || a.vz_on || a.vb_on) && (!a.node_pair || a.kt < 0))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = a.aff_on ? (size_t)a.pt : 0;
-  k11_filter_pass<<<grid, kThreads, smem, stream>>>(a);
+  const long long slices = ((long long)a.n + a.slice - 1) / a.slice;
+  const long long tiles = ((long long)a.b + a.tile - 1) / a.tile;
+  const long long gy = tiles < 65535 ? tiles : 65535;
+  const long long gz = (tiles + gy - 1) / gy;
+  if (slices > INT_MAX || gz > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)slices, (unsigned)gy, (unsigned)gz);
+  const cudaError_t err = smem_limit_set();
+  if (err != cudaSuccess) return (int)err;
+  k11_filter_pass<<<grid, a.threads, (size_t)smem_bytes(a), stream>>>(a);
   return (int)cudaGetLastError();
 }
 

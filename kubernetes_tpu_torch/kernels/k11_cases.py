@@ -26,6 +26,21 @@ match often; its keywords turn on the corners:
   * padding rows (`n_valid`), invalid pods, N not a multiple of 4;
   * non-lean affinity and volume-topology terms (pair products), and
     batches lean in them.
+
+The cases of `layout_cases` (part of `cases()`) pin the edges of the
+kernel's layout (blocks over node slices and pod tiles:
+kernels.filter_pass_paths); each names the edges it pins in "pins", and
+PINS holds the path's condition for each, which the CPU tests, the `cuda`
+test and chip_smoke.py check: nodes that fill no block, a ragged last
+block, several nodes a thread, a ragged pod tile, a tile halved for the
+shared memory of many affinity terms' flags, flags past what the default
+shared-memory limit leaves beside the static arrays (at a batch and at
+one pod, up to the budget), one pod a node a thread,
+wide label rows,
+pods whose every walk is skipped beside nodes with a taint, a used port
+or a disk among neighbours without, and a required affinity term whose
+only matching pair lies in the last block's nodes.  Each runs in all
+three modes.
 """
 
 from __future__ import annotations
@@ -34,6 +49,21 @@ import numpy as np
 
 PAD = -1
 FIELD_NODE_NAME_ID = 1
+
+# the layout edge a case pins: the path's condition for it, on
+# (path, B, N) (path: kernels.FilterPassPath)
+PINS = {
+    "one-block": lambda p, B, N: p.slices == 1 and N < p.slice,
+    "ragged-last-block": lambda p, B, N: p.slices >= 2 and N % p.slice != 0,
+    "nodes-a-thread": lambda p, B, N: p.per_thread >= 2,
+    "ragged-tile": lambda p, B, N: p.tiles >= 2 and B % p.tile != 0,
+    "halved-tile": lambda p, B, N: p.tile < min(32, B),
+    "one-pod": lambda p, B, N: B == 1 and p.tile == 1 and p.per_thread == 1,
+    # the flags leave less of the default 48 KB of shared memory than the
+    # kernel's static arrays take (pods[64] of 44 bytes, sel[64][2] int2):
+    # the launch needs the function's raised limit
+    "flags-past-default": lambda p, B, N: p.smem > 48 * 1024 - 3840,
+}
 ZONE_KEY = 5                # the zone pairs' topology key id
 PREDICATE_ORDER_LEN = 23
 
@@ -240,7 +270,107 @@ def cases():
     out.append(("padding-rows", world(136, 8, 77, n_valid=50)))
     out.append(("no-zones", world(137, 5, 30, zones=False)))
     out.append(("all-pods-valid", world(138, 6, 12, pod_validity=False)))
-    return out
+    return out + layout_cases()
+
+
+def _pinned(case, *pins):
+    case["pins"] = pins
+    return case
+
+
+def _skipped_walks(c):
+    """Pods 0-2 can fail no walk (no port, disk id, volume count,
+    nodeSelector entry, required affinity or pair term); pods 3-5 hold a
+    wildcard host port, a disk id and no toleration.  Nodes 77 and 150
+    alone hold NoSchedule / NoExecute taints, 78 and 151 alone a used port
+    (the pods' port number), 79 alone a disk id (pod 4's)."""
+    pods, cl = c["pods"], c["cluster"]
+    N = cl["valid"].shape[0]
+    for f, v in (("port_valid", False), ("ns_valid", False),
+                 ("has_req_affinity", False), ("vol_zone_valid", False),
+                 ("vol_bind_valid", False), ("anti_term_valid", False),
+                 ("aff_term_valid", False), ("vol_fail_all", False),
+                 ("new_vol_counts", 0.0), ("disk_vol_ids", PAD)):
+        pods[f][:3] = v
+    pods["port_valid"][3:] = False
+    pods["port_valid"][3:, 0] = True
+    pods["port_pp"][3:, 0] = 2
+    pods["port_ip"][3:, 0] = 0
+    pods["disk_vol_ids"][3:] = PAD
+    pods["disk_vol_ids"][4, 0] = 7
+    pods["tol_valid"][3:] = False
+    cl["taint_effect"][:] = PAD
+    cl["taint_effect"][77, :2] = (0, 2)
+    cl["taint_effect"][150, 0] = 2
+    cl["port_used"][:] = False
+    for n in (78, 151):
+        cl["port_used"][n, 0] = True
+        cl["port_pp"][n, 0] = 2
+    cl["disk_vol_ids"][:] = PAD
+    cl["disk_vol_ids"][79, 1] = 7
+    assert N > 151
+    return c
+
+
+def _last_block_pair(c, node: int):
+    """Every pod's first required affinity term matches one pair alone:
+    node `node`'s hostname pair (key 6), self-matching; its other terms
+    invalid."""
+    pods, cl = c["pods"], c["cluster"]
+    TP = cl["topo_pairs"].shape[1]
+    host = 3 + node % (TP // 2 - 3)
+    assert cl["topo_pairs"][node, host] and cl["pair_topo_key"][host] == 6
+    assert cl["topo_pairs"][:, host].sum() == 1
+    pods["aff_term_valid"][:] = False
+    pods["aff_term_valid"][:, 0] = True
+    pods["aff_term_self"][:, 0] = True
+    pods["aff_term_topo_key"][:, 0] = 6
+    pods["aff_term_pairs"][:] = False
+    pods["aff_term_pairs"][:, 0, host] = True
+    return c
+
+
+def layout_cases():
+    """[(name, case)] of the cases that pin K11's layout edges, in a fixed
+    order (each case's "pins" names them, PINS checks them)."""
+    return [
+        ("b3-n50-one-block", _pinned(world(
+            301, 3, 50, lean_affinity=False), "one-block",
+            "nodes-a-thread")),
+        ("b1-n70-one-block", _pinned(world(
+            302, 1, 70, lean_affinity=False, lean_volumes=False,
+            lean_overlap=False), "one-block", "one-pod")),
+        ("b5-n1000-ragged", _pinned(world(
+            303, 5, 1000, lean_affinity=False), "ragged-last-block",
+            "nodes-a-thread")),
+        ("b1-n1000-ragged", _pinned(world(304, 1, 1000),
+                                    "ragged-last-block", "one-pod")),
+        ("b37-ragged-tile", _pinned(world(
+            305, 37, 300, lean_affinity=False), "ragged-tile")),
+        # 40 pods of 1,600 affinity terms: 32 pods' flags pass 48 KB
+        ("b40-halved-tile", _pinned(world(
+            310, 40, 60, lean_affinity=False, PT=1600), "halved-tile",
+            "ragged-tile")),
+        # 33 pods of 1,500 terms: a full tile's flags (48,000 bytes) fit
+        # the budget, not the default limit beside the static arrays
+        ("b33-flags-past-default", _pinned(world(
+            311, 33, 60, lean_affinity=False, PT=1500),
+            "flags-past-default", "ragged-tile")),
+        # one pod with the most terms the budget takes
+        ("b1-flags-at-budget", _pinned(world(
+            312, 1, 60, lean_affinity=False, PT=48 * 1024),
+            "flags-past-default", "one-pod")),
+        ("wide-label-rows", _pinned(world(306, 4, 300, L=120),
+                                    "nodes-a-thread")),
+        ("skipped-walks", _pinned(_skipped_walks(world(
+            307, 6, 200, lean_affinity=False)), "nodes-a-thread")),
+        ("affinity-pair-in-last-block", _pinned(_last_block_pair(world(
+            308, 3, 600, lean_affinity=False, TP=1300), 590),
+            "ragged-last-block")),
+        ("b1-affinity-pair-in-last-block", _pinned(_last_block_pair(world(
+            309, 1, 600, lean_affinity=False, TP=1300), 590),
+            "ragged-last-block", "one-pod")),
+    ]
 
 
 def candidates_cases():

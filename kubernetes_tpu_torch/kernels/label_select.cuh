@@ -36,37 +36,55 @@ struct ExprRows {
   int v;
 };
 
+// One node's label slots: its rows of the snapshot's [N, L] key, value
+// id and numeric value fields, read through the read-only cache, and its
+// name id.
+struct Slots {
+  const int* keys;
+  const int* vals;
+  const float* nums;
+  int l;
+  const int* name_id;   // the node's entry of node_name_id, read if asked
+};
+
+// Node n's row of lr.
+__device__ __forceinline__ Slots node_slots(const LabelRows& lr, int n) {
+  const size_t o = (size_t)n * lr.l;
+  return {lr.keys + o, lr.vals + o, lr.nums + o, lr.l, lr.node_name_id + n};
+}
+
 // node_label_value: the max over the node's label slots holding `key` of
 // the value id (PAD if none) and of the numeric value skipping NaN (-inf
 // if none); a non-finite numeric max reads NaN; FIELD_NODE_NAME_ID
-// resolves to the node name.
-__device__ __forceinline__ void label_value(const LabelRows& lr, int n,
-                                            int key, int* val, float* num) {
+// resolves to the node name.  Every slot's value and number are read
+// whatever its key, so that the loads of an unrolled step are in flight
+// together; a caller that drops `num` leaves its loads to the compiler to
+// drop.
+__device__ __forceinline__ void slot_value(const Slots& r, int key, int* val,
+                                           float* num) {
   int v = kPad;
   float x = -INFINITY;
-  const int* lk = lr.keys + (size_t)n * lr.l;
-  const int* lv = lr.vals + (size_t)n * lr.l;
-  const float* ln = lr.nums + (size_t)n * lr.l;
-  for (int i = 0; i < lr.l; ++i) {
-    if (__ldg(lk + i) != key) continue;
-    v = max(v, __ldg(lv + i));
-    const float y = __ldg(ln + i);
+#pragma unroll 4
+  for (int i = 0; i < r.l; ++i) {
+    const int k = __ldg(r.keys + i), vi = __ldg(r.vals + i);
+    const float y = __ldg(r.nums + i);
+    if (k != key) continue;
+    v = max(v, vi);
     if (!isnan(y)) x = fmaxf(x, y);
   }
   *num = isfinite(x) ? x : NAN;
-  *val = key == kFieldNodeName ? __ldg(lr.node_name_id + n) : v;
+  *val = key == kFieldNodeName ? __ldg(r.name_id) : v;
 }
 
-// Expression i of ex against node n (_eval_exprs: an invalid expression
-// is true; Gt and Lt are false on a NaN on either side; an op outside the
-// six reads as Lt, as the reference's nested where does).
-__device__ __forceinline__ bool eval_expr(const LabelRows& lr,
-                                          const ExprRows& ex, int n,
-                                          size_t i) {
+// Expression i of ex against the node of r (_eval_exprs: an invalid
+// expression is true; Gt and Lt are false on a NaN on either side; an op
+// outside the six reads as Lt, as the reference's nested where does).
+__device__ __forceinline__ bool eval_expr_at(const Slots& r,
+                                             const ExprRows& ex, size_t i) {
   if (!__ldg(ex.valid + i)) return true;
   int nv;
   float nn;
-  label_value(lr, n, __ldg(ex.key + i), &nv, &nn);
+  slot_value(r, __ldg(ex.key + i), &nv, &nn);
   const bool has = nv != kPad;
   const int op = __ldg(ex.op + i);
   if (op == kExists) return has;
@@ -82,6 +100,13 @@ __device__ __forceinline__ bool eval_expr(const LabelRows& lr,
   const float x = __ldg(ex.num + i);
   const bool num_ok = !isnan(x) && !isnan(nn);
   return op == kGt ? (has && num_ok && nn > x) : (has && num_ok && nn < x);
+}
+
+// Expression i of ex against node n of lr.
+__device__ __forceinline__ bool eval_expr(const LabelRows& lr,
+                                          const ExprRows& ex, int n,
+                                          size_t i) {
+  return eval_expr_at(node_slots(lr, n), ex, i);
 }
 
 }  // namespace label_select

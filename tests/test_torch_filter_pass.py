@@ -6,8 +6,10 @@ every kernels/k11_cases.py case and on one batch the port's encoder makes
 from the bench fleet: the mask, the stack and the first failure.  The
 candidates mode's twin (models/preemption.py preempt_eval_plain) is held
 against the jitted JAX make_preempt_eval on every
-k11_cases.candidates_cases case.  The dispatch sends CPU tensors to the
-twin; the wrapper refuses CPU tensors.
+k11_cases.candidates_cases case and every layout case
+(k11_cases.layout_cases, which also take the paths they pin:
+kernels.filter_pass_path, k11_cases.PINS).  The dispatch sends CPU
+tensors to the twin; the wrapper refuses CPU tensors.
 The kernel itself is held to the twin on the card by
 tests/test_torch_passes_cuda.py and chip_smoke.py.  Tolerance: none.
 """
@@ -35,6 +37,7 @@ import torch_port_helpers  # noqa: F401  (caps torch's threads)
 
 CASES = k11_cases.cases()
 CANDIDATE_CASES = dict(k11_cases.candidates_cases())
+LAYOUT_CASES = dict(k11_cases.layout_cases())
 
 
 def jax_inputs(case):
@@ -224,6 +227,67 @@ def test_candidates_twin_matches_jax_make_preempt_eval(name):
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
         tpreempt.make_preempt_eval(cfg, key)(ct, pb).numpy(), want)
+
+
+@pytest.mark.parametrize("name", list(LAYOUT_CASES))
+def test_layout_case_takes_its_path_and_candidates_match_jax(name):
+    """Each layout case takes the path it pins (the mask and the stack are
+    held to JAX in test_twin_matches_jax_on_k11_case), and its candidates
+    mode's twin equals the jitted JAX make_preempt_eval."""
+    case = LAYOUT_CASES[name]
+    ct, pb, cfg = port_inputs(case)
+    path = kernels.filter_pass_path(ct, pb)
+    assert case["pins"]
+    for pin in case["pins"]:
+        assert k11_cases.PINS[pin](path, pb.n_pods, ct.n_nodes), (pin, path)
+    key = case["unsched_key"]
+    jct, jpb, jcfg = jax_inputs(case)
+    want = np.asarray(jpreempt.make_preempt_eval(jcfg, key)(jct, jpb))
+    got = tpreempt.preempt_eval_plain(ct, pb, cfg, key)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_layout_cases_hold_their_corners():
+    """The skipped-walks case fails its walks only where it says (pods 0-2
+    no port or disk anywhere; pods 3-5 the ports at nodes 78 and 151, the
+    taints at 77 and 150 only, pod 4's disk at 79); the last-block
+    affinity cases' only matching pair is node 590's, so every other node
+    fails the pods' required affinity rules (none is bootstrapped); the
+    path by size: one pod, a batch, a tile halved for its affinity flags
+    (an affinity-lean batch keeps its tile), flags up to the budget
+    taken, and the flags past the budget at one pod refused."""
+    P = tschema.PRED_INDEX
+    ct, pb, cfg = port_inputs(LAYOUT_CASES["skipped-walks"])
+    stack = tpred.predicate_stack_plain(ct, pb, cfg, 3)
+    assert stack[:3, P["PodFitsHostPorts"]].all()
+    for row, nodes in (("PodFitsHostPorts", {78, 151}),
+                       ("PodToleratesNodeTaints", {77, 150}),
+                       ("PodToleratesNodeNoExecuteTaints", {77, 150})):
+        assert set(torch.nonzero(~stack[:, P[row]])[:, 1].tolist()) == nodes
+        assert set(torch.nonzero(~stack[3:, P[row]])[:, 1].tolist()) == nodes
+    assert stack[:3, P["NoDiskConflict"]].all()
+    assert torch.nonzero(~stack[:, P["NoDiskConflict"]]).tolist() == [[4, 79]]
+    for name in ("affinity-pair-in-last-block",
+                 "b1-affinity-pair-in-last-block"):
+        ct, pb, _ = port_inputs(LAYOUT_CASES[name])
+        ok = tpred.required_affinity_ok(ct, pb)
+        assert torch.nonzero(ok.all(0)).flatten().tolist() == [590]
+        assert not ok[:, :512].any()
+    path = kernels.filter_pass_paths(1, 6144)
+    assert (path.threads, path.per_thread, path.slices, path.tiles) == (
+        128, 1, 48, 1)
+    path = kernels.filter_pass_paths(2048, 6144, 2, True)
+    assert (path.slice, path.tile, path.slices, path.tiles, path.smem) == (
+        256, 32, 24, 64, 64)
+    assert kernels.filter_pass_paths(64, 10, 3000, True).tile == 16
+    assert kernels.filter_pass_paths(64, 10, 3000, False).tile == 32
+    # up to the budget, past what the default limit leaves beside the
+    # kernel's static arrays: a full tile, and one pod at the budget
+    path = kernels.filter_pass_paths(33, 60, 1500, True)
+    assert (path.tile, path.smem) == (32, 48000)
+    assert kernels.filter_pass_paths(1, 10, 48 * 1024, True).smem == 49152
+    with pytest.raises(ValueError, match="affinity terms"):
+        kernels.filter_pass_paths(1, 10, 48 * 1024 + 1, True)
 
 
 def test_candidates_cases_cover_their_corners():

@@ -3,10 +3,10 @@ twins on the card, bit for bit, on every kernels/k11_cases.py and
 k12_cases.py case and on the encoder-made affinity batches of
 kernels/k14_cases.py (their pair terms gathered over each node's pairs):
 the stack and the mask (K11), the total and every row with need_per on
-and off (K12); K11's candidates mode against its twin
-(models/preemption.py preempt_eval_plain) on every
-k11_cases.candidates_cases case; and the node-pair table's kernel against
-its twin.
+and off (K12), each layout case on the path it pins; K11's candidates
+mode against its twin (models/preemption.py preempt_eval_plain) on every
+k11_cases.candidates_cases and layout case; and the node-pair table's
+kernel against its twin.
 
 The tests carry the `cuda` marker and skip where there is no card.  The
 file imports neither JAX nor the JAX package (the machine with the card
@@ -51,11 +51,19 @@ def _encoded_cases():
 
 @pytest.mark.cuda
 def test_k11_matches_plain_twin_on_card():
+    """Every case and encoded batch, stack and mask; each layout case takes
+    the path it pins."""
+    from kubernetes_tpu_torch import kernels
+
     _need_card()
     for name, case in k11_cases.cases() + _encoded_cases():
         ct, pb = _on_card(case)
         cfg = ts.FilterConfig(**case["cfg"])
         key = case["unsched_key"]
+        path = kernels.filter_pass_path(ct, pb)
+        for pin in case.get("pins", ()):
+            assert k11_cases.PINS[pin](path, pb.n_pods, ct.n_nodes), \
+                (name, pin, path)
         want_mask, want_stack = tpred.filter_batch_plain(ct, pb, cfg, key)
         assert torch.equal(tpred.predicate_stack(ct, pb, cfg, key),
                            want_stack), name
@@ -72,7 +80,7 @@ def test_k11_candidates_mode_matches_plain_twin_on_card():
 
     _need_card()
     kernels.reset_launch_counts()
-    cases = k11_cases.candidates_cases()
+    cases = k11_cases.candidates_cases() + k11_cases.layout_cases()
     for name, case in cases:
         ct, pb = _on_card(case)
         cfg = ts.FilterConfig(**case["cfg"])

@@ -46,15 +46,16 @@ import ctypes
 import functools
 import json
 import os
-import re
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-KDIR = os.path.join(ROOT, "kubernetes_tpu_torch", "kernels")
+import kcompare  # noqa: E402
+
+KDIR = kcompare.KDIR
 PARENT_DIR = os.path.join(ROOT, ".k12_parent")
 SOURCE = "score_pass.cu"
 PARENT_SMEM_MAX = 96 * 1024   # the parent's kSmemMax
@@ -62,19 +63,7 @@ PARENT_SMEM_MAX = 96 * 1024   # the parent's kSmemMax
 
 def fetch(rev: str) -> None:
     """REV's score_pass.cu and every header it includes, into PARENT_DIR."""
-    os.makedirs(PARENT_DIR, exist_ok=True)
-
-    def show(name: str) -> str:
-        return subprocess.run(
-            ["git", "show", f"{rev}:kubernetes_tpu_torch/kernels/{name}"],
-            cwd=ROOT, capture_output=True, text=True, check=True).stdout
-
-    text = show(SOURCE)
-    names = [SOURCE] + re.findall(r'#include "([^"]+)"', text)
-    for name in names:
-        with open(os.path.join(PARENT_DIR, name), "w") as f:
-            f.write(text if name == SOURCE else show(name))
-    print(f"{rev}: {', '.join(names)} -> {PARENT_DIR}")
+    kcompare.fetch(rev, SOURCE, PARENT_DIR)
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,45 +88,22 @@ def parent_args_class():
     return ParentArgs
 
 
-def nvcc(src: str, include: str, out: str, *defines: str) -> str:
-    """src (with the headers in `include`) as the shared library out;
-    nvcc's -Xptxas -v report."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    from kubernetes_tpu_torch.kernels import _build
-
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    res = subprocess.run(
-        [os.path.join(CUDA_HOME, "bin", "nvcc"), *_build.CUDA_FLAGS,
-         "-std=c++17", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-         *defines, "-I", include, "-o", out, src],
-        capture_output=True, text=True)
-    report = (res.stdout + res.stderr).strip()
-    if res.returncode:
-        raise RuntimeError(f"nvcc {src} failed:\n{report}")
-    return report
-
-
 def load(path: str, parent: bool, phases: bool = False):
     from kubernetes_tpu_torch.kernels import ScorePassArgs
 
-    lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     if parent:
-        lib.score_pass_launch.argtypes = [parent_args_class(), p, p, i, p]
+        sig = {"score_pass_launch": ([parent_args_class(), p, p, i, p], i)}
     else:
-        lib.score_pass_launch.argtypes = [ScorePassArgs, p]
-        lib.score_pass_cluster.restype = i
-        lib.score_pass_active_clusters.argtypes = [ScorePassArgs]
-        lib.score_pass_active_clusters.restype = i
-    lib.score_pass_launch.restype = i
+        sig = {"score_pass_launch": ([ScorePassArgs, p], i),
+               "score_pass_cluster": ([], i),
+               "score_pass_active_clusters": ([ScorePassArgs], i)}
     if phases:
-        lib.score_pass_phase_names.restype = ctypes.c_char_p
-        lib.score_pass_phase_count.restype = i
-        lib.score_pass_phase_reset.restype = i
-        lib.score_pass_phase_clocks.argtypes = [p]
-        lib.score_pass_phase_clocks.restype = i
-    return lib
+        sig.update(score_pass_phase_names=([], ctypes.c_char_p),
+                   score_pass_phase_count=([], i),
+                   score_pass_phase_reset=([], i),
+                   score_pass_phase_clocks=([p], i))
+    return kcompare.load(path, sig)
 
 
 def batches():
@@ -238,10 +204,7 @@ def prepared(lib, parent: bool, ct, pb, w, skip, zk, tile=None,
     return launch, total
 
 
-def same(got, want) -> bool:
-    import torch
-
-    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+same = kcompare.same
 
 
 def checked(launch, total, want, what: str) -> None:
@@ -349,7 +312,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("k12_compare: no CUDA card")
     from kubernetes_tpu_torch import kernels
-    from kubernetes_tpu_torch.kernels import _build, k1_bench
+    from kubernetes_tpu_torch.kernels import k1_bench
 
     t0 = time.monotonic()
     if not os.path.exists(os.path.join(PARENT_DIR, SOURCE)):
@@ -372,17 +335,9 @@ def main() -> None:
                    True, ()))
     libs = {}
     for name, src, inc, parent, defines in builds:
-        so = os.path.join(_build.BUILD_DIR, f"k12_{name}.so")
-        report = nvcc(src, inc, so, *defines)
-        print(f"[nvcc {name}] " + " | ".join(
-            line.strip() for line in report.splitlines()
-            if "k12_" in line or "registers" in line or "spill" in line),
-            flush=True)
+        so = kcompare.build(f"k12_{name}", src, inc, defines, "k12_")
         libs[name] = (load(so, parent, name == "phases"), parent)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip()
+    smi = kcompare.card()
     print(f"[card] {smi}", flush=True)
     result = {"card": smi, "batches": {}}
     order = ("this", "parent", "parent", "this")

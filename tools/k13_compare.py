@@ -37,34 +37,23 @@ import argparse
 import ctypes
 import json
 import os
-import re
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-KDIR = os.path.join(ROOT, "kubernetes_tpu_torch", "kernels")
+import kcompare  # noqa: E402
+
+KDIR = kcompare.KDIR
 PARENT_DIR = os.path.join(ROOT, ".k13_parent")
 SOURCE = "seq_scan.cu"
 
 
 def fetch(rev: str) -> None:
     """REV's seq_scan.cu and every header it includes, into PARENT_DIR."""
-    os.makedirs(PARENT_DIR, exist_ok=True)
-
-    def show(name: str) -> str:
-        return subprocess.run(
-            ["git", "show", f"{rev}:kubernetes_tpu_torch/kernels/{name}"],
-            cwd=ROOT, capture_output=True, text=True, check=True).stdout
-
-    text = show(SOURCE)
-    names = [SOURCE] + re.findall(r'#include "([^"]+)"', text)
-    for name in names:
-        with open(os.path.join(PARENT_DIR, name), "w") as f:
-            f.write(text if name == SOURCE else show(name))
-    print(f"{rev}: {', '.join(names)} -> {PARENT_DIR}")
+    kcompare.fetch(rev, SOURCE, PARENT_DIR)
 
 
 PHASES = ("pass 1", "its block max", "cluster A", "zone sums, IPA",
@@ -72,46 +61,20 @@ PHASES = ("pass 1", "its block max", "cluster A", "zone sums, IPA",
           "the window", "cluster S", "the host", "commit", "step start")
 
 
-def nvcc(src: str, include: str, out: str, *defines: str) -> str:
-    """src (with the headers in `include`) as the shared library out;
-    nvcc's -Xptxas -v report."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    from kubernetes_tpu_torch.kernels import _build
-
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    res = subprocess.run(
-        [os.path.join(CUDA_HOME, "bin", "nvcc"), *_build.CUDA_FLAGS,
-         "-std=c++17", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-         *defines, "-I", include, "-o", out, src],
-        capture_output=True, text=True)
-    report = (res.stdout + res.stderr).strip()
-    if res.returncode:
-        raise RuntimeError(f"nvcc {src} failed:\n{report}")
-    return report
-
-
 def load(path: str, parent: bool, phases: bool = False):
     from kubernetes_tpu_torch.kernels import SeqScanArgs
 
-    lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.seq_scan_launch.argtypes = [SeqScanArgs, p]
-    lib.seq_scan_launch.restype = i
+    sig = {"seq_scan_launch": ([SeqScanArgs, p], i)}
     if parent:
-        lib.seq_scan_workspace_bytes.argtypes = [i, i, i]
-        lib.seq_scan_workspace_bytes.restype = ctypes.c_longlong
-        return lib
-    lib.seq_scan_workspace_size.argtypes = [SeqScanArgs]
-    lib.seq_scan_workspace_size.restype = ctypes.c_longlong
-    lib.seq_scan_shape.argtypes = [i, p]
-    lib.seq_scan_shape.restype = i
-    lib.seq_scan_barrier_floor_launch.argtypes = [i, i, i, p]
-    lib.seq_scan_barrier_floor_launch.restype = i
+        sig["seq_scan_workspace_bytes"] = ([i, i, i], ctypes.c_longlong)
+        return kcompare.load(path, sig)
+    sig.update(seq_scan_workspace_size=([SeqScanArgs], ctypes.c_longlong),
+               seq_scan_shape=([i, p], i),
+               seq_scan_barrier_floor_launch=([i, i, i, p], i))
     if phases:
-        lib.seq_scan_phase_clocks.argtypes = [p, i]
-        lib.seq_scan_phase_clocks.restype = i
-    return lib
+        sig["seq_scan_phase_clocks"] = ([p, i], i)
+    return kcompare.load(path, sig)
 
 
 def _mixed_pod(i: int):
@@ -254,18 +217,7 @@ def phase_split(lib, args, kw, want, put_back, sizes, ms) -> dict:
     return split
 
 
-def same(got, want) -> bool:
-    import torch
-
-    def bits(t):
-        return t.view(torch.int32) if t.dtype == torch.float32 else t
-
-    for k in range(3):
-        if not torch.equal(bits(got[k]), bits(want[k])):
-            return False
-    if want[3] is None:
-        return got[3] is None
-    return all(torch.equal(bits(x), bits(y)) for x, y in zip(got[3], want[3]))
+same = kcompare.same
 
 
 def main() -> None:
@@ -283,7 +235,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("k13_compare: no CUDA card")
-    from kubernetes_tpu_torch.kernels import _build, k1_bench
+    from kubernetes_tpu_torch.kernels import k1_bench
 
     t0 = time.monotonic()
     if not os.path.exists(os.path.join(PARENT_DIR, SOURCE)):
@@ -302,18 +254,10 @@ def main() -> None:
         builds.append(("phases", port, KDIR, False,
                        ("-DK13_TOOLS", "-DK13_PHASE_CLOCKS")))
     for name, src, inc, parent, defines in builds:
-        so = os.path.join(_build.BUILD_DIR, f"k13_{name}.so")
-        report = nvcc(src, inc, so, *defines)
-        print(f"[nvcc {name}] " + " | ".join(
-            line.strip() for line in report.splitlines()
-            if "k13_seq_scan" in line or "registers" in line
-            or "spill" in line), flush=True)
+        so = kcompare.build(f"k13_{name}", src, inc, defines, "k13_seq_scan")
         libs[name] = (load(so, parent, name == "phases"), parent)
     by_size = {c: libs["this" if c == 16 else f"c{c}"][0] for c in clusters}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip()
+    smi = kcompare.card()
     print(f"[card] {smi}", flush=True)
     result = {"card": smi, "batches": {}, "barrier_us": {}}
     this = libs["this"][0]
