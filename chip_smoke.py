@@ -289,9 +289,14 @@ printing one line of numbers; any failure exits non-zero with no result:
      rows, zero classes, every class overflowing, counts near the int32
      clip, fractional inputs, negative order entries, max_bins 1 and
      2,048, R 4 to 64, 1,500 lanes, the workspace, per-bin N 6,144, 16,385
-     and 40,000); then at the BASELINE sweep (10,000 lanes of 2,048 bins)
-     its twin's run (kept for phase 20, its admissions counted for the
-     bound) and the kernel's times;
+     and 40,000, and the layout cases: chunk edges, skipped chunks, held
+     columns, the division's int32 edges, the class table unstaged), each
+     on the path kernels.binpack_counts_path names (the kernel writes the
+     path it took) and pinning its edges (k8_cases.PINS); then at the
+     BASELINE sweep (10,000 lanes of 2,048 bins) its twin's run (kept for
+     phase 20, its admissions counted for the bound) and the kernel's
+     times beside its step floor (the same launch with every capacity
+     zero: C empty steps a lane);
  K10. the replicas' admission scan (reconcile_admit.cu) against its twin,
      bit for bit, on every case of k10_cases.py (one node, one tenant,
      quota vetoes, no quota, padding, stale rows, the 1e-3 slack's edge, Bp
@@ -302,7 +307,9 @@ printing one line of numbers; any failure exits non-zero with no result:
      equal to the twin's and to tests/data/torch_port_golden_what_if.npz
      (the JAX binpack_shapes_compressed), and on the first 4 shapes the
      per-pod sweep (K9 over the 50,000 pods, then K4 a lane) needs the
-     same bins; the solve's milliseconds and shapes a second;
+     same bins, each of its four K4 launches timed alone (CUDA events, L2
+     cold) beside K4's step floor; the solve's milliseconds and shapes a
+     second;
  21. the live capacity cell: loop.run_live at full width with the capacity
      planner every cycle over phase 20's first 64 shapes, every node
      pre-filled to 3.5 free CPU and the pending pods' requests drawn from
@@ -3509,23 +3516,27 @@ def phase_k9(sweep, device="cuda") -> dict:
 
 def phase_k8(sweep, device="cuda") -> dict:
     """K8 (binpack_counts) against its plain twin on the card, bit for
-    bit, on every case of kernels/k8_cases.py; then at the BASELINE sweep
-    (10,000 lanes of 2,048 bins, the 256 classes in K9's order): the
+    bit, on every case of kernels/k8_cases.py, each on the path
+    kernels.binpack_counts_path names (the kernel writes the path it took)
+    and pinning what its "pins" name (k8_cases.PINS); then at the BASELINE
+    sweep (10,000 lanes of 2,048 bins, the 256 classes in K9's order): the
     twin's run on the card (kept for phase 20, its admissions counted),
     the kernel's times with L2 cold and warm beside its bound (its bytes,
     and four INT32 operations for every (bin, requested column) admission
-    a step must evaluate up to its last fill, on this data) and an empty
-    launch."""
+    a step must evaluate up to its last fill, on this data), its step
+    floor (_k8_step_floor) and an empty launch."""
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.kernels import k8_cases
     from kubernetes_tpu_torch.models.binpack import binpack_counts_plain
 
     dev = torch.device(device)
-    names = []
+    names, paths = [], {}
+    took = torch.zeros(3, dtype=torch.int32, device=dev)
     for name, c in k8_cases.cases():
         args = [torch.from_numpy(c[k]).to(dev)
                 for k in ("reqs", "counts", "caps", "order")]
-        got = kernels.binpack_counts(*args, c["n_bins"], c["per_bin"], True)
+        got = kernels.binpack_counts(*args, c["n_bins"], c["per_bin"], True,
+                                     path_out=took)
         want = binpack_counts_plain(*args, c["n_bins"], c["per_bin"], True)
         _sync(dev)
         for g, w, what in zip(got, want, ("used", "placed", "loads",
@@ -3534,6 +3545,14 @@ def phase_k8(sweep, device="cuda") -> dict:
                 fail(f"K8: {what} differs from the twin on case {name}: "
                      f"kernel {g.reshape(-1)[:8].tolist()} twin "
                      f"{w.reshape(-1)[:8].tolist()}")
+        path = kernels.binpack_counts_path(args[0], args[2], args[3],
+                                           c["n_bins"], c["per_bin"])
+        check(kernels.binpack_counts_took(took, path),
+              f"K8: case {name} took path {took.tolist()}, not {path}")
+        for pin in c.get("pins", ()):
+            check(k8_cases.PINS[pin](path, c),
+                  f"K8: case {name} does not pin {pin} ({path})")
+        paths[_k8_path_name(path)] = paths.get(_k8_path_name(path), 0) + 1
         names.append(name)
     classes, counts, shapes, _ = sweep
     order = kernels.ffd_order(classes, shapes)
@@ -3550,16 +3569,44 @@ def phase_k8(sweep, device="cuda") -> dict:
         classes, counts, shapes, order, WHAT_IF_BINS, False), twin_ms,
         C * R * 4 + C * 4 + S * R * 4 + S * C * 4 + S * 4 + S * C * 4,
         4 * work["bin_columns"], reps=5)
+    path = kernels.binpack_counts_path(classes, shapes, order, WHAT_IF_BINS,
+                                       False)
     out.update(max_abs_err=0.0, cases=len(names), twin=twin,
                shape={"S": S, "C": C, "R": R, "bins": WHAT_IF_BINS},
-               bin_columns=work["bin_columns"])
+               bin_columns=work["bin_columns"], case_paths=paths,
+               path=_k8_path_name(path),
+               step_floor_ms=_k8_step_floor(classes, counts, shapes, order,
+                                            WHAT_IF_BINS, False))
     print(f"[K8] bit-identical to the twin on {len(names)} cases "
-          f"({', '.join(names)}) | at {out['shape']}: cold_ms "
+          f"({', '.join(names)}), each on its path (cases a path: "
+          f"{paths}) | at {out['shape']}, path {out['path']}: cold_ms "
           f"{out['ms']:.4f} warm_ms {out['ms_warm']:.4f} plain_ms (twin on "
           f"the card) {out['plain_ms']:.1f} bound_ms {out['bound_ms']:.5f} "
           f"({out['bound_by']}: {work['bin_columns']} admissions) "
-          f"empty_launch_ms {out['empty_launch_ms']:.4f}", flush=True)
+          f"step_floor_ms {out['step_floor_ms']:.4f} empty_launch_ms "
+          f"{out['empty_launch_ms']:.4f}", flush=True)
     return out
+
+
+def _k8_path_name(p) -> str:
+    """A BinpackCountsPath in a few words."""
+    return (f"{'block' if p.block else 'warp'} a lane x{p.lanes}, "
+            f"{p.held} held, "
+            f"{('smem', 'loads in the workspace', 'workspace')[p.tier]}"
+            f"{', staged' if p.staged else ''}")
+
+
+def _k8_step_floor(reqs, counts, caps, order, n_bins: int,
+                   per_bin: bool) -> float:
+    """K8's step floor on a launch's shape: its cold ms with every
+    capacity zero, so every step's summary test finds no chunk (C
+    dependent empty steps a lane, in the launch's waves of lanes)."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k1_bench
+
+    zero = torch.zeros_like(caps)
+    return k1_bench.time_ms(lambda: kernels.binpack_counts(
+        reqs, counts, zero, order, n_bins, per_bin), reps=5)
 
 
 def phase_k10(device="cuda") -> dict:
@@ -3606,8 +3653,9 @@ def phase_what_if(sweep, k8: dict, label: str = "20 what-if",
     bins and ok on every lane equal to the twin's (phase K8's run on the
     card) and to tests/data/torch_port_golden_what_if.npz (the JAX
     binpack_shapes_compressed); on the first 4 shapes the per-pod sweep
-    (K9 over 50,000 pods, then K4 a lane) needs the same bins; the solve's
-    milliseconds and shapes a second."""
+    (K9 over 50,000 pods, then K4 a lane) needs the same bins, and each of
+    its K4 launches is timed alone beside K4's step floor
+    (_k4_sweep_launches); the solve's milliseconds and shapes a second."""
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.models.binpack import binpack_shapes, what_if
 
@@ -3638,24 +3686,47 @@ def phase_what_if(sweep, k8: dict, label: str = "20 what-if",
           and np.array_equal(data["bins"], used_t[:g]),
           f"{label}: differs from the JAX golden on its {g} lanes")
     t1 = time.monotonic()
-    pb, pok = binpack_shapes(torch.from_numpy(reqs).to(shapes.device),
-                             shapes[:4], max_bins=WHAT_IF_BINS)
+    reqs_t = torch.from_numpy(reqs).to(shapes.device)
+    pb, pok = binpack_shapes(reqs_t, shapes[:4], max_bins=WHAT_IF_BINS)
     pb, pok = pb.cpu().numpy(), pok.cpu().numpy()
     per_pod_s = time.monotonic() - t1
     check(np.array_equal(pok, ok[:4])
           and np.array_equal(pb[pok], bins[:4][pok]),
           f"{label}: the per-pod sweep needs {pb.tolist()} bins "
           f"(ok {pok.tolist()}), the compressed {bins[:4].tolist()}")
+    k4 = _k4_sweep_launches(reqs_t, shapes[:4]) if device == "cuda" else {}
     out = {"solve_ms": solve_s * 1e3, "shapes_per_s": S / solve_s,
            "fitting": int(ok.sum()), "golden_lanes": g,
-           "per_pod_seconds": per_pod_s, "launches": launches}
+           "per_pod_seconds": per_pod_s, "launches": launches,
+           "k4_sweep": k4}
     print(f"[{label}] 50,000 pods in {int((counts > 0).sum())} classes x "
           f"{S} shapes, {WHAT_IF_BINS} bins: solve_ms {out['solve_ms']:.2f} "
           f"shapes_per_s {out['shapes_per_s']:.0f}, {out['fitting']} shapes "
           f"fit | equal to the twin on {S} lanes and to the JAX golden on "
           f"{g} | per-pod sweep on 4 shapes ({per_pod_s:.2f} s) needs the "
-          f"same bins {pb.tolist()}", flush=True)
+          f"same bins {pb.tolist()}" + (
+              f" | one K4 launch a shape (P {k4['P']}, {WHAT_IF_BINS} bins)"
+              f" cold_ms {', '.join(f'{x:.3f}' for x in k4['ms'])}, "
+              f"step_floor_ms {k4['step_floor_ms']:.3f}" if k4 else ""),
+          flush=True)
     return out
+
+
+def _k4_sweep_launches(reqs, shapes) -> dict:
+    """The per-pod sweep's K4 launches timed one at a time (P pods in K9's
+    order into WHAT_IF_BINS bins of each shape; CUDA events, L2 cold),
+    beside K4's step floor at P steps (kernels.barrier_floor_launch)."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import k1_bench
+    from kubernetes_tpu_torch.models.binpack import binpack_ffd, ffd_order_batch
+
+    orders = ffd_order_batch(reqs, shapes)
+    P = reqs.shape[0]
+    ms = [k1_bench.time_ms(lambda s=s: binpack_ffd(
+        reqs, shapes[s], WHAT_IF_BINS, orders[s]), reps=3)
+        for s in range(shapes.shape[0])]
+    return {"P": P, "ms": ms, "step_floor_ms": k1_bench.time_ms(
+        lambda: kernels.barrier_floor_launch(P), reps=3, cold=False)}
 
 
 def phase_live_capacity(label: str = "21 live capacity",
@@ -3782,22 +3853,29 @@ def _k8_capacity_shapes(label: str, calls: dict) -> dict:
                 reqs, counts, caps, order, n_bins, per_bin), twin_ms,
                 nbytes, 4 * work["bin_columns"], reps=10)
             d.update(S=S, C=C, R=R, bins=n_bins, per_bin=per_bin,
-                     bin_columns=work["bin_columns"])
+                     bin_columns=work["bin_columns"],
+                     step_floor_ms=_k8_step_floor(reqs, counts, caps, order,
+                                                  n_bins, per_bin),
+                     path=_k8_path_name(kernels.binpack_counts_path(
+                         reqs, caps, order, n_bins, per_bin)))
             runs.append(d)
         top = max(runs, key=lambda d: d["ms"])
         out[stage] = {
             "launches": len(runs), "per_bin": top["per_bin"],
             "ms_sum": sum(d["ms"] for d in runs),
             "bound_ms_sum": sum(d["bound_ms"] for d in runs),
+            "step_floor_ms_sum": sum(d["step_floor_ms"] for d in runs),
             "gap_ms": sum(d["ms"] - d["bound_ms"] for d in runs),
             "slowest": {k: top[k] for k in (
                 "S", "C", "R", "bins", "ms", "ms_warm", "bound_ms",
-                "bound_by", "plain_ms", "bin_columns")}}
+                "bound_by", "plain_ms", "bin_columns", "step_floor_ms",
+                "path")}}
     print(f"[{label} K8] every launch of the cell again, equal to its twin: "
           + " | ".join(
               f"{st} ({'per-bin' if d['per_bin'] else 'uniform'}; "
               f"{d['launches']} launches): cold_ms summed {d['ms_sum']:.4f}"
-              f" bound_ms summed {d['bound_ms_sum']:.6f} launches x gap "
+              f" bound_ms summed {d['bound_ms_sum']:.6f} step_floor_ms "
+              f"summed {d['step_floor_ms_sum']:.4f} launches x gap "
               f"{d['gap_ms']:.4f} ms; the slowest S {d['slowest']['S']} C "
               f"{d['slowest']['C']} R {d['slowest']['R']} "
               f"{d['slowest']['bins']} bins: cold_ms "
@@ -3805,8 +3883,10 @@ def _k8_capacity_shapes(label: str, calls: dict) -> dict:
               f"{d['slowest']['ms_warm']:.4f} bound_ms "
               f"{d['slowest']['bound_ms']:.6f} "
               f"({d['slowest']['bound_by']}: "
-              f"{d['slowest']['bin_columns']} admissions) plain_ms "
-              f"{d['slowest']['plain_ms']:.3f}" for st, d in out.items()),
+              f"{d['slowest']['bin_columns']} admissions) step_floor_ms "
+              f"{d['slowest']['step_floor_ms']:.4f} plain_ms "
+              f"{d['slowest']['plain_ms']:.3f} path "
+              f"{d['slowest']['path']}" for st, d in out.items()),
           flush=True)
     return out
 
@@ -4919,6 +4999,7 @@ def main() -> None:
         "shape": k4["shape"],
         "launches_interval32": live14["launches_interval32"]["binpack_ffd"],
         "wide": k4["wide"],
+        "per_pod_sweep": what["k4_sweep"],
     }, {
         "name": "cluster_analytics",
         "route": "cuda",
@@ -4985,7 +5066,8 @@ def main() -> None:
         **{k: k8[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "ms_warm",
                               "empty_launch_ms", "cases", "shape",
-                              "bin_columns")},
+                              "bin_columns", "step_floor_ms", "path",
+                              "case_paths")},
         "launches_what_if": what["launches"]["binpack_counts"],
         "capacity_shapes": live21["k8_shapes"],
     }, {

@@ -740,17 +740,113 @@ def ffd_order(reqs: torch.Tensor, caps: torch.Tensor) -> torch.Tensor:
     return order
 
 
-def binpack_counts(reqs: torch.Tensor, counts: torch.Tensor,
-                   caps: torch.Tensor, order: torch.Tensor, n_bins: int,
-                   per_bin: bool, want_loads: bool = False):
-    """K8: the count-carrying first-fit scan of classes reqs f32[C, R] with
-    counts i32[C], in order i32[S, C], on one CUDA device.  Uniform
-    (per_bin False): lane s packs into n_bins bins of caps[s] (caps
-    f32[S, R]).  Per-bin (per_bin True, S 1): bin b has capacity caps[b]
-    (caps f32[n_bins, R]).  Returns (used i32[S], placed i32[S, C] in scan
-    positions, loads f32[S, n_bins, R] or None, touched bool[n_bins] in
-    per-bin mode else None); see models/binpack.py binpack_counts_plain.
-    Raises on anything the kernel does not take and on a refused launch."""
+# K8's layout (binpack_counts.cu make_layout, mirrored here): a warp a
+# lane, as many lanes a block as K8_SMEM_BYTES of shared memory hold, or a
+# block a lane where the lanes are fewer than the SMs (stage 1's per-bin
+# lane among them); the columns held are those some class requests
+# (int(req) != 0), which the kernel finds itself; the class table (m,
+# real, the held requests and their multipliers) staged where it takes at
+# most K8_TABLE_MAX bytes; a lane's loads (tier 1), and its summaries too
+# (tier 2), in the workspace where they do not fit (K8_WORK_LANES slots a
+# block).
+K8_CHUNK = 32
+K8_SMEM_BYTES = 220 * 1024
+K8_TABLE_MAX = 32 * 1024
+K8_WORK_LANES = 2
+K8_THREADS = 256           # a block's: at most 8 lanes, or a lane's warps
+
+
+class BinpackCountsPath(NamedTuple):
+    """The path one K8 launch takes (binpack_counts_paths)."""
+
+    block: bool         # a block a lane (else a warp a lane)
+    grid: int           # blocks of K8_THREADS
+    held: int           # columns held (some class requests them)
+    lanes: int          # lanes a block at once
+    tier: int           # 0 shared memory; 1 loads, 2 summaries too in the
+                        # global workspace
+    staged: bool        # the class table in shared memory
+
+
+def _k8_layout(nb: int, R: int, C: int, held: int, per_bin: bool,
+               block: bool):
+    """(lanes, tier, staged) of make_layout in binpack_counts.cu."""
+    warps = K8_THREADS // 32
+    nch = -(-nb // K8_CHUNK)
+    words = -(-nch // 32)
+    tw = (2 + 2 * held) * C
+    tw = tw if tw * 4 <= K8_TABLE_MAX else 0
+    lane0 = 2 * R + tw + (words if block else 0) + warps * 2 * held
+    room = K8_SMEM_BYTES // 4 - lane0
+    most = 1 if block else warps
+    tiers = (held + held * nch + held * nb * (2 if per_bin else 1),
+             held + held * nch, held)
+    tier, fit = 2, 0
+    for t, words_a_lane in enumerate(tiers):
+        fit = room // words_a_lane if words_a_lane else most
+        if fit >= 1:
+            tier = t
+            break
+    if tier > 0:
+        fit = min(fit, K8_WORK_LANES)
+    return min(fit, most), tier, tw != 0
+
+
+def binpack_counts_paths(S: int, nb: int, R: int, C: int, held: int,
+                         per_bin: bool, sms: int = 132) -> BinpackCountsPath:
+    """The path of a K8 launch of S lanes of nb bins over C classes of R
+    columns, `held` of them requested by some class, on a card of `sms`
+    SMs: a block a lane where S < sms (a lane then has an SM of its own),
+    else a warp a lane.  Sizes only: the CPU tests check it.  Raises
+    where no layout holds a lane."""
+    if S <= 0 or nb <= 0 or R <= 0 or C <= 0 or not 0 <= held <= R:
+        raise ValueError(f"binpack_counts_paths: S={S} nb={nb} R={R} C={C} "
+                         f"held={held}")
+    block = S < sms
+    lanes, tier, staged = _k8_layout(nb, R, C, held, per_bin, block)
+    if lanes < 1:
+        raise ValueError(f"binpack_counts: no layout holds a lane of {nb} "
+                         f"bins x {held} columns over {C} classes")
+    return BinpackCountsPath(block, min(S, sms), held, lanes, tier, staged)
+
+
+def binpack_counts_held(reqs) -> int:
+    """The columns some class of reqs [C, R] requests (int(req) != 0):
+    what K8 holds.  A host read on a CUDA tensor (the tests and tools)."""
+    r = torch.as_tensor(reqs).detach().to("cpu")
+    return int((r.to(torch.int32) != 0).any(0).sum())
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def binpack_counts_path(reqs, caps, order, n_bins: int, per_bin: bool,
+                        sms: int = 132) -> BinpackCountsPath:
+    """The BinpackCountsPath a K8 launch takes on these inputs (on any
+    device)."""
+    S = int(order.shape[0])
+    C, R = (int(x) for x in reqs.shape)
+    if isinstance(reqs, torch.Tensor) and reqs.is_cuda:
+        sms = _sms(reqs.device.index or 0)
+    return binpack_counts_paths(S, int(n_bins), R, C,
+                                binpack_counts_held(reqs), bool(per_bin),
+                                sms)
+
+
+def binpack_counts_prepare(reqs: torch.Tensor, counts: torch.Tensor,
+                           caps: torch.Tensor, order: torch.Tensor,
+                           n_bins: int, per_bin: bool,
+                           want_loads: bool = False, path_out=None):
+    """The arguments of one K8 launch (see binpack_counts) with its outputs
+    allocated: (the launch's arguments before the stream, the tensors they
+    point into, (used, placed, loads, touched)).  The launch shape comes
+    from binpack_counts_paths on the sizes; the kernel finds the held
+    columns itself, so the workspace is allocated wherever some held
+    count would need it.
+    path_out: an i32[3] CUDA tensor the kernel writes its path into (its
+    path bits, lanes a block, held columns), or None."""
     dev = _cuda_args("binpack_counts", (
         (reqs, torch.float32, "reqs"), (counts, torch.int32, "counts"),
         (caps, torch.float32, "caps"), (order, torch.int32, "order")))
@@ -771,9 +867,11 @@ def binpack_counts(reqs: torch.Tensor, counts: torch.Tensor,
             or n_bins * R >= (1 << 31) or C * R >= (1 << 31)):
         raise ValueError(f"binpack_counts: sizes C={C} R={R} S={S} "
                          f"n_bins={n_bins} out of range")
-    from kubernetes_tpu_torch.kernels._build import library
-
-    lib = library()
+    sms = _sms(dev.index if dev.index is not None
+               else torch.cuda.current_device())
+    paths = [binpack_counts_paths(S, n_bins, R, C, h, per_bin, sms)
+             for h in range(R + 1)]
+    p = paths[-1]
     ts = [t.contiguous() for t in (reqs, counts, caps, order)]
     used = torch.empty(S, dtype=torch.int32, device=dev)
     placed = torch.empty((S, C), dtype=torch.int32, device=dev)
@@ -781,18 +879,56 @@ def binpack_counts(reqs: torch.Tensor, counts: torch.Tensor,
              if want_loads else None)
     touched = (torch.empty(n_bins, dtype=torch.bool, device=dev)
                if per_bin else None)
-    work = torch.empty(int(lib.binpack_counts_workspace_floats(S, n_bins, R)),
-                       dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch_error(lib, "binpack_counts", lib.binpack_counts_launch(
-            ts[0].data_ptr(), ts[1].data_ptr(), C, R, ts[2].data_ptr(),
-            int(per_bin), int(n_bins), ts[3].data_ptr(), S, work.data_ptr(),
+    nch = -(-n_bins // K8_CHUNK)
+    slot = R * (n_bins * (2 if per_bin else 1) + nch)
+    work = (torch.empty(p.grid * K8_WORK_LANES * slot, dtype=torch.float32,
+                        device=dev)
+            if any(q.tier for q in paths) else None)
+    if path_out is not None:
+        _cuda_args("binpack_counts", ((path_out, torch.int32, "path_out"),))
+    args = (ts[0].data_ptr(), ts[1].data_ptr(), C, R, ts[2].data_ptr(),
+            int(per_bin), int(n_bins), ts[3].data_ptr(), S, int(p.block),
+            p.grid, work.data_ptr() if work is not None else None,
             used.data_ptr(), placed.data_ptr(),
             loads.data_ptr() if loads is not None else None,
-            touched.data_ptr() if touched is not None else None, stream))
+            touched.data_ptr() if touched is not None else None,
+            path_out.data_ptr() if path_out is not None else None)
+    return args, (ts, work, path_out), (used, placed, loads, touched)
+
+
+def binpack_counts(reqs: torch.Tensor, counts: torch.Tensor,
+                   caps: torch.Tensor, order: torch.Tensor, n_bins: int,
+                   per_bin: bool, want_loads: bool = False, path_out=None):
+    """K8: the count-carrying first-fit scan of classes reqs f32[C, R] with
+    counts i32[C], in order i32[S, C], on one CUDA device.  Uniform
+    (per_bin False): lane s packs into n_bins bins of caps[s] (caps
+    f32[S, R]).  Per-bin (per_bin True, S 1): bin b has capacity caps[b]
+    (caps f32[n_bins, R]).  Returns (used i32[S], placed i32[S, C] in scan
+    positions, loads f32[S, n_bins, R] or None, touched bool[n_bins] in
+    per-bin mode else None); see models/binpack.py binpack_counts_plain.
+    path_out (an i32[3] CUDA tensor, or None) receives the path the
+    kernel took (binpack_counts_prepare).  Raises on anything the kernel
+    does not take and on a refused launch."""
+    args, keep, outs = binpack_counts_prepare(
+        reqs, counts, caps, order, n_bins, per_bin, want_loads, path_out)
+    from kubernetes_tpu_torch.kernels._build import library
+
+    lib = library()
+    with torch.cuda.device(reqs.device):
+        _launch_error(lib, "binpack_counts", lib.binpack_counts_launch(
+            *args, torch.cuda.current_stream().cuda_stream))
     LAUNCHES["binpack_counts"] += 1
-    return used, placed, loads, touched
+    return outs
+
+
+def binpack_counts_took(path_out: torch.Tensor, path: BinpackCountsPath
+                        ) -> bool:
+    """Does the path the kernel wrote (path_out of a launch) match
+    `path`?"""
+    bits, lanes, held = (int(x) for x in path_out.tolist())
+    return (bits == (int(path.block) | path.tier << 1
+                     | int(path.staged) << 3)
+            and lanes == path.lanes and held == path.held)
 
 
 def reconcile_admit(u_node: torch.Tensor, u_ns: torch.Tensor,

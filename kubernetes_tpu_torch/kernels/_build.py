@@ -27,6 +27,12 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
 NAME = "kubernetes_tpu_torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 BUILD_STATS = {"builds": 0, "loads": 0, "seconds": 0.0}
+# binpack_counts_launch's (argtypes, restype): the sizes, the launch shape
+# (block, grid), then the workspace, the outputs and the stream
+BINPACK_COUNTS_SIGNATURE = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7, ctypes.c_int)
 
 
 def sources() -> list:
@@ -90,11 +96,8 @@ def library() -> ctypes.CDLL:
     lib.fold_predicates_launch.restype = ctypes.c_int
     lib.ffd_order_launch.argtypes = [p, i, i, p, i, p, p]
     lib.ffd_order_launch.restype = ctypes.c_int
-    lib.binpack_counts_launch.argtypes = (
-        [p, p, i, i, p, i, i, p, i] + [p] * 6)
-    lib.binpack_counts_launch.restype = ctypes.c_int
-    lib.binpack_counts_workspace_floats.argtypes = [i, i, i]
-    lib.binpack_counts_workspace_floats.restype = ctypes.c_longlong
+    lib.binpack_counts_launch.argtypes = BINPACK_COUNTS_SIGNATURE[0]
+    lib.binpack_counts_launch.restype = BINPACK_COUNTS_SIGNATURE[1]
     lib.reconcile_admit_launch.argtypes = [p] * 6 + [i, i] + [p] * 4
     lib.reconcile_admit_launch.restype = ctypes.c_int
     lib.reconcile_admit_workspace_floats.argtypes = [i, i]

@@ -19,6 +19,25 @@ once), max_bins 1 and 2,048, R 4, 8, 32 and 64 (loads in shared memory or
 the workspace), lanes past the kernel's grid (1,500 lanes; 265 with the
 loads in the workspace), and per-bin mode at N 6,144 (shared memory),
 16,385 and 40,000 rows (the workspace).
+
+The cases of `layout_cases` (part of `cases()`) pin the edges of the
+kernel's layout (kernels.binpack_counts_paths: a warp or a block a lane,
+the held columns, chunk summaries of 32 bins, the class table staged or
+not, shared memory or the workspace); each names the edges it pins in
+"pins", and PINS holds the path's condition for each, which the CPU
+tests, the `cuda` test and chip_smoke.py check: bins 31, 32, 33 (a warp
+a lane) and 1,023, 1,024, 1,025 (a block a lane, one or two words of
+chunk flags), a class that fits only the last chunk, a lane no chunk
+admits from its first step, a column only the last class in the order
+requests, unrequested columns of zero and non-zero capacity, negative
+remainders from fractional per-bin capacities, per-bin zero rows at a
+chunk edge, the int32 edges of the multiplier division (dividends
+-2^31 and 2^31 - 128, divisors 1 to 2^31 - 128, 2^24 - 1 and 2^24), a
+class table too large to stage, the workspace a warp a lane and a
+block a lane with every one of 8 columns held, a block a lane's
+workspace at one, two and three held columns (three as the live
+capacity cell's stage 1 holds them, over 16,385 node rows), and 2^19
+node rows (the summaries in the workspace too).
 """
 
 from __future__ import annotations
@@ -26,6 +45,25 @@ from __future__ import annotations
 import numpy as np
 
 I32_MAX = 2 ** 31 - 1
+F32_BELOW_2_31 = 2147483520.0   # the largest float32 below 2^31
+
+# the layout edge a case pins: the path's condition for it, on
+# (path, case) (path: kernels.BinpackCountsPath)
+PINS = {
+    "warp-a-lane": lambda p, c: not p.block and p.lanes >= 2,
+    "block-a-lane": lambda p, c: p.block,
+    "shared-memory": lambda p, c: p.tier == 0,
+    "workspace": lambda p, c: p.tier >= 1,
+    "summaries-in-workspace": lambda p, c: p.tier == 2,
+    "staged": lambda p, c: p.staged,
+    "unstaged": lambda p, c: not p.staged,
+    "held-below-r": lambda p, c: p.held < c["reqs"].shape[1],
+    "held-1": lambda p, c: p.held == 1,
+    "held-2": lambda p, c: p.held == 2,
+    "held-3": lambda p, c: p.held == 3,
+    "chunk-edge": lambda p, c: c["n_bins"] % 32 in (31, 0, 1),
+    "two-words": lambda p, c: c["n_bins"] > 32 * 32,
+}
 
 
 def _classes(rng, c: int, r: int, hi: int = 6, count_hi: int = 12):
@@ -97,4 +135,166 @@ def cases():
                                          cap_hi=32000, count_hi=400)))
     out.append(("per-bin-40000", per_bin(rng, 32, 8, 40000, hi=4000,
                                          cap_hi=32000, count_hi=2000)))
+    return out + layout_cases()
+
+
+def _pinned(case, *pins):
+    case["pins"] = pins
+    return case
+
+
+def _last_chunk_only(rng):
+    """Per-bin, 1,000 bins: every bin fits the small classes, only the
+    last chunk's bins (992-999) fit class 0, which goes last."""
+    c = per_bin(rng, 12, 4, 1000, hi=3, cap_hi=6, count_hi=6,
+                full_frac=0.1)
+    c["reqs"][0] = [40, 3, 0, 1]
+    c["counts"][0] = 7
+    c["caps"][992:] = [90, 9, 5, 4]
+    c["order"][0] = np.roll(np.arange(12), -1)
+    return c
+
+
+def _none_admits(rng):
+    """Uniform, 140 lanes (a warp a lane): every class asks more of some
+    column than any bin holds, so no chunk admits from the first step."""
+    c = uniform(rng, 10, 4, 140, 96)
+    c["reqs"][:, 1] = 30.0
+    c["caps"][:, 1] = rng.integers(1, 30, 140)
+    return c
+
+
+def _last_class_column(rng):
+    """R 8: column 5 requested only by the class the order takes last;
+    columns 6 and 7 by none, 6 with zero capacity, 7 with a non-zero
+    one."""
+    c = uniform(rng, 16, 8, 140, 64)
+    c["reqs"][:, 4:] = 0.0
+    last = int(c["order"][0, -1])
+    c["order"][:] = c["order"][0]
+    c["reqs"][last, 5] = 2.0
+    c["caps"][:, 5] = 9.0
+    c["caps"][:, 6] = 0.0
+    c["caps"][:, 7] = 100.0
+    return c
+
+
+def _negative_remainders(rng):
+    """Per-bin, 640 bins of fractional capacities, some below zero (int
+    truncates toward zero: -1.7 holds -1), zero rows at the chunk edges
+    31, 32, 63, 64, 319 and 320, and a class with a negative request in
+    one column (its load falls below zero)."""
+    c = per_bin(rng, 20, 4, 640, hi=5, cap_hi=20, full_frac=0.05)
+    c["caps"] = (rng.uniform(-3.0, 20.0, (640, 4))).astype(np.float32)
+    c["caps"][[31, 32, 63, 64, 319, 320]] = 0.0
+    c["reqs"][3] = [2.0, -1.5, 1.0, 0.0]
+    c["counts"][3] = 40
+    return c
+
+
+def _division_edges(rng):
+    """The int32 edges of the multiplier division: capacities 2^31 - 128,
+    -2^31, 2^24 - 1 and 2^24 in column 0 (rem from -2^31 to 2^31 - 128),
+    requests 1, 2, 3, 7, 2^24 - 1, 2^24, 2^24 + 1, 2^30 + 1 and 2^31 - 128
+    there, one unit of column 1 each."""
+    n = 160
+    c = per_bin(rng, 9, 2, n, full_frac=0.0)
+    c["caps"][:, 1] = 1000.0
+    c["caps"][:, 0] = np.resize(np.array(
+        [F32_BELOW_2_31, -2.0 ** 31, 2.0 ** 24 - 1, 2.0 ** 24, 7.0, 1.0,
+         2.0 ** 30 + 1, 2.0 ** 24 + 2], np.float32), n)
+    c["reqs"][:] = 0.0
+    c["reqs"][:, 0] = [1.0, 2.0, 3.0, 7.0, 2.0 ** 24 - 1, 2.0 ** 24,
+                       2.0 ** 24 + 2, 2.0 ** 30 + 1, F32_BELOW_2_31]
+    c["reqs"][:, 1] = 1.0
+    c["counts"][:] = [5, 9, 40, 3, 2, 2, 3, 2, 2]
+    c["order"][0] = np.arange(9)[::-1]
+    return c
+
+
+def _many_classes(rng):
+    """2,100 classes of one held column (the class table takes 33,600
+    bytes, past the 32 KB it is staged in), 140 lanes of 48 bins."""
+    c = uniform(rng, 2100, 2, 140, 48, hi=4, cap_hi=16, count_hi=3)
+    c["reqs"][:, 1] = 0.0
+    return c
+
+
+def _capacity_rows(rng, n: int):
+    """Per-bin over n node rows as the planner's stage 1 sees the live
+    capacity cell: 64 classes of milliCPU 50-4000, memory 64-8192 Mi and
+    one pod slot (columns 0, 1 and 3 of 8: three held), the nodes'
+    headroom after their running pods (0-3,500 milliCPU, 0-32 Gi, 0-109
+    slots), a tenth of the rows full."""
+    c = per_bin(rng, 64, 8, n, count_hi=400, full_frac=0.1)
+    c["reqs"][:] = 0.0
+    c["reqs"][:, 0] = rng.integers(50, 4000, 64)
+    c["reqs"][:, 1] = rng.integers(64, 8192, 64)
+    c["reqs"][:, 3] = 1.0
+    full = c["caps"][:, 0] == 0.0
+    c["caps"][:] = 0.0
+    c["caps"][:, 0] = rng.integers(0, 3501, n)
+    c["caps"][:, 1] = rng.integers(0, 32 * 1024 + 1, n)
+    c["caps"][:, 3] = rng.integers(0, 110, n)
+    c["caps"][full] = 0.0
+    return c
+
+
+def layout_cases():
+    """[(name, case)] of the cases that pin K8's layout edges, in a fixed
+    order (each case's "pins" names them, PINS checks them)."""
+    rng = np.random.default_rng(20261218)
+    out = []
+    for nb in (31, 32, 33):
+        out.append((f"warp-bins{nb}", _pinned(
+            uniform(rng, 24, 3, 140, nb, count_hi=20), "warp-a-lane",
+            "chunk-edge", "staged")))
+    for nb in (1023, 1024, 1025):
+        c = per_bin(rng, 24, 4, nb, hi=5, cap_hi=30, count_hi=60)
+        c["caps"][[31, 32, 991, 992, 1022]] = 0.0
+        out.append((f"block-bins{nb}", _pinned(
+            c, "block-a-lane", "chunk-edge", "shared-memory",
+            *(("two-words",) if nb > 1024 else ()))))
+    out.append(("block-uniform-bins1025", _pinned(
+        uniform(rng, 24, 4, 3, 1025, count_hi=300), "block-a-lane",
+        "chunk-edge", "two-words")))
+    out.append(("last-chunk-only", _pinned(_last_chunk_only(rng),
+                                           "block-a-lane")))
+    out.append(("none-admits", _pinned(_none_admits(rng), "warp-a-lane")))
+    out.append(("last-class-column", _pinned(_last_class_column(rng),
+                                             "warp-a-lane", "held-below-r")))
+    out.append(("negative-remainders", _pinned(_negative_remainders(rng),
+                                               "block-a-lane")))
+    out.append(("division-edges", _pinned(_division_edges(rng),
+                                          "block-a-lane")))
+    out.append(("unstaged-table", _pinned(_many_classes(rng), "warp-a-lane",
+                                          "unstaged", "held-below-r")))
+    # every column held: a lane's 8,192 bins x 8 columns pass shared memory
+    c = uniform(rng, 4, 8, 140, 8192, hi=5, cap_hi=40, count_hi=50)
+    c["reqs"][:, 4:] = 1.0
+    out.append(("warp-workspace", _pinned(c, "warp-a-lane", "workspace")))
+    # every one of 8 columns held (past the columns kept in registers),
+    # the loads in the workspace
+    c = per_bin(rng, 8, 8, 16385, hi=4000, cap_hi=32000, count_hi=400)
+    c["reqs"][:, 4:] = rng.integers(1, 50, (8, 4))
+    out.append(("per-bin-wide-workspace", _pinned(
+        c, "block-a-lane", "workspace")))
+    # 2^19 node rows: the summaries too pass shared memory
+    out.append(("per-bin-524288", _pinned(per_bin(
+        rng, 6, 4, 2 ** 19, hi=4000, cap_hi=32000, count_hi=3000),
+        "block-a-lane", "summaries-in-workspace")))
+    # the loads in the workspace at one, two and three held columns (each
+    # its own registers' path): three as the live capacity cell's stage 1
+    # holds them, over 16,385 node rows
+    c = per_bin(rng, 12, 4, 30000, hi=4000, cap_hi=32000, count_hi=400)
+    c["reqs"][:, 1:] = 0.0
+    out.append(("per-bin-held1-workspace", _pinned(
+        c, "block-a-lane", "workspace", "held-1", "held-below-r")))
+    c = per_bin(rng, 12, 4, 16385, hi=4000, cap_hi=32000, count_hi=400)
+    c["reqs"][:, 2:] = 0.0
+    out.append(("per-bin-held2-workspace", _pinned(
+        c, "block-a-lane", "workspace", "held-2", "held-below-r")))
+    out.append(("per-bin-capacity-16385", _pinned(
+        _capacity_rows(rng, 16385), "block-a-lane", "workspace", "held-3",
+        "held-below-r")))
     return out

@@ -11,7 +11,10 @@ Bit for bit, on every case of kernels/k9_cases.py and k8_cases.py:
     reference's signature.
 The wrappers refuse CPU tensors; K8 and K9 run only on the card:
 chip_smoke.py holds them against their twins on the same cases, and the
-`cuda`-marked tests here do the same where a card is present.
+`cuda`-marked tests here do the same where a card is present.  K8's
+layout cases (k8_cases.layout_cases) each take the path they pin
+(kernels.binpack_counts_path, k8_cases.PINS), which is computed from the
+sizes alone and so is checked here too.
 """
 
 from __future__ import annotations
@@ -121,6 +124,72 @@ def test_wrappers_refuse_cpu_tensors():
         kernels.binpack_counts(
             *(_t(c[k]) for k in ("reqs", "counts", "caps", "order")), 1,
             False)
+
+
+LAYOUT = [name for name, _ in k8_cases.layout_cases()]
+
+
+@pytest.mark.parametrize("name", LAYOUT)
+def test_layout_case_takes_its_path(name):
+    """Each layout case goes down the path it was made for on an H100's
+    132 SMs, and pins what it names."""
+    c = K8_CASES[name]
+    path = kernels.binpack_counts_path(_t(c["reqs"]), c["caps"], c["order"],
+                                       c["n_bins"], c["per_bin"])
+    assert c["pins"]
+    for pin in c["pins"]:
+        assert k8_cases.PINS[pin](path, c), (pin, path)
+
+
+def test_layout_cases_cover_every_path():
+    """Between them the cases take a warp and a block a lane, the
+    workspace in both, the class table staged and not, fewer held
+    columns than R, and a block a lane's workspace at one to four held
+    columns (each kept in registers) and at more."""
+    seen = set()
+    for _, c in K8_CASES.items():
+        p = kernels.binpack_counts_path(_t(c["reqs"]), c["caps"],
+                                        c["order"], c["n_bins"], c["per_bin"])
+        seen.add((p.block, p.tier > 0, p.staged))
+        seen.add(("held<R",) if p.held < c["reqs"].shape[1] else ())
+        seen.add(("tier", p.tier))
+        if p.block and p.tier > 0:
+            seen.add(("workspace held", min(p.held, 5)))
+    for want in ((False, False, True), (False, True, True),
+                 (True, False, True), (True, True, True),
+                 (False, False, False), ("held<R",), ("tier", 2),
+                 *(("workspace held", h) for h in range(1, 6))):
+        assert want in seen, want
+
+
+def test_paths_at_the_main_path_shapes():
+    """BASELINE's what-if (S 10,000, 2,048 bins, C 256, 3 of 8 columns
+    held): a warp a lane, 8 lanes a block, in shared memory, the table
+    staged; the planner's stage 1 (per-bin over 6,144 rows) and stage 2
+    (64 lanes of 1,024 bins): a block a lane in shared memory, and stage 1
+    over 16,385 node rows with its loads in the workspace."""
+    p = kernels.binpack_counts_paths(10000, 2048, 8, 256, 3, False)
+    assert p == kernels.BinpackCountsPath(False, 132, 3, 8, 0, True)
+    p = kernels.binpack_counts_paths(1, 6144, 8, 64, 3, True)
+    assert p == kernels.BinpackCountsPath(True, 1, 3, 1, 0, True)
+    p = kernels.binpack_counts_paths(64, 1024, 8, 64, 3, False)
+    assert p == kernels.BinpackCountsPath(True, 64, 3, 1, 0, True)
+    # stage 1 over a 16,385-node cluster: its loads in the workspace
+    p = kernels.binpack_counts_paths(1, 16385, 8, 64, 3, True)
+    assert p == kernels.BinpackCountsPath(True, 1, 3, 1, 1, True)
+    # every column held: fewer lanes a block; more bins: the loads in the
+    # workspace, and past that the summaries too
+    assert kernels.binpack_counts_paths(10000, 2048, 8, 256, 8,
+                                        False).lanes == 3
+    assert kernels.binpack_counts_paths(1, 40000, 8, 64, 8, True).tier == 1
+    assert kernels.binpack_counts_paths(1, 2 ** 22, 8, 64, 8,
+                                        True).tier == 2
+    with pytest.raises(ValueError):
+        kernels.binpack_counts_paths(1, 64, 8, 4, 9, True)
+    # the launch shape turns at the SMs: a block a lane below, a warp a
+    # lane from there
+    assert kernels.binpack_counts_paths(131, 64, 4, 8, 2, False).block
+    assert not kernels.binpack_counts_paths(132, 64, 4, 8, 2, False).block
 
 
 @pytest.mark.cuda

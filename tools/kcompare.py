@@ -1,8 +1,8 @@
-"""What the kernel compare tools (tools/k11_compare.py, k12_compare.py,
-k13_compare.py) share: copying a commit's kernel source and its headers,
-building a source with nvcc into a shared library of its own, opening it
-with its entry points' signatures, holding outputs equal bit for bit, and
-the card's name and power limit.  Not part of the package; the tools run
+"""What the kernel compare tools (tools/k8_compare.py, k11_compare.py,
+k12_compare.py, k13_compare.py) share: copying a commit's kernel source
+and its headers, building a source with nvcc into a shared library of its
+own, opening it with its entry points' signatures, holding outputs equal
+bit for bit, and the card's name and power limit.  Not part of the package; the tools run
 on the card, `fetch` where git is.
 """
 
